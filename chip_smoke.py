@@ -5,16 +5,30 @@ Run on a machine with one NVIDIA H100 from the root of a checkout:
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernels from ``fluidframework_tpu_torch/csrc``,
-holds each kernel against its plain PyTorch version on the card at the
-shapes the main path gives it (exact equality: every plane is integer),
-then drives the port's main path — the map-storm serving tick of
-BASELINE.json config 3 (SharedMap op storm: 10,240 docs x 4 clients,
-64 key slots, K=1024 set/delete/clear words per doc per tick) — through
-``RouterliciousService`` / ``KernelSequencerHost`` / ``KernelMergeHost`` /
-``StormController``, checks acks, sequencing totals, a second run with
-the plain versions and a numpy fold of the submitted words, and prints
-the kernels' launch counts and times.
+It builds the port's CUDA kernels from ``fluidframework_tpu_torch/csrc``
+(one ``nvcc`` per source, all started together), holds each kernel
+against its plain PyTorch version on the card at full size (exact
+equality: every plane is integer), then drives the port's main paths:
+
+* the map-storm serving tick of BASELINE.json config 3 (SharedMap op
+  storm: 10,240 docs x 4 clients, 64 key slots, K=1024 set/delete/clear
+  words per doc per tick) through ``RouterliciousService`` /
+  ``KernelSequencerHost`` / ``KernelMergeHost`` / ``StormController``,
+  checked against a plain-version run and a numpy fold;
+* SharedString text serving: BASELINE.json config 2 (1 doc, 128 clients
+  joined through the service, rounds of concurrent inserts and removes
+  through their connections, the merger lambda feeding
+  ``KernelMergeHost``), and the host at batched width (8,192 docs x 128
+  writers, six flushes of K=32 ops, 64 docs bursting past a block),
+  checked against a scalar ``MergeEngine`` replay and a plain-version run.
+
+It prints each kernel's launch shapes on the main paths and re-checks
+every kernel == plain at each of them: the map fold and the deli on
+inputs of that shape (the deli at the map path's and text path A's
+shapes), the two merge ticks on the very inputs the text paths gave them
+(every call's, kept while the paths ran), where they are also timed per
+launch. Then it prints the kernels' launch counts, per path and in all,
+and their times.
 
 Phases print one line each. Any failed check exits non-zero before the
 last line, which is the JSON device record
@@ -24,8 +38,8 @@ result. It imports nothing of JAX and nothing of ``fluidframework_tpu``.
 
     python3 chip_smoke.py --trace
 
-serves the main path's ticks once more, under ``torch.profiler``, and
-prints the card's busy time and idle share.
+serves the map path's ticks and both text paths once more, under
+``torch.profiler``, and prints the card's busy time and idle share.
 """
 
 from __future__ import annotations
@@ -52,6 +66,22 @@ K_MAP = 1024
 TICKS = 8
 FRAMES_PER_TICK = 10
 K_SEQ = 32
+
+# BASELINE.json config 2 at its published width (1 doc, 128 clients), and
+# the host at the batched width bench.py runs that config at (8,192 docs,
+# K=32 ops per doc per tick, 6 ticks), with 64 docs whose head-concentrated
+# burst (BURST_K ops, 2 * BURST_K + 2 > Bk) overflows a block mid-tick.
+TEXT_CLIENTS = 128
+TEXT_ROUNDS = 16
+TEXT_DOCS = 8_192
+TEXT_K = 32
+TEXT_FLUSHES = 6
+BURST_DOCS = 64
+BURST_K = 120
+BURST_FLUSH = 3
+SAMPLE_DOCS = 256
+# The kernel checks' table: S = NB x Bk = 4 x 128, 4 props, 4 overlap words.
+TEXT_NB, TEXT_BK, TEXT_P, TEXT_W = 4, 128, 4, 4
 
 
 def fail(msg: str) -> None:
@@ -506,31 +536,598 @@ def at_main_path_shapes(name: str, shapes: dict, checked: dict,
     return out
 
 
+# -- the text kernels against their plain versions -----------------------------
+
+
+def merge_ticks(rng, b, k, ticks, clients, head=0.0):
+    """Op batches (numpy fields) of ``ticks`` ticks for ``b`` docs:
+    inserts, removes and annotates from ``clients`` writers at the tick's
+    head ref minus a small lag (so earlier ticks' blocks are cold and this
+    tick's are hot), positions inside a tracked visible length; a
+    ``head`` fraction of inserts lands at position 0."""
+    import numpy as np
+
+    from fluidframework_tpu_torch.ops import mergetree_kernel as mtk
+    length = np.zeros(b, np.int64)
+    seq = np.zeros(b, np.int64)
+    pool = np.zeros(b, np.int64)
+    out = []
+    for _ in range(ticks):
+        f = {n: np.zeros((b, k), np.int32) for n in mtk.MergeOpBatch._fields}
+        f["valid"] = rng.random((b, k)) < 0.95
+        ref0 = seq.copy()
+        for j in range(k):
+            seq += 1
+            r = rng.random(b)
+            kind = np.where((length > 4) & (r < 0.3), mtk.MT_REMOVE,
+                            np.where((length > 4) & (r < 0.38),
+                                     mtk.MT_ANNOTATE, mtk.MT_INSERT))
+            pos = (rng.random(b) * (length + 1)).astype(np.int64)
+            pos = np.where((kind == mtk.MT_INSERT)
+                           & (rng.random(b) < head), 0, pos)
+            end = np.minimum(pos + rng.integers(1, 9, b), length)
+            tlen = rng.integers(1, 9, b)
+            f["kind"][:, j] = kind
+            f["pos"][:, j] = pos
+            f["end"][:, j] = end
+            f["seq"][:, j] = seq
+            f["ref_seq"][:, j] = np.maximum(ref0 - rng.integers(0, 3, b), 0)
+            f["client"][:, j] = rng.integers(0, clients, b)
+            f["pool_start"][:, j] = pool
+            f["text_len"][:, j] = tlen
+            f["prop_key"][:, j] = rng.integers(0, 4, b)
+            f["prop_val"][:, j] = rng.integers(0, 5, b)
+            v = f["valid"][:, j]
+            ins = v & (kind == mtk.MT_INSERT)
+            rem = v & (kind == mtk.MT_REMOVE)
+            length += np.where(ins, tlen, 0) - np.where(rem, end - pos, 0)
+            pool += np.where(ins, tlen, 0)
+        out.append(f)
+    return out
+
+
+def op_batch(fields, device):
+    import torch
+
+    from fluidframework_tpu_torch.ops import mergetree_kernel as mtk
+    return mtk.MergeOpBatch(**{n: torch.from_numpy(fields[n]).to(device)
+                               for n in mtk.MergeOpBatch._fields})
+
+
+def check_blocks_tick(device, k=TEXT_K, head=0.0, fill_ticks=2,
+                      time_it=True) -> dict:
+    """Kernel 3 against its plain version on one tick of shape (B, K,
+    NB, Bk, P, W) = (TEXT_DOCS, k, TEXT_NB, TEXT_BK, TEXT_P, TEXT_W),
+    from a table that ``fill_ticks`` plain ticks part filled (hot and
+    cold blocks mix): every plane, summary and the overflow index must be
+    equal."""
+    import numpy as np
+    import torch
+    b, nb, bk, p, w = TEXT_DOCS, TEXT_NB, TEXT_BK, TEXT_P, TEXT_W
+
+    from fluidframework_tpu_torch.ops import mergetree_blocks as mtb
+    from fluidframework_tpu_torch.ops import mergetree_blocks_cuda as mtbc
+    rng = np.random.default_rng(b + 7 * k + nb * bk + p + w)
+    ticks = merge_ticks(rng, b, k, fill_ticks + 1, 32 * w, head)
+    state = mtb.init_state(b, nb, bk, p, w, device)
+    for f in ticks[:-1]:
+        state, _ = mtb.apply_tick_blocks(state, op_batch(f, device))
+    ops = op_batch(ticks[-1], device)
+    got, got_ovf = mtbc.apply_tick_blocks_best(state, ops)
+    want, want_ovf = mtb.apply_tick_blocks(state, ops)
+    torch.cuda.synchronize()
+    err = max(max_abs_err(got, want), max_abs_err([got_ovf], [want_ovf]))
+    check(err == 0, f"block merge kernel != plain version at "
+          f"{(b, k, nb, bk, p, w)} (max |err| {err})")
+    overflowed = int((want_ovf != int(mtb.OVF_NONE)).sum())
+    out = {"shape": [b, k, nb, bk, p, w], "max_abs_err": err,
+           "overflowed_docs": overflowed}
+    if time_it:
+        out["ms"] = cuda_time_ms(
+            lambda: mtbc.apply_tick_blocks_best(state, ops), 10)
+        out["plain_ms"] = cuda_time_ms(
+            lambda: mtb.apply_tick_blocks(state, ops), 1)
+        out["bound_ms"], out["bound_by"] = blocks_bound(state, ops)
+    print(f"kernel mergetree_blocks: {json.dumps(out)}", flush=True)
+    return out
+
+
+def blocks_bound(state, ops) -> tuple[float, str]:
+    """Kernel 3's bound on these inputs: the table and summaries in and
+    out once, the op planes and the overflow index once; 12 integer ops
+    per slot per valid op."""
+    b, nb, bk = state.length.shape
+    p, w, k = state.prop_val.shape[3], state.rem_overlap.shape[3], \
+        ops.kind.shape[1]
+    state_bytes = b * nb * bk * (6 + p + w) * 4 + b * nb * 4 * 4 + b * 4
+    nbytes = 2 * state_bytes + b * k * (10 * 4 + 1) + b * 4
+    return bound(nbytes, 12 * int(ops.valid.sum()) * nb * bk)
+
+
+def flat_bound(state, ops) -> tuple[float, str]:
+    """Kernel 4's bound on these inputs: the table in and out once, the op
+    planes once; 12 integer ops per slot per valid op."""
+    b, s = state.length.shape
+    p, w, k = state.prop_val.shape[2], state.rem_overlap.shape[2], \
+        ops.kind.shape[1]
+    state_bytes = b * s * (1 + (6 + p + w) * 4) + b * 4
+    nbytes = 2 * state_bytes + b * k * (10 * 4 + 1)
+    return bound(nbytes, 12 * int(ops.valid.sum()) * s)
+
+
+def check_flat_tick(device, fill_ticks=2) -> dict:
+    """Kernel 4 against its plain version on one tick of shape (B, K, S,
+    P, W) = (TEXT_DOCS, TEXT_K, TEXT_NB x TEXT_BK, TEXT_P, TEXT_W), from a
+    table that ``fill_ticks`` plain ticks part filled."""
+    import numpy as np
+    import torch
+    b, k, s, p, w = TEXT_DOCS, TEXT_K, TEXT_NB * TEXT_BK, TEXT_P, TEXT_W
+
+    from fluidframework_tpu_torch.ops import mergetree_cuda as mtc
+    from fluidframework_tpu_torch.ops import mergetree_kernel as mtk
+    rng = np.random.default_rng(3 * b + k + s + p + w)
+    ticks = merge_ticks(rng, b, k, fill_ticks + 1, 32 * w)
+    state = mtk.init_state(b, s, p, w, device)
+    for f in ticks[:-1]:
+        state = mtk.apply_tick(state, op_batch(f, device))
+    ops = op_batch(ticks[-1], device)
+    got = mtc.apply_tick_best(state, ops)
+    want = mtk.apply_tick(state, ops)
+    torch.cuda.synchronize()
+    err = max_abs_err(got, want)
+    check(err == 0, f"flat merge kernel != plain version at "
+          f"{(b, k, s, p, w)} (max |err| {err})")
+    out = {"shape": [b, k, s, p, w], "max_abs_err": err,
+           "ms": cuda_time_ms(lambda: mtc.apply_tick_best(state, ops), 10),
+           "plain_ms": cuda_time_ms(lambda: mtk.apply_tick(state, ops), 1)}
+    out["bound_ms"], out["bound_by"] = flat_bound(state, ops)
+    print(f"kernel mergetree_flat: {json.dumps(out)}", flush=True)
+    return out
+
+
+# -- the text main paths ---------------------------------------------------------
+
+
+@contextlib.contextmanager
+def plain_text_versions():
+    """Swap the merge host's and the deli's kernel wrappers for their
+    plain versions for the duration (the plain-version comparison run)."""
+    from fluidframework_tpu_torch.ops import mergetree_blocks as mtb
+    from fluidframework_tpu_torch.ops import mergetree_kernel as mtk
+    from fluidframework_tpu_torch.ops import sequencer as seqk
+    from fluidframework_tpu_torch.server import kernel_host as kh
+    from fluidframework_tpu_torch.server import merge_host as mh
+    saved = kh.seqc, mh.mtc, mh.mtbc
+    kh.seqc = type("Plain", (), {
+        "process_batch_best": staticmethod(seqk.process_batch)})
+    mh.mtc = type("Plain", (), {"apply_tick_best": staticmethod(
+        mtk.apply_tick)})
+    mh.mtbc = type("Plain", (), {"apply_tick_blocks_best": staticmethod(
+        mtb.apply_tick_blocks)})
+    try:
+        yield
+    finally:
+        kh.seqc, mh.mtc, mh.mtbc = saved
+
+
+@contextlib.contextmanager
+def recording(mod, attr: str, kept: dict):
+    """Wrap the kernel wrapper ``mod.<attr>`` for the duration: each call
+    appends a copy of its inputs to ``kept[shape]``, the launch shape the
+    wrapper counted it by (``mod.shapes``). Launches are still counted by
+    the wrapper alone."""
+    import torch
+    inner = getattr(mod, attr)
+
+    def copy(planes):
+        return type(planes)(*(t.clone() for t in planes))
+
+    def wrapped(state, ops):
+        inputs = copy(state), copy(ops)
+        seen = dict(mod.shapes)
+        out = inner(state, ops)
+        for shape, n in mod.shapes.items():
+            if n != seen.get(shape, 0):
+                kept.setdefault(shape, []).append(inputs)
+        return out
+    setattr(mod, attr, wrapped)
+    try:
+        yield
+    finally:
+        setattr(mod, attr, inner)
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+
+
+def union_len(starts, ends) -> int:
+    covered = set()
+    for a, b in zip(starts, ends):
+        covered.update(range(a, b))
+    return len(covered)
+
+
+def text_path_a(device, plain: bool = False) -> dict:
+    """BASELINE config 2: 128 clients join one doc through the service
+    (the deli kernel sequences the joins), then TEXT_ROUNDS rounds in
+    which every client submits one insert or remove at the round's head
+    ref (the round's ops are concurrent, one per writer); each round is
+    one pump, whose
+    merger checkpoint flushes the merge host (one block tick)."""
+    import random
+
+    from fluidframework_tpu_torch.protocol.messages import (
+        DocumentMessage,
+        MessageType,
+    )
+    from fluidframework_tpu_torch.server.kernel_host import \
+        KernelSequencerHost
+    from fluidframework_tpu_torch.server.merge_host import KernelMergeHost
+    from fluidframework_tpu_torch.server.routerlicious import \
+        RouterliciousService
+    import torch
+
+    with plain_text_versions() if plain else contextlib.nullcontext():
+        seq_host = KernelSequencerHost(num_slots=TEXT_CLIENTS,
+                                       initial_capacity=1, device=device)
+        merge_host = KernelMergeHost(device=device)
+        service = RouterliciousService(merge_host=merge_host,
+                                       batched_deli_host=seq_host,
+                                       auto_pump=False)
+        clock = iter(range(1000, 1 << 30, 3))
+        service._clock = lambda: next(clock)
+        doc = "config2"
+        t0 = time.perf_counter()
+        conns = [service.connect(doc, lambda m: None)
+                 for _ in range(TEXT_CLIENTS)]
+        service.pump()
+        head = TEXT_CLIENTS  # the joins are seqs 1..128
+        rng = random.Random(2)
+        length = 0
+        for r in range(TEXT_ROUNDS):
+            starts, ends, grown = [], [], 0
+            for c in conns:
+                if length > 1 and rng.random() < 0.3:
+                    a = rng.randrange(length)
+                    b = min(length, a + rng.randint(1, 8))
+                    op = {"type": "remove", "start": a, "end": b}
+                    starts.append(a)
+                    ends.append(b)
+                else:
+                    text = "".join(rng.choice("abcdefghijklmnop")
+                                   for _ in range(rng.randint(1, 8)))
+                    op = {"type": "insert", "pos": rng.randint(0, length),
+                          "text": text}
+                    grown += len(text)
+                c.submit([DocumentMessage(
+                    client_sequence_number=r + 1,
+                    reference_sequence_number=head,
+                    type=MessageType.OPERATION,
+                    contents={"address": "default",
+                              "contents": {"address": "text",
+                                           "contents": op}})])
+            service.pump()
+            head += TEXT_CLIENTS
+            length += grown - union_len(starts, ends)
+        merge_host.flush()
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+    return {"service": service, "merge_host": merge_host,
+            "seq_host": seq_host, "doc": doc, "head": head,
+            "length": length, "serve_s": serve_s}
+
+
+def text_path_b(device, plain: bool = False) -> dict:
+    """The host at batched width: TEXT_DOCS docs, one string channel each
+    and TEXT_CLIENTS writer ids; TEXT_FLUSHES flushes of TEXT_K ops per
+    doc (about 70% inserts, 30% removes of 1-8 chars) from distinct
+    writers at the doc's head ref, fed through ``KernelMergeHost.ingest`` then ``flush()``. In flush
+    BURST_FLUSH the first BURST_DOCS docs get BURST_K inserts at position
+    0 instead, so one block overflows mid-tick. Rows start in the 128-slot
+    bucket. Returns the host and the sampled docs' sequenced ops."""
+    import numpy as np
+    import random
+    import torch
+
+    from fluidframework_tpu_torch.protocol.messages import (
+        MessageType,
+        SequencedDocumentMessage,
+    )
+    from fluidframework_tpu_torch.server.merge_host import KernelMergeHost
+    letters = "".join(random.Random(0).choice("abcdefghijklmnop")
+                      for _ in range(1 << 16))
+    rng = np.random.default_rng(5)
+    d_n = TEXT_DOCS
+    names = [f"text{d}" for d in range(d_n)]
+    sample = set(np.linspace(0, d_n - 1, SAMPLE_DOCS).astype(int).tolist())
+    sample.update(range(4))  # burst docs too
+    sampled: dict[int, list] = {d: [] for d in sample}
+    length = np.zeros(d_n, np.int64)
+    seq = np.zeros(d_n, np.int64)
+    prev_ref = np.zeros(d_n, np.int64)
+    with plain_text_versions() if plain else contextlib.nullcontext():
+        host = KernelMergeHost(flush_threshold=10**9, row_capacity=d_n,
+                               device=device)
+        t0 = time.perf_counter()
+        flush_s = 0.0
+        for f in range(TEXT_FLUSHES):
+            k = BURST_K if f == BURST_FLUSH else TEXT_K
+            burst = np.zeros(d_n, bool)
+            if f == BURST_FLUSH:
+                burst[:BURST_DOCS] = True
+            n_ops = np.where(burst, BURST_K, TEXT_K)
+            rem = (rng.random((d_n, k)) < 0.3) & (length[:, None] > 1) \
+                & ~burst[:, None]
+            start = (rng.random((d_n, k)) * length[:, None]).astype(np.int64)
+            end = np.minimum(start + rng.integers(1, 9, (d_n, k)),
+                             length[:, None])
+            pos = (rng.random((d_n, k)) * (length[:, None] + 1)).astype(
+                np.int64)
+            pos[burst] = 0
+            tlen = rng.integers(1, 9, (d_n, k))
+            off = rng.integers(0, len(letters) - 8, (d_n, k))
+            # Distinct writers within a round: a writer's own earlier op
+            # is visible to its later ones, which would break the shared
+            # ref frame the tracked length relies on.
+            client = np.argsort(rng.random((d_n, TEXT_CLIENTS)),
+                                axis=1)[:, :k]
+            live = np.arange(k)[None, :] < n_ops[:, None]
+            # New head length: every op of a round shares one ref frame.
+            lmax = int(length.max()) + 1
+            diff = np.zeros((d_n, lmax + 1), np.int64)
+            rows = np.broadcast_to(np.arange(d_n)[:, None], (d_n, k))
+            m = rem & live
+            np.add.at(diff, (rows[m], start[m]), 1)
+            np.add.at(diff, (rows[m], end[m]), -1)
+            gone = (np.cumsum(diff, axis=1)[:, :lmax] > 0).sum(axis=1)
+            grown = np.where(~rem & live, tlen, 0).sum(axis=1)
+            cols = [a.tolist() for a in (rem, start, end, pos, tlen, off,
+                                         client)]
+            for d in range(d_n):
+                ref, msn, name = int(seq[d]), int(prev_ref[d]), names[d]
+                r_d, s_d, e_d, p_d, t_d, o_d, c_d = (c[d] for c in cols)
+                for j in range(int(n_ops[d])):
+                    if r_d[j]:
+                        op = {"type": "remove", "start": s_d[j],
+                              "end": e_d[j]}
+                    else:
+                        op = {"type": "insert", "pos": p_d[j],
+                              "text": letters[o_d[j]:o_d[j] + t_d[j]]}
+                    sq = ref + j + 1
+                    client_id = f"w{c_d[j]}"
+                    host.ingest(name, SequencedDocumentMessage(
+                        client_id=client_id, sequence_number=sq,
+                        minimum_sequence_number=msn,
+                        client_sequence_number=sq,
+                        reference_sequence_number=ref,
+                        type=MessageType.OPERATION,
+                        contents={"address": "default",
+                                  "contents": {"address": "text",
+                                               "contents": op}}))
+                    if d in sampled:
+                        sampled[d].append((op, sq, ref, client_id))
+            t_flush = time.perf_counter()
+            host.flush()
+            torch.cuda.synchronize()
+            flush_s += time.perf_counter() - t_flush
+            prev_ref[:] = seq
+            seq += n_ops
+            length += grown - gone
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+    return {"merge_host": host, "names": names, "sampled": sampled,
+            "length": length, "serve_s": serve_s, "flush_s": flush_s,
+            "ops": int(seq.sum())}
+
+
+def engine_text(ops) -> str:
+    from fluidframework_tpu_torch.dds.mergetree import MergeEngine
+    engine = MergeEngine(local_client=None)
+    for op, sq, ref, client in ops:
+        engine.apply_remote(op, sq, ref, client)
+    return engine.get_text()
+
+
+def text_pools_equal(a, b) -> None:
+    """Every text plane of two merge hosts equal (the kernel run against
+    the plain-version run)."""
+    import torch
+    check(sorted(a._merge_pools) == sorted(b._merge_pools),
+          "text runs grew different buckets")
+    for slots, pa in a._merge_pools.items():
+        pb = b._merge_pools[slots]
+        for f, x, y in zip(pa.state._fields, pa.state, pb.state):
+            check(torch.equal(x, y), f"text pool {slots} plane {f}: kernel "
+                  "run != plain run")
+    check(a.stats == b.stats, f"text stats differ: {a.stats} vs {b.stats}")
+
+
+def text_main_path(device) -> dict:
+    """Both text paths with the kernels (launch counts zeroed just before
+    each and read just after), checked against MergeEngine replays and
+    against a second run of each on the plain versions."""
+    import torch
+
+    from fluidframework_tpu_torch.ops import mergetree_blocks_cuda as mtbc
+    from fluidframework_tpu_torch.ops import mergetree_cuda as mtc
+    from fluidframework_tpu_torch.ops import sequencer_cuda as seqc
+    from fluidframework_tpu_torch.protocol.messages import MessageType
+    launches: dict = {}
+    shapes: dict = {"mergetree_blocks": {}, "mergetree_flat": {},
+                    "sequencer_tick": {}}
+    inputs: dict = {"mergetree_blocks": {}, "mergetree_flat": {}}
+    out: dict = {}
+    for name, drive in (("a", text_path_a), ("b", text_path_b)):
+        for mod in (mtc, mtbc, seqc):
+            mod.launches = 0
+            mod.shapes.clear()
+        with recording(mtbc, "apply_tick_blocks_best",
+                       inputs["mergetree_blocks"]), \
+                recording(mtc, "apply_tick_best", inputs["mergetree_flat"]):
+            run = drive(device)
+        torch.cuda.synchronize()
+        launches[name] = {"mergetree_blocks": mtbc.launches,
+                          "mergetree_flat": mtc.launches,
+                          "sequencer_tick": seqc.launches}
+        for key, mod in (("mergetree_blocks", mtbc), ("mergetree_flat", mtc),
+                         ("sequencer_tick", seqc)):
+            for shape, n in mod.shapes.items():
+                shapes[key][shape] = shapes[key].get(shape, 0) + n
+        host = run["merge_host"]
+        if name == "a":
+            msgs = [m for m in run["service"].get_deltas(run["doc"], 0)
+                    if m.type == MessageType.OPERATION]
+            check(len(msgs) == TEXT_CLIENTS * TEXT_ROUNDS,
+                  f"config 2 sequenced {len(msgs)} of "
+                  f"{TEXT_CLIENTS * TEXT_ROUNDS} ops")
+            want = engine_text([
+                (m.contents["contents"]["contents"], m.sequence_number,
+                 m.reference_sequence_number, m.client_id) for m in msgs])
+            got = host.text(run["doc"], "default", "text")
+            check(got == want, "config 2: merge_host.text() != MergeEngine "
+                  "replay of get_deltas")
+            check(len(got) == run["length"], "config 2: text length "
+                  f"{len(got)} != tracked {run['length']}")
+            check(launches["a"]["sequencer_tick"] > 0,
+                  "the deli kernel did not run on text path A")
+        else:
+            for d, ops in run["sampled"].items():
+                got = host.text(run["names"][d], "default", "text")
+                check(got == engine_text(ops), f"text of doc {d} != "
+                      "MergeEngine replay")
+                check(len(got) == int(run["length"][d]),
+                      f"doc {d}: text length != tracked")
+            check(host.stats["block_overflow_replays"] > 0,
+                  "no block overflowed on text path B")
+        check(launches[name]["mergetree_blocks"] > 0,
+              f"block merge kernel not launched on text path {name}")
+        plain = drive(device, plain=True)
+        text_pools_equal(host, plain["merge_host"])
+        if name == "a":
+            for f, x, y in zip(run["seq_host"]._state._fields,
+                               run["seq_host"]._state,
+                               plain["seq_host"]._state):
+                check(torch.equal(x, y), f"config 2 deli plane {f}: kernel "
+                      "run != plain run")
+        out[name] = {"serve_s": run["serve_s"],
+                     "plain_serve_s": plain["serve_s"],
+                     "stats": host.stats, "launches": launches[name]}
+        if name == "b":
+            out[name].update(ops=run["ops"], flush_s=run["flush_s"],
+                             ops_per_s=run["ops"] / run["serve_s"])
+    check(launches["b"]["mergetree_flat"] > 0,
+          "flat merge kernel not launched (no overflow replay)")
+    out["a"]["ops"] = TEXT_CLIENTS * TEXT_ROUNDS
+    out["a"]["ops_per_s"] = out["a"]["ops"] / out["a"]["serve_s"]
+    print("text_main_path: " + json.dumps(out), flush=True)
+    print("text_main_path_shapes: " + json.dumps(
+        {name: [[*shape, n] for shape, n in sorted(by.items())]
+         for name, by in shapes.items()}), flush=True)
+    return {"launches": launches, "shapes": shapes, "inputs": inputs,
+            "paths": out}
+
+
+def recheck_recorded(name: str, shapes: dict, inputs: dict, kernel, plain,
+                     bound_of) -> dict:
+    """Hold a text kernel against its plain version on the inputs of
+    EVERY call the text main paths made to it, at every shape; then time
+    it, and its plain version, on each call of the shape with the most
+    launches. ms, plain ms and bound are means per launch over those
+    calls; the error is the largest over every check."""
+    import torch
+    check(bool(shapes) and {sh: len(c) for sh, c in inputs.items()}
+          == shapes, f"{name}: launches by shape {shapes}, inputs kept "
+          f"{ {sh: len(c) for sh, c in inputs.items()} }")
+    worst = 0
+    for shape in sorted(shapes):
+        for state, ops in inputs[shape]:
+            got, want = kernel(state, ops), plain(state, ops)
+            torch.cuda.synchronize()
+            err = max_abs_err(got, want)
+            check(err == 0, f"{name} kernel != plain version on the main "
+                  f"path's inputs at {shape} (max |err| {err})")
+            worst = max(worst, err)
+    top = max(shapes, key=lambda sh: shapes[sh])
+    calls = inputs[top]
+    ms = [cuda_time_ms(lambda: kernel(st, op), 3) for st, op in calls]
+    plain_ms = [cuda_time_ms(lambda: plain(st, op), 1) for st, op in calls]
+    bounds = [bound_of(st, op) for st, op in calls]
+    by = [b for _, b in bounds]
+    out = {"shape": list(top), "max_abs_err": worst,
+           "shapes_checked": len(shapes),
+           "calls_checked": sum(shapes.values()),
+           "calls_timed": len(calls),
+           "valid_ops_mean": sum(int(op.valid.sum()) for _, op in calls)
+           / len(calls),
+           "ms": sum(ms) / len(ms), "ms_min": min(ms), "ms_max": max(ms),
+           "plain_ms": sum(plain_ms) / len(plain_ms),
+           "bound_ms": sum(b for b, _ in bounds) / len(bounds),
+           "bound_by": max(set(by), key=by.count)}
+    print(f"kernel {name} on the main path's inputs: {json.dumps(out)}",
+          flush=True)
+    return out
+
+
+def blocks_planes(tick):
+    """A block tick's result as one list of planes: the state, then the
+    overflow index."""
+    def run(state, ops):
+        new, ovf = tick(state, ops)
+        return [*new, ovf]
+    return run
+
+
+def device_busy(prof) -> tuple[float, list]:
+    """(busy ms, the six largest events) of a finished profile: the
+    summed self time of every CUDA event — kernels and copies, all on
+    one stream."""
+    busy: dict = {}
+    for e in prof.key_averages():
+        if str(e.device_type).endswith("CUDA"):
+            # Names cut to 60 characters; equal cuts add up.
+            busy[e.key[:60]] = busy.get(e.key[:60], 0.0) \
+                + e.self_device_time_total / 1e3
+    top = sorted(busy.items(), key=lambda kv: -kv[1])[:6]
+    return sum(busy.values()), top
+
+
 def trace_main_path(device) -> dict:
     """The main path's served ticks again under ``torch.profiler``: device
-    busy ms (the summed self time of every CUDA event — kernels and
-    copies, all on one stream) against the host's wall ms over the same
-    ticks, and the device events that took the most time. The profiler
-    slows the host, so the idle share is an upper bound."""
-    import torch
+    busy ms against the host's wall ms over the same ticks, and the
+    device events that took the most time. The profiler slows the host,
+    so the idle share is an upper bound."""
     from torch.profiler import ProfilerActivity, profile
 
     script = make_script(7, DOCS, TICKS, K_MAP, FRAMES_PER_TICK)
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     run = serve(device, script, DOCS, ticks_ctx=lambda: prof)
-    events = [e for e in prof.key_averages()
-              if str(e.device_type).endswith("CUDA")]
-    busy: dict = {}
-    for e in events:  # names cut to 60 characters; equal cuts add up
-        busy[e.key[:60]] = busy.get(e.key[:60], 0.0) \
-            + e.self_device_time_total / 1e3
-    busy_ms = sum(busy.values())
+    busy_ms, top = device_busy(prof)
     serve_ms = run["t_serve"] * 1e3
-    top = sorted(busy.items(), key=lambda kv: -kv[1])[:6]
     out = {"serve_ms": serve_ms, "device_busy_ms": busy_ms,
            "idle_share": 1 - busy_ms / serve_ms if busy_ms else None,
            "top_device_ms": top}
     print("trace: " + json.dumps(out), flush=True)
+    return out
+
+
+def trace_text_paths(device) -> dict:
+    """Both text paths again, each whole under ``torch.profiler``: device
+    busy ms against the host's wall ms over the path (an upper bound on
+    the idle share, as for the map path)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    for name, drive in (("a", text_path_a), ("b", text_path_b)):
+        prof = profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+        with prof:
+            t0 = time.perf_counter()
+            drive(device)
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        busy_ms, top = device_busy(prof)
+        out[name] = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+                     "idle_share": 1 - busy_ms / wall_ms,
+                     "top_device_ms": top}
+    print("trace_text: " + json.dumps(out), flush=True)
     return out
 
 
@@ -559,36 +1156,88 @@ def main() -> int:
 
     from fluidframework_tpu_torch.ops import _build
     t0 = time.perf_counter()
-    _build.build_all(["map_fold", "sequencer_tick"])
+    _build.build_all(["map_fold", "sequencer_tick", "mergetree_flat",
+                      "mergetree_blocks"])
     print(f"build: {time.perf_counter() - t0:.2f} s "
           f"({_build.BUILD_DIR})", flush=True)
 
     fold = check_map_fold(device)
     deli = check_deli(device)
+    blocks_full = check_blocks_tick(device)
+    burst = check_blocks_tick(device, k=BURST_K, head=0.9, fill_ticks=1,
+                              time_it=False)
+    check(burst["overflowed_docs"] > 0,
+          "the burst tick overflowed no block")
+    flat_full = check_flat_tick(device)
     path = main_path(device)
+    text = text_main_path(device)
     shapes = path["shapes"]
     fold_main = at_main_path_shapes(
         "map_fold", shapes["map_fold"], fold,
         lambda b, k, s: check_map_fold(device, b, k, s))
+    deli_shapes = dict(shapes["sequencer_tick"])
+    for shape, n in text["shapes"]["sequencer_tick"].items():
+        deli_shapes[shape] = deli_shapes.get(shape, 0) + n
     deli_main = at_main_path_shapes(
-        "sequencer_tick", shapes["sequencer_tick"], deli,
+        "sequencer_tick", deli_shapes, deli,
         lambda b, k, c: check_deli(device, b, k, c, every_outcome=False))
+    from fluidframework_tpu_torch.ops import mergetree_blocks as mtb
+    from fluidframework_tpu_torch.ops import mergetree_blocks_cuda as mtbc
+    from fluidframework_tpu_torch.ops import mergetree_cuda as mtc
+    from fluidframework_tpu_torch.ops import mergetree_kernel as mtk
+    blocks_main = recheck_recorded(
+        "mergetree_blocks", text["shapes"]["mergetree_blocks"],
+        text["inputs"]["mergetree_blocks"],
+        blocks_planes(mtbc.apply_tick_blocks_best),
+        blocks_planes(mtb.apply_tick_blocks), blocks_bound)
+    flat_main = recheck_recorded(
+        "mergetree_flat", text["shapes"]["mergetree_flat"],
+        text["inputs"]["mergetree_flat"], mtc.apply_tick_best,
+        mtk.apply_tick, flat_bound)
+    del text["inputs"]
     if "--trace" in sys.argv[1:]:
         trace_main_path(device)
-    launches = path["launches"]
+        trace_text_paths(device)
+    # Each path's own launches, counted from 0 just before it and read
+    # just after; a kernel's "launches" is their sum.
+    by_path = {
+        name: {"map": path["launches"].get(name, 0),
+               "text_a": text["launches"]["a"].get(name, 0),
+               "text_b": text["launches"]["b"].get(name, 0)}
+        for name in ("map_fold", "sequencer_tick", "mergetree_blocks",
+                     "mergetree_flat")}
+    launches = {name: sum(n.values()) for name, n in by_path.items()}
     kernels = [
         {"name": "map_fold", "route": "cuda",
          "source": "fluidframework_tpu_torch/csrc/map_fold.cu",
          "replaces": "fluidframework_tpu/ops/map_pallas.py:41",
-         "launches": launches["map_fold"], **fold_main,
+         "launches": launches["map_fold"],
+         "launches_by_path": by_path["map_fold"], **fold_main,
          "library_ms": None},
         {"name": "sequencer_tick", "route": "cuda",
          "source": "fluidframework_tpu_torch/csrc/sequencer_tick.cu",
          "replaces": "fluidframework_tpu/ops/sequencer_pallas.py:217",
-         "launches": launches["sequencer_tick"], **deli_main,
+         "launches": launches["sequencer_tick"],
+         "launches_by_path": by_path["sequencer_tick"], **deli_main,
          "library_ms": None,
          "at_K32": {key: deli[key] for key in
                     ("shape", "ms", "plain_ms", "bound_ms")}},
+        {"name": "mergetree_blocks", "route": "cuda",
+         "source": "fluidframework_tpu_torch/csrc/mergetree_blocks.cu",
+         "replaces": "fluidframework_tpu/ops/mergetree_blocks_pallas.py:73",
+         "launches": launches["mergetree_blocks"],
+         "launches_by_path": by_path["mergetree_blocks"], **blocks_main,
+         "library_ms": None,
+         "at_full_size": {key: blocks_full[key] for key in
+                          ("shape", "ms", "plain_ms", "bound_ms")}},
+        {"name": "mergetree_flat", "route": "cuda",
+         "source": "fluidframework_tpu_torch/csrc/mergetree_flat.cu",
+         "replaces": "fluidframework_tpu/ops/mergetree_pallas.py:274",
+         "launches": launches["mergetree_flat"],
+         "launches_by_path": by_path["mergetree_flat"], **flat_main,
+         "library_ms": None,
+         "at_full_size": {key: flat_full[key] for key in
+                          ("shape", "ms", "plain_ms", "bound_ms")}},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

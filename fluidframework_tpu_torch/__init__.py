@@ -18,7 +18,12 @@ Ported so far: the map-storm serving tick — the deli sequencer
 (``ops/sequencer.py`` + ``ops/sequencer_cuda.py``), the SharedMap LWW fold
 (``ops/map_kernel.py`` + ``ops/map_fold_cuda.py``), their hosts
 (``server/kernel_host.py``, the map half of ``server/merge_host.py``),
-the routerlicious service and the map-only ``server/storm.py``.
+the routerlicious service and the WAL-less ``server/storm.py`` — and
+SharedString text serving: the flat and block merge tables
+(``ops/mergetree_kernel.py`` + ``ops/mergetree_cuda.py``,
+``ops/mergetree_blocks.py`` + ``ops/mergetree_blocks_cuda.py``), the
+scalar ``dds/mergetree.py`` engine and the text half of
+``server/merge_host.py``.
 """
 
 __version__ = "0.1.0"

@@ -7,8 +7,10 @@ into the port's tensors and hosts, and back:
 
 * :class:`~.ops.sequencer.SequencerState` and :class:`~.ops.map_kernel.
   MapState` NamedTuples ↔ ``{field: ndarray}``;
-* ``KernelMergeHost.export_state()`` snapshots (the map planes), which
-  share one wire format and load with :func:`merge_host_from_export`;
+* ``KernelMergeHost.export_state()`` snapshots — the map planes, the
+  text pools (block and flat planes, text buffers, rows with their client
+  and key slots, scalar-routed rows' engines) — which share one wire
+  format and load with :func:`merge_host_from_export`;
 * ``KernelSequencerHost.checkpoint_all()`` checkpoints, loaded with
   :func:`restore_sequencer_host`;
 * a whole sequencer host's planes and row/slot maps, with
@@ -65,7 +67,7 @@ def map_state_from_numpy(arrays, device=None) -> mk.MapState:
 def merge_host_from_export(snap: dict, device=None,
                            **kwargs) -> KernelMergeHost:
     """A fresh port merge host holding an ``export_state()`` snapshot of
-    either package (map channels only)."""
+    either package (map and text channels)."""
     host = KernelMergeHost(device=device, **kwargs)
     host.import_state(snap)
     return host

@@ -8,9 +8,13 @@ source, and :func:`build_all` starts one ``nvcc`` per source in parallel
 (what ``chip_smoke.py`` calls before it drives anything).
 
 The libraries do not include PyTorch's headers, so a build takes seconds.
-A library's file name carries a hash of its source, the flags and the
-compiler's path, so a change to any of them builds a new library. There is
-no fallback: a missing ``nvcc`` or a failed build raises.
+A library's file name carries a hash of its source, the headers beside
+it (``csrc/*.cuh``), the flags and the compiler's path, so a change to
+any of them builds a new library. There is
+no fallback: a missing ``nvcc``, a failed build or load, a launcher whose
+pointer layout disagrees with its binding, or a failed launch raises
+:class:`KernelError`, which callers that isolate per-document faults
+re-raise, so a broken kernel never turns into serving on the host.
 """
 
 from __future__ import annotations
@@ -33,6 +37,14 @@ _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
 
 
+class KernelError(RuntimeError):
+    """A kernel could not be built, loaded, bound or launched."""
+
+
+class KernelInputError(KernelError, ValueError):
+    """A wrapper was handed a tensor its kernel does not take."""
+
+
 def nvcc_path() -> str:
     """The CUDA compiler: $CUDA_HOME/bin/nvcc, else /usr/local/cuda, else
     PATH. Raises when none exists."""
@@ -41,8 +53,8 @@ def nvcc_path() -> str:
             return str(pathlib.Path(root) / "bin" / "nvcc")
     found = shutil.which("nvcc")
     if found is None:
-        raise RuntimeError("nvcc not found (set CUDA_HOME); the port's CUDA "
-                           "kernels are built from csrc/ at first use")
+        raise KernelError("nvcc not found (set CUDA_HOME); the port's CUDA "
+                          "kernels are built from csrc/ at first use")
     return found
 
 
@@ -50,6 +62,8 @@ def _paths(name: str) -> tuple[pathlib.Path, pathlib.Path]:
     """The source and the library built from it with today's flags."""
     src = CSRC / f"{name}.cu"
     key = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        key.update(header.read_bytes())
     key.update("\0".join([nvcc_path(), *NVCC_FLAGS]).encode())
     return src, BUILD_DIR / f"lib{name}-{key.hexdigest()[:16]}.so"
 
@@ -71,8 +85,8 @@ def _finish(name: str, proc: subprocess.Popen, lib: pathlib.Path) -> None:
     out, _ = proc.communicate()
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for csrc/{name}.cu "
-                           f"(exit {proc.returncode}):\n{out}")
+        raise KernelError(f"nvcc failed for csrc/{name}.cu "
+                          f"(exit {proc.returncode}):\n{out}")
     os.replace(tmp, lib)
 
 
@@ -85,10 +99,10 @@ def build_all(names: list[str]) -> None:
         for name, proc, lib in procs:
             try:
                 _finish(name, proc, lib)
-            except RuntimeError as err:
+            except KernelError as err:
                 errors.append(str(err))
         if errors:
-            raise RuntimeError("\n".join(errors))
+            raise KernelError("\n".join(errors))
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -100,12 +114,55 @@ def load(name: str) -> ctypes.CDLL:
         with _lock:
             lib = _libs.get(name)
             if lib is None:
-                lib = ctypes.CDLL(str(_paths(name)[1]))
+                try:
+                    lib = ctypes.CDLL(str(_paths(name)[1]))
+                except OSError as err:
+                    raise KernelError(f"cannot load csrc/{name}.cu's "
+                                      f"library: {err}") from err
                 _libs[name] = lib
     return lib
+
+
+def pointer_args(n_ints: int) -> list:
+    """The argtypes of a launcher that takes its tensors as one pointer
+    array: (pointers, ``n_ints`` ints, stream)."""
+    return [ctypes.POINTER(ctypes.c_void_p), *[ctypes.c_int] * n_ints,
+            ctypes.c_void_p]
+
+
+def bind(name: str, argtypes: list, layout: tuple[str, ...] | None = None):
+    """The launcher ``<name>_launch`` of ``csrc/<name>.cu``, built and
+    loaded if needed, with its argtypes set (once). Where ``layout`` is
+    given, the order in which the launcher reads its pointer array
+    (``<name>_layout()``) must equal it first."""
+    lib = load(name)
+    fn = getattr(lib, f"{name}_launch")
+    if fn.argtypes is None:
+        if layout is not None:
+            read = getattr(lib, f"{name}_layout")
+            read.restype = ctypes.c_char_p
+            got = tuple(read().decode().split(","))
+            if got != tuple(layout):
+                raise KernelError(
+                    f"csrc/{name}.cu reads its pointers in the order {got}, "
+                    f"the binding passes {tuple(layout)}")
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def need(t, what: str, dtype, shape, dev) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
+    ``dev`` (the kernels index raw row-major storage)."""
+    if t.device != dev or t.dtype != dtype \
+            or tuple(t.shape) != tuple(shape) or not t.is_contiguous():
+        raise KernelInputError(
+            f"{what} must be a contiguous {dtype} tensor of shape "
+            f"{tuple(shape)} on {dev}, got {t.dtype} {tuple(t.shape)} on "
+            f"{t.device} (contiguous={t.is_contiguous()})")
 
 
 def check(rc: int, what: str) -> None:
     """Raise on a non-zero cudaError_t returned by a launcher."""
     if rc != 0:
-        raise RuntimeError(f"{what}: CUDA launch failed with cudaError {rc}")
+        raise KernelError(f"{what}: CUDA launch failed with cudaError {rc}")

@@ -33,23 +33,8 @@ _I = ctypes.c_int
 
 
 def _lib():
-    lib = _build.load("map_fold")
-    fn = lib.map_fold_launch
-    if fn.argtypes is None:
-        fn.argtypes = [_P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                       _P, _I, _P]
-        fn.restype = _I
-    return fn
-
-
-def _need(t: torch.Tensor, name: str, dtype, shape, dev) -> None:
-    if t.device != dev or t.dtype != dtype \
-            or tuple(t.shape) != tuple(shape) or not t.is_contiguous():
-        raise ValueError(
-            f"map fold: {name} must be a contiguous {dtype} tensor of "
-            f"shape {tuple(shape)} on {dev}, got {t.dtype} "
-            f"{tuple(t.shape)} on {t.device} "
-            f"(contiguous={t.is_contiguous()})")
+    return _build.bind("map_fold", [_P, _I, _I, _P, _P, _P, _P, _P, _P, _P,
+                                    _P, _P, _P, _P, _I, _P])
 
 
 def fold_words(state: mk.MapState, words: torch.Tensor, lo: torch.Tensor,
@@ -62,19 +47,21 @@ def fold_words(state: mk.MapState, words: torch.Tensor, lo: torch.Tensor,
     if dev.type == "cpu":
         return mk.fold_words_plain(state, words, lo, hi, base_seq)
     if dev.type != "cuda":
-        raise ValueError(f"map fold: tensors on {dev}, not CUDA or CPU")
+        raise _build.KernelInputError(
+            f"map fold: tensors on {dev}, not CUDA or CPU")
     b, s = state.present.shape
     k = words.shape[1]
     if not 0 < s <= 1024:
-        raise ValueError(f"map fold: {s} key slots (the slot field is 10 "
-                         "bits, 1 <= S <= 1024)")
-    _need(words, "words", torch.int32, (b, k), dev)
+        raise _build.KernelInputError(
+            f"map fold: {s} key slots (the slot field is 10 bits, "
+            "1 <= S <= 1024)")
+    _build.need(words, "map fold: words", torch.int32, (b, k), dev)
     for name, t in (("lo", lo), ("hi", hi), ("base_seq", base_seq),
                     ("cleared_seq", state.cleared_seq)):
-        _need(t, name, torch.int32, (b,), dev)
-    _need(state.present, "present", torch.bool, (b, s), dev)
-    _need(state.value, "value", torch.int32, (b, s), dev)
-    _need(state.vseq, "vseq", torch.int32, (b, s), dev)
+        _build.need(t, f"map fold: {name}", torch.int32, (b,), dev)
+    _build.need(state.present, "map fold: present", torch.bool, (b, s), dev)
+    _build.need(state.value, "map fold: value", torch.int32, (b, s), dev)
+    _build.need(state.vseq, "map fold: vseq", torch.int32, (b, s), dev)
     fn = _lib()
     with torch.cuda.device(dev):
         out = mk.MapState(*(torch.empty_like(f) for f in state))

@@ -39,30 +39,7 @@ LAYOUT = (*seqk.SequencerState._fields, *seqk.OpBatch._fields,
 
 
 def _lib():
-    lib = _build.load("sequencer_tick")
-    fn = lib.sequencer_tick_launch
-    if fn.argtypes is None:
-        layout = lib.sequencer_tick_layout
-        layout.restype = ctypes.c_char_p
-        got = tuple(layout().decode().split(","))
-        if got != LAYOUT:
-            raise RuntimeError(
-                "csrc/sequencer_tick.cu reads its pointers in the order "
-                f"{got}, the binding passes {LAYOUT}")
-        fn.argtypes = [ctypes.POINTER(ctypes.c_void_p), ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
-
-
-def _need(t: torch.Tensor, name: str, dtype, shape, dev) -> None:
-    if t.device != dev or t.dtype != dtype \
-            or tuple(t.shape) != tuple(shape) or not t.is_contiguous():
-        raise ValueError(
-            f"deli tick: {name} must be a contiguous {dtype} tensor of "
-            f"shape {tuple(shape)} on {dev}, got {t.dtype} "
-            f"{tuple(t.shape)} on {t.device} "
-            f"(contiguous={t.is_contiguous()})")
+    return _build.bind("sequencer_tick", _build.pointer_args(3), LAYOUT)
 
 
 def process_batch_best(state: seqk.SequencerState, ops: seqk.OpBatch):
@@ -72,17 +49,20 @@ def process_batch_best(state: seqk.SequencerState, ops: seqk.OpBatch):
     if dev.type == "cpu":
         return seqk.process_batch(state, ops)
     if dev.type != "cuda":
-        raise ValueError(f"deli tick: tensors on {dev}, not CUDA or CPU")
+        raise _build.KernelInputError(
+            f"deli tick: tensors on {dev}, not CUDA or CPU")
     b, c = state.active.shape
     k = ops.kind.shape[1]
     for name in seqk.SequencerState._fields:
         shape = (b,) if name in ("seq", "msn", "last_sent_msn",
                                  "nack_future") else (b, c)
-        _need(getattr(state, name), name,
-              torch.bool if name in _BOOL_STATE else torch.int32, shape, dev)
+        _build.need(getattr(state, name), f"deli tick: {name}",
+                    torch.bool if name in _BOOL_STATE else torch.int32,
+                    shape, dev)
     for name in seqk.OpBatch._fields:
-        _need(getattr(ops, name), name,
-              torch.bool if name in _BOOL_OPS else torch.int32, (b, k), dev)
+        _build.need(getattr(ops, name), f"deli tick: {name}",
+                    torch.bool if name in _BOOL_OPS else torch.int32,
+                    (b, k), dev)
     fn = _lib()
     with torch.cuda.device(dev):
         new_state = seqk.SequencerState(*(torch.empty_like(f)

@@ -1,21 +1,36 @@
 """KernelMergeHost — device-resident converged document state on the server.
 
-Port of the map half of ``fluidframework_tpu/server/merge_host.py``.
-Reference parity: the *server-observed* SharedMap message fold
-(packages/dds/map/src/mapKernel.ts:510 tryProcessMessage), hosted behind
-the service seams as one batched device program: every (document,
-datastore, channel) map is a row of :class:`~fluidframework_tpu_torch.
-ops.map_kernel.MapState`; a service tick applies the pending sequenced
-ops of all map channels in one ``apply_tick`` call.
+Port of the map and text halves of ``fluidframework_tpu/server/
+merge_host.py``. Reference parity: the *server-observed* hot loops of the
+reference — the merge-tree sequenced apply path (packages/dds/merge-tree/
+src/mergeTree.ts: 1974 insertingWalk, 2626 markRangeRemoved, 2584
+annotateRange) and the SharedMap message fold (packages/dds/map/src/
+mapKernel.ts:510 tryProcessMessage) — hosted behind the service seams as
+batched device programs: every (document, datastore, channel) is a row
+of a :class:`~fluidframework_tpu_torch.ops.mergetree_blocks.
+BlockMergeState` pool (text) or of the :class:`~fluidframework_tpu_torch.
+ops.map_kernel.MapState` (map); a flush applies the pending sequenced ops
+of all channels, one block merge tick per dirty text pool.
 
-The host owns what the kernels cannot: the key → key-slot and value →
-interned-id mappings, capacity growth (doubling on both axes), and
-materialization of converged entries.
+The host owns what the kernels cannot:
 
-Only the map family is ported so far. Text (merge-tree), matrix and tree
-ops reaching :meth:`KernelMergeHost.ingest` raise ``NotImplementedError``
-naming the family; the class keeps the reference's shape (``stats``,
-``metrics``, ``export_state`` sections) so those pools slot in later.
+* string→int mappings (client id → slot lane, property key → key slot,
+  value → interned id, text → pool offsets);
+* capacity — before each tick it checks each row's free slots, compacts
+  (and coalesces) rows under pressure, and migrates rows that still do not
+  fit to the next pow2 bucket; block pools rebalance rows whose fullest
+  block could not absorb the tick (``pre_tick``);
+* overflow — an op that overflows its block freezes the doc on the device;
+  the host replays the tail through the flat merge tick and re-blocks. A
+  row that fails any of that is handed to the scalar
+  :class:`~fluidframework_tpu_torch.dds.mergetree.MergeEngine`
+  (``_quarantine_merge_row``), as is a channel whose writer set passes
+  ``max_client_slots``; it readmits once zamboni shrinks the set;
+* materialization of converged text, rich text runs and map entries.
+
+Not ported (raise ``NotImplementedError``): sequence-parallel and
+mega-doc pools (``seg_mesh``, ``megadoc_writer_threshold``,
+``promote_merge_row``), matrix and tree channels.
 """
 
 from __future__ import annotations
@@ -25,19 +40,67 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
+from ..dds.mergetree import Marker, MergeEngine, Segment
 from ..device import resolve_device
+from ..ops import _build
 from ..ops import map_kernel as mk
+from ..ops import mergetree_blocks as mtb
+from ..ops import mergetree_blocks_cuda as mtbc
+from ..ops import mergetree_cuda as mtc
+from ..ops import mergetree_kernel as mtk
 from ..protocol.messages import MessageType, SequencedDocumentMessage
-from .kernel_host import _tick_k
+from ..utils import faults
+from .kernel_host import _next_pow2, _tick_k
 
 _MERGE_OPS = frozenset({"insert", "remove", "annotate", "group"})
 _MAP_OPS = frozenset({"set", "delete", "clear"})
+
+# Text pools are append-only; once a row's pool churn passes this mark the
+# host repacks it down to the referenced slices (zamboni for text bytes).
+_TEXT_REPACK_MIN = 1 << 20
+
+# A marker occupies one pool char; stripped at materialization. Real text
+# never contains NUL (the wire format is JSON-ish strings).
+_MARKER_CHAR = "\x00"
+
+_NOT_PORTED_MEGA = ("sequence-parallel and mega-doc merge pools are not "
+                    "ported to the torch merge host (ROADMAP Queue A 9)")
 
 
 class ChannelKey(NamedTuple):
     doc_id: str
     datastore: str
     channel: str
+
+
+class _MergeRow:
+    __slots__ = ("pool", "row", "client_slots", "key_slots", "pending",
+                 "raw_log", "scalar", "min_seq", "last_seq",
+                 "repack_at", "applied_seq", "applied_min_seq",
+                 "readmit_seen_min")
+
+    def __init__(self) -> None:
+        self.pool: "_MergePool | None" = None
+        self.row = -1
+        self.client_slots: dict[str, int] = {}
+        self.key_slots: dict[str, int] = {}
+        self.pending: list[dict] = []
+        # Sequenced ops NOT YET applied on device (subop, seq, ref_seq,
+        # client) — trimmed at every flush; the scalar-fallback replay
+        # source is the device row itself (seeded exactly) plus this tail.
+        self.raw_log: list[tuple[dict, int, int, str]] = []
+        self.scalar: MergeEngine | None = None
+        self.min_seq = 0
+        self.last_seq = 0
+        # Frontier the DEVICE row reflects (advances when raw_log trims):
+        # the scalar seed starts here, then replays the unapplied tail.
+        self.applied_seq = 0
+        self.applied_min_seq = 0
+        # Text-pool churn level that triggers the next repack attempt.
+        self.repack_at = _TEXT_REPACK_MIN
+        # min_seq at the last failed readmission attempt (scalar rows):
+        # the writer set only shrinks when the window advances.
+        self.readmit_seen_min = -1
 
 
 class _MapRow:
@@ -63,6 +126,17 @@ def _pad_axis(a: torch.Tensor, axis: int, extra: int, fill) -> torch.Tensor:
                                     device=a.device)), dim=axis)
 
 
+def _np_pad(a: np.ndarray, axis: int, extra: int, fill) -> np.ndarray:
+    widths = [(0, 0)] * a.ndim
+    widths[axis] = (0, extra)
+    return np.pad(a, widths, constant_values=fill)
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    """A host copy of a tensor (never a view of device-pool storage)."""
+    return t.cpu().numpy().copy()
+
+
 def _next_pow2_width(cur: int, need: int) -> int:
     """Doubling growth policy shared by every plane-width axis: the
     smallest pow2 multiple of ``cur`` that fits ``need``."""
@@ -71,30 +145,339 @@ def _next_pow2_width(cur: int, need: int) -> int:
     return cur
 
 
+def _overlap_slots(words: np.ndarray) -> list[int]:
+    """Set bits of one slot's overlap words → client slot indices. Words
+    are i32 with the sign bit as a payload bit (slot 31 of each word)."""
+    out = []
+    for w, word in enumerate(np.asarray(words, np.int32).reshape(-1)):
+        bits = int(np.uint32(word))  # sign bit → bit 31, not a sign
+        base = 32 * w
+        while bits:
+            low = bits & -bits
+            out.append(base + low.bit_length() - 1)
+            bits ^= low
+    return out
+
+
+def _set_overlap_bit(words_row: np.ndarray, slot: int) -> None:
+    """Set client ``slot``'s bit in an [W] i32 word vector (in place),
+    wrapping bit 31 through the sign bit."""
+    words_row[slot >> 5] |= np.uint32(1 << (slot & 31)).astype(np.int32)
+
+
+_MERGE_FILL = mtk.FILL
 _MAP_FILL = dict(present=False, value=0, vseq=-1, cleared_seq=-1)
 
 
-class KernelMergeHost:
-    """Batched device host for the map apply kernel."""
+class _MergePool:
+    """One device MergeState for channels in the same segment-size bucket.
 
-    def __init__(self, map_slots: int = 32, row_capacity: int = 8,
+    Bucketed ragged batching: a channel lives in the smallest pow2 bucket
+    that fits it and migrates up (host round-trip, rare — doubling) when
+    compaction can no longer make room. Each flush issues one tick per
+    dirty bucket. This flat pool serves snapshots that hold flat pools;
+    every pool the host creates itself is a :class:`_BlockMergePool`.
+    """
+
+    #: Per-field blank values of the state class and the trailing feature
+    #: axis the prop / overlap planes grow on.
+    _FILL = _MERGE_FILL
+    _FEATURE_AXIS = 2
+
+    def __init__(self, slots: int, num_props: int, row_capacity: int = 8,
+                 overlap_words: int = 1,
+                 device: torch.device | None = None) -> None:
+        self.device = resolve_device(device)
+        self.slots = slots
+        self.num_props = num_props
+        self.overlap_words = max(1, overlap_words)
+        self.capacity = max(1, row_capacity)
+        self.state = self._make_state()
+        self.text = mtk.TextPool(self.capacity)
+        self.members: list[_MergeRow | None] = []
+        self.free: list[int] = []
+
+    def _make_state(self):
+        return mtk.init_state(self.capacity, self.slots, self.num_props,
+                              self.overlap_words, self.device)
+
+    @property
+    def client_capacity(self) -> int:
+        """Distinct writer slots the overlap planes can track."""
+        return mtk.OVERLAP_WORD_BITS * self.overlap_words
+
+    def alloc(self, mrow: _MergeRow) -> None:
+        if self.free:
+            row = self.free.pop()
+            self.members[row] = mrow
+        else:
+            row = len(self.members)
+            if row >= self.capacity:
+                self._grow_rows()
+            self.members.append(mrow)
+        mrow.pool, mrow.row = self, row
+
+    def release(self, row: int) -> None:
+        """Blank a device row (in place) and recycle its index."""
+        self.members[row] = None
+        for f in type(self.state)._fields:
+            getattr(self.state, f)[row] = self._FILL[f]
+        self.text.chunks[row] = []
+        self.text.used[row] = 0
+        self.free.append(row)
+
+    def _grow_rows(self) -> None:
+        old = self.capacity
+        self.capacity = old * 2
+        cls = type(self.state)
+        self.state = cls(**{f: _pad_axis(getattr(self.state, f), 0, old,
+                                         self._FILL[f])
+                            for f in cls._fields})
+        self.text.chunks += [[] for _ in range(old)]
+        self.text.used += [0] * old
+        # members stays shorter than capacity; alloc() grows it by append
+
+    def grow_props(self, need: int) -> None:
+        new = _next_pow2_width(self.num_props, need)
+        if new == self.num_props:
+            return
+        self.state = self.state._replace(prop_val=_pad_axis(
+            self.state.prop_val, self._FEATURE_AXIS, new - self.num_props, 0))
+        self.num_props = new
+
+    def grow_overlap(self, need_words: int) -> None:
+        """Widen the remover-bitmask planes (32 more writer slots per
+        word)."""
+        new = _next_pow2_width(self.overlap_words, need_words)
+        if new == self.overlap_words:
+            return
+        self.state = self.state._replace(rem_overlap=_pad_axis(
+            self.state.rem_overlap, self._FEATURE_AXIS,
+            new - self.overlap_words, 0))
+        self.overlap_words = new
+
+    def row_arrays(self, row: int) -> dict[str, np.ndarray]:
+        """Host copies of one row's planes (migration source)."""
+        return {f: _host(getattr(self.state, f)[row])
+                for f in mtk.MergeState._fields}
+
+    def write_row(self, row: int, arrays: dict[str, np.ndarray]) -> None:
+        """Install planes (padded by the caller) into a row."""
+        for f in mtk.MergeState._fields:
+            plane = getattr(self.state, f)
+            plane[row] = torch.as_tensor(np.asarray(arrays[f]),
+                                         dtype=plane.dtype)
+
+    # -- device dispatch / layout hooks (the block pool overrides them) ------
+
+    def apply(self, batch: mtk.MergeOpBatch):
+        return mtc.apply_tick_best(self.state, batch)
+
+    def compact_state(self, min_seq: np.ndarray, coalesce: bool = False):
+        return mtk.compact(self.state, torch.from_numpy(min_seq).to(
+            self.device), coalesce)
+
+    def margins(self) -> np.ndarray:
+        """Free slots per row (worst-case admission check input)."""
+        return mtk.capacity_margin(self.state)
+
+    def pre_tick(self, need: np.ndarray) -> bool:
+        """Layout maintenance before a tick (block pools rebalance)."""
+        return False
+
+    def take_overflow(self) -> np.ndarray | None:
+        """Per-row first-overflow op index of the last apply (block pools
+        only; None = the layout cannot overflow mid-tick)."""
+        return None
+
+    def materialize_row(self, row: int) -> str:
+        return mtk.materialize(self.state, self.text, row)
+
+    def set_pool_start(self, row: int, starts: np.ndarray) -> None:
+        """Install a repacked pool_start plane (flat document order)."""
+        self.state.pool_start[row] = torch.from_numpy(
+            np.asarray(starts, np.int32))
+
+
+_BLOCK_FILL = dict(length=0, ins_seq=0, ins_client=-1,
+                   rem_seq=int(mtk.NONE_SEQ), rem_client=-1,
+                   rem_overlap=0, pool_start=0, prop_val=0,
+                   blk_count=0, blk_live_len=0, blk_max_seq=0,
+                   blk_tomb=0, count=0)
+
+
+class _BlockMergePool(_MergePool):
+    """A bucket served by the block-structured table
+    (ops/mergetree_blocks.py) — the text serving path. Bucket capacity is
+    NB blocks × Bk slots; the host seams exchange FLAT document-order
+    arrays (gaps = block tails), so migration, scalar seeding and the text
+    repack are layout-agnostic.
+
+    Overflow contract: an op whose target block is full freezes its doc at
+    that op (atomic, first index reported); ``_flush_merge`` replays the
+    tail through the flat table and re-blocks. ``pre_tick`` rebalances any
+    row whose fullest block cannot absorb its tick (2 slots/op)."""
+
+    BK = 128  # blocks of 128 slots; buckets below 128 use one block
+    _FILL = _BLOCK_FILL
+    _FEATURE_AXIS = 3  # [B, NB, Bk, F] prop/overlap planes
+
+    def __init__(self, slots: int, num_props: int, row_capacity: int = 8,
+                 overlap_words: int = 1, block_slots: int | None = None,
+                 device: torch.device | None = None) -> None:
+        # ``block_slots`` overrides the default Bk — the geometry-autotune
+        # seam; snapshots record it so import_state re-blocks identically.
+        self.bk = min(block_slots or self.BK, slots)
+        self.nb = max(1, slots // self.bk)
+        #: pre_tick trigger telemetry: (flush gates seen, rebalances fired)
+        #: — the fire RATE is autotune_block_geometry's locality input.
+        self.pre_ticks = 0
+        self.rebalance_fires = 0
+        self.last_overflow: np.ndarray | None = None
+        super().__init__(slots, num_props, row_capacity, overlap_words,
+                         device)
+
+    def _make_state(self):
+        return mtb.init_state(self.capacity, self.nb, self.bk,
+                              self.num_props, self.overlap_words, self.device)
+
+    def row_arrays(self, row: int) -> dict[str, np.ndarray]:
+        """Flat document-order planes of one row (gaps masked to fills)."""
+        s = self.state
+        flat = self.nb * self.bk
+        bc = _host(s.blk_count[row])
+        valid = (np.arange(self.bk)[None, :] < bc[:, None]).reshape(-1)
+        out: dict[str, np.ndarray] = {"valid": valid,
+                                      "count": _host(s.count[row])}
+        for f in ("length", "ins_seq", "ins_client", "rem_seq",
+                  "rem_client", "pool_start"):
+            plane = _host(getattr(s, f)[row]).reshape(flat)
+            plane[~valid] = _MERGE_FILL[f]
+            out[f] = plane
+        for f in ("rem_overlap", "prop_val"):
+            plane = _host(getattr(s, f)[row]).reshape(flat, -1)
+            plane[~valid] = 0
+            out[f] = plane
+        return out
+
+    def write_row(self, row: int, arrays: dict[str, np.ndarray]) -> None:
+        blocked = mtb.host_block_row(arrays, self.nb, self.bk)
+        for f in mtb.BlockMergeState._fields:
+            getattr(self.state, f)[row] = torch.from_numpy(
+                np.asarray(blocked[f], np.int32))
+
+    def apply(self, batch: mtk.MergeOpBatch):
+        state, overflow = mtbc.apply_tick_blocks_best(self.state, batch)
+        self.last_overflow = overflow.cpu().numpy()
+        return state
+
+    def compact_state(self, min_seq: np.ndarray, coalesce: bool = False):
+        return mtb.rebalance(self.state, torch.from_numpy(min_seq).to(
+            self.device), coalesce)
+
+    def margins(self) -> np.ndarray:
+        return mtb.capacity_margin(self.state)
+
+    def pre_tick(self, need: np.ndarray) -> bool:
+        """Rebalance when any pending row's fullest block could not take
+        its whole tick (all ops landing in one block is the worst case).
+        The ladder (mtb.maybe_rebalance) spills overfull blocks into their
+        neighbours and only pays the full pack + redistribution when the
+        spill is infeasible. Returns whether the host trigger fired."""
+        self.pre_ticks += 1
+        fills = mtb.max_block_fill(self.state)
+        if not np.any(need + fills > self.bk):
+            return False
+        self.rebalance_fires += 1
+        min_seq = np.full(self.capacity, -1, np.int32)
+        for r in self.members:
+            if r is not None:
+                min_seq[r.row] = r.min_seq
+        # Chaos kill class "mid-rebalance": the layout is about to move.
+        faults.crashpoint("pool.mid_rebalance")
+        # The pow2-bucketed tick width keeps 2*kk + 2 >= need.
+        kk = _tick_k(int(need.max() - 2 + 1) // 2)
+        self.state = mtb.maybe_rebalance(
+            self.state, torch.from_numpy(min_seq).to(self.device), kk)
+        return True
+
+    def take_overflow(self) -> np.ndarray | None:
+        out = self.last_overflow
+        self.last_overflow = None
+        return out
+
+    def fire_rate(self) -> float:
+        """Observed rebalance fire rate (fires per flush gate) — the
+        head-concentration estimate geometry autotuning keys on."""
+        if not self.pre_ticks:
+            return 0.0
+        return self.rebalance_fires / self.pre_ticks
+
+    def retune(self, block_slots: int) -> None:
+        """Re-block the WHOLE pool to a new Bk (same total slots): pack
+        each row's occupied slots and redistribute uniformly over the new
+        [NB', Bk'] grid — a pure re-layout, deterministic in (state,
+        block_slots)."""
+        bk = min(block_slots, self.slots)
+        nb = max(1, self.slots // bk)
+        if nb * bk != self.slots:
+            raise ValueError(
+                f"block_slots {bk} does not divide pool slots "
+                f"{self.slots}")
+        if (nb, bk) == (self.nb, self.bk):
+            return
+        faults.crashpoint("pool.mid_retune")
+        packed = mtb.to_flat(self.state, slots=self.slots)
+        self.state = mtb.from_flat(packed, nb)
+        self.nb, self.bk = nb, bk
+        self.pre_ticks = 0
+        self.rebalance_fires = 0
+
+    def materialize_row(self, row: int) -> str:
+        return mtb.materialize(self.state, self.text, row)
+
+    def set_pool_start(self, row: int, starts: np.ndarray) -> None:
+        self.state.pool_start[row] = torch.from_numpy(
+            np.asarray(starts, np.int32).reshape(self.nb, self.bk))
+
+
+class KernelMergeHost:
+    """Batched device host for the merge-tree and map kernels."""
+
+    def __init__(self, merge_slots: int = 128, map_slots: int = 32,
+                 num_props: int = 4, row_capacity: int = 8,
                  flush_threshold: int = 256, metrics=None,
+                 seg_mesh=None, max_client_slots: int = 1024,
+                 megadoc_writer_threshold: int | None = None,
                  device: str | torch.device | None = None) -> None:
         from ..utils import MetricsRegistry
+        if seg_mesh is not None or megadoc_writer_threshold is not None:
+            raise NotImplementedError(_NOT_PORTED_MEGA)
         self.device = resolve_device(device)
         self.metrics = metrics if metrics is not None else MetricsRegistry()
+        self._row_capacity = max(1, row_capacity)
         self._map_capacity = max(1, row_capacity)
+        self._merge_slots = max(8, merge_slots)  # smallest bucket size
         self._map_slots = max(4, map_slots)
+        self._num_props = max(1, num_props)
         self.flush_threshold = flush_threshold
+        # Ceiling on distinct device-tracked writers per channel: the
+        # overlap planes grow on demand (32 slots/word) up to here; only
+        # beyond it does a channel route to the scalar path.
+        self.max_client_slots = max(mtk.OVERLAP_WORD_BITS,
+                                    max_client_slots)
+        # Merge channels live in pow2-bucketed pools; maps keep one state.
+        self._merge_pools: dict[int, _MergePool] = {}
         self._xstate = mk.init_state(self._map_capacity, self._map_slots,
                                      self.device)
+        self._merge_rows: dict[ChannelKey, _MergeRow] = {}
         self._map_rows: dict[ChannelKey, _MapRow] = {}
         # Map-row recycling (doc residency): released rows reissue before
         # the high-water counter grows the state — see release_map_row.
         self._free_map_rows: list[int] = []
         self._map_row_count = 0
-        # Shared value interning. Id 0 is reserved for "absent"/None; ids
-        # index _val_rev.
+        # Shared value interning (map values + annotate values). Id 0 is
+        # reserved for "absent"/None; ids index _val_rev.
         self._vals: dict[str, int] = {}
         self._val_rev: list[Any] = [None]
         self._pending_ops = 0
@@ -122,6 +505,67 @@ class KernelMergeHost:
         return vid
 
     # -- row allocation / growth -----------------------------------------------
+
+    def _pool_for(self, slots: int) -> _MergePool:
+        slots = max(_next_pow2(slots), self._merge_slots)
+        pool = self._merge_pools.get(slots)
+        if pool is None:
+            # The block-structured table IS the single-chip serving path.
+            pool = _BlockMergePool(slots, self._num_props,
+                                   self._row_capacity, device=self.device)
+            self._merge_pools[slots] = pool
+        return pool
+
+    def _merge_row(self, key: ChannelKey) -> _MergeRow:
+        state = self._merge_rows.get(key)
+        if state is None:
+            state = _MergeRow()
+            self._pool_for(self._merge_slots).alloc(state)
+            self._merge_rows[key] = state
+        return state
+
+    def _migrate_merge_row(self, mrow: _MergeRow, target_slots: int) -> None:
+        """Move a channel to a bigger bucket (its segment table no longer
+        fits even after compaction)."""
+        self._move_row(mrow, self._pool_for(target_slots))
+        self.stats["migrations"] += 1
+
+    def _move_row(self, mrow: _MergeRow, dst_pool: _MergePool) -> None:
+        """Relocate one channel's row between pools through the exact
+        packed-flat seam (row_arrays → write_row: block sources flatten to
+        document order, block destinations re-block). Pending ops ride
+        along — their encodings index the row's text pool, which moves
+        with the row."""
+        src_pool, src_row = mrow.pool, mrow.row
+        assert dst_pool is not src_pool
+        if src_pool.num_props > dst_pool.num_props:
+            dst_pool.grow_props(src_pool.num_props)
+        if src_pool.overlap_words > dst_pool.overlap_words:
+            dst_pool.grow_overlap(src_pool.overlap_words)
+        arrays = src_pool.row_arrays(src_row)
+        pad_s = dst_pool.slots - src_pool.slots
+        out: dict[str, np.ndarray] = {}
+        for f, a in arrays.items():
+            if f == "count":
+                out[f] = a
+            elif f == "prop_val":
+                out[f] = _np_pad(_np_pad(a, 0, pad_s, 0), 1,
+                                 dst_pool.num_props - a.shape[1], 0)
+            elif f == "rem_overlap":
+                out[f] = _np_pad(_np_pad(a, 0, pad_s, 0), 1,
+                                 dst_pool.overlap_words - a.shape[1], 0)
+            else:
+                out[f] = _np_pad(a, 0, pad_s, _MERGE_FILL[f])
+        dst_pool.alloc(mrow)
+        dst_pool.write_row(mrow.row, out)
+        dst_pool.text.chunks[mrow.row] = src_pool.text.chunks[src_row]
+        dst_pool.text.used[mrow.row] = src_pool.text.used[src_row]
+        src_pool.release(src_row)
+
+    def promote_merge_row(self, key: ChannelKey) -> None:
+        """Mega-doc promotion moves a row into a sequence-parallel pool;
+        not ported."""
+        raise NotImplementedError(_NOT_PORTED_MEGA)
 
     def _map_row(self, key: ChannelKey) -> _MapRow:
         state = self._map_rows.get(key)
@@ -168,8 +612,8 @@ class KernelMergeHost:
     # -- ingest ----------------------------------------------------------------
 
     def ingest(self, doc_id: str, message: SequencedDocumentMessage) -> None:
-        """Feed one sequenced message. Non-channel-ops are ignored; map
-        channel ops are routed to their device rows. Text, matrix and tree
+        """Feed one sequenced message. Non-channel-ops are ignored; merge and
+        map channel ops are routed to their device rows. Matrix and tree
         ops raise ``NotImplementedError`` (not ported yet)."""
         if message.type != MessageType.OPERATION:
             return
@@ -191,13 +635,152 @@ class KernelMergeHost:
             raise NotImplementedError(
                 "tree channel ops are not ported to the torch merge host")
         if kind in _MERGE_OPS:
-            raise NotImplementedError(
-                "text (merge-tree) channel ops are not ported to the torch "
-                "merge host")
-        if kind in _MAP_OPS:
+            self._ingest_merge(key, channel_op, message)
+        elif kind in _MAP_OPS:
             self._ingest_map(key, channel_op, message)
         if self._pending_ops >= self.flush_threshold:
             self.flush()
+
+    def _ingest_merge(self, key: ChannelKey, channel_op: dict,
+                      message: SequencedDocumentMessage) -> None:
+        row = self._merge_row(key)
+        seq = message.sequence_number
+        if seq <= row.last_seq:
+            return  # bus replay
+        row.last_seq = seq
+        row.min_seq = message.minimum_sequence_number
+        ref_seq = message.reference_sequence_number
+        client = message.client_id
+        subops = (channel_op["ops"] if channel_op["type"] == "group"
+                  else [channel_op])
+        if row.scalar is not None:
+            # Scalar-served: the engine is the state now; no log needed.
+            for op in subops:
+                row.scalar.apply_remote(op, seq, ref_seq, client)
+            # The window advances here too: tombstones compact and the
+            # live writer set can shrink back under the device bitmask —
+            # the readmission check at flush watches for that.
+            row.scalar.update_min_seq(message.minimum_sequence_number)
+            self.stats["scalar_ops"] += len(subops)
+            return
+        for op in subops:
+            row.raw_log.append((op, seq, ref_seq, client))
+        if (client not in row.client_slots
+                and len(row.client_slots) >= self.max_client_slots):
+            self._route_to_scalar(key, row)
+            self.stats["scalar_ops"] += len(subops)
+            return
+        slot = row.client_slots.setdefault(client, len(row.client_slots))
+        if slot >= row.pool.client_capacity:
+            row.pool.grow_overlap(mtk.overlap_words_for(slot + 1))
+        for op in subops:
+            base = dict(seq=seq, ref_seq=ref_seq, client=slot)
+            if op["type"] == "insert":
+                if "text" in op:
+                    text = op["text"]
+                elif "items" in op:
+                    # Item-vector insert: one placeholder char per item
+                    # keeps later position-based ops resolving against the
+                    # right visible lengths; payloads are opaque here.
+                    text = _MARKER_CHAR * len(op["items"])
+                else:
+                    text = _MARKER_CHAR
+                enc = dict(base, kind=mtk.MT_INSERT, pos=op["pos"],
+                           pool_start=row.pool.text.append(row.row, text),
+                           text_len=len(text))
+                row.pending.append(enc)
+                self._pending_ops += 1
+                # An insert may also carry initial props; they apply to the
+                # fresh segment only, which at this seq is exactly the
+                # inserted range.
+                if op.get("props"):
+                    self._encode_annotates(
+                        row, base, op["pos"], op["pos"] + len(text),
+                        op["props"])
+            elif op["type"] == "remove":
+                row.pending.append(dict(base, kind=mtk.MT_REMOVE,
+                                        pos=op["start"], end=op["end"]))
+                self._pending_ops += 1
+            else:  # annotate
+                self._encode_annotates(row, base, op["start"], op["end"],
+                                       op["props"])
+
+    def _encode_annotates(self, row: _MergeRow, base: dict, start: int,
+                          end: int, props: dict) -> None:
+        for prop_key, value in sorted(props.items()):
+            kslot = row.key_slots.setdefault(prop_key, len(row.key_slots))
+            row.pending.append(dict(base, kind=mtk.MT_ANNOTATE, pos=start,
+                                    end=end, prop_key=kslot,
+                                    prop_val=self._intern(value)))
+            self._pending_ops += 1
+
+    def _seed_merge_engine(self, row: _MergeRow) -> MergeEngine:
+        """Exact scalar twin of a device merge row: every table slot —
+        live AND tombstoned-in-window — becomes a Segment with its insert
+        seq/client, removal seq/client/overlap set and props."""
+        arrays = row.pool.row_arrays(row.row)
+        buffer = row.pool.text.buffer(row.row)
+        slot_rev = {s: c for c, s in row.client_slots.items()}
+        key_rev = {s: k for k, s in row.key_slots.items()}
+        engine = MergeEngine(local_client=None)
+        engine.current_seq = row.applied_seq
+        engine.min_seq = row.applied_min_seq
+        none_seq = int(mtk.NONE_SEQ)
+        for i in range(arrays["valid"].shape[0]):
+            if not arrays["valid"][i]:
+                continue
+            length = int(arrays["length"][i])
+            if length == 0:
+                continue  # transient zero-length slot: nothing to carry
+            start = int(arrays["pool_start"][i])
+            text = buffer[start:start + length]
+            if text == _MARKER_CHAR * length:
+                # Marker / item-run segment: a non-str content keeps
+                # text() from serving NULs; placeholders keep the length.
+                content: Any = Marker() if length == 1 \
+                    else tuple([None] * length)
+            else:
+                content = text
+            rem_seq = int(arrays["rem_seq"][i])
+            overlap = {slot_rev[s]
+                       for s in _overlap_slots(arrays["rem_overlap"][i])
+                       if s in slot_rev}
+            props = {key_rev[p]: self._val_rev[int(arrays["prop_val"][i, p])]
+                     for p in range(arrays["prop_val"].shape[1])
+                     if int(arrays["prop_val"][i, p]) and p in key_rev}
+            engine.segments.append(Segment(
+                content=content,
+                seq=int(arrays["ins_seq"][i]),
+                client=slot_rev.get(int(arrays["ins_client"][i])),
+                removed_seq=None if rem_seq == none_seq else rem_seq,
+                removed_client=slot_rev.get(int(arrays["rem_client"][i])),
+                removed_overlap=overlap,
+                props=props or None,
+            ))
+        return engine
+
+    def _route_to_scalar(self, key: ChannelKey, row: _MergeRow) -> None:
+        """Client-slot bitmask exhausted: seed the scalar engine from the
+        device row (exact, O(row)) and replay only the unapplied tail."""
+        engine = self._seed_merge_engine(row)
+        for op, seq, ref_seq, client in row.raw_log:
+            engine.apply_remote(op, seq, ref_seq, client)
+        self._pending_ops -= len(row.pending)
+        self.stats["overflow_routed"] += 1
+        self._demote_row_to_scalar(row, engine)
+
+    def _demote_row_to_scalar(self, row: _MergeRow, engine) -> None:
+        """Shared tail of the device→scalar escapes (slot overflow and
+        per-row quarantine): the engine becomes the channel state and the
+        device row is surrendered."""
+        row.scalar = engine
+        row.raw_log = []
+        row.pending = []
+        row.applied_seq = row.last_seq
+        row.applied_min_seq = row.min_seq
+        row.pool.release(row.row)
+        row.pool, row.row = None, -1
+        self._export_stats()
 
     def _ingest_map(self, key: ChannelKey, channel_op: dict,
                     message: SequencedDocumentMessage) -> None:
@@ -228,8 +811,8 @@ class KernelMergeHost:
     # -- flush (the device tick) ----------------------------------------------
 
     def scalar_fraction(self) -> float:
-        """Fraction of served channel ops that ran on a scalar fallback
-        instead of the device (0.0 here: every map op is device-served)."""
+        """Fraction of served channel ops that ran on the scalar fallback
+        instead of the device kernels. 0.0 = everything device-served."""
         total = self.stats["device_ops"] + self.stats["scalar_ops"]
         return self.stats["scalar_ops"] / total if total else 0.0
 
@@ -241,10 +824,12 @@ class KernelMergeHost:
             self.scalar_fraction())
 
     def flush(self) -> None:
-        """Apply every pending op: at most one ``apply_tick`` per kernel."""
+        """Apply every pending op: at most one tick per pool and kernel."""
         import time as _time
         self.metrics.gauge("merge_host.queue_depth").set(self._pending_ops)
         start = _time.perf_counter()
+        self._readmit_scalar_rows()
+        self._flush_merge()
         self._flush_map()
         if self._pending_ops:
             self.metrics.histogram("merge_host.tick_seconds").observe(
@@ -253,6 +838,368 @@ class KernelMergeHost:
                 self._pending_ops)
         self._export_stats()
         self._pending_ops = 0
+
+    def autotune_block_geometry(self, min_observations: int = 8,
+                                fire_threshold: float = 0.5,
+                                head_fraction: float | None = None
+                                ) -> dict:
+        """Per-bucket (NB, Bk) retune from OBSERVED op locality: a block
+        pool whose pre_tick rebalance trigger fired on >=
+        ``fire_threshold`` of its flush gates is serving a
+        head-concentrated stream — trade NB for a larger Bk (same total
+        slots) so the hot block absorbs several ticks per spill.
+        ``head_fraction`` overrides the observed rate. Returns
+        {bucket_slots: (nb, bk)} for the pools it re-blocked."""
+        retuned: dict[int, tuple[int, int]] = {}
+        for slots, pool in sorted(self._merge_pools.items()):
+            if not isinstance(pool, _BlockMergePool):
+                continue
+            if pool.pre_ticks < min_observations:
+                continue
+            rate = (pool.fire_rate() if head_fraction is None
+                    else head_fraction)
+            if rate < fire_threshold:
+                continue
+            # The SAME Bk-scaling rule as choose_block_geometry, under the
+            # pool constraint nb * bk == slots.
+            bk = min(mtb.bk_for_locality(32, rate), pool.slots)
+            if bk <= pool.bk or pool.slots % bk:
+                continue
+            pool.retune(bk)
+            self.stats["geometry_retunes"] += 1
+            self.metrics.counter("merge.geometry_retunes").inc()
+            retuned[slots] = (pool.nb, pool.bk)
+        return retuned
+
+    def _readmit_scalar_rows(self) -> None:
+        """A scalar-served merge channel whose writer set shrank back under
+        the device client bitmask re-encodes onto a device row."""
+        for key, row in self._merge_rows.items():
+            if row.scalar is None:
+                continue
+            if row.min_seq <= row.readmit_seen_min:
+                continue  # window unmoved since the last failed attempt
+            if not self._try_readmit_merge(key, row):
+                row.readmit_seen_min = row.min_seq
+
+    def _try_readmit_merge(self, key: ChannelKey, row: _MergeRow) -> bool:
+        engine = row.scalar
+        clients: set[str] = set()
+        for seg in engine.segments:
+            if seg.length == 0:
+                continue
+            if seg.client is not None:
+                clients.add(seg.client)
+            if seg.removed_client is not None:
+                clients.add(seg.removed_client)
+            clients.update(seg.removed_overlap)
+        # Hysteresis: readmit only with headroom below the ceiling, or a
+        # single fresh writer would bounce the channel straight back out.
+        if len(clients) > self.max_client_slots - 4:
+            return False
+        segments = [s for s in engine.segments if s.length > 0]
+        slot_of = {c: i for i, c in enumerate(sorted(clients))}
+        pool = self._pool_for(max(len(segments) * 2, self._merge_slots))
+        if clients:
+            pool.grow_overlap(mtk.overlap_words_for(len(clients)))
+        row.pool = None
+        pool.alloc(row)
+        key_slots: dict[str, int] = {}
+        for seg in segments:
+            for prop_key in (seg.props or {}):
+                key_slots.setdefault(prop_key, len(key_slots))
+        if len(key_slots) > pool.num_props:
+            pool.grow_props(len(key_slots))
+
+        s = pool.slots
+        extra_axis = {"prop_val": pool.num_props,
+                      "rem_overlap": pool.overlap_words}
+        arrays = {f: np.full(
+            (s, extra_axis[f]) if f in extra_axis else (s,),
+            _MERGE_FILL[f],
+            np.bool_ if f == "valid" else np.int32)
+            for f in mtk.MergeState._fields if f != "count"}
+        pool.text.chunks[row.row] = []
+        pool.text.used[row.row] = 0
+        for i, seg in enumerate(segments):
+            arrays["valid"][i] = True
+            arrays["length"][i] = seg.length
+            arrays["ins_seq"][i] = max(seg.seq, 0)  # baseline loads are 0
+            arrays["ins_client"][i] = slot_of.get(seg.client, -1)
+            if seg.removed_seq is not None:
+                arrays["rem_seq"][i] = seg.removed_seq
+                arrays["rem_client"][i] = slot_of.get(seg.removed_client, -1)
+                for overlap_client in seg.removed_overlap:
+                    _set_overlap_bit(arrays["rem_overlap"][i],
+                                     slot_of[overlap_client])
+            if isinstance(seg.content, str):
+                text = seg.content
+            else:  # Marker or handle/placeholder run
+                text = _MARKER_CHAR * seg.length
+            arrays["pool_start"][i] = pool.text.append(row.row, text)
+            for prop_key, value in (seg.props or {}).items():
+                arrays["prop_val"][i, key_slots[prop_key]] = \
+                    self._intern(value)
+        state_arrays = dict(arrays)
+        state_arrays["count"] = np.int32(len(segments))
+        pool.write_row(row.row, state_arrays)
+        row.client_slots = slot_of
+        row.key_slots = key_slots
+        row.scalar = None
+        row.raw_log = []
+        row.pending = []
+        row.applied_seq = row.last_seq
+        row.applied_min_seq = row.min_seq
+        self.stats["readmissions"] += 1
+        return True
+
+    def _flush_merge(self) -> None:
+        rows = [r for r in self._merge_rows.values() if r.pending]
+        if not rows:
+            return
+        # Capacity: each op can consume up to 2 fresh slots (split+place /
+        # split+split). Compact rows under pressure; rows that STILL don't
+        # fit migrate to the next bucket — only they pay for the growth.
+        for _ in range(32):  # bounded: each pass doubles the short rows
+            short_rows: list[tuple[_MergeRow, int]] = []
+            for pool, pool_rows in self._rows_by_pool(rows).items():
+                margins = pool.margins()
+                need = np.zeros(pool.capacity, np.int64)
+                for r in pool_rows:
+                    need[r.row] = 2 * len(r.pending) + 2
+                short = need > margins
+                if not short.any():
+                    continue
+                min_seq = np.full(pool.capacity, -1, np.int32)
+                for r in pool.members:
+                    if r is not None and short[r.row]:
+                        min_seq[r.row] = r.min_seq
+                pool.state = pool.compact_state(min_seq)
+                self.stats["compactions"] += 1
+                still = need > pool.margins()
+                if still.any():
+                    # Second chance before a bigger bucket: repack the
+                    # short rows' text pools so live document order is
+                    # pool-contiguous, then COALESCE adjacent acked runs.
+                    for r in pool_rows:
+                        if still[r.row]:
+                            self._repack_text_pool(r)
+                    pool.state = pool.compact_state(min_seq, coalesce=True)
+                    self.stats["compactions"] += 1
+                    still = need > pool.margins()
+                for r in pool_rows:
+                    if still[r.row]:
+                        short_rows.append((r, int(need[r.row])))
+            if not short_rows:
+                break
+            for r, n in short_rows:
+                live = int(r.pool.state.count[r.row])
+                self._migrate_merge_row(
+                    r, max(_next_pow2(live + n), r.pool.slots * 2))
+
+        # One tick per dirty bucket; prop planes grow per pool.
+        for pool, pool_rows in self._rows_by_pool(rows).items():
+            max_props = max(len(r.key_slots) for r in pool_rows)
+            if max_props > pool.num_props:
+                pool.grow_props(max_props)
+            k = _tick_k(max(len(r.pending) for r in pool_rows))
+            need = np.zeros(pool.capacity, np.int64)
+            for r in pool_rows:
+                need[r.row] = 2 * len(r.pending) + 2
+            if pool.pre_tick(need):
+                self.stats["rebalances"] += 1
+                self.metrics.counter("merge.rebalance_fires").inc()
+            per_doc = [[] for _ in range(pool.capacity)]
+            for r in pool_rows:
+                per_doc[r.row] = r.pending
+            batch = mtk.make_merge_op_batch(per_doc, pool.capacity, k,
+                                            pool.client_capacity,
+                                            self.device)
+            pool.state = pool.apply(batch)
+            overflow = pool.take_overflow()
+            if overflow is not None:
+                for r in pool_rows:
+                    idx = int(overflow[r.row])
+                    if idx == int(mtb.OVF_NONE):
+                        continue
+                    # Block full mid-tick: the device froze the row at op
+                    # ``idx``; replay the tail through the flat table and
+                    # re-block. A replay that FAILS quarantines only this
+                    # channel (scalar route) — one poisoned doc must never
+                    # abort the whole bucket's flush. A kernel that cannot
+                    # build, bind or launch is no per-row fault: it raises.
+                    src_pool, src_row = r.pool, r.row
+                    try:
+                        self._replay_block_overflow(r, r.pending[idx:])
+                    except _build.KernelError:
+                        raise
+                    except Exception as err:
+                        if r.pool is not src_pool or r.row != src_row:
+                            # Died mid-migration: the half-written
+                            # destination row is abandoned; the frozen
+                            # source row is still intact.
+                            r.pool.release(r.row)
+                            r.pool, r.row = src_pool, src_row
+                            src_pool.members[src_row] = r
+                        self._quarantine_merge_row(r, r.pending[idx:], err)
+            self.stats["device_ops"] += sum(
+                len(r.pending) for r in pool_rows)
+            for r in pool_rows:
+                if r.pool is None:
+                    continue  # quarantined above; already settled
+                r.pending = []
+                # The device row now reflects everything in raw_log; the
+                # tail resets so host memory per channel stays bounded.
+                r.raw_log = []
+                r.applied_seq = r.last_seq
+                r.applied_min_seq = r.min_seq
+                if r.pool.text.used[r.row] > r.repack_at:
+                    self._repack_text_pool(r)
+        self.stats["flushes"] += 1
+
+    def _replay_block_overflow(self, row: _MergeRow,
+                               rest: list[dict]) -> None:
+        """A block filled mid-tick: the device froze the row before op
+        ``rest[0]``. Pack the frozen table into a flat row, replay the tail
+        through the flat merge tick, and re-block — migrating to a bigger
+        bucket when the replayed table outgrows this one."""
+        pool = row.pool
+        arrays = pool.row_arrays(row.row)
+        order = np.flatnonzero(arrays["valid"])
+        n = len(order)
+        slots = _next_pow2(max(8, n + 2 * len(rest) + 2))
+        packed: dict[str, torch.Tensor] = {}
+        for f in mtk.MergeState._fields:
+            if f == "count":
+                continue
+            src = np.asarray(arrays[f])
+            dst = np.full((slots,) + src.shape[1:], _MERGE_FILL[f],
+                          np.bool_ if f == "valid" else np.int32)
+            dst[:n] = src[order]
+            packed[f] = torch.from_numpy(dst[None]).to(self.device)
+        state1 = mtk.MergeState(
+            count=torch.tensor([n], dtype=torch.int32, device=self.device),
+            **packed)
+        batch = mtk.make_merge_op_batch([rest], 1, _tick_k(len(rest)),
+                                        device=self.device)
+        state1 = mtc.apply_tick_best(state1, batch)
+        out = {f: _host(getattr(state1, f)[0])
+               for f in mtk.MergeState._fields}
+        if slots > pool.slots:
+            src_pool, src_row = pool, row.row
+            dst_pool = self._pool_for(slots)
+            if dst_pool.num_props < src_pool.num_props:
+                dst_pool.grow_props(src_pool.num_props)
+            if dst_pool.overlap_words < src_pool.overlap_words:
+                dst_pool.grow_overlap(src_pool.overlap_words)
+            out["prop_val"] = _np_pad(
+                out["prop_val"], 1,
+                dst_pool.num_props - out["prop_val"].shape[1], 0)
+            out["rem_overlap"] = _np_pad(
+                out["rem_overlap"], 1,
+                dst_pool.overlap_words - out["rem_overlap"].shape[1], 0)
+            dst_pool.alloc(row)
+            dst_pool.write_row(row.row, out)
+            dst_pool.text.chunks[row.row] = src_pool.text.chunks[src_row]
+            dst_pool.text.used[row.row] = src_pool.text.used[src_row]
+            src_pool.release(src_row)
+            self.stats["migrations"] += 1
+        else:
+            pool.write_row(row.row, out)
+        self.stats["block_overflow_replays"] += 1
+
+    def _decode_pending_op(self, row: _MergeRow, enc: dict,
+                           slot_rev: dict[int, str],
+                           key_rev: dict[int, str]
+                           ) -> tuple[dict, int, int, str | None]:
+        """Invert :meth:`_ingest_merge`'s encoding of one pending op back
+        to a (channel_op, seq, ref_seq, client) tuple the scalar engine
+        applies — the quarantine path's exact-tail replay input."""
+        client = slot_rev.get(enc["client"])
+        if enc["kind"] == mtk.MT_INSERT:
+            start = enc["pool_start"]
+            text = row.pool.text.buffer(row.row)[
+                start:start + enc["text_len"]]
+            op: dict[str, Any] = {"type": "insert", "pos": enc["pos"]}
+            if text and text == _MARKER_CHAR * len(text):
+                if len(text) == 1:
+                    op["marker"] = {"ref_type": "simple", "id": None}
+                else:
+                    op["items"] = [None] * len(text)
+            else:
+                op["text"] = text
+        elif enc["kind"] == mtk.MT_REMOVE:
+            op = {"type": "remove", "start": enc["pos"], "end": enc["end"]}
+        else:  # MT_ANNOTATE — one encoded op per (key, value)
+            op = {"type": "annotate", "start": enc["pos"],
+                  "end": enc["end"],
+                  "props": {key_rev[enc["prop_key"]]:
+                            self._val_rev[enc["prop_val"]]}}
+        return op, enc["seq"], enc["ref_seq"], client
+
+    def _quarantine_merge_row(self, row: _MergeRow, rest: list[dict],
+                              err: Exception) -> None:
+        """The per-doc escape hatch: a per-row tick failure — overflow
+        replay included, a :class:`~..ops._build.KernelError` not — seeds
+        the scalar engine from the frozen
+        last-good device table, replays the unapplied tail through it, and
+        serves the channel scalar from here on; the rest of the batch
+        never sees the failure. The channel readmits to the device through
+        :meth:`_readmit_scalar_rows` once its window compacts."""
+        self.metrics.counter("merge_host.quarantines").inc()
+        engine = self._seed_merge_engine(row)
+        slot_rev = {s: c for c, s in row.client_slots.items()}
+        key_rev = {s: k for k, s in row.key_slots.items()}
+        for enc in rest:
+            op, seq, ref_seq, client = self._decode_pending_op(
+                row, enc, slot_rev, key_rev)
+            engine.apply_remote(op, seq, ref_seq, client)
+        engine.update_min_seq(row.min_seq)
+        self.stats["quarantined_channels"] += 1
+        self._demote_row_to_scalar(row, engine)
+
+    def _repack_text_pool(self, row: _MergeRow) -> None:
+        """Zamboni for text bytes: rebuild the row's append-only pool from
+        the slices its table still references (tombstones included) in
+        TABLE order and rewrite the pool_start plane — after this,
+        adjacent document-order segments are pool-contiguous (the
+        coalescing zamboni's precondition). Pending insert ops' slices
+        migrate too and their op dicts are rewritten in place."""
+        pool = row.pool
+        arrays = pool.row_arrays(row.row)
+        buffer = pool.text.buffer(row.row)
+        starts = arrays["pool_start"].copy()
+        pieces: list[str] = []
+        used = 0
+        for i in range(arrays["valid"].shape[0]):
+            if not arrays["valid"][i] or arrays["length"][i] == 0:
+                continue
+            start = int(starts[i])
+            length = int(arrays["length"][i])
+            pieces.append(buffer[start:start + length])
+            starts[i] = used
+            used += length
+        for op in row.pending:
+            if op["kind"] == mtk.MT_INSERT and op["text_len"] > 0:
+                start = op["pool_start"]
+                pieces.append(buffer[start:start + op["text_len"]])
+                op["pool_start"] = used
+                used += op["text_len"]
+        pool.set_pool_start(row.row, starts)
+        pool.text.chunks[row.row] = pieces
+        pool.text.used[row.row] = used
+        # Back off if the row is legitimately large.
+        row.repack_at = max(_TEXT_REPACK_MIN, 3 * used)
+        self.stats["compactions"] += 1
+
+    @staticmethod
+    def _rows_by_pool(rows: list[_MergeRow]
+                      ) -> dict[_MergePool, list[_MergeRow]]:
+        grouped: dict[_MergePool, list[_MergeRow]] = {}
+        for r in rows:
+            if r.pending and r.pool is not None:
+                grouped.setdefault(r.pool, []).append(r)
+        return grouped
 
     def _flush_map(self) -> None:
         rows = [r for r in self._map_rows.values() if r.pending]
@@ -276,7 +1223,52 @@ class KernelMergeHost:
     # -- materialization -------------------------------------------------------
 
     def channels(self, doc_id: str) -> list[ChannelKey]:
-        return sorted(k for k in self._map_rows if k.doc_id == doc_id)
+        return sorted(
+            [k for k in self._merge_rows if k.doc_id == doc_id]
+            + [k for k in self._map_rows if k.doc_id == doc_id])
+
+    def text(self, doc_id: str, datastore: str, channel: str) -> str:
+        """Converged text of a string channel (markers stripped)."""
+        row = self._merge_rows[ChannelKey(doc_id, datastore, channel)]
+        if row.pending:
+            self.flush()
+        if row.scalar is not None:
+            return "".join(
+                seg.content for seg in row.scalar.segments
+                if seg.removed_seq is None and not seg.is_marker
+                and isinstance(seg.content, str))
+        return row.pool.materialize_row(row.row).replace(_MARKER_CHAR, "")
+
+    def rich_text(self, doc_id: str, datastore: str,
+                  channel: str) -> list[tuple[str, dict | None]]:
+        """(text, props) runs of a string channel, markers as ("\\x00", …)."""
+        row = self._merge_rows[ChannelKey(doc_id, datastore, channel)]
+        if row.pending:
+            self.flush()
+        if row.scalar is not None:
+            return [(seg.content if isinstance(seg.content, str)
+                     else _MARKER_CHAR,
+                     dict(seg.props) if seg.props else None)
+                    for seg in row.scalar.segments
+                    if seg.removed_seq is None and seg.length > 0]
+        key_rev = {slot: name for name, slot in row.key_slots.items()}
+        arrays = row.pool.row_arrays(row.row)
+        valid = arrays["valid"]
+        length = arrays["length"]
+        rem = arrays["rem_seq"]
+        start = arrays["pool_start"]
+        pvals = arrays["prop_val"]
+        buffer = row.pool.text.buffer(row.row)
+        out = []
+        for i in range(valid.shape[0]):
+            if not (valid[i] and rem[i] == mtk.NONE_SEQ and length[i] > 0):
+                continue
+            props = {key_rev[p]: self._val_rev[pvals[i, p]]
+                     for p in range(pvals.shape[1])
+                     if pvals[i, p] != 0 and p in key_rev}
+            out.append((buffer[start[i]:start[i] + length[i]],
+                        props or None))
+        return out
 
     def map_entries(self, doc_id: str, datastore: str,
                     channel: str) -> dict[str, Any]:
@@ -295,28 +1287,73 @@ class KernelMergeHost:
                 for name, slot in row.key_slots.items() if present[slot]}
 
     def summarize(self, doc_id: str) -> dict:
-        """Materialize every tracked map channel of a document."""
+        """Materialize every tracked channel of a document."""
         self.flush()
         datastores: dict[str, dict] = {}
         for key in self.channels(doc_id):
-            datastores.setdefault(key.datastore, {})[key.channel] = {
-                "kind": "map", "entries": self.map_entries(*key)}
-        seqs = [r.last_seq for k, r in self._map_rows.items()
+            channels = datastores.setdefault(key.datastore, {})
+            if key in self._merge_rows:
+                channels[key.channel] = {"kind": "mergeTree",
+                                         "content": self.rich_text(*key)}
+            else:
+                channels[key.channel] = {"kind": "map",
+                                         "entries": self.map_entries(*key)}
+        seqs = [r.last_seq for k, r in self._merge_rows.items()
                 if k.doc_id == doc_id]
+        seqs += [r.last_seq for k, r in self._map_rows.items()
+                 if k.doc_id == doc_id]
         return {"datastores": datastores,
                 "sequence_number": max(seqs, default=0)}
 
     # -- snapshot / restore (device-pool checkpoint) ---------------------------
     #
-    # export_state() captures the map planes plus the host-side string/slot
-    # mappings in the reference's wire format (same keys, same byte
-    # packing: bool planes stay bool); the text, matrix and tree sections
-    # are empty until those families are ported.
+    # export_state() captures every device plane plus the host-side
+    # string/slot mappings in the reference's wire format (same keys, same
+    # byte packing: bool planes stay bool), so either package's host
+    # imports the other's snapshot. Matrix and tree channels are not
+    # ported: their sections stay empty here and refuse on import.
 
     def export_state(self) -> dict:
-        """Wire-serializable checkpoint of the map state + host maps.
-        Flushes first so no pending tails need serializing."""
+        """Wire-serializable checkpoint of all device pools + host maps.
+        Flushes first so no pending/raw tails need serializing."""
         self.flush()
+        pools = []
+        pool_index: dict[int, int] = {}
+        for _slots, pool in sorted(self._merge_pools.items()):
+            kind = "block" if isinstance(pool, _BlockMergePool) else "flat"
+            pool_index[id(pool)] = len(pools)
+            pools.append({
+                "kind": kind, "mega": False, "slots": pool.slots,
+                "num_props": pool.num_props,
+                "overlap_words": pool.overlap_words,
+                "capacity": pool.capacity,
+                **({"block_geometry": [pool.nb, pool.bk]}
+                   if kind == "block" else {}),
+                "planes": {f: _nd_pack(getattr(pool.state, f).cpu().numpy())
+                           for f in type(pool.state)._fields},
+                "text": [pool.text.buffer(r) for r in range(pool.capacity)],
+                "text_used": list(pool.text.used),
+                "free": list(pool.free),
+                "n_members": len(pool.members),
+            })
+        merge_rows = []
+        for key, r in self._merge_rows.items():
+            assert not r.pending and not r.raw_log, (
+                "export_state after flush() found pending ops")
+            merge_rows.append({
+                "key": list(key),
+                "pool": (pool_index[id(r.pool)]
+                         if r.pool is not None else None),
+                "row": r.row,
+                "client_slots": r.client_slots,
+                "key_slots": r.key_slots,
+                "min_seq": r.min_seq, "last_seq": r.last_seq,
+                "applied_seq": r.applied_seq,
+                "applied_min_seq": r.applied_min_seq,
+                "repack_at": r.repack_at,
+                "scalar": (_dump_engine(r.scalar)
+                           if r.scalar is not None else None),
+            })
         map_rows = [{
             "key": list(key), "row": r.row, "key_slots": r.key_slots,
             "last_seq": r.last_seq, "literal": r.literal_values,
@@ -324,8 +1361,8 @@ class KernelMergeHost:
         return {
             "version": 1,
             "vals": list(self._val_rev),
-            "merge_pools": [],
-            "merge_rows": [],
+            "merge_pools": pools,
+            "merge_rows": merge_rows,
             "map": {
                 "capacity": self._map_capacity, "slots": self._map_slots,
                 "planes": {f: _nd_pack(getattr(self._xstate, f).cpu().numpy())
@@ -338,21 +1375,66 @@ class KernelMergeHost:
         }
 
     def import_state(self, snap: dict) -> None:
-        """Rebuild a FRESH host from :meth:`export_state` output."""
-        assert not self._map_rows, "import_state needs a fresh host"
+        """Rebuild a FRESH host from :meth:`export_state` output (of either
+        package)."""
+        assert not (self._map_rows or self._merge_rows), \
+            "import_state needs a fresh host"
         if snap.get("version") != 1:
             raise ValueError(f"unknown snapshot version {snap.get('version')}")
-        for section in ("merge_pools", "merge_rows", "tree_keys"):
-            if snap.get(section):
-                raise NotImplementedError(
-                    f"snapshot section {section!r} needs a family not "
-                    "ported to the torch merge host")
+        if snap.get("tree_keys"):
+            raise NotImplementedError(
+                "snapshot names tree channels; tree is not ported yet")
         if snap.get("matrix") is not None:
             raise NotImplementedError(
                 "snapshot holds matrix state; matrix is not ported yet")
         self._val_rev = list(snap["vals"])
         self._vals = {repr(v): i for i, v in enumerate(self._val_rev)
                       if i != 0}
+
+        pools: list[_MergePool] = []
+        for p in snap["merge_pools"]:
+            if p["kind"] == "block":
+                geom = p.get("block_geometry")
+                pool: _MergePool = _BlockMergePool(
+                    p["slots"], p["num_props"], p["capacity"],
+                    p["overlap_words"], block_slots=geom[1] if geom else None,
+                    device=self.device)
+            elif p["kind"] == "flat":
+                pool = _MergePool(p["slots"], p["num_props"], p["capacity"],
+                                  p["overlap_words"], device=self.device)
+            else:
+                raise NotImplementedError(_NOT_PORTED_MEGA)
+            cls = type(pool.state)
+            pool.state = cls(**{
+                f: torch.from_numpy(_nd_unpack(p["planes"][f])).to(
+                    self.device) for f in cls._fields})
+            pool.text = mtk.TextPool(p["capacity"])
+            for r, text in enumerate(p["text"]):
+                if text:
+                    pool.text.chunks[r] = [text]
+            pool.text.used = list(p["text_used"])
+            pool.free = list(p["free"])
+            pool.members = [None] * p["n_members"]
+            self._merge_pools[p["slots"]] = pool
+            pools.append(pool)
+
+        for rec in snap["merge_rows"]:
+            r = _MergeRow()
+            r.client_slots = dict(rec["client_slots"])
+            r.key_slots = dict(rec["key_slots"])
+            r.min_seq, r.last_seq = rec["min_seq"], rec["last_seq"]
+            r.applied_seq = rec["applied_seq"]
+            r.applied_min_seq = rec["applied_min_seq"]
+            r.repack_at = rec["repack_at"]
+            if rec["scalar"] is not None:
+                r.scalar = _load_engine(rec["scalar"])
+                r.pool, r.row = None, -1
+            else:
+                r.pool = pools[rec["pool"]]
+                r.row = rec["row"]
+                r.pool.members[r.row] = r
+            self._merge_rows[ChannelKey(*rec["key"])] = r
+
         m = snap["map"]
         self._map_capacity, self._map_slots = m["capacity"], m["slots"]
         self._xstate = mk.MapState(**{
@@ -384,6 +1466,56 @@ def _nd_unpack(d: dict) -> np.ndarray:
     import base64
     return np.frombuffer(base64.b64decode(d["b"]),
                          np.dtype(d["d"])).reshape(d["s"]).copy()
+
+
+def _dump_content(content) -> Any:
+    if isinstance(content, str):
+        return content
+    if isinstance(content, Marker):
+        return {"marker": [content.ref_type, content.id]}
+    return {"items": list(content)}  # handle / item run
+
+
+def _load_content(data) -> Any:
+    if isinstance(data, str):
+        return data
+    if "marker" in data:
+        return Marker(ref_type=data["marker"][0], id=data["marker"][1])
+    return tuple(data["items"])
+
+
+def _dump_engine(engine: MergeEngine) -> dict:
+    """Serialize a server-side scalar engine (remote ops only, so no
+    local pending state)."""
+    return {
+        "current_seq": engine.current_seq,
+        "min_seq": engine.min_seq,
+        "segments": [{
+            "content": _dump_content(seg.content),
+            "seq": seg.seq,
+            "client": seg.client,
+            "removed_seq": seg.removed_seq,
+            "removed_client": seg.removed_client,
+            "removed_overlap": sorted(seg.removed_overlap),
+            "props": seg.props,
+        } for seg in engine.segments],
+    }
+
+
+def _load_engine(data: dict) -> MergeEngine:
+    engine = MergeEngine(local_client=None)
+    engine.current_seq = data["current_seq"]
+    engine.min_seq = data["min_seq"]
+    for s in data["segments"]:
+        engine.segments.append(Segment(
+            content=_load_content(s["content"]),
+            seq=s["seq"], client=s["client"],
+            removed_seq=s["removed_seq"],
+            removed_client=s["removed_client"],
+            removed_overlap=set(s["removed_overlap"]),
+            props=dict(s["props"]) if s["props"] else None,
+        ))
+    return engine
 
 
 __all__ = ["ChannelKey", "KernelMergeHost"]

@@ -27,11 +27,13 @@ already seen come back OUT_IGNORED (deli/lambda.ts:257).
 
 Scope of this port: the WAL-less mode (``durability="none"`` with no
 ``spill_dir``), pipeline depths 0 and 1, single- and
-multi-tenant composition. The disk WAL, snapshot checkpoint/recover,
-per-doc quarantine/readmit and the mega-doc, residency, history,
-replication and placement planes are not ported: the controller raises
-``NotImplementedError`` when asked for them, and a tripped device
-sentinel (which the reference answers with a quarantine) raises.
+multi-tenant composition, and the per-doc quarantine freeze: a doc whose
+device sentinel trips is frozen alone while its batch peers keep
+serving. The disk WAL, snapshot checkpoint/recover, the quarantine's
+read and readmit halves (they need the durable records and a snapshot
+store) and the mega-doc, residency, history, replication and placement
+planes are not ported: the controller raises ``NotImplementedError``
+when asked for them.
 """
 
 from __future__ import annotations
@@ -308,9 +310,10 @@ class StormController:
                                    registry=merge_host.metrics)
         self.tick_slot_budget = tick_slot_budget
         self.qos_borrow_fraction = qos_borrow_fraction
+        #: Frozen docs: doc -> {"reason", "tick"} (see _quarantine_doc).
+        self.quarantined: dict[str, dict] = {}
         # Planes of the reference controller that are not ported; kept as
         # None so code that probes them (routerlicious) sees them absent.
-        self.quarantined: dict[str, dict] = {}
         self.residency = None
         self.megadoc = None
         self.history = None
@@ -440,8 +443,19 @@ class StormController:
     def _admit(self, push, header: dict, docs: list, n_ops: int,
                tenant_id: str, client_id: str | None) -> float | None:
         """Shed checks for one validated frame, in deterministic order:
-        bounded queue, token buckets. A refusal pushes ONE busy-nack with
-        ``retry_after_s`` and returns the hint; None admits."""
+        quarantine, bounded queue, token buckets. A refusal pushes ONE
+        busy-nack with ``retry_after_s`` and returns the hint; None
+        admits."""
+        qdocs = [d for d, *_ in docs if d in self.quarantined]
+        if qdocs:
+            # The WHOLE frame is refused (acks are positional per frame,
+            # so it cannot be split): "docs" lists everything dropped,
+            # "quarantined" the offending subset — the client resubmits
+            # the healthy docs in their own frame immediately.
+            return self._shed(push, header, n_ops, "quarantined",
+                              self.busy_retry_s,
+                              docs=[d for d, *_ in docs],
+                              quarantined=qdocs)
         if self.max_pending_docs is not None:
             n = len(docs)
             cap = self.qos.pending_cap(tenant_id, self.max_pending_docs)
@@ -470,6 +484,7 @@ class StormController:
 
     def _shed(self, push, header: dict, n_ops: int, code: str,
               retry_after_s: float, docs: list | None = None,
+              quarantined: list | None = None,
               retryable: bool = True,
               tenant: str | None = None) -> float:
         self.stats["shed_frames"] += 1
@@ -484,6 +499,8 @@ class StormController:
                     "retry_after_s": retry_after_s}
             if docs:
                 nack["docs"] = docs  # EVERY doc whose ops were dropped
+            if quarantined:
+                nack["quarantined"] = quarantined
             push(nack)
         return retry_after_s
 
@@ -786,14 +803,8 @@ class StormController:
         ls_l = ack_rows[:, 2].tolist()
         m_l = ack_rows[:, 3].tolist()
         bad_rows = bad[map_rows]
-        if bad_rows.any():
-            # The reference quarantines sentinel-tripped docs; quarantine
-            # is not ported, so an invariant violation stops serving.
-            tripped = [rec["descs"][i][0]
-                       for i in np.flatnonzero(bad_rows).tolist()]
-            raise RuntimeError(
-                f"storm sentinel tripped for docs {tripped[:8]} (map row "
-                "drift/corruption); per-doc quarantine is not ported")
+        any_bad = bool(bad_rows.any())
+        bad_l = bad_rows.tolist()
         for frame, _i0, _i1 in rec["acks"]:
             if frame.trace is not None:
                 self.tracer.mark(frame.trace, "sequenced", t_readback)
@@ -833,7 +844,11 @@ class StormController:
                     while keep < len(dt) and dt[keep][2] < horizon:
                         keep += 1
                     del dt[:keep]
+            # Telemetry for the quarantine blast-radius invariant:
+            # batch peers of a quarantined doc lose zero ticks.
             doc_tick_counts[doc] = doc_tick_counts.get(doc, 0) + 1
+            if any_bad and bad_l[i] and doc not in self.quarantined:
+                self._quarantine_doc(doc, "sentinel", tick_id)
             # broadcaster: compact tick frame into the pub/sub hop.
             if pubs is not None:
                 pubs.append((doc, b"\x00storm%d:%d:%d" % (fs, ls, m)))
@@ -897,7 +912,16 @@ class StormController:
         for frame, i0, i1 in rec["acks"]:
             if frame.push is None:
                 continue
-            acks.append((frame, StormAck(frame.rid, ack_rows[i0:i1])))
+            payload = StormAck(frame.rid, ack_rows[i0:i1])
+            if any_bad and bad_rows[i0:i1].any():
+                # The tick's sequencing is correct (the ticket is exact;
+                # the poison is in the served planes) — the ack stands,
+                # but the client learns its doc is frozen: further
+                # submits nack until readmission.
+                payload["quarantined"] = [
+                    rec["descs"][i][0] for i in range(i0, i1) if bad_l[i]]
+                payload["retry_after_s"] = self.busy_retry_s
+            acks.append((frame, payload))
         t_harvest_done = time.monotonic_ns()
         stage_ns["ack_pack"] += t_harvest_done - t_ack0
         start_ns = rec.get("start_ns", t_harvest_done)
@@ -921,6 +945,58 @@ class StormController:
                 self.qos.observe_ack(frame.tenant,
                                      (t_ack_tx - frame.t0) / 1e9)
             frame.push(payload)
+
+    # -- per-doc quarantine ----------------------------------------------------
+    #
+    # One poisoned document must never take its batch down. Detection is
+    # the device sentinel in _storm_tick (vseq drift / negative planes);
+    # _quarantine_doc freezes ONLY the flagged doc: buffered frames
+    # touching it nack retryable and new submits shed at _admit, while
+    # every other row keeps full-rate serving.
+
+    def _quarantine_doc(self, doc_id: str, reason: str,
+                        tick_id: int) -> None:
+        self.quarantined[doc_id] = {"reason": reason, "tick": tick_id}
+        self.stats["quarantined_docs"] += 1
+        self.merge_host.metrics.counter("storm.quarantines").inc()
+        # Nack every BUFFERED frame touching the doc with a retryable
+        # code; a frame sharing it is dropped whole (acks are positional
+        # per frame) with every dropped doc listed. Frames not touching
+        # the doc stay queued.
+        kept: list[_Frame] = []
+        for frame in self._frames:
+            if not any(d == doc_id for d, *_ in frame.docs):
+                kept.append(frame)
+                continue
+            self._pending_docs -= len(frame.docs)
+            # Refund the shed frame's staged ledger ns and trace slot: a
+            # tick that never served it must not inherit its attribution.
+            self._staged_ns["ingress_decode"] -= frame.staged_ns[0]
+            self._staged_ns["admission"] -= frame.staged_ns[1]
+            if frame.trace is not None:
+                self._traced_pending = max(0, self._traced_pending - 1)
+            self._shed(frame.push, {"rid": frame.rid},
+                       sum(n for *_, n in frame.docs), "quarantined",
+                       self.busy_retry_s,
+                       docs=[d for d, *_ in frame.docs],
+                       quarantined=[doc_id], tenant=frame.tenant)
+        self._frames = kept
+        self.qos.reset_pending(self._frames)
+
+    def quarantined_map_entries(self, doc_id: str) -> dict:
+        """Serving a frozen doc's map by folding its durable records needs
+        the storm WAL, which is not ported (ROADMAP Queue A 6)."""
+        raise NotImplementedError(
+            "quarantined_map_entries needs the storm WAL's durable records "
+            "(not ported; ROADMAP Queue A 6)")
+
+    def readmit_doc(self, doc_id: str, verify: bool = True) -> dict:
+        """Rebuilding a frozen doc from the snapshot head and its WAL tail
+        needs the storm WAL and a snapshot store, which are not ported
+        (ROADMAP Queue A 6)."""
+        raise NotImplementedError(
+            "readmit_doc needs the storm WAL and a snapshot store (not "
+            "ported; ROADMAP Queue A 6)")
 
     # -- read path -------------------------------------------------------------
 

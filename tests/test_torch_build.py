@@ -1,13 +1,15 @@
 """The CUDA build and binding contracts that hold without a card.
 
-The deli kernel's launcher reads a flat array of pointers; the order is
-written once in ``csrc/sequencer_tick.cu`` (``sequencer_tick_layout`` and
-the assignments in ``sequencer_tick_launch``) and once in the binding
-(``sequencer_cuda.LAYOUT``, from the NamedTuple fields). These tests read
-the source so a reordering on either side fails here, not on the card.
+The deli and merge-tick launchers read a flat array of pointers; the
+order is written once in the ``.cu`` (its ``*_layout`` string and the
+assignments in its launcher) and once in the binding (``LAYOUT``, from
+the NamedTuple fields). These tests read the sources so a reordering on
+either side fails here, not on the card.
 """
 
 import re
+
+import pytest
 
 from fluidframework_tpu_torch.ops import _build
 from fluidframework_tpu_torch.ops import sequencer_cuda as seqc
@@ -40,3 +42,109 @@ def test_library_name_tracks_source_flags_and_compiler(monkeypatch):
     assert _build._paths("sequencer_tick")[1] != lib
     monkeypatch.setattr(_build, "nvcc_path", lambda: "/other/bin/nvcc")
     assert _build._paths("sequencer_tick")[1] != lib
+
+
+MERGE_KERNELS = [("mergetree_flat", "mergetree_cuda"),
+                 ("mergetree_blocks", "mergetree_blocks_cuda")]
+
+
+@pytest.mark.parametrize("source,binding", MERGE_KERNELS)
+def test_merge_kernel_layouts_match_bindings(source, binding):
+    """Both merge tick launchers read their pointer array in the order
+    their layout string names, and that order is the binding's."""
+    import importlib
+
+    src = (_build.CSRC / f"{source}.cu").read_text()
+    body = re.search(source + r"_layout\(\)\s*\{\s*return(.*?);", src,
+                     re.S).group(1)
+    layout = tuple("".join(re.findall(r'"([^"]*)"', body)).split(","))
+    mod = importlib.import_module(f"fluidframework_tpu_torch.ops.{binding}")
+    assert layout == mod.LAYOUT
+    reads = re.findall(r"a\.(\w+) = \([^)]*\)p\[(\d+)\];", src)
+    assert [int(i) for _, i in reads] == list(range(len(mod.LAYOUT)))
+    assert tuple(name for name, _ in reads) == mod.LAYOUT
+
+
+def test_library_name_tracks_the_shared_header(monkeypatch, tmp_path):
+    """A change to csrc/merge_apply.cuh rebuilds the kernels that include
+    it."""
+    monkeypatch.setattr(_build, "nvcc_path", lambda: "/cuda/bin/nvcc")
+    lib = _build._paths("mergetree_flat")[1]
+    for f in _build.CSRC.iterdir():
+        (tmp_path / f.name).write_bytes(f.read_bytes())
+    (tmp_path / "merge_apply.cuh").write_text("// changed\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    assert _build._paths("mergetree_flat")[1] != lib
+
+
+class _FakeLauncher:
+    argtypes = None
+    restype = None
+
+
+class _FakeLib:
+    """A loaded library whose launcher ``fake_launch`` reads its pointers
+    in the order ``order``."""
+
+    def __init__(self, order: str) -> None:
+        self.fake_launch = _FakeLauncher()
+        self.fake_layout = lambda: order.encode()
+
+
+@pytest.mark.parametrize("order,ok", [("a,b,c", True), ("a,c,b", False),
+                                      ("a,b", False)])
+def test_bind_checks_the_launchers_layout(monkeypatch, order, ok):
+    lib = _FakeLib(order)
+    monkeypatch.setattr(_build, "load", lambda name: lib)
+    args = _build.pointer_args(2)
+    if ok:
+        assert _build.bind("fake", args, ("a", "b", "c")) is lib.fake_launch
+        assert lib.fake_launch.argtypes == args
+    else:
+        with pytest.raises(_build.KernelError, match="reads its pointers"):
+            _build.bind("fake", args, ("a", "b", "c"))
+        assert lib.fake_launch.argtypes is None
+
+
+def test_a_library_that_does_not_load_raises_kernel_error(monkeypatch,
+                                                          tmp_path):
+    monkeypatch.setattr(_build, "_stale", lambda name: False)
+    monkeypatch.setattr(_build, "_paths", lambda name: (
+        tmp_path / f"{name}.cu", tmp_path / f"lib{name}.so"))
+    with pytest.raises(_build.KernelError, match="cannot load"):
+        _build.load("no_such_kernel")
+    assert "no_such_kernel" not in _build._libs
+
+
+def test_missing_nvcc_raises_kernel_error(monkeypatch, tmp_path):
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    real = _build.pathlib.Path.is_file
+    monkeypatch.setattr(_build.pathlib.Path, "is_file", lambda self: (
+        False if self.name == "nvcc" else real(self)))
+    with pytest.raises(_build.KernelError, match="nvcc not found"):
+        _build.nvcc_path()
+
+
+def test_a_failed_launch_raises_kernel_error():
+    _build.check(0, "k")
+    with pytest.raises(_build.KernelError, match="cudaError 700"):
+        _build.check(700, "k")
+
+
+@pytest.mark.parametrize("case", ["dtype", "shape", "strides", "device"])
+def test_need_refuses_what_a_kernel_does_not_take(case):
+    """A refused tensor raises KernelInputError: a ValueError to the
+    caller, and a KernelError that per-row fault handlers re-raise."""
+    import torch
+
+    t = torch.zeros((4, 6), dtype=torch.int32)
+    bad = {"dtype": t.long(), "shape": t[:3], "strides": t.t(),
+           "device": t.to("meta")}[case]
+    want = (4, 6) if case != "strides" else (6, 4)
+    _build.need(t if case != "strides" else t.t().contiguous(), "x",
+                torch.int32, want, t.device)
+    with pytest.raises(_build.KernelInputError, match="x must be") as err:
+        _build.need(bad, "x", torch.int32, want, t.device)
+    assert isinstance(err.value, ValueError)
+    assert isinstance(err.value, _build.KernelError)

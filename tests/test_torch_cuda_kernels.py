@@ -1,4 +1,6 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, on the card
+(the map fold, the deli tick, the block and flat merge ticks), and the
+serving slices on the card against the same slices on the CPU.
 
 Marked ``cuda``: without a CUDA device every test here skips (decided in
 the ``cuda`` fixture, never at import). The file imports only torch,
@@ -23,6 +25,10 @@ import torch
 
 from fluidframework_tpu_torch.ops import map_fold_cuda as mfc
 from fluidframework_tpu_torch.ops import map_kernel as mk
+from fluidframework_tpu_torch.ops import mergetree_blocks as mtb
+from fluidframework_tpu_torch.ops import mergetree_blocks_cuda as mtbc
+from fluidframework_tpu_torch.ops import mergetree_cuda as mtc
+from fluidframework_tpu_torch.ops import mergetree_kernel as mtk
 from fluidframework_tpu_torch.ops import sequencer as seqk
 from fluidframework_tpu_torch.ops import sequencer_cuda as seqc
 
@@ -200,3 +206,234 @@ def test_storm_slice_on_the_card_matches_the_cpu(cuda):
     _assert_equal(g_seq._state, c_seq._state, "sequencer")
     _assert_equal(g_merge._xstate, c_merge._xstate, "map")
     assert g_storm._tick_blobs == c_storm._tick_blobs
+
+
+def _merge_ticks(rng, b, k, ticks, clients, head=0.0):
+    """Op batches of ``ticks`` ticks: inserts, removes and annotates from
+    ``clients`` writers at refs that lag the seq (concurrent), positions
+    inside a tracked visible length; a ``head`` fraction of inserts lands
+    at position 0 (the head-concentrated shape)."""
+    length = np.zeros(b, np.int64)
+    seq = np.zeros(b, np.int64)
+    pool = np.zeros(b, np.int64)
+    out = []
+    for _ in range(ticks):
+        f = {n: np.zeros((b, k), np.int32) for n in mtk.MergeOpBatch._fields}
+        f["valid"] = rng.random((b, k)) < 0.9
+        for j in range(k):
+            seq += 1
+            r = rng.random(b)
+            kind = np.where((length > 4) & (r < 0.3), mtk.MT_REMOVE,
+                            np.where((length > 4) & (r < 0.4),
+                                     mtk.MT_ANNOTATE, mtk.MT_INSERT))
+            pos = (rng.random(b) * (length + 1)).astype(np.int64)
+            pos = np.where((kind == mtk.MT_INSERT) & (rng.random(b) < head),
+                           0, pos)
+            end = np.minimum(pos + rng.integers(1, 9, b), length)
+            tlen = rng.integers(1, 9, b)
+            f["kind"][:, j] = kind
+            f["pos"][:, j] = pos
+            f["end"][:, j] = end
+            f["seq"][:, j] = seq
+            f["ref_seq"][:, j] = np.maximum(seq - rng.integers(1, 6, b), 0)
+            f["client"][:, j] = rng.integers(0, clients, b)
+            f["pool_start"][:, j] = pool
+            f["text_len"][:, j] = tlen
+            f["prop_key"][:, j] = rng.integers(0, 5, b)
+            f["prop_val"][:, j] = rng.integers(0, 4, b)
+            v = f["valid"][:, j]
+            ins = v & (kind == mtk.MT_INSERT)
+            rem = v & (kind == mtk.MT_REMOVE)
+            length += np.where(ins, tlen, 0) - np.where(rem, end - pos, 0)
+            pool += np.where(ins, tlen, 0)
+        out.append(f)
+    return out
+
+
+def _batch(fields, device):
+    return mtk.MergeOpBatch(**{n: torch.from_numpy(np.ascontiguousarray(
+        fields[n])).to(device) for n in mtk.MergeOpBatch._fields})
+
+
+def _to(state, device):
+    return type(state)(*(t.to(device) for t in state))
+
+
+@pytest.mark.parametrize("b,s,k,p,w,ticks", [
+    (1, 8, 1, 1, 1, 1), (5, 64, 16, 2, 1, 3), (33, 512, 32, 4, 4, 2),
+    (7, 300, 40, 3, 2, 3)])
+def test_flat_kernel_matches_plain(cuda, b, s, k, p, w, ticks):
+    """Kernel 4 == its plain version tick by tick from an empty table
+    (and past capacity, where segments fall off the end)."""
+    rng = np.random.default_rng(b * 31 + s + k)
+    want = mtk.init_state(b, s, p, w, device="cpu")
+    got = _to(want, cuda)
+    for fields in _merge_ticks(rng, b, k, ticks, 32 * w):
+        want = mtk.apply_tick(want, _batch(fields, "cpu"))
+        before = mtc.launches
+        got = mtc.apply_tick_best(got, _batch(fields, cuda))
+        torch.cuda.synchronize()
+        assert mtc.launches == before + 1
+        _assert_equal(got, want, (b, s, k))
+
+
+@pytest.mark.parametrize("b,nb,bk,k,p,w,ticks,head", [
+    (1, 1, 8, 1, 1, 1, 1, 0.0), (6, 4, 16, 8, 2, 1, 4, 0.0),
+    (40, 4, 128, 32, 4, 4, 3, 0.2), (9, 3, 32, 70, 2, 2, 2, 0.9)])
+def test_block_kernel_matches_plain(cuda, b, nb, bk, k, p, w, ticks, head):
+    """Kernel 3 == its plain version (planes, summaries, overflow index,
+    rebalance stats) tick by tick through the serving step (the tick,
+    then the rebalance ladder); the last case overflows blocks
+    mid-tick."""
+    rng = np.random.default_rng(b * 13 + nb * bk + k)
+    want = mtb.init_state(b, nb, bk, p, w, device="cpu")
+    got = _to(want, cuda)
+    saw_ovf = False
+    ms = torch.zeros(b, dtype=torch.int32)
+    for fields in _merge_ticks(rng, b, k, ticks, 32 * w, head):
+        want, want_ovf = mtb.apply_tick_blocks(want, _batch(fields, "cpu"))
+        want, want_rs = mtb.maybe_rebalance_stats(want, ms, min(k, 8))
+        before = mtbc.launches
+        got, got_ovf = mtbc.apply_tick_blocks_best(got, _batch(fields, cuda))
+        got, got_rs = mtb.maybe_rebalance_stats(got, ms.to(cuda), min(k, 8))
+        torch.cuda.synchronize()
+        assert mtbc.launches == before + 1
+        _assert_equal(got, want, (b, nb, bk, k))
+        assert torch.equal(got_ovf.cpu(), want_ovf)
+        assert torch.equal(got_rs.cpu(), want_rs)
+        saw_ovf |= bool((want_ovf != int(mtb.OVF_NONE)).any())
+    assert saw_ovf or head < 0.5
+
+
+def test_merge_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    state = mtb.init_state(2, 2, 8, 2, 1, cuda)
+    ops = mtk.make_merge_op_batch([[], []], 2, 4, device=cuda)
+    with pytest.raises(ValueError, match="op kind"):
+        mtbc.apply_tick_blocks_best(
+            state, ops._replace(kind=ops.kind.t().contiguous().t()))
+    with pytest.raises(ValueError, match="op pos"):
+        mtbc.apply_tick_blocks_best(state, ops._replace(pos=ops.pos.long()))
+    with pytest.raises(ValueError, match="blk_count"):
+        mtbc.apply_tick_blocks_best(
+            state._replace(blk_count=state.blk_count.cpu()), ops)
+    flat = mtk.init_state(2, 16, 2, 1, cuda)
+    with pytest.raises(ValueError, match="valid"):
+        mtc.apply_tick_best(flat._replace(valid=flat.valid.int()), ops)
+    with pytest.raises(ValueError, match="op valid"):
+        mtc.apply_tick_best(flat, ops._replace(valid=ops.valid.cpu()))
+
+
+def _text_traffic(rng, docs, rounds, writers, head):
+    """Rounds of concurrent SharedString ops, one per writer, at each
+    doc's head ref, with positions valid in that frame: a list of rounds,
+    each a list of (doc, op, client, seq, ref)."""
+    out = []
+    seq = {d: 0 for d in docs}
+    length = {d: 0 for d in docs}
+    for _ in range(rounds):
+        out.append([])
+        for d in docs:
+            ref, covered, grown = seq[d], set(), 0
+            for w in rng.permutation(writers)[:rng.integers(4, 24)]:
+                L = length[d]
+                if L > 2 and rng.random() < 0.3:
+                    s = int(rng.integers(0, L - 1))
+                    e = min(L, s + int(rng.integers(1, 8)))
+                    op = {"type": "remove", "start": s, "end": e}
+                    covered.update(range(s, e))
+                elif L > 2 and rng.random() < 0.1:
+                    s = int(rng.integers(0, L - 1))
+                    op = {"type": "annotate", "start": s, "end": s + 1,
+                          "props": {"b": int(rng.integers(0, 3))}}
+                else:
+                    n = int(rng.integers(1, 8))
+                    pos = 0 if rng.random() < head else \
+                        int(rng.integers(0, L + 1))
+                    op = {"type": "insert", "pos": pos, "text": "x" * n}
+                    grown += n
+                seq[d] += 1
+                out[-1].append((d, op, f"w{w}", seq[d], ref))
+            length[d] += grown - len(covered)
+    return out
+
+
+def _bursty_text():
+    """Eight rounds for six docs from 64 writers, most inserts at the
+    head: with 16-slot blocks, blocks overflow and the flat replay runs."""
+    return _text_traffic(np.random.default_rng(8),
+                         [f"doc{i}" for i in range(6)], 8, 64, 0.6)
+
+
+def _serve_text(host, traffic):
+    """Feed ``traffic`` to ``host`` through ``ingest``, one flush per
+    round."""
+    from fluidframework_tpu_torch.protocol.messages import (
+        MessageType,
+        SequencedDocumentMessage,
+    )
+    for batch in traffic:
+        for d, op, client, seq, ref in batch:
+            host.ingest(d, SequencedDocumentMessage(
+                client_id=client, sequence_number=seq,
+                minimum_sequence_number=max(0, ref - 20),
+                client_sequence_number=seq,
+                reference_sequence_number=ref,
+                type=MessageType.OPERATION,
+                contents={"address": "ds", "contents": {
+                    "address": "text", "contents": op}}))
+        host.flush()
+    return host
+
+
+def test_text_host_on_the_card_matches_the_cpu(cuda, monkeypatch):
+    """The port's merge host serving SharedString traffic on the card
+    (kernels 3 and 4) against the same host on the CPU (their plain
+    versions): equal planes, text pools, stats and text. Small blocks
+    and head bursts make blocks overflow, so the flat replay runs."""
+    from fluidframework_tpu_torch.server import merge_host as mh
+
+    monkeypatch.setattr(mh._BlockMergePool, "BK", 16)
+    traffic = _bursty_text()
+    before = (mtbc.launches, mtc.launches)
+    card = _serve_text(mh.KernelMergeHost(flush_threshold=10**9,
+                                          device=cuda), traffic)
+    torch.cuda.synchronize()
+    assert mtbc.launches > before[0] and mtc.launches > before[1]
+    cpu = _serve_text(mh.KernelMergeHost(flush_threshold=10**9,
+                                         device="cpu"), traffic)
+    assert card.stats == cpu.stats
+    assert card.stats["block_overflow_replays"] > 0
+    assert sorted(card._merge_pools) == sorted(cpu._merge_pools)
+    for slots, pool in cpu._merge_pools.items():
+        _assert_equal(card._merge_pools[slots].state, pool.state, slots)
+        assert card._merge_pools[slots].text.chunks == pool.text.chunks
+    from fluidframework_tpu_torch.dds.mergetree import MergeEngine
+    for key in cpu._merge_rows:
+        assert card.text(*key) == cpu.text(*key)
+        assert card.rich_text(*key) == cpu.rich_text(*key)
+        engine = MergeEngine(local_client=None)
+        for batch in traffic:
+            for d, op, client, seq, ref in batch:
+                if d == key.doc_id:
+                    engine.apply_remote(op, seq, ref, client)
+        assert card.text(*key) == engine.get_text()
+
+
+def test_failed_flat_launch_leaves_flush(cuda, monkeypatch):
+    """A kernel-4 launch that fails (its launcher returns cudaError 700)
+    raises out of the text host's ``flush()``: the overflowing channel is
+    not quarantined onto the host's scalar engine, which would serve it
+    on the CPU unnoticed."""
+    from fluidframework_tpu_torch.ops import _build
+    from fluidframework_tpu_torch.server import merge_host as mh
+
+    monkeypatch.setattr(mh._BlockMergePool, "BK", 16)
+    monkeypatch.setattr(mtc, "_lib", lambda: (lambda *args: 700))
+    host = mh.KernelMergeHost(flush_threshold=10**9, device=cuda)
+    before = mtc.launches
+    with pytest.raises(_build.KernelError, match="cudaError 700"):
+        _serve_text(host, _bursty_text())
+    assert mtc.launches == before
+    assert host.stats["quarantined_channels"] == 0
+    assert host.stats["block_overflow_replays"] == 0
+    assert all(r.scalar is None for r in host._merge_rows.values())

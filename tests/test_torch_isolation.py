@@ -44,7 +44,9 @@ def test_importing_every_port_module_loads_no_jax_or_reference():
                          env=env, capture_output=True, text=True,
                          timeout=120, check=True).stdout
     modules = json.loads(out.strip().splitlines()[-1])
-    assert "fluidframework_tpu_torch.server.storm" in modules
+    for name in ("server.storm", "server.merge_host", "dds.mergetree",
+                 "ops.mergetree_cuda", "ops.mergetree_blocks_cuda"):
+        assert f"fluidframework_tpu_torch.{name}" in modules
     assert [m for m in modules if _forbidden(m)] == []
 
 

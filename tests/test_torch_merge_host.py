@@ -1,37 +1,60 @@
-"""Differential: the map half of the port's KernelMergeHost against the JAX
-package's, on the per-op (dict) path: sequenced set/delete/clear messages
-across several documents and channels, row and key-slot growth, row
-release and reuse, materialized entries, and export/import of the map
-planes in both directions. Text, matrix and tree ops are not ported and
-must raise naming their family.
+"""Differential: the port's KernelMergeHost against the JAX package's.
+
+Map half: sequenced set/delete/clear messages across several documents
+and channels, row and key-slot growth, row release and reuse,
+materialized entries, and export/import of the map planes both ways.
+
+Text half: seeded SharedString streams through ``ingest`` on both hosts —
+rounds of truly concurrent ops from up to 128 writers (one ref per round,
+so the overlap planes grow to four words), inserts with props, markers,
+removes and annotates — under capacity pressure (compaction, coalescing,
+migration to bigger buckets, block rebalances), block-overflow replay,
+the scalar route and readmission, a quarantined row, and export/import
+both ways including a flat pool. Every text plane, the text pools,
+``text``, ``rich_text``, ``summarize``, ``stats`` and ``export_state``
+must be equal; the converged text must also equal a scalar MergeEngine
+replay of the same messages. Matrix and tree ops are not ported and must
+raise naming their family.
 """
 
 from __future__ import annotations
 
+import itertools
 import random
 
 import numpy as np
 import pytest
 
+from fluidframework_tpu.ops import mergetree_blocks as jmtb
 from fluidframework_tpu.protocol import messages as jmsg
+from fluidframework_tpu.server import merge_host as jmh
 from fluidframework_tpu.server.merge_host import \
     ChannelKey as JaxChannelKey
 from fluidframework_tpu.server.merge_host import \
     KernelMergeHost as JaxMergeHost
+from fluidframework_tpu.server.routerlicious import \
+    RouterliciousService as JaxService
 from fluidframework_tpu_torch import convert
+from fluidframework_tpu_torch.dds.mergetree import MergeEngine
+from fluidframework_tpu_torch.ops import _build
 from fluidframework_tpu_torch.protocol import messages as tmsg
+from fluidframework_tpu_torch.server import merge_host as tmh
 from fluidframework_tpu_torch.server.merge_host import ChannelKey
 from fluidframework_tpu_torch.server.merge_host import \
     KernelMergeHost as TorchMergeHost
+from fluidframework_tpu_torch.server.routerlicious import \
+    RouterliciousService as TorchService
 
 CHANNELS = [("doc0", "ds", "m"), ("doc0", "ds", "n"), ("doc1", "ds", "m"),
             ("doc2", "other", "m"), ("doc3", "ds", "m")]
 
 
-def _msg(mod, seq: int, channel_op: dict, datastore="ds", channel="m"):
+def _msg(mod, seq: int, channel_op: dict, datastore="ds", channel="m",
+         client="c", ref=None, msn=0):
     return mod.SequencedDocumentMessage(
-        client_id="c", sequence_number=seq, minimum_sequence_number=0,
-        client_sequence_number=seq, reference_sequence_number=seq - 1,
+        client_id=client, sequence_number=seq, minimum_sequence_number=msn,
+        client_sequence_number=seq,
+        reference_sequence_number=seq - 1 if ref is None else ref,
         type=mod.MessageType.OPERATION,
         contents={"address": datastore,
                   "contents": {"address": channel, "contents": channel_op}})
@@ -125,7 +148,6 @@ def test_export_import_both_ways():
 
 
 @pytest.mark.parametrize("family,op", [
-    ("text", {"type": "insert", "pos": 0, "text": "hi"}),
     ("matrix", {"type": "set", "target": "cell", "row": 0, "col": 0}),
     ("tree", {"type": "edit", "edit": {}}),
 ])
@@ -133,3 +155,371 @@ def test_unported_families_raise(family, op):
     th = TorchMergeHost(device="cpu")
     with pytest.raises(NotImplementedError, match=family):
         th.ingest("doc", _msg(tmsg, 1, op))
+
+
+# -- the text half -------------------------------------------------------------
+
+
+def _letters(rng: random.Random, n: int) -> str:
+    return "".join(rng.choice("abcdefghij") for _ in range(n))
+
+
+def text_rounds(rng: random.Random, rounds: int, writers: int,
+                docs=("doc0",), channels=("text",), per_round=(1, 12),
+                head=0.0, rich=True, msn_lag=3):
+    """Sequenced SharedString traffic: per doc and round, a set of writers
+    each sends ONE op at the round's head ref (truly concurrent), with
+    positions valid in that frame. Yields (doc, channel, op, client, seq,
+    ref, msn). A ``head`` fraction of inserts lands at position 0.
+
+    The msn is the ref of the round ``msn_lag`` rounds back: both hosts
+    compact a row at its newest msn BEFORE applying the flush's pending
+    ops, so a flush must not hold ops whose ref is below it (the scalar
+    engine, applying each op first, would then disagree)."""
+    seq = {d: 0 for d in docs}
+    refs = {d: [0] * msn_lag for d in docs}
+    length = {(d, c): 0 for d in docs for c in channels}
+    for _ in range(rounds):
+        for d in docs:
+            ref = seq[d]
+            n = rng.randint(*per_round)
+            removed: dict[str, list] = {c: [] for c in channels}
+            grown = {c: 0 for c in channels}
+            for w in rng.sample(range(writers), min(n, writers)):
+                c = rng.choice(channels)
+                L = length[(d, c)]
+                r = rng.random()
+                if L > 2 and r < 0.3:
+                    s = rng.randrange(L - 1)
+                    e = min(L, s + rng.randint(1, 8))
+                    op = {"type": "remove", "start": s, "end": e}
+                    removed[c].append((s, e))
+                elif rich and L > 2 and r < 0.4:
+                    s = rng.randrange(L - 1)
+                    op = {"type": "annotate", "start": s,
+                          "end": min(L, s + rng.randint(1, 6)),
+                          "props": rng.choice([{"bold": True},
+                                               {"color": "red", "bold": None},
+                                               {"size": rng.randrange(3)}])}
+                else:
+                    pos = 0 if rng.random() < head else rng.randint(0, L)
+                    if rich and rng.random() < 0.1:
+                        op = {"type": "insert", "pos": pos,
+                              "marker": {"ref_type": "simple", "id": None}}
+                        grown[c] += 1
+                    else:
+                        text = _letters(rng, rng.randint(1, 8))
+                        op = {"type": "insert", "pos": pos, "text": text}
+                        if rich and rng.random() < 0.2:
+                            op["props"] = {"bold": True}
+                        grown[c] += len(text)
+                seq[d] += 1
+                yield d, c, op, f"w{w}", seq[d], ref, refs[d][0]
+            for c in channels:
+                gone = set()
+                for s, e in removed[c]:
+                    gone.update(range(s, e))
+                length[(d, c)] += grown[c] - len(gone)
+            refs[d] = refs[d][1:] + [ref]
+
+
+def _feed(host, mod, traffic, datastore="default", flush_every=None):
+    for i, (d, c, op, client, seq, ref, msn) in enumerate(traffic):
+        host.ingest(d, _msg(mod, seq, op, datastore, c, client, ref, msn))
+        if flush_every and (i + 1) % flush_every == 0:
+            host.flush()
+    host.flush()
+
+
+def _oracle_text(traffic, doc, channel) -> str:
+    engine = MergeEngine(local_client=None)
+    for d, c, op, client, seq, ref, msn in traffic:
+        if (d, c) == (doc, channel):
+            engine.apply_remote(op, seq, ref, client)
+    return engine.get_text()
+
+
+def _assert_text_equal(jh, th):
+    assert sorted(th._merge_pools) == sorted(jh._merge_pools)
+    for slots, jp in jh._merge_pools.items():
+        tp = th._merge_pools[slots]
+        assert type(tp).__name__ == type(jp).__name__
+        assert (tp.slots, tp.num_props, tp.overlap_words, tp.capacity) \
+            == (jp.slots, jp.num_props, jp.overlap_words, jp.capacity)
+        if hasattr(jp, "bk"):
+            assert (tp.nb, tp.bk) == (jp.nb, jp.bk)
+        a = _planes(jp.state)
+        b = {f: getattr(tp.state, f).numpy() for f in tp.state._fields}
+        for f in a:
+            assert a[f].dtype == b[f].dtype, (slots, f)
+            assert np.array_equal(a[f], b[f]), (slots, f)
+        assert tp.text.chunks == jp.text.chunks and \
+            tp.text.used == jp.text.used
+        assert tp.free == jp.free
+        assert [m is None for m in tp.members] \
+            == [m is None for m in jp.members]
+    for key in jh._merge_rows:
+        assert th.text(*key) == jh.text(*key), key
+        assert th.rich_text(*key) == jh.rich_text(*key), key
+    for doc in {k.doc_id for k in jh._merge_rows}:
+        assert th.summarize(doc) == jh.summarize(doc)
+    assert th.stats == jh.stats
+    assert th.export_state() == jh.export_state()
+
+
+def _hosts(**kw):
+    return (JaxMergeHost(**kw), TorchMergeHost(device="cpu", **kw))
+
+
+FARM_DOCS = ("doc0", "doc1", "doc2")
+
+
+@pytest.fixture(scope="module")
+def farm():
+    """One seeded text farm served by both hosts, with blocks of 16 slots
+    so small buckets hold several blocks: doc0 and doc1 take rounds of up
+    to 32 concurrent ops from 128 writers over two channels (overlap
+    planes grow to four words; compaction, coalescing, migration and
+    block rebalances run), doc2 takes head-concentrated bursts that
+    overflow a block mid-tick. The JAX host compiles once per shape, so
+    the scenarios share this one run."""
+    with pytest.MonkeyPatch.context() as m:
+        for mod in (jmh, tmh):
+            m.setattr(mod._BlockMergePool, "BK", 16)
+        traffic = list(text_rounds(random.Random(0), 10, 128,
+                                   docs=FARM_DOCS[:2],
+                                   channels=("text", "notes"),
+                                   per_round=(10, 32)))
+        traffic += list(text_rounds(random.Random(1), 8, 40,
+                                    docs=FARM_DOCS[2:], per_round=(8, 20),
+                                    head=0.8, rich=False, msn_lag=8))
+        jh, th = _hosts(merge_slots=128, row_capacity=8, flush_threshold=60)
+        _feed(jh, jmsg, traffic)
+        _feed(th, tmsg, traffic)
+        yield jh, th, traffic
+
+
+def test_text_host_matches_jax(farm):
+    jh, th, traffic = farm
+    _assert_text_equal(jh, th)
+    for key in jh._merge_rows:
+        assert th.text(*key) == _oracle_text(traffic, key.doc_id,
+                                             key.channel), key
+    for stat in ("migrations", "compactions", "rebalances",
+                 "block_overflow_replays"):
+        assert th.stats[stat] > 0, stat
+    assert th.stats["scalar_ops"] == 0
+    assert max(p.overlap_words for p in th._merge_pools.values()) == 4
+
+
+def test_scalar_route_and_readmission_match_jax():
+    """More writers than ``max_client_slots`` route the channel to the
+    scalar engine; once the departed writers' segments compact away it
+    readmits to a device row and serves there again."""
+    jh, th = _hosts(merge_slots=64, flush_threshold=8, max_client_slots=32)
+    seq = itertools.count(1)
+    traffic = []
+
+    def add(op, client, msn=None):
+        s = next(seq)
+        traffic.append(("doc", "text", op, client, s, s - 1,
+                        s - 1 if msn is None else msn))
+
+    for i in range(37):
+        add({"type": "insert", "pos": 0, "text": f"<{i}>"}, f"w{i}")
+    for host, mod in ((jh, jmsg), (th, tmsg)):
+        _feed(host, mod, traffic)
+    assert th.stats["overflow_routed"] == 1
+    _assert_text_equal(jh, th)
+    start = len(traffic)
+    length = len(th.text("doc", "default", "text"))
+    add({"type": "remove", "start": 0, "end": length}, "keeper-a")
+    add({"type": "insert", "pos": 0, "text": "fresh "}, "keeper-b")
+    add({"type": "annotate", "start": 0, "end": 5,
+         "props": {"kept": True}}, "keeper-a", msn=len(traffic))
+    add({"type": "insert", "pos": 6, "text": "start"}, "keeper-a",
+        msn=len(traffic))
+    add({"type": "insert", "pos": 5, "text": "er"}, "keeper-b",
+        msn=len(traffic))
+    for host, mod in ((jh, jmsg), (th, tmsg)):
+        _feed(host, mod, traffic[start:])
+    assert th.stats["readmissions"] == 1
+    _assert_text_equal(jh, th)
+    assert th.text("doc", "default", "text") \
+        == _oracle_text(traffic, "doc", "text")
+
+
+def test_quarantined_row_matches_jax(monkeypatch):
+    """An overflow replay that fails quarantines ONE channel onto its
+    scalar engine with an exact tail replay; its peer channel stays
+    device-served. The failure is injected on both hosts alike."""
+    def boom(self, row, rest):
+        raise RuntimeError("injected per-row tick failure")
+
+    def frozen(pool_self, batch):
+        out = np.full(pool_self.capacity, 2**31 - 1, np.int32)
+        out[0] = 0  # row 0 froze before its first pending op
+        pool_self.last_overflow = out
+        return pool_self.state
+
+    jh, th = _hosts(merge_slots=16, flush_threshold=10**9)
+    rng = random.Random(9)
+    first = list(text_rounds(rng, 3, 6, docs=("doc0", "doc1"),
+                             per_round=(2, 4)))
+    for host, mod in ((jh, jmsg), (th, tmsg)):
+        _feed(host, mod, first)
+    second = [(d, c, op, cl, s + 100, r + 100, m)
+              for d, c, op, cl, s, r, m in text_rounds(
+                  random.Random(10), 2, 6, docs=("doc0", "doc1"),
+                  per_round=(2, 4))]
+    with monkeypatch.context() as m:
+        m.setattr(JaxMergeHost, "_replay_block_overflow", boom)
+        m.setattr(TorchMergeHost, "_replay_block_overflow", boom)
+        m.setattr(jmh._BlockMergePool, "apply", frozen)
+        m.setattr(tmh._BlockMergePool, "apply", frozen)
+        for host, mod in ((jh, jmsg), (th, tmsg)):
+            for d, c, op, client, seq, ref, msn in second:
+                host.ingest(d, _msg(mod, seq, op, "default", c, client,
+                                    ref, msn))
+            host.flush()
+    assert th.stats["quarantined_channels"] == 1
+    key = ChannelKey("doc0", "default", "text")
+    assert th._merge_rows[key].scalar is not None
+    _assert_text_equal(jh, th)
+
+
+@pytest.mark.parametrize("error", [
+    _build.KernelError("mergetree_flat_kernel: CUDA launch failed with "
+                       "cudaError 700"),
+    _build.KernelInputError("flat merge tick: op kind must be a contiguous "
+                            "int32 tensor"),
+    _build.KernelError("nvcc failed for csrc/mergetree_flat.cu")],
+    ids=["launch", "input", "build"])
+def test_kernel_error_in_overflow_replay_is_not_quarantined(monkeypatch,
+                                                            error):
+    """A kernel that cannot build, take its input or launch is no per-row
+    fault: the error leaves ``flush()`` and no channel moves to the scalar
+    engine (it would otherwise be served on the host unnoticed)."""
+    def frozen(pool_self, batch):
+        out = np.full(pool_self.capacity, 2**31 - 1, np.int32)
+        out[0] = 0
+        pool_self.last_overflow = out
+        return pool_self.state
+
+    def broken(state, ops):
+        raise error
+
+    th = TorchMergeHost(device="cpu", merge_slots=16,
+                        flush_threshold=10**9)
+    _feed(th, tmsg, list(text_rounds(random.Random(9), 2, 6,
+                                     docs=("doc0", "doc1"),
+                                     per_round=(2, 4))))
+    monkeypatch.setattr(tmh._BlockMergePool, "apply", frozen)
+    monkeypatch.setattr(tmh, "mtc", type("Broken", (), {
+        "apply_tick_best": staticmethod(broken)}))
+    for d, c, op, client, seq, ref, msn in text_rounds(
+            random.Random(10), 1, 6, docs=("doc0", "doc1"),
+            per_round=(2, 4)):
+        th.ingest(d, _msg(tmsg, seq + 100, op, "default", c, client,
+                          ref + 100, msn))
+    with pytest.raises(type(error)) as got:
+        th.flush()
+    assert got.value is error
+    assert th.stats["quarantined_channels"] == 0
+    assert all(r.scalar is None for r in th._merge_rows.values())
+
+
+def _flat_snapshot(jh: JaxMergeHost) -> dict:
+    """The JAX host's export with its block pools rewritten as flat pools
+    (packed planes, the layout a flat pool serves)."""
+    snap = jh.export_state()
+    for p, (_slots, pool) in zip(snap["merge_pools"],
+                                 sorted(jh._merge_pools.items())):
+        flat = jmtb.to_flat(pool.state, slots=pool.slots)
+        p["kind"] = "flat"
+        p.pop("block_geometry")
+        p["planes"] = {f: jmh._nd_pack(np.asarray(getattr(flat, f)))
+                       for f in flat._fields}
+    return snap
+
+
+@pytest.mark.parametrize("kind", ["block", "flat"])
+def test_text_export_import_both_ways(farm, kind):
+    """The farm's JAX export (block pools, or the same rows as flat
+    pools) loads into the port and back; all three hosts keep serving
+    identically."""
+    jh = farm[0]
+    snap = jh.export_state() if kind == "block" else _flat_snapshot(jh)
+    src = JaxMergeHost()
+    src.import_state(snap)
+    th = convert.merge_host_from_export(snap, device="cpu")
+    back = JaxMergeHost()
+    back.import_state(th.export_state())
+    _assert_text_equal(src, th)
+    _assert_text_equal(back, th)
+    more = [(d, c, op, cl, s + 5000, r + 5000, m + 5000)
+            for d, c, op, cl, s, r, m in text_rounds(
+                random.Random(22), 2, 40, docs=FARM_DOCS[:2],
+                channels=("text", "notes"), per_round=(3, 10))]
+    for host, mod in ((src, jmsg), (th, tmsg), (back, jmsg)):
+        _feed(host, mod, more)
+    _assert_text_equal(src, th)
+    _assert_text_equal(back, th)
+
+
+def test_autotune_block_geometry_matches_jax(farm):
+    """Re-blocking every pool to the head-concentrated geometry (larger
+    Bk, same slots) lays the planes out identically on both hosts, and
+    both keep serving identically."""
+    snap = farm[0].export_state()
+    jh = JaxMergeHost()
+    jh.import_state(snap)
+    th = convert.merge_host_from_export(snap, device="cpu")
+    got = th.autotune_block_geometry(min_observations=0, head_fraction=1.0)
+    assert got == jh.autotune_block_geometry(min_observations=0,
+                                             head_fraction=1.0)
+    assert got and th.stats["geometry_retunes"] == len(got)
+    _assert_text_equal(jh, th)
+    more = [(d, c, op, cl, s + 9000, r + 9000, m + 9000)
+            for d, c, op, cl, s, r, m in text_rounds(
+                random.Random(23), 2, 40, docs=FARM_DOCS[:2],
+                channels=("text", "notes"), per_round=(3, 10))]
+    for host, mod in ((jh, jmsg), (th, tmsg)):
+        _feed(host, mod, more)
+    _assert_text_equal(jh, th)
+
+
+def test_text_through_routerlicious_matches_jax():
+    """SharedString ops submitted by connected clients reach the merge
+    host through the service's merger lambda on both stacks."""
+    out = []
+    for service_cls, mod, host in (
+            (JaxService, jmsg, JaxMergeHost(flush_threshold=16)),
+            (TorchService, tmsg, TorchMergeHost(flush_threshold=16,
+                                                device="cpu"))):
+        service = service_cls(merge_host=host, auto_pump=False)
+        service._clock = itertools.count(1000, 7).__next__
+        conns = [service.connect("doc", lambda m: None) for _ in range(5)]
+        service.pump()
+        rng = random.Random(4)
+        head = len(service.get_deltas("doc", 0))
+        cseq = {c.client_id: 0 for c in conns}
+        for _round in range(6):
+            for c in rng.sample(conns, 3):
+                cseq[c.client_id] += 1
+                op = {"type": "insert", "pos": 0,
+                      "text": _letters(rng, rng.randint(1, 5))}
+                c.submit([mod.DocumentMessage(
+                    client_sequence_number=cseq[c.client_id],
+                    reference_sequence_number=head,
+                    type=mod.MessageType.OPERATION,
+                    contents={"address": "default",
+                              "contents": {"address": "text",
+                                           "contents": op}})])
+            service.pump()
+            head = len(service.get_deltas("doc", 0))
+        host.flush()
+        out.append((host.text("doc", "default", "text"), host.summarize("doc"),
+                    host.stats, host.export_state()))
+    assert out[0] == out[1]
+    assert len(out[0][0]) > 0

@@ -178,3 +178,116 @@ def test_storm_refuses_what_the_slice_does_not_port(kwargs):
                            batched_deli_host=seq_host, auto_pump=False)
     with pytest.raises(NotImplementedError):
         TorchStorm(service, seq_host, merge_host, **kwargs)
+
+
+def _poison(side: str, storm, merge_host, doc: str, slot: int = 40) -> None:
+    """Clobber one doc's device map row the way a corrupted tick would: a
+    present slot whose vseq drifted past the doc's head (the sentinel's
+    invariant)."""
+    row = merge_host._map_rows[storm_key(doc)].row
+    if side == "jax":
+        import jax.numpy as jnp
+
+        from fluidframework_tpu.ops import map_kernel as jmk
+        xs = merge_host._xstate
+        merge_host._xstate = jmk.MapState(
+            present=xs.present.at[row, slot].set(True), value=xs.value,
+            vseq=xs.vseq.at[row, slot].set(jnp.int32(2**30)),
+            cleared_seq=xs.cleared_seq)
+    else:
+        merge_host._xstate.present[row, slot] = True
+        merge_host._xstate.vseq[row, slot] = 2**30
+
+
+def storm_key(doc: str) -> tuple:
+    return (doc, "default", "root")
+
+
+def _quarantine_run(side: str):
+    """Serve a round, poison doc1, then serve frames that share it (one
+    ticked, one still buffered when the sentinel trips), a mixed frame
+    after the freeze, and its peers' next frames."""
+    service, storm, seq_host, merge_host = _stack(side, depth=0)
+    clients = {d: service.connect(d, lambda m: None).client_id
+               for d in DOCS[:4]}
+    service.pump()
+    rng = np.random.default_rng(4)
+    pushed = []
+    cseq = {d: 1 for d in DOCS[:4]}
+
+    def frame(rid, docs, k=8):
+        entries, payload = [], b""
+        for d in docs:
+            entries.append([d, clients[d], cseq[d], 1, k])
+            # No clears: a clear would wipe the poisoned slot.
+            payload += (_words(rng, k) & ~np.uint32(2)).tobytes()
+            cseq[d] += k
+        storm.submit_frame(pushed.append, {"rid": rid, "docs": entries},
+                           memoryview(payload))
+
+    frame(0, DOCS[:4])
+    storm.flush()
+    _poison(side, storm, merge_host, DOCS[1])
+    frame(1, [DOCS[0], DOCS[1]])
+    frame(2, [DOCS[1], DOCS[2]])  # collides on doc1: still buffered
+    frame(3, [DOCS[3]])
+    storm.flush()
+    frame(4, [DOCS[1], DOCS[3]])  # a mixed frame after the freeze
+    frame(5, [DOCS[0], DOCS[2], DOCS[3]])
+    storm.flush()
+    return storm, seq_host, merge_host, pushed
+
+
+def test_quarantine_freeze_matches_jax():
+    """A sentinel-tripped doc is frozen alone on both stacks: its ack
+    says so, its buffered and later frames shed with the "quarantined"
+    nack (every dropped doc listed), and its batch peers keep serving
+    with identical planes."""
+    jstorm, jseq, jmerge, jacks = _quarantine_run("jax")
+    tstorm, tseq, tmerge, tacks = _quarantine_run("torch")
+    assert [_ack(a) for a in tacks] == [_ack(a) for a in jacks]
+    assert tstorm.quarantined == jstorm.quarantined
+    assert list(tstorm.quarantined) == [DOCS[1]]
+    assert tstorm.stats == jstorm.stats
+    assert tstorm.stats["quarantined_docs"] == 1
+    sheds = [a for a in tacks if a.get("error") == "quarantined"]
+    assert [s["docs"] for s in sheds] == [[DOCS[1], DOCS[2]],
+                                          [DOCS[1], DOCS[3]]]
+    assert all(s["quarantined"] == [DOCS[1]] for s in sheds)
+    flagged = [a for a in tacks if "quarantined" in a.keys()
+               and "error" not in a.keys()]
+    assert len(flagged) == 1 and flagged[0]["quarantined"] == [DOCS[1]]
+    for a, b in ((jseq._state, tseq._state), (jmerge._xstate, tmerge._xstate)):
+        pa, pb = _planes(a), {f: getattr(b, f).numpy() for f in b._fields}
+        for f in pa:
+            assert np.array_equal(pa[f], pb[f]), f
+    assert tstorm._tick_blobs == jstorm._tick_blobs
+    assert tstorm.doc_tick_counts == jstorm.doc_tick_counts
+    with pytest.raises(NotImplementedError, match="Queue A 6"):
+        tstorm.quarantined_map_entries(DOCS[1])
+    with pytest.raises(NotImplementedError, match="Queue A 6"):
+        tstorm.readmit_doc(DOCS[1])
+
+
+@pytest.mark.parametrize("side", ["jax", "torch"])
+def test_quarantined_doc_in_mixed_frame_nacks_every_dropped_doc(side):
+    """A frame sharing a quarantined doc is refused WHOLE (acks are
+    positional per frame): the nack lists every dropped doc and the
+    quarantined subset."""
+    service, storm, _seq, _merge = _stack(side, depth=1, num_docs=2)
+    clients = {d: service.connect(d, lambda m: None).client_id
+               for d in DOCS[:2]}
+    service.pump()
+    storm.quarantined[DOCS[0]] = {"reason": "test", "tick": 0}
+    nacks = []
+    words = _words(np.random.default_rng(5), 8)
+    storm.submit_frame(
+        nacks.append,
+        {"rid": 7, "docs": [[DOCS[0], clients[DOCS[0]], 1, 1, 8],
+                            [DOCS[1], clients[DOCS[1]], 1, 1, 8]]},
+        memoryview(words.tobytes() * 2))
+    assert len(nacks) == 1
+    assert nacks[0]["error"] == "quarantined"
+    assert nacks[0]["docs"] == [DOCS[0], DOCS[1]]
+    assert nacks[0]["quarantined"] == [DOCS[0]]
+    assert storm._pending_docs == 0
