@@ -20,14 +20,22 @@ equality: every plane is integer), then drives the port's main paths:
   through their connections, the merger lambda feeding
   ``KernelMergeHost``), and the host at batched width (8,192 docs x 128
   writers, six flushes of K=32 ops, 64 docs bursting past a block),
-  checked against a scalar ``MergeEngine`` replay and a plain-version run.
+  checked against a scalar ``MergeEngine`` replay and a plain-version run;
+* SharedMatrix serving: BASELINE.json config 4 (a 1k x 1k grid, 256
+  clients joined through the service writing cells concurrently, with
+  rows and cols inserted and removed every fourth round), and the host at
+  batched width (8,192 docs x 256 writers, six flushes of K=32 ops),
+  checked against a scalar PermutationVector + LWW replay and a
+  plain-version run; and the matrix step tick at the reference matrix
+  benchmark's step layout (16,384 docs, six ticks of 64 ops), checked
+  against the op tick's grids.
 
 It prints each kernel's launch shapes on the main paths and re-checks
 every kernel == plain at each of them: the map fold and the deli on
-inputs of that shape (the deli at the map path's and text path A's
-shapes), the two merge ticks on the very inputs the text paths gave them
-(every call's, kept while the paths ran), where they are also timed per
-launch. Then it prints the kernels' launch counts, per path and in all,
+inputs of that shape (the deli at the map path's, text path A's and
+matrix path A's shapes), the two merge ticks and the two matrix ticks on
+the very inputs the paths gave them (every call's, kept while the paths
+ran), where they are also timed per launch. Then it prints the kernels' launch counts, per path and in all,
 and their times.
 
 Phases print one line each. Any failed check exits non-zero before the
@@ -38,8 +46,9 @@ result. It imports nothing of JAX and nothing of ``fluidframework_tpu``.
 
     python3 chip_smoke.py --trace
 
-serves the map path's ticks and both text paths once more, under
-``torch.profiler``, and prints the card's busy time and idle share.
+serves the map path's ticks and the text and matrix paths once more
+(matrix path B at two flushes), under ``torch.profiler``, and prints the
+card's busy time and idle share.
 """
 
 from __future__ import annotations
@@ -83,6 +92,33 @@ SAMPLE_DOCS = 256
 # The kernel checks' table: S = NB x Bk = 4 x 128, 4 props, 4 overlap words.
 TEXT_NB, TEXT_BK, TEXT_P, TEXT_W = 4, 128, 4, 4
 
+# BASELINE.json config 4 at its published width (a 1k x 1k SharedMatrix,
+# 256 clients writing cells concurrently) through the service, and the
+# matrix host at batched width (8,192 docs, 256 writer ids, K=32 ops per
+# doc a flush from a 32 x 32 start, 6 flushes; the cell log starts at 128
+# entries so it compacts and grows). The op tick's kernel check runs at
+# (B, K, S, C, W) = (8,192, 32, 256, 1,024, 8), plus a 16-entry cell log
+# that overflows.
+MATRIX_CLIENTS = 256
+MATRIX_GRID = 1024
+MATRIX_ROUNDS = 16
+MATRIX_B = 8_192
+MATRIX_K = 32
+MATRIX_START = 32
+MATRIX_FLUSHES = 6
+MATRIX_B_CELLS = 128
+MATRIX_S, MATRIX_C, MATRIX_W = 256, 1024, 8
+MATRIX_FULL_C = 16
+# The step tick at the reference matrix benchmark's shape: 16,384 docs,
+# 64 ops per doc a tick in the step layout (r_max 8), S = C = 256, 6
+# ticks, 256 seeded streams tiled over the docs.
+STEPS_DOCS = 16_384
+STEPS_K = 64
+STEPS_RMAX = 8
+STEPS_S = 256
+STEPS_TICKS = 6
+STEPS_STREAMS = 256
+
 
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", flush=True)
@@ -124,10 +160,19 @@ def bound(nbytes: float, nops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def leaves(planes) -> list:
+    """Every tensor of a (nested) tuple of tensors, in field order."""
+    out = []
+    for t in planes:
+        out.extend(leaves(t) if isinstance(t, tuple) else [t])
+    return out
+
+
 def max_abs_err(a, b) -> int:
-    """Largest |a - b| over every plane of two NamedTuples of tensors."""
+    """Largest |a - b| over every plane of two (nested) NamedTuples of
+    tensors."""
     worst = 0
-    for x, y in zip(a, b):
+    for x, y in zip(leaves(a), leaves(b)):
         d = (x.long() - y.long()).abs().max().item() if x.numel() else 0
         worst = max(worst, int(d))
     return worst
@@ -689,44 +734,50 @@ def check_flat_tick(device, fill_ticks=2) -> dict:
 
 
 @contextlib.contextmanager
-def plain_text_versions():
+def plain_host_versions():
     """Swap the merge host's and the deli's kernel wrappers for their
-    plain versions for the duration (the plain-version comparison run)."""
+    plain versions for the duration (the plain-version comparison run of
+    the text and matrix paths)."""
+    from fluidframework_tpu_torch.ops import matrix_kernel as mxk
     from fluidframework_tpu_torch.ops import mergetree_blocks as mtb
     from fluidframework_tpu_torch.ops import mergetree_kernel as mtk
     from fluidframework_tpu_torch.ops import sequencer as seqk
     from fluidframework_tpu_torch.server import kernel_host as kh
     from fluidframework_tpu_torch.server import merge_host as mh
-    saved = kh.seqc, mh.mtc, mh.mtbc
+    saved = kh.seqc, mh.mtc, mh.mtbc, mh.mxc
     kh.seqc = type("Plain", (), {
         "process_batch_best": staticmethod(seqk.process_batch)})
     mh.mtc = type("Plain", (), {"apply_tick_best": staticmethod(
         mtk.apply_tick)})
     mh.mtbc = type("Plain", (), {"apply_tick_blocks_best": staticmethod(
         mtb.apply_tick_blocks)})
+    mh.mxc = type("Plain", (), {"apply_tick_best": staticmethod(
+        mxk.apply_tick)})
     try:
         yield
     finally:
-        kh.seqc, mh.mtc, mh.mtbc = saved
+        kh.seqc, mh.mtc, mh.mtbc, mh.mxc = saved
 
 
 @contextlib.contextmanager
-def recording(mod, attr: str, kept: dict):
+def recording(mod, attr: str, kept: dict, counts=None):
     """Wrap the kernel wrapper ``mod.<attr>`` for the duration: each call
     appends a copy of its inputs to ``kept[shape]``, the launch shape the
-    wrapper counted it by (``mod.shapes``). Launches are still counted by
-    the wrapper alone."""
+    wrapper counted it by (``counts.shapes``, ``counts`` defaulting to
+    ``mod``). Launches are still counted by the wrapper alone."""
     import torch
     inner = getattr(mod, attr)
+    counts = mod if counts is None else counts
 
     def copy(planes):
-        return type(planes)(*(t.clone() for t in planes))
+        return type(planes)(*(copy(t) if isinstance(t, tuple) else t.clone()
+                              for t in planes))
 
     def wrapped(state, ops):
         inputs = copy(state), copy(ops)
-        seen = dict(mod.shapes)
+        seen = dict(counts.shapes)
         out = inner(state, ops)
-        for shape, n in mod.shapes.items():
+        for shape, n in counts.shapes.items():
             if n != seen.get(shape, 0):
                 kept.setdefault(shape, []).append(inputs)
         return out
@@ -766,7 +817,7 @@ def text_path_a(device, plain: bool = False) -> dict:
         RouterliciousService
     import torch
 
-    with plain_text_versions() if plain else contextlib.nullcontext():
+    with plain_host_versions() if plain else contextlib.nullcontext():
         seq_host = KernelSequencerHost(num_slots=TEXT_CLIENTS,
                                        initial_capacity=1, device=device)
         merge_host = KernelMergeHost(device=device)
@@ -844,7 +895,7 @@ def text_path_b(device, plain: bool = False) -> dict:
     length = np.zeros(d_n, np.int64)
     seq = np.zeros(d_n, np.int64)
     prev_ref = np.zeros(d_n, np.int64)
-    with plain_text_versions() if plain else contextlib.nullcontext():
+    with plain_host_versions() if plain else contextlib.nullcontext():
         host = KernelMergeHost(flush_threshold=10**9, row_capacity=d_n,
                                device=device)
         t0 = time.perf_counter()
@@ -1027,7 +1078,8 @@ def text_main_path(device) -> dict:
 
 
 def recheck_recorded(name: str, shapes: dict, inputs: dict, kernel, plain,
-                     bound_of) -> dict:
+                     bound_of, ops_of=lambda op: int(op.valid.sum())
+                     ) -> dict:
     """Hold a text kernel against its plain version on the inputs of
     EVERY call the text main paths made to it, at every shape; then time
     it, and its plain version, on each call of the shape with the most
@@ -1056,7 +1108,7 @@ def recheck_recorded(name: str, shapes: dict, inputs: dict, kernel, plain,
            "shapes_checked": len(shapes),
            "calls_checked": sum(shapes.values()),
            "calls_timed": len(calls),
-           "valid_ops_mean": sum(int(op.valid.sum()) for _, op in calls)
+           "valid_ops_mean": sum(ops_of(op) for _, op in calls)
            / len(calls),
            "ms": sum(ms) / len(ms), "ms_min": min(ms), "ms_max": max(ms),
            "plain_ms": sum(plain_ms) / len(plain_ms),
@@ -1074,6 +1126,585 @@ def blocks_planes(tick):
         new, ovf = tick(state, ops)
         return [*new, ovf]
     return run
+
+
+# -- the matrix kernels against their plain versions ----------------------------
+
+
+def matrix_ticks(rng, b, k, ticks, clients, lag=3):
+    """Matrix op batches (numpy fields) of ``ticks`` ticks for ``b`` docs,
+    in the mix of the reference's matrix benchmark (70% cells, 10% row
+    inserts, 10% col inserts, 5% row and 5% col removes; an axis with
+    fewer than three live entries takes an insert instead), each op at a
+    ref up to ``lag`` seqs back; cell rows may fall one past the end."""
+    import numpy as np
+
+    from fluidframework_tpu_torch.ops import matrix_kernel as mxk
+    from fluidframework_tpu_torch.ops import mergetree_kernel as mtk
+    size = np.zeros((2, b), np.int64)  # live rows, cols
+    nxt = np.zeros((2, b), np.int64)   # next handle per axis
+    seq = np.zeros(b, np.int64)
+    out = []
+    for _ in range(ticks):
+        f = {n: np.zeros((b, k), np.int32) for n in mxk.MatrixOpBatch._fields}
+        f["valid"] = rng.random((b, k)) < 0.95
+        for j in range(k):
+            seq += 1
+            r = rng.random(b)
+            cell = (r < 0.7) & (size[0] > 0) & (size[1] > 0)
+            axis = np.where((r < 0.8) | (size[0] == 0), 0,
+                            np.where((r < 0.9) | (size[1] == 0), 1,
+                                     np.where(r < 0.95, 0, 1)))
+            ax_size = size[axis, np.arange(b)]
+            remove = ~cell & (r >= 0.9) & (ax_size >= 3)
+            pos = np.where(remove, (rng.random(b) * (ax_size - 1)),
+                           rng.random(b) * (ax_size + 1)).astype(np.int64)
+            count = rng.integers(1, 3, b)
+            f["target"][:, j] = np.where(cell, mxk.MX_CELL, axis)
+            f["kind"][:, j] = np.where(remove, mtk.MT_REMOVE, mtk.MT_INSERT)
+            f["pos"][:, j] = np.where(cell, 0, pos)
+            f["end"][:, j] = np.where(remove, pos + 1, 0)
+            f["count"][:, j] = np.where(cell | remove, 0, count)
+            f["handle_base"][:, j] = np.where(cell | remove, 0,
+                                              nxt[axis, np.arange(b)])
+            f["row"][:, j] = np.where(cell, (rng.random(b) * (size[0] + 1)),
+                                      0).astype(np.int64)
+            f["col"][:, j] = np.where(cell, (rng.random(b) * size[1]),
+                                      0).astype(np.int64)
+            f["value"][:, j] = np.where(cell, rng.integers(1, 1000, b), 0)
+            f["seq"][:, j] = seq
+            f["ref_seq"][:, j] = np.maximum(seq - rng.integers(1, lag + 1, b),
+                                            0)
+            f["client"][:, j] = rng.integers(0, clients, b)
+            v = f["valid"][:, j]
+            ins = v & ~cell & ~remove
+            for a in (0, 1):
+                on = axis == a
+                size[a] += np.where(ins & on, count, 0) \
+                    - np.where(v & remove & on, 1, 0)
+                nxt[a] += np.where(ins & on, count, 0)
+        out.append(f)
+    return out
+
+
+def matrix_batch(fields, device):
+    import torch
+
+    from fluidframework_tpu_torch.ops import matrix_kernel as mxk
+    return mxk.MatrixOpBatch(**{n: torch.from_numpy(fields[n]).to(device)
+                                for n in mxk.MatrixOpBatch._fields})
+
+
+def matrix_bound(state, ops) -> tuple[float, str]:
+    """Kernel 5's bound on these inputs: both axes and the cell table in
+    and out once, the op planes once; 12 integer ops per slot for each
+    valid vector op (the walk), and per valid cell op 8 per slot of each
+    axis (two frames) plus 4 per cell entry (the key match)."""
+    from fluidframework_tpu_torch.ops import matrix_kernel as mxk
+    b, s = state.rows.length.shape
+    p, w = state.rows.prop_val.shape[2], state.rows.rem_overlap.shape[2]
+    c, k = state.cell_rh.shape[1], ops.kind.shape[1]
+    state_bytes = 2 * (b * s * (1 + 4 * (6 + p + w)) + 4 * b) \
+        + b * c * (4 * 4 + 1) + 4 * b
+    nbytes = 2 * state_bytes + b * k * (12 * 4 + 1)
+    cells = int((ops.valid & (ops.target == mxk.MX_CELL)).sum())
+    vec = int(ops.valid.sum()) - cells
+    return bound(nbytes, 12 * vec * s + cells * (2 * 8 * s + 4 * c))
+
+
+def steps_bound(state, steps) -> tuple[float, str]:
+    """Kernel 6's bound on these inputs: both axes and the cell table in
+    and out once, the step and run planes once; 12 integer ops per slot
+    for each valid vector op, 8 per slot of each axis for each frame (one
+    per step with a valid cell), 4 per cell entry for each valid cell."""
+    b, s = state.rows.length.shape
+    p, w = state.rows.prop_val.shape[2], state.rows.rem_overlap.shape[2]
+    c = state.cell_rh.shape[1]
+    t, r = steps.r_valid.shape[1:]
+    state_bytes = 2 * (b * s * (1 + 4 * (6 + p + w)) + 4 * b) \
+        + b * c * (4 * 4 + 1) + 4 * b
+    nbytes = 2 * state_bytes + b * t * (11 * 4 + 1) + b * t * r * (4 * 4 + 1)
+    frames = int(steps.r_valid.any(dim=2).sum())
+    cells = int(steps.r_valid.sum())
+    vec = int(steps.vec_valid.sum())
+    return bound(nbytes, 12 * vec * s + frames * 2 * 8 * s + cells * 4 * c)
+
+
+def check_matrix_tick(device, b=MATRIX_B, k=MATRIX_K, s=MATRIX_S,
+                      c=MATRIX_C, w=MATRIX_W, fill_ticks=2,
+                      time_it=True) -> dict:
+    """Kernel 5 against its plain version on one tick of shape (B, K, S,
+    C, W) from a state that ``fill_ticks`` plain ticks part filled (mixed
+    targets, 32 W writers): every plane must be equal."""
+    import numpy as np
+    import torch
+
+    from fluidframework_tpu_torch.ops import matrix_cuda as mxc
+    from fluidframework_tpu_torch.ops import matrix_kernel as mxk
+    rng = np.random.default_rng(b + 5 * k + s + c + w)
+    ticks = matrix_ticks(rng, b, k, fill_ticks + 1, 32 * w)
+    state = mxk.init_state(b, s, c, w, device)
+    for f in ticks[:-1]:
+        state = mxk.apply_tick(state, matrix_batch(f, device))
+    ops = matrix_batch(ticks[-1], device)
+    got = mxc.apply_tick_best(state, ops)
+    want = mxk.apply_tick(state, ops)
+    torch.cuda.synchronize()
+    err = max_abs_err(got, want)
+    check(err == 0, f"matrix op tick kernel != plain version at "
+          f"{(b, k, s, c, w)} (max |err| {err})")
+    full = int((want.cell_count >= c).sum())
+    out = {"shape": [b, k, s, c, w], "max_abs_err": err,
+           "docs_with_a_full_cell_log": full,
+           "max_cell_count": int(want.cell_count.max())}
+    if time_it:
+        out["ms"] = cuda_time_ms(lambda: mxc.apply_tick_best(state, ops), 10)
+        out["plain_ms"] = cuda_time_ms(lambda: mxk.apply_tick(state, ops), 1)
+        out["bound_ms"], out["bound_by"] = matrix_bound(state, ops)
+    print(f"kernel matrix_tick: {json.dumps(out)}", flush=True)
+    return out
+
+
+def matrix_stream(rng, n_ops: int, clients: int, lag: int) -> list[dict]:
+    """One document's sequenced matrix ops in the reference benchmark's
+    mix (as :func:`matrix_ticks`), each at a ref up to ``lag`` seqs
+    back."""
+    from fluidframework_tpu_torch.ops import matrix_kernel as mxk
+    from fluidframework_tpu_torch.ops import mergetree_kernel as mtk
+    ops, size, nxt = [], [0, 0], [0, 0]
+    for seq in range(1, n_ops + 1):
+        base = dict(seq=seq, ref_seq=max(0, seq - rng.randint(1, lag)),
+                    client=rng.randrange(clients))
+        r = rng.random()
+        if size[0] and size[1] and r < 0.7:
+            ops.append(dict(base, target=mxk.MX_CELL,
+                            row=rng.randrange(size[0]),
+                            col=rng.randrange(size[1]),
+                            value=rng.randrange(1, 1000)))
+            continue
+        a = 0 if (r < 0.8 or not size[0]) else (
+            1 if (r < 0.9 or not size[1]) else (0 if r < 0.95 else 1))
+        if r >= 0.9 and size[a] >= 3:
+            pos = rng.randrange(size[a] - 1)
+            ops.append(dict(base, target=a, kind=mtk.MT_REMOVE, pos=pos,
+                            end=pos + 1))
+            size[a] -= 1
+        else:
+            n = rng.randint(1, 2)
+            ops.append(dict(base, target=a, kind=mtk.MT_INSERT,
+                            pos=rng.randint(0, size[a]), count=n,
+                            handle_base=nxt[a]))
+            size[a] += n
+            nxt[a] += n
+    return ops
+
+
+def matrix_steps_path(device) -> dict:
+    """Kernel 6 at the reference matrix benchmark's shape: STEPS_DOCS
+    docs, STEPS_K ops per doc a tick in the step layout (r_max
+    STEPS_RMAX, last_vec_seq carried across ticks), STEPS_TICKS ticks on
+    an S = C = STEPS_S table; STEPS_STREAMS seeded streams tiled over the
+    docs. Launch counts are zeroed just before the ticks and read just
+    after. Then the same ops in the flat layout through kernel 5: the
+    grids of 64 sampled docs must be equal."""
+    import random
+
+    import numpy as np
+    import torch
+
+    from fluidframework_tpu_torch.ops import matrix_cuda as mxc
+    from fluidframework_tpu_torch.ops import matrix_kernel as mxk
+    rng = random.Random(0)
+    n, reps = STEPS_STREAMS, STEPS_DOCS // STEPS_STREAMS
+    streams = [matrix_stream(rng, STEPS_K * STEPS_TICKS, 8, 3)
+               for _ in range(n)]
+    batches, flats, lvs = [], [], [0] * n
+    for t in range(STEPS_TICKS):
+        chunk = [x[t * STEPS_K:(t + 1) * STEPS_K] for x in streams]
+        steps = mxk.make_matrix_step_batch(chunk, n, STEPS_RMAX, list(lvs),
+                                           "cpu")
+        batches.append(mxk.MatrixStepBatch(*(
+            f.repeat(reps, *[1] * (f.dim() - 1)).to(device) for f in steps)))
+        flat = mxk.make_matrix_op_batch(chunk, n, STEPS_K, "cpu")
+        flats.append(mxk.MatrixOpBatch(*(f.repeat(reps, 1).to(device)
+                                         for f in flat)))
+        for d, ops in enumerate(chunk):
+            for op in ops:
+                if op["target"] != mxk.MX_CELL:
+                    lvs[d] = max(lvs[d], op["seq"])
+    state0 = mxk.init_state(STEPS_DOCS, STEPS_S, STEPS_S, 1, device)
+    inputs: dict = {}
+    mxc.steps.reset()
+    t0 = time.perf_counter()
+    with recording(mxc, "apply_tick_steps_best", inputs, mxc.steps):
+        state = state0
+        for batch in batches:
+            state = mxc.apply_tick_steps_best(state, batch)
+        torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    launches, shapes = mxc.steps.launches, dict(mxc.steps.shapes)
+    check(launches == STEPS_TICKS, f"matrix step kernel launched {launches} "
+          f"times in {STEPS_TICKS} ticks")
+    flat = state0
+    for batch in flats:
+        flat = mxc.apply_tick_best(flat, batch)
+    torch.cuda.synchronize()
+    sample = np.linspace(0, STEPS_DOCS - 1, 64).astype(int).tolist()
+    vals = list(range(1000))
+    for d in sample:
+        check(mxk.materialize_grid(state, d, vals)
+              == mxk.materialize_grid(flat, d, vals),
+              f"step-layout grid of doc {d} != the op tick's")
+        check(mxk.materialize_grid(state, d, vals)
+              == mxk.materialize_grid(state, d % n, vals),
+              f"doc {d} diverged from its stream's first copy")
+    ops = STEPS_DOCS * STEPS_K * STEPS_TICKS
+    out = {"docs": STEPS_DOCS, "k": STEPS_K, "ticks": STEPS_TICKS,
+           "r_max": STEPS_RMAX, "ops": ops, "serve_s": serve_s,
+           "ops_per_s": ops / serve_s, "launches": launches,
+           "cells_live_mean": float(state.cell_count.float().mean())}
+    print("matrix_steps_path: " + json.dumps(out), flush=True)
+    return {"launches": launches, "shapes": shapes, "inputs": inputs,
+            "path": out}
+
+
+# -- the matrix main paths ----------------------------------------------------------
+
+
+def replay_grid(ops) -> list[list]:
+    """The converged grid of a scalar replay of (channel op, seq, ref,
+    client) tuples: two PermutationVectors and an LWW dict, as the merge
+    host's scalar route applies them."""
+    from fluidframework_tpu_torch.dds.matrix import PermutationVector
+    rows, cols, cells = PermutationVector(None), PermutationVector(None), {}
+    for op, seq, ref, client in ops:
+        if op["target"] in ("rows", "cols"):
+            (rows if op["target"] == "rows" else cols).apply_remote(
+                op, seq, ref, client)
+        else:
+            rh = rows.handle_at(op["row"], ref, client)
+            ch = cols.handle_at(op["col"], ref, client)
+            if rh is not None and ch is not None:
+                cells[(rh, ch)] = op["value"]
+
+    def live(vec):
+        return [h for seg in vec.engine.segments if seg.removed_seq is None
+                for h in seg.content]
+    return [[cells.get((r, c)) for c in live(cols)] for r in live(rows)]
+
+
+def matrix_path_a(device, plain: bool = False) -> dict:
+    """BASELINE config 4 at its published width: MATRIX_CLIENTS clients
+    join one doc through the service (the deli kernel sequences the
+    joins); client 0 lays out a MATRIX_GRID x MATRIX_GRID grid (a flush
+    with structural ops: kernel 5); then MATRIX_ROUNDS rounds in which
+    every client sends one cell write at the round's head ref (an all-cell
+    flush: the cell-run append), except every fourth round, in which 16
+    clients instead insert or remove 1-4 rows or cols near the top (a
+    mixed flush of MATRIX_CLIENTS ops with concurrent removes: kernel 5).
+    Each round is one pump, whose merger checkpoint flushes the host."""
+    import random
+
+    import torch
+
+    from fluidframework_tpu_torch.protocol.messages import (
+        DocumentMessage,
+        MessageType,
+    )
+    from fluidframework_tpu_torch.server.kernel_host import \
+        KernelSequencerHost
+    from fluidframework_tpu_torch.server.merge_host import KernelMergeHost
+    from fluidframework_tpu_torch.server.routerlicious import \
+        RouterliciousService
+
+    with plain_host_versions() if plain else contextlib.nullcontext():
+        seq_host = KernelSequencerHost(num_slots=MATRIX_CLIENTS,
+                                       initial_capacity=1, device=device)
+        merge_host = KernelMergeHost(device=device)
+        service = RouterliciousService(merge_host=merge_host,
+                                       batched_deli_host=seq_host,
+                                       auto_pump=False)
+        clock = iter(range(1000, 1 << 30, 3))
+        service._clock = lambda: next(clock)
+        doc = "config4"
+        t0 = time.perf_counter()
+        conns = [service.connect(doc, lambda m: None)
+                 for _ in range(MATRIX_CLIENTS)]
+        service.pump()
+        cseq = [0] * MATRIX_CLIENTS
+
+        def send(i, op, ref):
+            cseq[i] += 1
+            conns[i].submit([DocumentMessage(
+                client_sequence_number=cseq[i], reference_sequence_number=ref,
+                type=MessageType.OPERATION,
+                contents={"address": "default",
+                          "contents": {"address": "grid", "contents": op}})])
+
+        head = MATRIX_CLIENTS  # the joins are seqs 1..256
+        for axis in ("rows", "cols"):
+            send(0, {"type": "insert", "target": axis, "pos": 0,
+                     "count": MATRIX_GRID}, head)
+        service.pump()
+        head += 2
+        size = {"rows": MATRIX_GRID, "cols": MATRIX_GRID}
+        rng = random.Random(4)
+        for r in range(MATRIX_ROUNDS):
+            movers = set(rng.sample(range(MATRIX_CLIENTS), 16)) \
+                if r % 4 == 3 else set()
+            grown = {"rows": 0, "cols": 0}
+            gone = {"rows": set(), "cols": set()}
+            for i in range(MATRIX_CLIENTS):
+                if i in movers:
+                    axis = rng.choice(("rows", "cols"))
+                    n = rng.randint(1, 4)
+                    if rng.random() < 0.5:
+                        a = rng.randrange(16)
+                        op = {"type": "remove", "target": axis, "start": a,
+                              "end": a + n}
+                        gone[axis].update(range(a, a + n))
+                    else:
+                        op = {"type": "insert", "target": axis,
+                              "pos": rng.randint(0, size[axis]), "count": n}
+                        grown[axis] += n
+                else:
+                    op = {"type": "set", "target": "cell",
+                          "row": rng.randrange(size["rows"]),
+                          "col": rng.randrange(size["cols"]),
+                          "value": rng.randrange(1 << 20)}
+                send(i, op, head)
+            service.pump()
+            head += MATRIX_CLIENTS
+            for axis in size:
+                size[axis] += grown[axis] - len(gone[axis])
+        merge_host.flush()
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+    return {"service": service, "merge_host": merge_host,
+            "seq_host": seq_host, "doc": doc, "size": size,
+            "serve_s": serve_s}
+
+
+def matrix_path_b(device, plain: bool = False,
+                  flushes: int | None = None) -> dict:
+    """The host at batched width: MATRIX_B docs, one matrix channel each,
+    MATRIX_CLIENTS writer ids. Each doc is laid out as a MATRIX_START x
+    MATRIX_START grid, then takes ``flushes`` (default MATRIX_FLUSHES)
+    flushes of MATRIX_K ops per doc from distinct writers at the doc's
+    head ref, in the mix of :func:`matrix_ticks`, fed through
+    ``KernelMergeHost.ingest`` then ``flush()``. The cell log starts at
+    MATRIX_B_CELLS entries. Returns the host and the sampled docs'
+    sequenced ops."""
+    import numpy as np
+    import torch
+
+    from fluidframework_tpu_torch.protocol.messages import (
+        MessageType,
+        SequencedDocumentMessage,
+    )
+    from fluidframework_tpu_torch.server.merge_host import KernelMergeHost
+    flushes = MATRIX_FLUSHES if flushes is None else flushes
+    rng = np.random.default_rng(6)
+    d_n, k = MATRIX_B, MATRIX_K
+    names = [f"grid{d}" for d in range(d_n)]
+    sample = set(np.linspace(0, d_n - 1, SAMPLE_DOCS).astype(int).tolist())
+    sampled: dict[int, list] = {d: [] for d in sample}
+    size = np.full((2, d_n), MATRIX_START, np.int64)
+    seq = np.zeros(d_n, np.int64)
+    prev_ref = np.zeros(d_n, np.int64)
+    axes = ("rows", "cols")
+    with plain_host_versions() if plain else contextlib.nullcontext():
+        host = KernelMergeHost(flush_threshold=10**9, row_capacity=d_n,
+                               device=device)
+        host._matrix_cell_slots = MATRIX_B_CELLS  # before the lazy state
+
+        def ingest(d, op, sq, ref, msn, client):
+            host.ingest(names[d], SequencedDocumentMessage(
+                client_id=client, sequence_number=sq,
+                minimum_sequence_number=msn, client_sequence_number=sq,
+                reference_sequence_number=ref, type=MessageType.OPERATION,
+                contents={"address": "default",
+                          "contents": {"address": "grid", "contents": op}}))
+            if d in sampled:
+                sampled[d].append((op, sq, ref, client))
+
+        t0 = time.perf_counter()
+        for d in range(d_n):
+            for j, axis in enumerate(axes):
+                ingest(d, {"type": "insert", "target": axis, "pos": 0,
+                           "count": MATRIX_START}, j + 1, j, 0, "w0")
+        seq += 2
+        prev_ref[:] = 1
+        flush_s = 0.0
+        t_flush = time.perf_counter()
+        host.flush()
+        torch.cuda.synchronize()
+        flush_s += time.perf_counter() - t_flush
+        for _f in range(flushes):
+            r = rng.random((d_n, k))
+            cell = r < 0.7
+            axis = np.where(r < 0.8, 0, np.where(r < 0.9, 1,
+                                                 np.where(r < 0.95, 0, 1)))
+            ax_size = np.take_along_axis(size.T, axis, axis=1)
+            remove = ~cell & (r >= 0.9) & (ax_size >= 3)
+            start = (rng.random((d_n, k)) * (ax_size - 1)).astype(np.int64)
+            n_rm = rng.integers(1, 3, (d_n, k))
+            end = np.minimum(start + n_rm, ax_size)
+            pos = (rng.random((d_n, k)) * (ax_size + 1)).astype(np.int64)
+            count = rng.integers(1, 4, (d_n, k))
+            row = (rng.random((d_n, k)) * size[0][:, None]).astype(np.int64)
+            col = (rng.random((d_n, k)) * size[1][:, None]).astype(np.int64)
+            value = rng.integers(0, 1 << 20, (d_n, k))
+            client = np.argsort(rng.random((d_n, MATRIX_CLIENTS)),
+                                axis=1)[:, :k]
+            # New sizes: every op of a flush shares one ref frame, so new
+            # = old + inserted - |union of removed ranges|, per axis.
+            lmax = int(size.max()) + 1
+            for a in (0, 1):
+                on = ~cell & (axis == a)
+                diff = np.zeros((d_n, lmax + 1), np.int64)
+                rows_ = np.broadcast_to(np.arange(d_n)[:, None], (d_n, k))
+                m = on & remove
+                np.add.at(diff, (rows_[m], start[m]), 1)
+                np.add.at(diff, (rows_[m], end[m]), -1)
+                gone = (np.cumsum(diff, axis=1)[:, :lmax] > 0).sum(axis=1)
+                size[a] += np.where(on & ~remove, count, 0).sum(axis=1) - gone
+            cols_ = [x.tolist() for x in (cell, axis, remove, start, end, pos,
+                                          count, row, col, value, client)]
+            for d in range(d_n):
+                ref, msn = int(seq[d]), int(prev_ref[d])
+                ce, ax, rm, st, en, po, co, ro, cl, va, wr = (
+                    c[d] for c in cols_)
+                for j in range(k):
+                    if ce[j]:
+                        op = {"type": "set", "target": "cell", "row": ro[j],
+                              "col": cl[j], "value": va[j]}
+                    elif rm[j]:
+                        op = {"type": "remove", "target": axes[ax[j]],
+                              "start": st[j], "end": en[j]}
+                    else:
+                        op = {"type": "insert", "target": axes[ax[j]],
+                              "pos": po[j], "count": co[j]}
+                    ingest(d, op, ref + j + 1, ref, msn, f"w{wr[j]}")
+            t_flush = time.perf_counter()
+            host.flush()
+            torch.cuda.synchronize()
+            flush_s += time.perf_counter() - t_flush
+            prev_ref[:] = seq
+            seq += k
+        serve_s = time.perf_counter() - t0
+    return {"merge_host": host, "names": names, "sampled": sampled,
+            "size": size, "serve_s": serve_s, "flush_s": flush_s,
+            "ops": int(seq.sum())}
+
+
+def matrix_states_equal(a, b, what: str) -> None:
+    """Every matrix plane and counter of two merge hosts equal (the
+    kernel run against the plain-version run)."""
+    import torch
+    sa, sb = a._matrix_state, b._matrix_state
+    for (f, x), y in zip(
+            [(f"rows.{g}", t) for g, t in zip(sa.rows._fields, sa.rows)]
+            + [(f"cols.{g}", t) for g, t in zip(sa.cols._fields, sa.cols)]
+            + list(zip(sa._fields[2:], sa[2:])), leaves(sb)):
+        check(torch.equal(x, y), f"{what} matrix plane {f}: kernel run != "
+              "plain run")
+    check(a.stats == b.stats, f"{what} stats differ: {a.stats} vs {b.stats}")
+
+
+def matrix_main_path(device) -> dict:
+    """Both matrix paths with the kernels (launch counts zeroed just
+    before each and read just after), checked against a scalar
+    PermutationVector + LWW replay and against a second run of each on
+    the plain versions."""
+    import torch
+
+    from fluidframework_tpu_torch.ops import matrix_cuda as mxc
+    from fluidframework_tpu_torch.ops import sequencer_cuda as seqc
+    from fluidframework_tpu_torch.protocol.messages import MessageType
+    launches: dict = {}
+    shapes: dict = {"matrix_tick": {}, "sequencer_tick": {}}
+    inputs: dict = {}
+    out: dict = {}
+    for name, drive in (("a", matrix_path_a), ("b", matrix_path_b)):
+        mxc.tick.reset()
+        mxc.steps.reset()
+        seqc.launches = 0
+        seqc.shapes.clear()
+        with recording(mxc, "apply_tick_best", inputs, mxc.tick):
+            run = drive(device)
+        torch.cuda.synchronize()
+        launches[name] = {"matrix_tick": mxc.tick.launches,
+                          "matrix_steps": mxc.steps.launches,
+                          "sequencer_tick": seqc.launches}
+        for key, by in (("matrix_tick", mxc.tick.shapes),
+                        ("sequencer_tick", seqc.shapes)):
+            for shape, n in by.items():
+                shapes[key][shape] = shapes[key].get(shape, 0) + n
+        host = run["merge_host"]
+        if name == "a":
+            msgs = [m for m in run["service"].get_deltas(run["doc"], 0)
+                    if m.type == MessageType.OPERATION]
+            want_n = 2 + MATRIX_CLIENTS * MATRIX_ROUNDS
+            check(len(msgs) == want_n,
+                  f"config 4 sequenced {len(msgs)} of {want_n} ops")
+            want = replay_grid([
+                (m.contents["contents"]["contents"], m.sequence_number,
+                 m.reference_sequence_number, m.client_id) for m in msgs])
+            got = host.matrix_grid(run["doc"], "default", "grid")
+            check(got == want, "config 4: merge_host.matrix_grid() != "
+                  "PermutationVector + LWW replay of get_deltas")
+            check((len(got), len(got[0])) == (run["size"]["rows"],
+                                              run["size"]["cols"]),
+                  f"config 4: grid {len(got)} x {len(got[0])} != tracked "
+                  f"{run['size']}")
+            check(launches["a"]["sequencer_tick"] > 0,
+                  "the deli kernel did not run on matrix path A")
+            check(host.stats.get("cell_run_ticks", 0) > 0,
+                  "no all-cell flush on matrix path A")
+            check(32 * host._matrix_overlap_words >= MATRIX_CLIENTS,
+                  f"matrix path A overlap words {host._matrix_overlap_words}")
+        else:
+            for d, ops in run["sampled"].items():
+                got = host.matrix_grid(run["names"][d], "default", "grid")
+                check(got == replay_grid(ops), f"grid of matrix doc {d} != "
+                      "PermutationVector + LWW replay")
+                check((len(got), len(got[0]) if got else 0)
+                      == (int(run["size"][0][d]), int(run["size"][1][d])),
+                      f"matrix doc {d}: grid shape != tracked")
+            for stat in ("compactions",):
+                check(host.stats[stat] > 0, f"no {stat} on matrix path B")
+            check(host._matrix_vec_slots > 64
+                  and host._matrix_cell_slots > MATRIX_B_CELLS,
+                  f"matrix path B grew no vector or cell slots "
+                  f"({host._matrix_vec_slots}, {host._matrix_cell_slots})")
+        check(launches[name]["matrix_tick"] > 0,
+              f"matrix op tick kernel not launched on matrix path {name}")
+        plain = drive(device, plain=True)
+        matrix_states_equal(host, plain["merge_host"], f"matrix path {name}")
+        if name == "a":
+            for f, x, y in zip(run["seq_host"]._state._fields,
+                               run["seq_host"]._state,
+                               plain["seq_host"]._state):
+                check(torch.equal(x, y), f"config 4 deli plane {f}: kernel "
+                      "run != plain run")
+        out[name] = {"serve_s": run["serve_s"],
+                     "plain_serve_s": plain["serve_s"],
+                     "stats": host.stats, "launches": launches[name],
+                     "vec_slots": host._matrix_vec_slots,
+                     "cell_slots": host._matrix_cell_slots,
+                     "overlap_words": host._matrix_overlap_words}
+        if name == "b":
+            out[name].update(ops=run["ops"], flush_s=run["flush_s"],
+                             ops_per_s=run["ops"] / run["serve_s"])
+    out["a"]["ops"] = 2 + MATRIX_CLIENTS * MATRIX_ROUNDS
+    out["a"]["ops_per_s"] = out["a"]["ops"] / out["a"]["serve_s"]
+    print("matrix_main_path: " + json.dumps(out), flush=True)
+    print("matrix_main_path_shapes: " + json.dumps(
+        {name: [[*shape, n] for shape, n in sorted(by.items())]
+         for name, by in shapes.items()}), flush=True)
+    return {"launches": launches, "shapes": shapes, "inputs": inputs,
+            "paths": out}
 
 
 def device_busy(prof) -> tuple[float, list]:
@@ -1131,6 +1762,29 @@ def trace_text_paths(device) -> dict:
     return out
 
 
+def trace_matrix_paths(device) -> dict:
+    """Both matrix paths again, each whole under ``torch.profiler`` (path
+    B at two flushes, for the profiler's post-processing time): device
+    busy ms against the host's wall ms over the path."""
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    for name, drive in (("a", matrix_path_a),
+                        ("b", lambda dev: matrix_path_b(dev, flushes=2))):
+        prof = profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+        with prof:
+            t0 = time.perf_counter()
+            drive(device)
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        busy_ms, top = device_busy(prof)
+        out[name] = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+                     "idle_share": 1 - busy_ms / wall_ms,
+                     "top_device_ms": top}
+    print("trace_matrix: " + json.dumps(out), flush=True)
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -1157,7 +1811,7 @@ def main() -> int:
     from fluidframework_tpu_torch.ops import _build
     t0 = time.perf_counter()
     _build.build_all(["map_fold", "sequencer_tick", "mergetree_flat",
-                      "mergetree_blocks"])
+                      "mergetree_blocks", "matrix_tick", "matrix_steps"])
     print(f"build: {time.perf_counter() - t0:.2f} s "
           f"({_build.BUILD_DIR})", flush=True)
 
@@ -1169,15 +1823,23 @@ def main() -> int:
     check(burst["overflowed_docs"] > 0,
           "the burst tick overflowed no block")
     flat_full = check_flat_tick(device)
+    matrix_full = check_matrix_tick(device)
+    matrix_clamp = check_matrix_tick(device, c=MATRIX_FULL_C, time_it=False)
+    check(matrix_clamp["docs_with_a_full_cell_log"] > 0,
+          "the clamp tick filled no cell log")
     path = main_path(device)
     text = text_main_path(device)
+    matrix = matrix_main_path(device)
+    steps = matrix_steps_path(device)
     shapes = path["shapes"]
     fold_main = at_main_path_shapes(
         "map_fold", shapes["map_fold"], fold,
         lambda b, k, s: check_map_fold(device, b, k, s))
     deli_shapes = dict(shapes["sequencer_tick"])
-    for shape, n in text["shapes"]["sequencer_tick"].items():
-        deli_shapes[shape] = deli_shapes.get(shape, 0) + n
+    for by in (text["shapes"]["sequencer_tick"],
+               matrix["shapes"]["sequencer_tick"]):
+        for shape, n in by.items():
+            deli_shapes[shape] = deli_shapes.get(shape, 0) + n
     deli_main = at_main_path_shapes(
         "sequencer_tick", deli_shapes, deli,
         lambda b, k, c: check_deli(device, b, k, c, every_outcome=False))
@@ -1195,17 +1857,33 @@ def main() -> int:
         text["inputs"]["mergetree_flat"], mtc.apply_tick_best,
         mtk.apply_tick, flat_bound)
     del text["inputs"]
+    from fluidframework_tpu_torch.ops import matrix_cuda as mxc
+    from fluidframework_tpu_torch.ops import matrix_kernel as mxk
+    tick_main = recheck_recorded(
+        "matrix_tick", matrix["shapes"]["matrix_tick"], matrix["inputs"],
+        mxc.apply_tick_best, mxk.apply_tick, matrix_bound)
+    del matrix["inputs"]
+    steps_main = recheck_recorded(
+        "matrix_steps", steps["shapes"], steps["inputs"],
+        mxc.apply_tick_steps_best, mxk.apply_tick_steps, steps_bound,
+        ops_of=lambda st: int(st.vec_valid.sum() + st.r_valid.sum()))
+    del steps["inputs"]
     if "--trace" in sys.argv[1:]:
         trace_main_path(device)
         trace_text_paths(device)
+        trace_matrix_paths(device)
     # Each path's own launches, counted from 0 just before it and read
     # just after; a kernel's "launches" is their sum.
     by_path = {
         name: {"map": path["launches"].get(name, 0),
                "text_a": text["launches"]["a"].get(name, 0),
-               "text_b": text["launches"]["b"].get(name, 0)}
+               "text_b": text["launches"]["b"].get(name, 0),
+               "matrix_a": matrix["launches"]["a"].get(name, 0),
+               "matrix_b": matrix["launches"]["b"].get(name, 0),
+               "matrix_steps": (steps["launches"]
+                                if name == "matrix_steps" else 0)}
         for name in ("map_fold", "sequencer_tick", "mergetree_blocks",
-                     "mergetree_flat")}
+                     "mergetree_flat", "matrix_tick", "matrix_steps")}
     launches = {name: sum(n.values()) for name, n in by_path.items()}
     kernels = [
         {"name": "map_fold", "route": "cuda",
@@ -1238,6 +1916,21 @@ def main() -> int:
          "library_ms": None,
          "at_full_size": {key: flat_full[key] for key in
                           ("shape", "ms", "plain_ms", "bound_ms")}},
+        {"name": "matrix_tick", "route": "cuda",
+         "source": "fluidframework_tpu_torch/csrc/matrix_tick.cu",
+         "replaces": "fluidframework_tpu/ops/matrix_pallas.py:158",
+         "launches": launches["matrix_tick"],
+         "launches_by_path": by_path["matrix_tick"], **tick_main,
+         "library_ms": None,
+         "at_full_size": {key: matrix_full[key] for key in
+                          ("shape", "ms", "plain_ms", "bound_ms")},
+         "clamp_shape_max_abs_err": matrix_clamp["max_abs_err"]},
+        {"name": "matrix_steps", "route": "cuda",
+         "source": "fluidframework_tpu_torch/csrc/matrix_steps.cu",
+         "replaces": "fluidframework_tpu/ops/matrix_pallas.py:362",
+         "launches": launches["matrix_steps"],
+         "launches_by_path": by_path["matrix_steps"], **steps_main,
+         "library_ms": None},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

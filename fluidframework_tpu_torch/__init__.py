@@ -23,7 +23,10 @@ SharedString text serving: the flat and block merge tables
 (``ops/mergetree_kernel.py`` + ``ops/mergetree_cuda.py``,
 ``ops/mergetree_blocks.py`` + ``ops/mergetree_blocks_cuda.py``), the
 scalar ``dds/mergetree.py`` engine and the text half of
-``server/merge_host.py``.
+``server/merge_host.py`` — and SharedMatrix serving: the matrix table
+(``ops/matrix_kernel.py`` + ``ops/matrix_cuda.py``, the op tick and the
+step tick), the scalar ``dds/matrix.py`` permutation vector and the
+matrix half of ``server/merge_host.py``.
 """
 
 __version__ = "0.1.0"

@@ -9,8 +9,10 @@ into the port's tensors and hosts, and back:
   MapState` NamedTuples ↔ ``{field: ndarray}``;
 * ``KernelMergeHost.export_state()`` snapshots — the map planes, the
   text pools (block and flat planes, text buffers, rows with their client
-  and key slots, scalar-routed rows' engines) — which share one wire
-  format and load with :func:`merge_host_from_export`;
+  and key slots, scalar-routed rows' engines), the matrix state and
+  matrix rows (device planes, handle counters, scalar-routed rows'
+  permutation vectors and cells) — which share one wire format and load
+  with :func:`merge_host_from_export`;
 * ``KernelSequencerHost.checkpoint_all()`` checkpoints, loaded with
   :func:`restore_sequencer_host`;
 * a whole sequencer host's planes and row/slot maps, with
@@ -67,7 +69,7 @@ def map_state_from_numpy(arrays, device=None) -> mk.MapState:
 def merge_host_from_export(snap: dict, device=None,
                            **kwargs) -> KernelMergeHost:
     """A fresh port merge host holding an ``export_state()`` snapshot of
-    either package (map and text channels)."""
+    either package (map, text and matrix channels)."""
     host = KernelMergeHost(device=device, **kwargs)
     host.import_state(snap)
     return host

@@ -1,2 +1,3 @@
 """Distributed data structures the server side needs: the scalar merge-tree
-engine (``mergetree.py``), a copy of the reference package's."""
+engine (``mergetree.py``) and the matrix permutation vector
+(``matrix.py``), copies of the reference package's."""

@@ -1,6 +1,6 @@
 """KernelMergeHost — device-resident converged document state on the server.
 
-Port of the map and text halves of ``fluidframework_tpu/server/
+Port of the map, text and matrix parts of ``fluidframework_tpu/server/
 merge_host.py``. Reference parity: the *server-observed* hot loops of the
 reference — the merge-tree sequenced apply path (packages/dds/merge-tree/
 src/mergeTree.ts: 1974 insertingWalk, 2626 markRangeRemoved, 2584
@@ -9,8 +9,11 @@ mapKernel.ts:510 tryProcessMessage) — hosted behind the service seams as
 batched device programs: every (document, datastore, channel) is a row
 of a :class:`~fluidframework_tpu_torch.ops.mergetree_blocks.
 BlockMergeState` pool (text) or of the :class:`~fluidframework_tpu_torch.
-ops.map_kernel.MapState` (map); a flush applies the pending sequenced ops
-of all channels, one block merge tick per dirty text pool.
+ops.map_kernel.MapState` (map), and every SharedMatrix channel a row of
+one :class:`~fluidframework_tpu_torch.ops.matrix_kernel.MatrixState`
+(matrix.ts:547 processCore); a flush applies the pending sequenced ops
+of all channels, one block merge tick per dirty text pool and one matrix
+tick (the op tick kernel, or the all-cells append) for the matrix rows.
 
 The host owns what the kernels cannot:
 
@@ -26,11 +29,12 @@ The host owns what the kernels cannot:
   :class:`~fluidframework_tpu_torch.dds.mergetree.MergeEngine`
   (``_quarantine_merge_row``), as is a channel whose writer set passes
   ``max_client_slots``; it readmits once zamboni shrinks the set;
-* materialization of converged text, rich text runs and map entries.
+* materialization of converged text, rich text runs, map entries and
+  matrix grids.
 
 Not ported (raise ``NotImplementedError``): sequence-parallel and
 mega-doc pools (``seg_mesh``, ``megadoc_writer_threshold``,
-``promote_merge_row``), matrix and tree channels.
+``promote_merge_row``) and tree channels.
 """
 
 from __future__ import annotations
@@ -40,10 +44,13 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
+from ..dds.matrix import PermutationVector
 from ..dds.mergetree import Marker, MergeEngine, Segment
 from ..device import resolve_device
 from ..ops import _build
 from ..ops import map_kernel as mk
+from ..ops import matrix_cuda as mxc
+from ..ops import matrix_kernel as mxk
 from ..ops import mergetree_blocks as mtb
 from ..ops import mergetree_blocks_cuda as mtbc
 from ..ops import mergetree_cuda as mtc
@@ -64,7 +71,7 @@ _TEXT_REPACK_MIN = 1 << 20
 _MARKER_CHAR = "\x00"
 
 _NOT_PORTED_MEGA = ("sequence-parallel and mega-doc merge pools are not "
-                    "ported to the torch merge host (ROADMAP Queue A 9)")
+                    "ported to the torch merge host (ROADMAP Queue A 10)")
 
 
 class ChannelKey(NamedTuple):
@@ -116,6 +123,32 @@ class _MapRow:
         # in the op words instead of interned ids; they reject dict-path
         # traffic, so one row is always one mode.
         self.literal_values = False
+
+
+class _MatrixRow:
+    __slots__ = ("row", "client_slots", "pending", "raw_log", "scalar",
+                 "last_seq", "min_seq", "next_row_handle",
+                 "next_col_handle", "applied_seq", "applied_min_seq",
+                 "last_vec_seq")
+
+    def __init__(self, row: int) -> None:
+        self.row = row
+        self.client_slots: dict[str, int] = {}
+        self.pending: list[dict] = []
+        # Ops NOT YET applied on device (channel_op, seq, ref_seq, client)
+        # — trimmed at every flush; the fallback seeds from the device row
+        # and replays only this tail (bounded host memory).
+        self.raw_log: list[tuple[dict, int, int, str]] = []
+        self.scalar: tuple | None = None  # (rows vec, cols vec, cells dict)
+        self.last_seq = 0
+        self.min_seq = 0
+        self.applied_seq = 0
+        self.applied_min_seq = 0
+        self.next_row_handle = 0
+        self.next_col_handle = 0
+        # Seq of the newest structural (vector) op — the cell-run fast
+        # path is exact only when every cell's refSeq covers it.
+        self.last_vec_seq = 0
 
 
 def _pad_axis(a: torch.Tensor, axis: int, extra: int, fill) -> torch.Tensor:
@@ -470,6 +503,14 @@ class KernelMergeHost:
         self._merge_pools: dict[int, _MergePool] = {}
         self._xstate = mk.init_state(self._map_capacity, self._map_slots,
                                      self.device)
+        # Matrices (two embedded merge states + a cell table) lazily
+        # allocate one state for every matrix channel.
+        self._matrix_state: mxk.MatrixState | None = None
+        self._matrix_capacity = max(1, row_capacity)
+        self._matrix_vec_slots = 64
+        self._matrix_cell_slots = 256
+        self._matrix_overlap_words = 1
+        self._matrix_rows: dict[ChannelKey, _MatrixRow] = {}
         self._merge_rows: dict[ChannelKey, _MergeRow] = {}
         self._map_rows: dict[ChannelKey, _MapRow] = {}
         # Map-row recycling (doc residency): released rows reissue before
@@ -612,8 +653,8 @@ class KernelMergeHost:
     # -- ingest ----------------------------------------------------------------
 
     def ingest(self, doc_id: str, message: SequencedDocumentMessage) -> None:
-        """Feed one sequenced message. Non-channel-ops are ignored; merge and
-        map channel ops are routed to their device rows. Matrix and tree
+        """Feed one sequenced message. Non-channel-ops are ignored; merge,
+        map and matrix channel ops are routed to their device rows. Tree
         ops raise ``NotImplementedError`` (not ported yet)."""
         if message.type != MessageType.OPERATION:
             return
@@ -629,12 +670,13 @@ class KernelMergeHost:
         key = ChannelKey(doc_id, envelope["address"], inner["address"])
         kind = channel_op["type"]
         if "target" in channel_op:
-            raise NotImplementedError(
-                "matrix channel ops are not ported to the torch merge host")
-        if kind == "edit" and "edit" in channel_op:
+            # Matrix ops carry a target axis/cell and reuse type names the
+            # merge/map sets also use — route by shape FIRST.
+            self._ingest_matrix(key, channel_op, message)
+        elif kind == "edit" and "edit" in channel_op:
             raise NotImplementedError(
                 "tree channel ops are not ported to the torch merge host")
-        if kind in _MERGE_OPS:
+        elif kind in _MERGE_OPS:
             self._ingest_merge(key, channel_op, message)
         elif kind in _MAP_OPS:
             self._ingest_map(key, channel_op, message)
@@ -808,6 +850,228 @@ class KernelMergeHost:
                                         seq=seq))
         self._pending_ops += 1
 
+    # -- matrix channels (matrix.ts:547 behind the service) --------------------
+
+    def _matrix_row(self, key: ChannelKey) -> _MatrixRow:
+        state = self._matrix_rows.get(key)
+        if state is None:
+            row = len(self._matrix_rows)
+            if row >= self._matrix_capacity:
+                self._grow_matrix_rows()
+            state = _MatrixRow(row)
+            self._matrix_rows[key] = state
+        return state
+
+    def _ingest_matrix(self, key: ChannelKey, channel_op: dict,
+                       message: SequencedDocumentMessage) -> None:
+        row = self._matrix_row(key)
+        seq = message.sequence_number
+        if seq <= row.last_seq:
+            return  # bus replay
+        row.last_seq = seq
+        row.min_seq = message.minimum_sequence_number
+        ref_seq = message.reference_sequence_number
+        client = message.client_id
+        if row.scalar is not None:
+            # Scalar-served: no device state to rebuild later, no log.
+            self._matrix_scalar_apply(row, channel_op, seq, ref_seq, client)
+            self.stats["scalar_ops"] += 1
+            return
+        row.raw_log.append((channel_op, seq, ref_seq, client))
+        if (client not in row.client_slots
+                and len(row.client_slots) >= self.max_client_slots):
+            self._route_matrix_to_scalar(row)
+            self.stats["scalar_ops"] += 1
+            return
+        slot = row.client_slots.setdefault(client, len(row.client_slots))
+        if slot >= mtk.OVERLAP_WORD_BITS * self._matrix_overlap_words:
+            self._grow_matrix_overlap(mtk.overlap_words_for(slot + 1))
+
+        def alloc(axis):
+            def inner(count):
+                base = getattr(row, axis)
+                setattr(row, axis, base + count)
+                return base
+            return inner
+
+        encoded = mxk.encode_matrix_op(
+            channel_op, dict(seq=seq, ref_seq=ref_seq, client=slot),
+            alloc("next_row_handle"), alloc("next_col_handle"),
+            self._intern)
+        row.pending.extend(encoded)
+        for enc in encoded:
+            if enc["target"] != mxk.MX_CELL:
+                row.last_vec_seq = max(row.last_vec_seq, enc["seq"])
+        self._pending_ops += len(encoded)
+
+    def _seed_matrix_scalar(self, row: _MatrixRow) -> tuple:
+        """Exact scalar twin of a device matrix row: the two embedded
+        merge states become PermutationVectors (handle runs from
+        pool_start), the cell table becomes the LWW dict."""
+        s = self._matrix_state
+        slot_rev = {sl: c for c, sl in row.client_slots.items()}
+        none_seq = int(mtk.NONE_SEQ)
+
+        def seed_vec(ms: mtk.MergeState,
+                     next_handle: int) -> PermutationVector:
+            vec = PermutationVector(None)
+            # Handle allocation continues where the host's device-path
+            # counter left off (a fresh vector restarting at 0 would
+            # collide new runs with live handles).
+            vec.next_handle = next_handle
+            engine = vec.engine
+            engine.current_seq = row.applied_seq
+            engine.min_seq = row.applied_min_seq
+            arrays = {f: _host(getattr(ms, f)[row.row])
+                      for f in mtk.MergeState._fields if f != "count"}
+            for i in range(arrays["valid"].shape[0]):
+                if not arrays["valid"][i] or arrays["length"][i] == 0:
+                    continue
+                base = int(arrays["pool_start"][i])
+                length = int(arrays["length"][i])
+                rem = int(arrays["rem_seq"][i])
+                overlap = {slot_rev[c]
+                           for c in _overlap_slots(arrays["rem_overlap"][i])
+                           if c in slot_rev}
+                engine.segments.append(Segment(
+                    content=tuple(range(base, base + length)),
+                    seq=int(arrays["ins_seq"][i]),
+                    client=slot_rev.get(int(arrays["ins_client"][i])),
+                    removed_seq=None if rem == none_seq else rem,
+                    removed_client=slot_rev.get(
+                        int(arrays["rem_client"][i])),
+                    removed_overlap=overlap,
+                ))
+            return vec
+
+        cells: dict[tuple[int, int], Any] = {}
+        used = _host(s.cell_used[row.row])
+        cell_rh = _host(s.cell_rh[row.row])
+        cell_ch = _host(s.cell_ch[row.row])
+        cell_val = _host(s.cell_val[row.row])
+        for c in range(used.shape[0]):
+            if used[c]:
+                cells[(int(cell_rh[c]), int(cell_ch[c]))] = \
+                    self._val_rev[int(cell_val[c])]
+        return (seed_vec(s.rows, row.next_row_handle),
+                seed_vec(s.cols, row.next_col_handle), cells)
+
+    def _route_matrix_to_scalar(self, row: _MatrixRow) -> None:
+        """Client-slot bitmask exhausted: seed scalar permutation vectors
+        + the LWW cell dict from the device row, replay the unapplied
+        tail, and serve host-side from now on."""
+        if self._matrix_state is None:
+            row.scalar = (PermutationVector(None), PermutationVector(None),
+                          {})
+        else:
+            row.scalar = self._seed_matrix_scalar(row)
+        self._pending_ops -= len(row.pending)
+        row.pending = []
+        for op, seq, ref_seq, client in row.raw_log:
+            self._matrix_scalar_apply(row, op, seq, ref_seq, client)
+        row.raw_log = []  # the scalar vectors ARE the state from here on
+        if self._matrix_state is not None:
+            self._blank_matrix_device_row(row.row)
+        self.stats["overflow_routed"] += 1
+        self._export_stats()
+
+    def _matrix_scalar_apply(self, row: _MatrixRow, op: dict, seq: int,
+                             ref_seq: int, client: str) -> None:
+        rows_vec, cols_vec, cells = row.scalar
+        target = op["target"]
+        if target in ("rows", "cols"):
+            (rows_vec if target == "rows" else cols_vec).apply_remote(
+                op, seq, ref_seq, client)
+        else:
+            rh = rows_vec.handle_at(op["row"], ref_seq, client)
+            ch = cols_vec.handle_at(op["col"], ref_seq, client)
+            if rh is not None and ch is not None:
+                cells[(rh, ch)] = op["value"]
+
+    def _blank_matrix_device_row(self, row: int) -> None:
+        """Reset a device matrix row to its blank planes (in place) — the
+        row of a channel that now serves from the scalar vectors."""
+        s = self._matrix_state
+        for ms in (s.rows, s.cols):
+            for f in mtk.MergeState._fields:
+                getattr(ms, f)[row] = _MERGE_FILL[f]
+        s.cell_used[row] = False
+        s.cell_count[row] = 0
+
+    def _ensure_matrix_state(self) -> None:
+        if self._matrix_state is None:
+            self._matrix_state = mxk.init_state(
+                self._matrix_capacity, self._matrix_vec_slots,
+                self._matrix_cell_slots, self._matrix_overlap_words,
+                self.device)
+
+    def _grow_matrix_overlap(self, need_words: int) -> None:
+        """Widen the remover-bitmask planes of both permutation vectors
+        (32 more writer slots per word) — matrix twin of the merge pools'
+        grow_overlap."""
+        new = _next_pow2_width(self._matrix_overlap_words, need_words)
+        if new == self._matrix_overlap_words:
+            return
+        extra = new - self._matrix_overlap_words
+        if self._matrix_state is not None:
+            def pad_ov(ms: mtk.MergeState) -> mtk.MergeState:
+                return ms._replace(
+                    rem_overlap=_pad_axis(ms.rem_overlap, 2, extra, 0))
+            self._matrix_state = self._matrix_state._replace(
+                rows=pad_ov(self._matrix_state.rows),
+                cols=pad_ov(self._matrix_state.cols))
+        self._matrix_overlap_words = new
+
+    def _grow_matrix_rows(self) -> None:
+        old = self._matrix_capacity
+        self._matrix_capacity = old * 2
+        if self._matrix_state is not None:
+            self._matrix_state = self._pad_matrix_state(
+                self._matrix_state, rows_extra=old)
+
+    @staticmethod
+    def _pad_matrix_state(s: mxk.MatrixState, rows_extra: int = 0,
+                          vec_extra: int = 0,
+                          cell_extra: int = 0) -> mxk.MatrixState:
+        def pad_merge(ms: mtk.MergeState) -> mtk.MergeState:
+            out = {}
+            for f in mtk.MergeState._fields:
+                a = _pad_axis(getattr(ms, f), 0, rows_extra, _MERGE_FILL[f])
+                if f != "count" and vec_extra:
+                    a = _pad_axis(a, 1, vec_extra, _MERGE_FILL[f])
+                out[f] = a
+            return mtk.MergeState(**out)
+
+        cells = {}
+        for f, fill in mxk.CELL_FILL.items():
+            a = _pad_axis(getattr(s, f), 0, rows_extra, fill)
+            if cell_extra:
+                a = _pad_axis(a, 1, cell_extra, fill)
+            cells[f] = a
+        return mxk.MatrixState(
+            rows=pad_merge(s.rows), cols=pad_merge(s.cols),
+            cell_count=_pad_axis(s.cell_count, 0, rows_extra, 0), **cells)
+
+    def _matrix_vec_shortfall(self, rows: list[_MatrixRow]
+                              ) -> tuple[int, int]:
+        """(vec_extra, cell_extra) pow2 growth needed for the dirty rows
+        (each vector op can consume 2 slots; each cell op 1 cell slot)."""
+        margins = mxk.capacity_margin(self._matrix_state)
+        vec_extra = cell_extra = 0
+        for r in rows:
+            vec_need = 2 * len(r.pending) + 2
+            cell_need = len(r.pending) + 1
+            worst_vec = min(int(margins["rows"][r.row]),
+                            int(margins["cols"][r.row]))
+            if vec_need > worst_vec:
+                vec_extra = max(vec_extra,
+                                _next_pow2(vec_need - worst_vec))
+            cell_margin = int(margins["cells"][r.row])
+            if cell_need > cell_margin:
+                cell_extra = max(cell_extra,
+                                 _next_pow2(cell_need - cell_margin))
+        return vec_extra, cell_extra
+
     # -- flush (the device tick) ----------------------------------------------
 
     def scalar_fraction(self) -> float:
@@ -831,6 +1095,7 @@ class KernelMergeHost:
         self._readmit_scalar_rows()
         self._flush_merge()
         self._flush_map()
+        self._flush_matrix()
         if self._pending_ops:
             self.metrics.histogram("merge_host.tick_seconds").observe(
                 _time.perf_counter() - start)
@@ -1220,12 +1485,122 @@ class KernelMergeHost:
         for r in rows:
             r.pending = []
 
+    def _flush_matrix(self) -> None:
+        """One matrix tick for every matrix row with pending ops: the cell
+        log and the permutation vectors compact (then grow) under
+        capacity pressure; a flush of cell writes only, whose refs cover
+        every structural op, appends as one cell run; any other flush
+        runs the matrix op tick kernel. A kernel failure leaves
+        ``flush()``: there is no per-row fallback on this path."""
+        rows = [r for r in self._matrix_rows.values() if r.pending]
+        if not rows:
+            return
+        self._ensure_matrix_state()
+        vec_extra, cell_extra = self._matrix_vec_shortfall(rows)
+        if cell_extra:
+            # Dedup the cell append log before paying for growth on ANY
+            # path — after cell-run storms it is mostly superseded
+            # duplicates (the per-op path would otherwise ratchet device
+            # memory that one compaction frees).
+            self._matrix_state = mxk.compact_cell_log(self._matrix_state)
+            self.stats["compactions"] += 1
+            vec_extra, cell_extra = self._matrix_vec_shortfall(rows)
+        if vec_extra:
+            # Zamboni the permutation vectors before paying for growth —
+            # tombstoned row/col segments below the window pack away.
+            min_seq = np.full(self._matrix_capacity, -1, np.int32)
+            for r in self._matrix_rows.values():
+                min_seq[r.row] = r.min_seq
+            ms = torch.from_numpy(min_seq).to(self.device)
+            self._matrix_state = self._matrix_state._replace(
+                rows=mtk.compact(self._matrix_state.rows, ms),
+                cols=mtk.compact(self._matrix_state.cols, ms))
+            self.stats["compactions"] += 1
+            vec_extra, cell_extra = self._matrix_vec_shortfall(rows)
+        if vec_extra or cell_extra:
+            self._matrix_state = self._pad_matrix_state(
+                self._matrix_state, vec_extra=vec_extra,
+                cell_extra=cell_extra)
+            self._matrix_vec_slots += vec_extra
+            self._matrix_cell_slots += cell_extra
+        k = _tick_k(max(len(r.pending) for r in rows))
+        # Config-4 fast path: a flush that is ALL cell writes whose refs
+        # cover every structural op applies scan-free as one [B, k] tile
+        # (apply_cell_run) — the steady state of a settled grid under
+        # concurrent writers. Any vector op in flight takes the exact
+        # per-op kernel.
+        if all(op["target"] == mxk.MX_CELL
+               and op["ref_seq"] >= r.last_vec_seq
+               for r in rows for op in r.pending):
+            top = int(self._matrix_state.cell_count.max())
+            deficit = k + 1 - (self._matrix_cell_slots - top)
+            if deficit > 0:
+                # Dedup the append log (superseded writes pack away)
+                # before paying for a bigger table — the cell analog of
+                # the vector zamboni above.
+                self._matrix_state = mxk.compact_cell_log(
+                    self._matrix_state)
+                self.stats["compactions"] += 1
+                top = int(self._matrix_state.cell_count.max())
+                deficit = k + 1 - (self._matrix_cell_slots - top)
+            if deficit > 0:
+                extra = _next_pow2(deficit)
+                self._matrix_state = self._pad_matrix_state(
+                    self._matrix_state, cell_extra=extra)
+                self._matrix_cell_slots += extra
+            cells_per_doc: list[list[dict]] = [
+                [] for _ in range(self._matrix_capacity)]
+            refs = np.zeros(self._matrix_capacity, np.int32)
+            clients = np.zeros(self._matrix_capacity, np.int32)
+            for r in rows:
+                cells_per_doc[r.row] = r.pending
+                refs[r.row] = min(op["ref_seq"] for op in r.pending)
+            run = mxk.make_cell_run_batch(
+                cells_per_doc, self._matrix_capacity, k, refs, clients,
+                self.device)
+            self._matrix_state = mxk.apply_cell_run(self._matrix_state, run)
+            self.stats["cell_run_ticks"] = (
+                self.stats.get("cell_run_ticks", 0) + 1)
+        else:
+            per_doc = [[] for _ in range(self._matrix_capacity)]
+            for r in rows:
+                per_doc[r.row] = r.pending
+            batch = mxk.make_matrix_op_batch(per_doc, self._matrix_capacity,
+                                             k, self.device)
+            self._matrix_state = mxc.apply_tick_best(self._matrix_state,
+                                                     batch)
+        self.stats["device_ops"] += sum(len(r.pending) for r in rows)
+        self.stats["flushes"] += 1
+        for r in rows:
+            r.pending = []
+            r.raw_log = []  # device row now reflects the whole history
+            r.applied_seq = r.last_seq
+            r.applied_min_seq = r.min_seq
+
     # -- materialization -------------------------------------------------------
 
     def channels(self, doc_id: str) -> list[ChannelKey]:
         return sorted(
             [k for k in self._merge_rows if k.doc_id == doc_id]
-            + [k for k in self._map_rows if k.doc_id == doc_id])
+            + [k for k in self._map_rows if k.doc_id == doc_id]
+            + [k for k in self._matrix_rows if k.doc_id == doc_id])
+
+    def matrix_grid(self, doc_id: str, datastore: str,
+                    channel: str) -> list[list]:
+        """Converged dense grid of a matrix channel (None = unset)."""
+        row = self._matrix_rows[ChannelKey(doc_id, datastore, channel)]
+        if row.pending:
+            self.flush()
+        if row.scalar is not None:
+            rows_vec, cols_vec, cells = row.scalar
+
+            def live(vec: PermutationVector) -> list[int]:
+                return [h for seg in vec.engine.segments
+                        if seg.removed_seq is None for h in seg.content]
+            return [[cells.get((r, c)) for c in live(cols_vec)]
+                    for r in live(rows_vec)]
+        return mxk.materialize_grid(self._matrix_state, row.row,
+                                    self._val_rev)
 
     def text(self, doc_id: str, datastore: str, channel: str) -> str:
         """Converged text of a string channel (markers stripped)."""
@@ -1295,12 +1670,17 @@ class KernelMergeHost:
             if key in self._merge_rows:
                 channels[key.channel] = {"kind": "mergeTree",
                                          "content": self.rich_text(*key)}
+            elif key in self._matrix_rows:
+                channels[key.channel] = {"kind": "matrix",
+                                         "grid": self.matrix_grid(*key)}
             else:
                 channels[key.channel] = {"kind": "map",
                                          "entries": self.map_entries(*key)}
         seqs = [r.last_seq for k, r in self._merge_rows.items()
                 if k.doc_id == doc_id]
         seqs += [r.last_seq for k, r in self._map_rows.items()
+                 if k.doc_id == doc_id]
+        seqs += [r.last_seq for k, r in self._matrix_rows.items()
                  if k.doc_id == doc_id]
         return {"datastores": datastores,
                 "sequence_number": max(seqs, default=0)}
@@ -1310,8 +1690,9 @@ class KernelMergeHost:
     # export_state() captures every device plane plus the host-side
     # string/slot mappings in the reference's wire format (same keys, same
     # byte packing: bool planes stay bool), so either package's host
-    # imports the other's snapshot. Matrix and tree channels are not
-    # ported: their sections stay empty here and refuse on import.
+    # imports the other's snapshot: merge pools, the map state and matrix
+    # rows (device and scalar). Tree channels are not ported: their
+    # section stays empty here and refuses on import.
 
     def export_state(self) -> dict:
         """Wire-serializable checkpoint of all device pools + host maps.
@@ -1358,6 +1739,35 @@ class KernelMergeHost:
             "key": list(key), "row": r.row, "key_slots": r.key_slots,
             "last_seq": r.last_seq, "literal": r.literal_values,
         } for key, r in self._map_rows.items()]
+        matrix = None
+        if self._matrix_rows or self._matrix_state is not None:
+            state = None
+            if self._matrix_state is not None:
+                s = self._matrix_state
+                state = {f: _nd_pack(getattr(s, f).cpu().numpy())
+                         if f not in ("rows", "cols") else
+                         {g: _nd_pack(getattr(getattr(s, f), g).cpu().numpy())
+                          for g in mtk.MergeState._fields}
+                         for f in mxk.MatrixState._fields}
+            matrix = {
+                "capacity": self._matrix_capacity,
+                "vec_slots": self._matrix_vec_slots,
+                "cell_slots": self._matrix_cell_slots,
+                "overlap_words": self._matrix_overlap_words,
+                "state": state,
+                "rows": [{
+                    "key": list(key), "row": r.row,
+                    "client_slots": r.client_slots,
+                    "last_seq": r.last_seq, "min_seq": r.min_seq,
+                    "applied_seq": r.applied_seq,
+                    "applied_min_seq": r.applied_min_seq,
+                    "next_row_handle": r.next_row_handle,
+                    "next_col_handle": r.next_col_handle,
+                    "last_vec_seq": r.last_vec_seq,
+                    "scalar": (_dump_matrix_scalar(r.scalar)
+                               if r.scalar is not None else None),
+                } for key, r in self._matrix_rows.items()],
+            }
         return {
             "version": 1,
             "vals": list(self._val_rev),
@@ -1369,7 +1779,7 @@ class KernelMergeHost:
                            for f in mk.MapState._fields},
                 "rows": map_rows,
             },
-            "matrix": None,
+            "matrix": matrix,
             "tree_keys": [],
             "stats": dict(self.stats),
         }
@@ -1377,16 +1787,13 @@ class KernelMergeHost:
     def import_state(self, snap: dict) -> None:
         """Rebuild a FRESH host from :meth:`export_state` output (of either
         package)."""
-        assert not (self._map_rows or self._merge_rows), \
-            "import_state needs a fresh host"
+        assert not (self._map_rows or self._merge_rows
+                    or self._matrix_rows), "import_state needs a fresh host"
         if snap.get("version") != 1:
             raise ValueError(f"unknown snapshot version {snap.get('version')}")
         if snap.get("tree_keys"):
             raise NotImplementedError(
                 "snapshot names tree channels; tree is not ported yet")
-        if snap.get("matrix") is not None:
-            raise NotImplementedError(
-                "snapshot holds matrix state; matrix is not ported yet")
         self._val_rev = list(snap["vals"])
         self._vals = {repr(v): i for i, v in enumerate(self._val_rev)
                       if i != 0}
@@ -1453,6 +1860,37 @@ class KernelMergeHost:
         self._free_map_rows = [r for r in range(self._map_row_count)
                                if r not in used]
 
+        mx = snap.get("matrix")
+        if mx is not None:
+            self._matrix_capacity = mx["capacity"]
+            self._matrix_vec_slots = mx["vec_slots"]
+            self._matrix_cell_slots = mx["cell_slots"]
+            self._matrix_overlap_words = mx["overlap_words"]
+            if mx["state"] is not None:
+                st = mx["state"]
+
+                def planes(packed, fields):
+                    return {f: torch.from_numpy(_nd_unpack(packed[f])).to(
+                        self.device) for f in fields}
+                self._matrix_state = mxk.MatrixState(
+                    rows=mtk.MergeState(**planes(st["rows"],
+                                                 mtk.MergeState._fields)),
+                    cols=mtk.MergeState(**planes(st["cols"],
+                                                 mtk.MergeState._fields)),
+                    **planes(st, mxk.CELL_FILL.keys() | {"cell_count"}))
+            for rec in mx["rows"]:
+                row = _MatrixRow(rec["row"])
+                row.client_slots = dict(rec["client_slots"])
+                row.last_seq, row.min_seq = rec["last_seq"], rec["min_seq"]
+                row.applied_seq = rec["applied_seq"]
+                row.applied_min_seq = rec["applied_min_seq"]
+                row.next_row_handle = rec["next_row_handle"]
+                row.next_col_handle = rec["next_col_handle"]
+                row.last_vec_seq = rec["last_vec_seq"]
+                if rec["scalar"] is not None:
+                    row.scalar = _load_matrix_scalar(rec["scalar"])
+                self._matrix_rows[ChannelKey(*rec["key"])] = row
+
 
 def _nd_pack(a: np.ndarray) -> dict:
     """ndarray → wire dict (dtype + shape + b64 of the raw bytes)."""
@@ -1516,6 +1954,28 @@ def _load_engine(data: dict) -> MergeEngine:
             props=dict(s["props"]) if s["props"] else None,
         ))
     return engine
+
+
+def _dump_matrix_scalar(scalar: tuple) -> dict:
+    rows_vec, cols_vec, cells = scalar
+    return {
+        "rows": {"engine": _dump_engine(rows_vec.engine),
+                 "next_handle": rows_vec.next_handle},
+        "cols": {"engine": _dump_engine(cols_vec.engine),
+                 "next_handle": cols_vec.next_handle},
+        "cells": [[rh, ch, v] for (rh, ch), v in sorted(cells.items())],
+    }
+
+
+def _load_matrix_scalar(data: dict) -> tuple:
+    def load_vec(d):
+        vec = PermutationVector(None)
+        vec.engine = _load_engine(d["engine"])
+        vec.next_handle = d["next_handle"]
+        return vec
+
+    return (load_vec(data["rows"]), load_vec(data["cols"]),
+            {(rh, ch): v for rh, ch, v in data["cells"]})
 
 
 __all__ = ["ChannelKey", "KernelMergeHost"]

@@ -48,21 +48,53 @@ MERGE_KERNELS = [("mergetree_flat", "mergetree_cuda"),
                  ("mergetree_blocks", "mergetree_blocks_cuda")]
 
 
+def _source_layout(source: str) -> tuple[tuple, list]:
+    """(the layout string's names, the launcher's (name, index) reads) of
+    ``csrc/<source>.cu``."""
+    src = (_build.CSRC / f"{source}.cu").read_text()
+    body = re.search(source + r"_layout\(\)\s*\{\s*return(.*?);", src,
+                     re.S).group(1)
+    layout = tuple("".join(re.findall(r'"([^"]*)"', body)).split(","))
+    return layout, re.findall(r"a\.(\w+) = \([^)]*\)p\[(\d+)\];", src)
+
+
 @pytest.mark.parametrize("source,binding", MERGE_KERNELS)
 def test_merge_kernel_layouts_match_bindings(source, binding):
     """Both merge tick launchers read their pointer array in the order
     their layout string names, and that order is the binding's."""
     import importlib
 
-    src = (_build.CSRC / f"{source}.cu").read_text()
-    body = re.search(source + r"_layout\(\)\s*\{\s*return(.*?);", src,
-                     re.S).group(1)
-    layout = tuple("".join(re.findall(r'"([^"]*)"', body)).split(","))
+    layout, reads = _source_layout(source)
     mod = importlib.import_module(f"fluidframework_tpu_torch.ops.{binding}")
     assert layout == mod.LAYOUT
-    reads = re.findall(r"a\.(\w+) = \([^)]*\)p\[(\d+)\];", src)
     assert [int(i) for _, i in reads] == list(range(len(mod.LAYOUT)))
     assert tuple(name for name, _ in reads) == mod.LAYOUT
+
+
+@pytest.mark.parametrize("source,name", [("matrix_tick", "TICK_LAYOUT"),
+                                         ("matrix_steps", "STEPS_LAYOUT")])
+def test_matrix_kernel_layouts_match_bindings(source, name):
+    """Both matrix tick launchers read their pointer array in the order
+    their layout string names, and that order is the binding's."""
+    from fluidframework_tpu_torch.ops import matrix_cuda as mxc
+
+    layout, reads = _source_layout(source)
+    assert layout == getattr(mxc, name)
+    assert [int(i) for _, i in reads] == list(range(len(layout)))
+    assert tuple(n for n, _ in reads) == layout
+
+
+def test_matrix_layouts_follow_the_state_and_batch_fields():
+    """The matrix launchers take both axes' MergeState planes, then the
+    cell planes, the op (or step) planes and the outputs — 65 and 70
+    pointers."""
+    from fluidframework_tpu_torch.ops import matrix_cuda as mxc
+
+    assert len(mxc.TICK_LAYOUT) == 26 + 13 + 26
+    assert len(mxc.STEPS_LAYOUT) == 26 + 17 + 26 + 1
+    assert mxc.TICK_LAYOUT[:2] == ("rows_valid", "rows_length")
+    assert mxc.TICK_LAYOUT[20:26] == ("cell_rh", "cell_ch", "cell_val",
+                                      "cell_seq", "cell_used", "cell_count")
 
 
 def test_library_name_tracks_the_shared_header(monkeypatch, tmp_path):

@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card
-(the map fold, the deli tick, the block and flat merge ticks), and the
-serving slices on the card against the same slices on the CPU.
+(the map fold, the deli tick, the block and flat merge ticks, the matrix
+op tick and step tick), and the serving slices on the card against the
+same slices on the CPU.
 
 Marked ``cuda``: without a CUDA device every test here skips (decided in
 the ``cuda`` fixture, never at import). The file imports only torch,
@@ -25,6 +26,8 @@ import torch
 
 from fluidframework_tpu_torch.ops import map_fold_cuda as mfc
 from fluidframework_tpu_torch.ops import map_kernel as mk
+from fluidframework_tpu_torch.ops import matrix_cuda as mxc
+from fluidframework_tpu_torch.ops import matrix_kernel as mxk
 from fluidframework_tpu_torch.ops import mergetree_blocks as mtb
 from fluidframework_tpu_torch.ops import mergetree_blocks_cuda as mtbc
 from fluidframework_tpu_torch.ops import mergetree_cuda as mtc
@@ -437,3 +440,246 @@ def test_failed_flat_launch_leaves_flush(cuda, monkeypatch):
     assert host.stats["quarantined_channels"] == 0
     assert host.stats["block_overflow_replays"] == 0
     assert all(r.scalar is None for r in host._merge_rows.values())
+
+
+# -- the matrix ticks -----------------------------------------------------------
+
+
+def _matrix_stream(rng, n_ops, clients, lag, seq0=0, rows=0, cols=0,
+                   handles=(0, 0)):
+    """One document's sequenced matrix ops in the mix of the reference's
+    matrix benchmark (70% cells, 10% row inserts, 10% col inserts, 5% row
+    and 5% col removes), each at a ref up to ``lag`` seqs back (so some
+    cells resolve in a stale frame and some positions fall outside it)."""
+    ops, (next_rh, next_ch) = [], handles
+    for seq in range(seq0 + 1, seq0 + n_ops + 1):
+        base = dict(seq=seq, ref_seq=max(seq0, seq - int(rng.integers(1,
+                                                                 lag + 1))),
+                    client=int(rng.integers(0, clients)))
+        r = rng.random()
+        if rows and cols and r < 0.7:
+            ops.append(dict(base, target=mxk.MX_CELL,
+                            row=int(rng.integers(0, rows + 1)),
+                            col=int(rng.integers(0, cols)),
+                            value=int(rng.integers(1, 1000))))
+        elif r < 0.8 or not rows:
+            n = int(rng.integers(1, 3))
+            ops.append(dict(base, target=mxk.MX_ROWS, kind=mtk.MT_INSERT,
+                            pos=int(rng.integers(0, rows + 1)), count=n,
+                            handle_base=next_rh))
+            next_rh, rows = next_rh + n, rows + n
+        elif r < 0.9 or not cols:
+            n = int(rng.integers(1, 3))
+            ops.append(dict(base, target=mxk.MX_COLS, kind=mtk.MT_INSERT,
+                            pos=int(rng.integers(0, cols + 1)), count=n,
+                            handle_base=next_ch))
+            next_ch, cols = next_ch + n, cols + n
+        else:
+            axis = mxk.MX_ROWS if r < 0.95 else mxk.MX_COLS
+            size = rows if axis == mxk.MX_ROWS else cols
+            if size < 3:
+                continue
+            pos = int(rng.integers(0, size - 1))
+            ops.append(dict(base, target=axis, kind=mtk.MT_REMOVE, pos=pos,
+                            end=pos + 1))
+            rows, cols = (rows - 1, cols) if axis == mxk.MX_ROWS \
+                else (rows, cols - 1)
+    return ops
+
+
+def _matrix_to(state, device):
+    return mxk.MatrixState(_to(state.rows, device), _to(state.cols, device),
+                           *(t.to(device) for t in state[2:]))
+
+
+def _assert_matrix_equal(got, want, where=""):
+    _assert_equal(got.rows, want.rows, (where, "rows"))
+    _assert_equal(got.cols, want.cols, (where, "cols"))
+    for f, a, b in zip(mxk.MatrixState._fields[2:], got[2:], want[2:]):
+        assert a.dtype == b.dtype, (where, f)
+        assert torch.equal(a.cpu(), b.cpu()), (where, f)
+
+
+@pytest.mark.parametrize("b,s,c,k,w,ticks", [
+    (1, 8, 4, 1, 1, 1), (5, 64, 64, 16, 1, 3), (24, 256, 1024, 32, 8, 3),
+    (9, 128, 16, 40, 2, 2)])
+def test_matrix_tick_kernel_matches_plain(cuda, b, s, c, k, w, ticks):
+    """Kernel 5 == its plain version tick by tick: concurrent refs, up to
+    256 writers (W = 8, overlap bits in the sign bit), removes; the last
+    case fills the 16-entry cell log (the write clamps at C - 1 while the
+    count passes C)."""
+    rng = np.random.default_rng(b * 17 + s + c + k)
+    streams = [_matrix_stream(rng, k * ticks, 32 * w, 4) for _ in range(b)]
+    want = mxk.init_state(b, s, c, w, device="cpu")
+    got = _matrix_to(want, cuda)
+    for t in range(ticks):
+        chunk = [x[t * k:(t + 1) * k] for x in streams]
+        want = mxk.apply_tick(want, mxk.make_matrix_op_batch(chunk, b, k,
+                                                             device="cpu"))
+        before = mxc.tick.launches
+        got = mxc.apply_tick_best(got, mxk.make_matrix_op_batch(
+            chunk, b, k, device=cuda))
+        torch.cuda.synchronize()
+        assert mxc.tick.launches == before + 1
+        _assert_matrix_equal(got, want, (b, s, c, k, t))
+    if c == 16:
+        assert int(want.cell_count.max()) > c
+
+
+@pytest.mark.parametrize("b,s,c,k,r,w,ticks", [
+    (1, 8, 8, 2, 1, 1, 1), (6, 64, 64, 24, 4, 1, 3),
+    (20, 256, 256, 64, 8, 8, 3)])
+def test_matrix_steps_kernel_matches_plain(cuda, b, s, c, k, r, w, ticks):
+    """Kernel 6 == its plain version tick by tick in the step layout
+    (last_vec_seq carried across ticks, stale-ref cells alone in their
+    runs), and both equal the op tick on the same flat stream."""
+    rng = np.random.default_rng(b * 5 + s + k + r)
+    streams = [_matrix_stream(rng, k * ticks, 32 * w, 3) for _ in range(b)]
+    want = mxk.init_state(b, s, c, w, device="cpu")
+    got = _matrix_to(want, cuda)
+    flat = _matrix_to(want, cuda)
+    lvs = [0] * b
+    for t in range(ticks):
+        chunk = [x[t * k:(t + 1) * k] for x in streams]
+        steps = mxk.make_matrix_step_batch(chunk, b, r, list(lvs), "cpu")
+        want = mxk.apply_tick_steps(want, steps)
+        before = mxc.steps.launches
+        got = mxc.apply_tick_steps_best(got, mxk.MatrixStepBatch(
+            *(f.to(cuda) for f in steps)))
+        flat = mxc.apply_tick_best(flat, mxk.make_matrix_op_batch(
+            chunk, b, k, device=cuda))
+        torch.cuda.synchronize()
+        assert mxc.steps.launches == before + 1
+        _assert_matrix_equal(got, want, (b, s, c, k, t))
+        _assert_matrix_equal(flat, want, (b, s, c, k, t, "flat"))
+        for d, ops in enumerate(chunk):
+            for op in ops:
+                if op["target"] != mxk.MX_CELL:
+                    lvs[d] = max(lvs[d], op["seq"])
+
+
+def test_matrix_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    """Non-contiguous, wrongly typed or misplaced tensors raise
+    KernelInputError (a ValueError) before any launch."""
+    from fluidframework_tpu_torch.ops import _build
+
+    state = mxk.init_state(2, 8, 8, 1, cuda)
+    ops = mxk.make_matrix_op_batch([[], []], 2, 4, device=cuda)
+    steps = mxk.make_matrix_step_batch([[], []], 2, 2, device=cuda)
+    cases = [
+        (mxc.apply_tick_best, state,
+         ops._replace(row=ops.row.t().contiguous().t()), "op row"),
+        (mxc.apply_tick_best, state, ops._replace(value=ops.value.long()),
+         "op value"),
+        (mxc.apply_tick_best, state._replace(cell_rh=state.cell_rh.cpu()),
+         ops, "cell_rh"),
+        (mxc.apply_tick_best, state._replace(
+            rows=state.rows._replace(valid=state.rows.valid.int())), ops,
+         "rows.valid"),
+        (mxc.apply_tick_steps_best, state,
+         steps._replace(r_valid=steps.r_valid.int()), "step r_valid"),
+        (mxc.apply_tick_steps_best, state._replace(
+            cols=state.cols._replace(
+                rem_overlap=state.cols.rem_overlap.transpose(1, 2))),
+         steps, "cols.rem_overlap")]
+    before = (mxc.tick.launches, mxc.steps.launches)
+    for fn, st, batch, what in cases:
+        with pytest.raises(_build.KernelInputError, match=what):
+            fn(st, batch)
+    assert (mxc.tick.launches, mxc.steps.launches) == before
+
+
+def _matrix_rounds(rng, docs, rounds, writers):
+    """Rounds of concurrent SharedMatrix ops at each doc's head ref: the
+    first lays out an 8 x 8 grid, then cell writes, with row/col inserts
+    and removes every other round."""
+    out, seq, size = [], {d: 0 for d in docs}, {d: [0, 0] for d in docs}
+    for n_round in range(rounds):
+        out.append([])
+        for d in docs:
+            ref = seq[d]
+            ops = []
+            if n_round == 0:
+                ops = [{"type": "insert", "target": axis, "pos": 0,
+                        "count": 8} for axis in ("rows", "cols")]
+                size[d] = [8, 8]
+            else:
+                for _ in range(int(rng.integers(4, 20))):
+                    if n_round % 2 and rng.random() < 0.3:
+                        axis = int(rng.integers(0, 2))
+                        if rng.random() < 0.5 and size[d][axis] > 4:
+                            ops.append({"type": "remove",
+                                        "target": ("rows", "cols")[axis],
+                                        "start": 1, "end": 2})
+                        else:
+                            ops.append({"type": "insert",
+                                        "target": ("rows", "cols")[axis],
+                                        "pos": 0, "count": 2})
+                    else:
+                        ops.append({"type": "set", "target": "cell",
+                                    "row": int(rng.integers(0, 4)),
+                                    "col": int(rng.integers(0, 4)),
+                                    "value": int(rng.integers(0, 99))})
+            for op in ops:
+                seq[d] += 1
+                out[-1].append((d, op, f"w{rng.integers(0, writers)}",
+                                seq[d], ref if n_round else seq[d] - 1))
+    return out
+
+
+def _serve_matrix(host, traffic):
+    from fluidframework_tpu_torch.protocol.messages import (
+        MessageType,
+        SequencedDocumentMessage,
+    )
+    for batch in traffic:
+        for d, op, client, seq, ref in batch:
+            host.ingest(d, SequencedDocumentMessage(
+                client_id=client, sequence_number=seq,
+                minimum_sequence_number=max(0, ref - 40),
+                client_sequence_number=seq, reference_sequence_number=ref,
+                type=MessageType.OPERATION,
+                contents={"address": "ds", "contents": {
+                    "address": "grid", "contents": op}}))
+        host.flush()
+    return host
+
+
+def test_matrix_host_on_the_card_matches_the_cpu(cuda):
+    """The port's merge host serving SharedMatrix traffic on the card
+    (kernel 5 for the flushes with structural ops, the cell-run append
+    for the rest) against the same host on the CPU: equal planes, stats,
+    grids and exports."""
+    from fluidframework_tpu_torch.server import merge_host as mh
+
+    traffic = _matrix_rounds(np.random.default_rng(12),
+                             [f"doc{i}" for i in range(10)], 7, 70)
+    before = mxc.tick.launches
+    card = _serve_matrix(mh.KernelMergeHost(flush_threshold=10**9,
+                                            device=cuda), traffic)
+    torch.cuda.synchronize()
+    assert mxc.tick.launches > before
+    cpu = _serve_matrix(mh.KernelMergeHost(flush_threshold=10**9,
+                                           device="cpu"), traffic)
+    assert card.stats == cpu.stats and card.stats["cell_run_ticks"] > 0
+    _assert_matrix_equal(card._matrix_state, cpu._matrix_state)
+    for key in cpu._matrix_rows:
+        assert card.matrix_grid(*key) == cpu.matrix_grid(*key)
+    assert card.export_state() == cpu.export_state()
+
+
+def test_failed_matrix_launch_leaves_flush(cuda, monkeypatch):
+    """A kernel-5 launch that fails (its launcher returns cudaError 700)
+    raises out of the host's ``flush()``; nothing moves to the scalar
+    vectors."""
+    from fluidframework_tpu_torch.ops import _build
+    from fluidframework_tpu_torch.server import merge_host as mh
+
+    monkeypatch.setattr(_build, "bind", lambda *a: (lambda *args: 700))
+    host = mh.KernelMergeHost(flush_threshold=10**9, device=cuda)
+    before = mxc.tick.launches
+    with pytest.raises(_build.KernelError, match="cudaError 700"):
+        _serve_matrix(host, _matrix_rounds(np.random.default_rng(2),
+                                           ["doc0"], 1, 4))
+    assert mxc.tick.launches == before
+    assert all(r.scalar is None for r in host._matrix_rows.values())

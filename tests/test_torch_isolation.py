@@ -45,7 +45,8 @@ def test_importing_every_port_module_loads_no_jax_or_reference():
                          timeout=120, check=True).stdout
     modules = json.loads(out.strip().splitlines()[-1])
     for name in ("server.storm", "server.merge_host", "dds.mergetree",
-                 "ops.mergetree_cuda", "ops.mergetree_blocks_cuda"):
+                 "ops.mergetree_cuda", "ops.mergetree_blocks_cuda",
+                 "dds.matrix", "ops.matrix_kernel", "ops.matrix_cuda"):
         assert f"fluidframework_tpu_torch.{name}" in modules
     assert [m for m in modules if _forbidden(m)] == []
 

@@ -13,8 +13,19 @@ the scalar route and readmission, a quarantined row, and export/import
 both ways including a flat pool. Every text plane, the text pools,
 ``text``, ``rich_text``, ``summarize``, ``stats`` and ``export_state``
 must be equal; the converged text must also equal a scalar MergeEngine
-replay of the same messages. Matrix and tree ops are not ported and must
-raise naming their family.
+replay of the same messages.
+
+Matrix half: seeded SharedMatrix streams through ``ingest`` on both
+hosts — rounds of concurrent row/col inserts and removes and cell writes
+from up to 40 writers (overlap planes of two words), flushes that hold
+structural ops (the matrix op tick), all-cell flushes (the cell-run
+append) and the switch between them, under row, vector-slot and cell-slot
+growth with zamboni and cell-log compaction, the scalar route, and
+export/import both ways. Every matrix plane, ``matrix_grid``,
+``summarize``, ``stats`` and ``export_state`` must be equal, and the
+grids must equal a scalar PermutationVector + LWW replay.
+
+Tree ops are not ported and must raise naming their family.
 """
 
 from __future__ import annotations
@@ -148,7 +159,6 @@ def test_export_import_both_ways():
 
 
 @pytest.mark.parametrize("family,op", [
-    ("matrix", {"type": "set", "target": "cell", "row": 0, "col": 0}),
     ("tree", {"type": "edit", "edit": {}}),
 ])
 def test_unported_families_raise(family, op):
@@ -523,3 +533,288 @@ def test_text_through_routerlicious_matches_jax():
                     host.stats, host.export_state()))
     assert out[0] == out[1]
     assert len(out[0][0]) > 0
+
+
+# -- the matrix half -----------------------------------------------------------
+
+
+def matrix_rounds(rng: random.Random, modes, writers: int,
+                  docs=("doc0",), channels=("grid",), per_round=(4, 12),
+                  cell_share=0.5, msn_lag=3):
+    """Sequenced SharedMatrix traffic, one round per entry of ``modes``:
+    per doc and round a set of distinct writers each sends ONE op at one
+    shared ref (truly concurrent), positions valid in that frame. A "mix"
+    round sends cell writes (``cell_share``) and row/col inserts of 1-3
+    and removes of 1-2; a "cells" round only cell writes at the head ref;
+    a "stale" round only cell writes at the PREVIOUS round's ref, below
+    that round's structural ops. Yields (round, doc, channel, op, client,
+    seq, ref, msn); the msn trails ``msn_lag`` rounds."""
+    seq = {d: 0 for d in docs}
+    refs = {d: [0] * msn_lag for d in docs}
+    length = {(d, c, a): 0 for d in docs for c in channels
+              for a in ("rows", "cols")}
+    for n_round, mode in enumerate(modes):
+        for d in docs:
+            ref = refs[d][-1] if mode == "stale" else seq[d]
+            removed = {key: [] for key in length if key[0] == d}
+            grown = {key: 0 for key in length if key[0] == d}
+            n = rng.randint(*per_round)
+            for w in rng.sample(range(writers), min(n, writers)):
+                c = rng.choice(channels)
+                rows, cols = length[(d, c, "rows")], length[(d, c, "cols")]
+                if mode != "mix" or (rows and cols
+                                     and rng.random() < cell_share):
+                    op = {"type": "set", "target": "cell",
+                          "row": rng.randrange(max(rows, 1)),
+                          "col": rng.randrange(max(cols, 1)),
+                          "value": rng.choice([rng.randrange(50),
+                                               f"v{rng.randrange(9)}",
+                                               None])}
+                else:
+                    axis = rng.choice(("rows", "cols"))
+                    size = length[(d, c, axis)]
+                    if size > 3 and rng.random() < 0.35:
+                        s0 = rng.randrange(size - 1)
+                        e0 = min(size, s0 + rng.randint(1, 2))
+                        op = {"type": "remove", "target": axis,
+                              "start": s0, "end": e0}
+                        removed[(d, c, axis)].append((s0, e0))
+                    else:
+                        count = rng.randint(1, 3)
+                        op = {"type": "insert", "target": axis,
+                              "pos": rng.randint(0, size), "count": count}
+                        grown[(d, c, axis)] += count
+                seq[d] += 1
+                yield n_round, d, c, op, f"w{w}", seq[d], ref, refs[d][0]
+            for key in grown:
+                length[key] += grown[key] - union_len(
+                    [a for a, _ in removed[key]],
+                    [b for _, b in removed[key]])
+            if mode != "stale":
+                refs[d] = refs[d][1:] + [ref]
+
+
+def union_len(starts, ends) -> int:
+    covered = set()
+    for a, b in zip(starts, ends):
+        covered.update(range(a, b))
+    return len(covered)
+
+
+def _feed_rounds(host, mod, traffic, datastore="default"):
+    """Ingest round by round, one flush after each round."""
+    last = None
+    for n_round, d, c, op, client, seq, ref, msn in traffic:
+        if last is not None and n_round != last:
+            host.flush()
+        last = n_round
+        host.ingest(d, _msg(mod, seq, op, datastore, c, client, ref, msn))
+    host.flush()
+
+
+def _oracle_grid(traffic, doc, channel) -> list[list]:
+    """The converged grid of a scalar replay: two PermutationVectors and
+    an LWW dict, as the hosts' scalar route applies them."""
+    from fluidframework_tpu_torch.dds.matrix import PermutationVector
+    rows, cols, cells = PermutationVector(None), PermutationVector(None), {}
+    for _r, d, c, op, client, seq, ref, _msn in traffic:
+        if (d, c) != (doc, channel):
+            continue
+        if op["target"] in ("rows", "cols"):
+            (rows if op["target"] == "rows" else cols).apply_remote(
+                op, seq, ref, client)
+        else:
+            rh = rows.handle_at(op["row"], ref, client)
+            ch = cols.handle_at(op["col"], ref, client)
+            if rh is not None and ch is not None:
+                cells[(rh, ch)] = op["value"]
+
+    def live(vec):
+        return [h for seg in vec.engine.segments if seg.removed_seq is None
+                for h in seg.content]
+    return [[cells.get((r, c)) for c in live(cols)] for r in live(rows)]
+
+
+def _matrix_planes(state) -> dict:
+    out = {}
+    for f in state._fields:
+        v = getattr(state, f)
+        if isinstance(v, tuple):
+            out.update({f"{f}.{g}": getattr(v, g) for g in v._fields})
+        else:
+            out[f] = v
+    return {f: v.numpy() if hasattr(v, "numpy") else np.asarray(v)
+            for f, v in out.items()}
+
+
+def _assert_matrix_equal(jh, th):
+    assert (th._matrix_capacity, th._matrix_vec_slots,
+            th._matrix_cell_slots, th._matrix_overlap_words) \
+        == (jh._matrix_capacity, jh._matrix_vec_slots,
+            jh._matrix_cell_slots, jh._matrix_overlap_words)
+    assert (th._matrix_state is None) == (jh._matrix_state is None)
+    if jh._matrix_state is not None:
+        a = _matrix_planes(jh._matrix_state)
+        b = _matrix_planes(th._matrix_state)
+        assert a.keys() == b.keys()
+        for f in a:
+            assert a[f].dtype == b[f].dtype, f
+            assert np.array_equal(a[f], b[f]), f
+    for key in jh._matrix_rows:
+        assert th.matrix_grid(*key) == jh.matrix_grid(*key), key
+    for doc in {k.doc_id for k in jh._matrix_rows}:
+        assert th.summarize(doc) == jh.summarize(doc)
+    assert th.stats == jh.stats
+    assert th.export_state() == jh.export_state()
+
+
+MATRIX_DOCS = ("doc0", "doc1", "doc2")
+#: Structural rounds, then cell-only rounds (the cell-run append; the cell
+#: log fills, compacts and grows), a structural round and a round of
+#: cells at a stale ref below it (the op tick again, through
+#: last_vec_seq), then mixed rounds.
+MATRIX_MODES = ["mix"] * 5 + ["cells"] * 5 + ["mix", "stale"] + ["mix"] * 2
+
+
+@pytest.fixture(scope="module")
+def matrix_farm():
+    """One seeded matrix farm served by both hosts: three docs with two
+    matrix channels each (six rows from a row capacity of 2), 40 writers
+    (overlap planes of two words), the rounds of MATRIX_MODES; the vector
+    tables pass 64 slots and the cell log 128 entries, both compact and
+    grow."""
+    traffic = list(matrix_rounds(random.Random(3), MATRIX_MODES, 40,
+                                 docs=MATRIX_DOCS, channels=("grid", "sheet"),
+                                 per_round=(16, 40), cell_share=0.3))
+    jh, th = _hosts(row_capacity=2, flush_threshold=10**9)
+    for host in (jh, th):
+        # A 128-slot cell log (before the lazy state exists), so the cell
+        # runs fill it, compact it and grow it.
+        host._matrix_cell_slots = 128
+    _feed_rounds(jh, jmsg, traffic)
+    _feed_rounds(th, tmsg, traffic)
+    yield jh, th, traffic
+
+
+def test_matrix_host_matches_jax(matrix_farm):
+    jh, th, traffic = matrix_farm
+    _assert_matrix_equal(jh, th)
+    for key in jh._matrix_rows:
+        assert th.matrix_grid(*key) == _oracle_grid(
+            traffic, key.doc_id, key.channel), key
+    assert th.stats["cell_run_ticks"] >= 5
+    assert th.stats["flushes"] == len(MATRIX_MODES)
+    assert th.stats["compactions"] > 0 and th.stats["scalar_ops"] == 0
+    assert th._matrix_capacity == 8 and th._matrix_overlap_words == 2
+    assert th._matrix_vec_slots > 64 and th._matrix_cell_slots > 128
+    assert sum(len(g) for k in th._matrix_rows
+               for g in th.matrix_grid(*k)) > 0
+
+
+@pytest.mark.parametrize("origin", ["jax", "port"])
+def test_matrix_export_import_both_ways(matrix_farm, origin):
+    """The farm's export (from either host) loads into the other package
+    and back (``convert.merge_host_from_export`` for the port); all hosts
+    keep serving identically."""
+    jh, th0 = matrix_farm[:2]
+    snap = (jh if origin == "jax" else th0).export_state()
+    src = JaxMergeHost()
+    src.import_state(snap)
+    th = convert.merge_host_from_export(snap, device="cpu")
+    back = JaxMergeHost()
+    back.import_state(th.export_state())
+    _assert_matrix_equal(src, th)
+    _assert_matrix_equal(back, th)
+    more = [(r, d, c, op, cl, s + 5000, ref + 5000, m + 5000)
+            for r, d, c, op, cl, s, ref, m in matrix_rounds(
+                random.Random(8), ["cells", "mix"], 40, docs=MATRIX_DOCS,
+                channels=("grid",), per_round=(3, 8))]
+    for host, mod in ((src, jmsg), (th, tmsg), (back, jmsg)):
+        _feed_rounds(host, mod, more)
+    _assert_matrix_equal(src, th)
+    _assert_matrix_equal(back, th)
+
+
+def test_matrix_scalar_route_matches_jax():
+    """A matrix channel whose writers pass ``max_client_slots`` moves to
+    the scalar permutation vectors (seeded from the device row, the
+    unapplied tail replayed); it keeps serving there, its device row is
+    blanked, and it exports and imports as a scalar row."""
+    jh, th = _hosts(flush_threshold=10**9, max_client_slots=32)
+    traffic = list(matrix_rounds(random.Random(6), ["mix"] * 3 + ["cells"],
+                                 30, docs=("doc0", "doc1"),
+                                 per_round=(8, 20)))
+    late = [(r + 4, d, c, op, cl, s, ref, m) for r, d, c, op, cl, s, ref, m
+            in matrix_rounds(random.Random(7), ["mix"] * 2, 40,
+                             docs=("doc0",), per_round=(30, 40))]
+    seq0 = max(t[5] for t in traffic if t[1] == "doc0")
+    late = [(r, d, c, op, cl, s + seq0, ref + seq0, m + seq0)
+            for r, d, c, op, cl, s, ref, m in late]
+    for host, mod in ((jh, jmsg), (th, tmsg)):
+        _feed_rounds(host, mod, traffic + late)
+    assert th.stats["overflow_routed"] == 1 and th.stats["scalar_ops"] > 0
+    key = ChannelKey("doc0", "default", "grid")
+    assert th._matrix_rows[key].scalar is not None
+    assert th._matrix_rows[ChannelKey("doc1", "default", "grid")].scalar \
+        is None
+    _assert_matrix_equal(jh, th)
+    snap = jh.export_state()
+    src = JaxMergeHost()
+    src.import_state(snap)
+    _assert_matrix_equal(src, convert.merge_host_from_export(snap,
+                                                             device="cpu"))
+
+
+def test_matrix_through_routerlicious_matches_jax():
+    """SharedMatrix ops submitted by connected clients reach the merge
+    host through the service's merger lambda on both stacks: client 0
+    lays out the grid, then every client writes cells concurrently and
+    some insert and remove rows and cols."""
+    out = []
+    for service_cls, mod, host in (
+            (JaxService, jmsg, JaxMergeHost(flush_threshold=10**9)),
+            (TorchService, tmsg, TorchMergeHost(flush_threshold=10**9,
+                                                device="cpu"))):
+        service = service_cls(merge_host=host, auto_pump=False)
+        service._clock = itertools.count(1000, 7).__next__
+        conns = [service.connect("doc", lambda m: None) for _ in range(6)]
+        service.pump()
+        rng = random.Random(11)
+        cseq = {c.client_id: 0 for c in conns}
+
+        def send(c, op, ref):
+            cseq[c.client_id] += 1
+            c.submit([mod.DocumentMessage(
+                client_sequence_number=cseq[c.client_id],
+                reference_sequence_number=ref,
+                type=mod.MessageType.OPERATION,
+                contents={"address": "default",
+                          "contents": {"address": "grid",
+                                       "contents": op}})])
+
+        head = len(service.get_deltas("doc", 0))
+        send(conns[0], {"type": "insert", "target": "rows", "pos": 0,
+                        "count": 8}, head)
+        send(conns[0], {"type": "insert", "target": "cols", "pos": 0,
+                        "count": 8}, head + 1)
+        service.pump()
+        for n_round in range(5):
+            head = len(service.get_deltas("doc", 0))
+            for c in conns:
+                if n_round % 2 and rng.random() < 0.3:
+                    op = rng.choice([
+                        {"type": "insert", "target": "rows",
+                         "pos": rng.randint(0, 8), "count": 2},
+                        {"type": "remove", "target": "cols",
+                         "start": 1, "end": 2}])
+                else:
+                    op = {"type": "set", "target": "cell",
+                          "row": rng.randrange(8), "col": rng.randrange(7),
+                          "value": rng.randrange(100)}
+                send(c, op, head)
+            service.pump()
+        host.flush()
+        out.append((host.matrix_grid("doc", "default", "grid"),
+                    host.summarize("doc"), host.stats, host.export_state()))
+    assert out[0] == out[1]
+    assert out[0][2]["device_ops"] > 30 and out[0][2]["cell_run_ticks"] > 0
