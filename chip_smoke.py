@@ -35,8 +35,13 @@ every kernel == plain at each of them: the map fold and the deli on
 inputs of that shape (the deli at the map path's, text path A's and
 matrix path A's shapes), the two merge ticks and the two matrix ticks on
 the very inputs the paths gave them (every call's, kept while the paths
-ran), where they are also timed per launch. Then it prints the kernels' launch counts, per path and in all,
-and their times.
+ran), where they are also timed per launch. The block merge tick and the
+matrix step tick run in the variant their shape picks (shared memory on
+every path); each is also held to its plain version, and timed on the
+same inputs, in its global-memory variant (``ms_global``), which runs
+alone at a shape too large for shared memory. Then it prints the
+kernels' launch counts, per path, per variant and in all, and their
+times.
 
 Phases print one line each. Any failed check exits non-zero before the
 last line, which is the JSON device record
@@ -640,15 +645,17 @@ def op_batch(fields, device):
 
 
 def check_blocks_tick(device, k=TEXT_K, head=0.0, fill_ticks=2,
-                      time_it=True) -> dict:
+                      time_it=True, b=TEXT_DOCS, nb=TEXT_NB,
+                      bk=TEXT_BK) -> dict:
     """Kernel 3 against its plain version on one tick of shape (B, K,
-    NB, Bk, P, W) = (TEXT_DOCS, k, TEXT_NB, TEXT_BK, TEXT_P, TEXT_W),
-    from a table that ``fill_ticks`` plain ticks part filled (hot and
-    cold blocks mix): every plane, summary and the overflow index must be
-    equal."""
+    NB, Bk, P, W) = (b, k, nb, bk, TEXT_P, TEXT_W), from a table that
+    ``fill_ticks`` plain ticks part filled (hot and cold blocks mix):
+    every plane, summary and the overflow index must be equal, in the
+    variant the shape picks and, where that is the shared-memory one, in
+    the global-memory one too (timed beside it: ``ms_global``)."""
     import numpy as np
     import torch
-    b, nb, bk, p, w = TEXT_DOCS, TEXT_NB, TEXT_BK, TEXT_P, TEXT_W
+    p, w = TEXT_P, TEXT_W
 
     from fluidframework_tpu_torch.ops import mergetree_blocks as mtb
     from fluidframework_tpu_torch.ops import mergetree_blocks_cuda as mtbc
@@ -658,18 +665,25 @@ def check_blocks_tick(device, k=TEXT_K, head=0.0, fill_ticks=2,
     for f in ticks[:-1]:
         state, _ = mtb.apply_tick_blocks(state, op_batch(f, device))
     ops = op_batch(ticks[-1], device)
-    got, got_ovf = mtbc.apply_tick_blocks_best(state, ops)
+    variant = mtbc.choose_variant(nb, bk, p, w, k, mtbc.smem_limit(device))
     want, want_ovf = mtb.apply_tick_blocks(state, ops)
-    torch.cuda.synchronize()
-    err = max(max_abs_err(got, want), max_abs_err([got_ovf], [want_ovf]))
-    check(err == 0, f"block merge kernel != plain version at "
-          f"{(b, k, nb, bk, p, w)} (max |err| {err})")
+    err = 0
+    for v in (variant, "global") if variant == "smem" else (variant,):
+        got, got_ovf = mtbc.apply_tick_blocks_best(state, ops, v)
+        torch.cuda.synchronize()
+        err = max(err, max_abs_err(got, want),
+                  max_abs_err([got_ovf], [want_ovf]))
+        check(err == 0, f"block merge kernel ({v}) != plain version at "
+              f"{(b, k, nb, bk, p, w)} (max |err| {err})")
     overflowed = int((want_ovf != int(mtb.OVF_NONE)).sum())
-    out = {"shape": [b, k, nb, bk, p, w], "max_abs_err": err,
-           "overflowed_docs": overflowed}
+    out = {"shape": [b, k, nb, bk, p, w], "variant": variant,
+           "max_abs_err": err, "overflowed_docs": overflowed}
     if time_it:
         out["ms"] = cuda_time_ms(
             lambda: mtbc.apply_tick_blocks_best(state, ops), 10)
+        if variant == "smem":
+            out["ms_global"] = cuda_time_ms(
+                lambda: mtbc.apply_tick_blocks_best(state, ops, "global"), 10)
         out["plain_ms"] = cuda_time_ms(
             lambda: mtb.apply_tick_blocks(state, ops), 1)
         out["bound_ms"], out["bound_by"] = blocks_bound(state, ops)
@@ -1011,6 +1025,7 @@ def text_main_path(device) -> dict:
         for mod in (mtc, mtbc, seqc):
             mod.launches = 0
             mod.shapes.clear()
+        mtbc.variants.update(smem=0, **{"global": 0})
         with recording(mtbc, "apply_tick_blocks_best",
                        inputs["mergetree_blocks"]), \
                 recording(mtc, "apply_tick_best", inputs["mergetree_flat"]):
@@ -1018,7 +1033,8 @@ def text_main_path(device) -> dict:
         torch.cuda.synchronize()
         launches[name] = {"mergetree_blocks": mtbc.launches,
                           "mergetree_flat": mtc.launches,
-                          "sequencer_tick": seqc.launches}
+                          "sequencer_tick": seqc.launches,
+                          "mergetree_blocks_variants": dict(mtbc.variants)}
         for key, mod in (("mergetree_blocks", mtbc), ("mergetree_flat", mtc),
                          ("sequencer_tick", seqc)):
             for shape, n in mod.shapes.items():
@@ -1051,6 +1067,9 @@ def text_main_path(device) -> dict:
                   "no block overflowed on text path B")
         check(launches[name]["mergetree_blocks"] > 0,
               f"block merge kernel not launched on text path {name}")
+        check(mtbc.variants["smem"] == mtbc.launches,
+              f"text path {name} launched the block tick's global variant "
+              f"({mtbc.variants}): its rows fit shared memory")
         plain = drive(device, plain=True)
         text_pools_equal(host, plain["merge_host"])
         if name == "a":
@@ -1078,13 +1097,16 @@ def text_main_path(device) -> dict:
 
 
 def recheck_recorded(name: str, shapes: dict, inputs: dict, kernel, plain,
-                     bound_of, ops_of=lambda op: int(op.valid.sum())
-                     ) -> dict:
+                     bound_of, ops_of=lambda op: int(op.valid.sum()),
+                     other=None) -> dict:
     """Hold a text kernel against its plain version on the inputs of
     EVERY call the text main paths made to it, at every shape; then time
     it, and its plain version, on each call of the shape with the most
     launches. ms, plain ms and bound are means per launch over those
-    calls; the error is the largest over every check."""
+    calls; the error is the largest over every check. ``other`` is the
+    kernel's other variant (the global-memory one where the paths ran the
+    shared-memory one): it is held to the plain version on the same
+    inputs and timed on the same calls in this call (``ms_global``)."""
     import torch
     check(bool(shapes) and {sh: len(c) for sh, c in inputs.items()}
           == shapes, f"{name}: launches by shape {shapes}, inputs kept "
@@ -1092,15 +1114,19 @@ def recheck_recorded(name: str, shapes: dict, inputs: dict, kernel, plain,
     worst = 0
     for shape in sorted(shapes):
         for state, ops in inputs[shape]:
-            got, want = kernel(state, ops), plain(state, ops)
-            torch.cuda.synchronize()
-            err = max_abs_err(got, want)
-            check(err == 0, f"{name} kernel != plain version on the main "
-                  f"path's inputs at {shape} (max |err| {err})")
-            worst = max(worst, err)
+            want = plain(state, ops)
+            for run in (kernel, other) if other else (kernel,):
+                got = run(state, ops)
+                torch.cuda.synchronize()
+                err = max_abs_err(got, want)
+                check(err == 0, f"{name} kernel != plain version on the main "
+                      f"path's inputs at {shape} (max |err| {err})")
+                worst = max(worst, err)
     top = max(shapes, key=lambda sh: shapes[sh])
     calls = inputs[top]
     ms = [cuda_time_ms(lambda: kernel(st, op), 3) for st, op in calls]
+    ms_other = [cuda_time_ms(lambda: other(st, op), 3) for st, op in calls] \
+        if other else []
     plain_ms = [cuda_time_ms(lambda: plain(st, op), 1) for st, op in calls]
     bounds = [bound_of(st, op) for st, op in calls]
     by = [b for _, b in bounds]
@@ -1112,10 +1138,34 @@ def recheck_recorded(name: str, shapes: dict, inputs: dict, kernel, plain,
            / len(calls),
            "ms": sum(ms) / len(ms), "ms_min": min(ms), "ms_max": max(ms),
            "plain_ms": sum(plain_ms) / len(plain_ms),
+           **({"ms_global": sum(ms_other) / len(ms_other),
+               "ms_global_min": min(ms_other),
+               "ms_global_max": max(ms_other)} if other else {}),
            "bound_ms": sum(b for b, _ in bounds) / len(bounds),
            "bound_by": max(set(by), key=by.count)}
     print(f"kernel {name} on the main path's inputs: {json.dumps(out)}",
           flush=True)
+    return out
+
+
+def steps_breakdown(calls) -> dict:
+    """Kernel 6's time split on the step path's recorded calls (those the
+    re-check timed), both variants: the calls as recorded, with every
+    cell run removed (the walks alone: ``walks``) and with every vector op
+    removed (the frames, lookups and cell writes alone: ``cells``)."""
+    import torch
+
+    from fluidframework_tpu_torch.ops import matrix_cuda as mxc
+    out = {}
+    for name, edit in (("walks", lambda b: b._replace(
+            r_valid=torch.zeros_like(b.r_valid))),
+                       ("cells", lambda b: b._replace(
+                           vec_valid=torch.zeros_like(b.vec_valid)))):
+        cut = [(st, edit(b)) for st, b in calls]
+        out[name] = {v: sum(cuda_time_ms(
+            lambda: mxc.apply_tick_steps_best(st, b, v), 3)
+            for st, b in cut) / len(cut) for v in ("smem", "global")}
+    print(f"kernel matrix_steps breakdown: {json.dumps(out)}", flush=True)
     return out
 
 
@@ -1299,6 +1349,56 @@ def matrix_stream(rng, n_ops: int, clients: int, lag: int) -> list[dict]:
     return ops
 
 
+def check_steps_tick(device, b, s, c, w, k=STEPS_K, fill_ticks=1,
+                     streams=64) -> dict:
+    """Kernel 6 against its plain version on one tick of the step layout
+    (r_max STEPS_RMAX) from a state ``fill_ticks`` plain ticks filled,
+    ``streams`` seeded streams tiled over ``b`` docs: every plane equal,
+    in the variant the shape picks and, where that is the shared-memory
+    one, in the global-memory one too."""
+    import random
+
+    import torch
+
+    from fluidframework_tpu_torch.ops import matrix_cuda as mxc
+    from fluidframework_tpu_torch.ops import matrix_kernel as mxk
+    rng = random.Random(b + s + c + w)
+    ticks = fill_ticks + 1
+    ops = [matrix_stream(rng, k * ticks, 32 * w, 3) for _ in range(streams)]
+    state = mxk.init_state(b, s, c, w, device)
+    lvs = [0] * streams
+    batch = None
+    for t in range(ticks):
+        chunk = [x[t * k:(t + 1) * k] for x in ops]
+        steps = mxk.make_matrix_step_batch(chunk, streams, STEPS_RMAX,
+                                           list(lvs), "cpu")
+        batch = mxk.MatrixStepBatch(*(
+            f.repeat(b // streams, *[1] * (f.dim() - 1)).to(device)
+            for f in steps))
+        if t < fill_ticks:
+            state = mxk.apply_tick_steps(state, batch)
+        for d, doc_ops in enumerate(chunk):
+            for op in doc_ops:
+                if op["target"] != mxk.MX_CELL:
+                    lvs[d] = max(lvs[d], op["seq"])
+    r = batch.r_valid.shape[2]
+    variant = mxc.steps_variant(s, 1, w, c, r, mxc.smem_limit(device))
+    want = mxk.apply_tick_steps(state, batch)
+    err = 0
+    for v in (variant, "global") if variant == "smem" else (variant,):
+        got = mxc.apply_tick_steps_best(state, batch, v)
+        torch.cuda.synchronize()
+        err = max(err, max_abs_err(got, want))
+        check(err == 0, f"matrix step kernel ({v}) != plain version at "
+              f"{(b, batch.kind.shape[1], r, s, c, w)} (max |err| {err})")
+    out = {"shape": [b, int(batch.kind.shape[1]), r, s, c, w],
+           "variant": variant, "max_abs_err": err,
+           "docs_with_a_full_cell_log": int((want.cell_count >= c).sum()),
+           "max_cell_count": int(want.cell_count.max())}
+    print(f"kernel matrix_steps: {json.dumps(out)}", flush=True)
+    return out
+
+
 def matrix_steps_path(device) -> dict:
     """Kernel 6 at the reference matrix benchmark's shape: STEPS_DOCS
     docs, STEPS_K ops per doc a tick in the step layout (r_max
@@ -1343,8 +1443,11 @@ def matrix_steps_path(device) -> dict:
         torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
     launches, shapes = mxc.steps.launches, dict(mxc.steps.shapes)
+    variants = dict(mxc.steps.variants)
     check(launches == STEPS_TICKS, f"matrix step kernel launched {launches} "
           f"times in {STEPS_TICKS} ticks")
+    check(variants == {"smem": STEPS_TICKS}, f"the step path launched "
+          f"{variants}: its documents fit shared memory")
     flat = state0
     for batch in flats:
         flat = mxc.apply_tick_best(flat, batch)
@@ -1362,10 +1465,11 @@ def matrix_steps_path(device) -> dict:
     out = {"docs": STEPS_DOCS, "k": STEPS_K, "ticks": STEPS_TICKS,
            "r_max": STEPS_RMAX, "ops": ops, "serve_s": serve_s,
            "ops_per_s": ops / serve_s, "launches": launches,
+           "variant_launches": variants,
            "cells_live_mean": float(state.cell_count.float().mean())}
     print("matrix_steps_path: " + json.dumps(out), flush=True)
     return {"launches": launches, "shapes": shapes, "inputs": inputs,
-            "path": out}
+            "variants": variants, "path": out}
 
 
 # -- the matrix main paths ----------------------------------------------------------
@@ -1811,7 +1915,8 @@ def main() -> int:
     from fluidframework_tpu_torch.ops import _build
     t0 = time.perf_counter()
     _build.build_all(["map_fold", "sequencer_tick", "mergetree_flat",
-                      "mergetree_blocks", "matrix_tick", "matrix_steps"])
+                      "mergetree_blocks", "mergetree_blocks_smem",
+                      "matrix_tick", "matrix_steps", "matrix_steps_smem"])
     print(f"build: {time.perf_counter() - t0:.2f} s "
           f"({_build.BUILD_DIR})", flush=True)
 
@@ -1823,10 +1928,21 @@ def main() -> int:
     check(burst["overflowed_docs"] > 0,
           "the burst tick overflowed no block")
     flat_full = check_flat_tick(device)
+    blocks_large = check_blocks_tick(device, time_it=False, b=256, nb=16,
+                                     bk=512)
+    check(blocks_large["variant"] == "global",
+          "16 x 512-slot rows did not run the block tick's global variant")
     matrix_full = check_matrix_tick(device)
     matrix_clamp = check_matrix_tick(device, c=MATRIX_FULL_C, time_it=False)
     check(matrix_clamp["docs_with_a_full_cell_log"] > 0,
           "the clamp tick filled no cell log")
+    steps_clamp = check_steps_tick(device, 4096, STEPS_S, MATRIX_FULL_C, 1)
+    check(steps_clamp["docs_with_a_full_cell_log"] > 0
+          and steps_clamp["variant"] == "smem",
+          "the step tick's clamp check filled no cell log in shared memory")
+    steps_large = check_steps_tick(device, 64, 4096, STEPS_S, 1)
+    check(steps_large["variant"] == "global",
+          "S = 4,096 did not run the step tick's global variant")
     path = main_path(device)
     text = text_main_path(device)
     matrix = matrix_main_path(device)
@@ -1851,7 +1967,9 @@ def main() -> int:
         "mergetree_blocks", text["shapes"]["mergetree_blocks"],
         text["inputs"]["mergetree_blocks"],
         blocks_planes(mtbc.apply_tick_blocks_best),
-        blocks_planes(mtb.apply_tick_blocks), blocks_bound)
+        blocks_planes(mtb.apply_tick_blocks), blocks_bound,
+        other=blocks_planes(lambda st, op: mtbc.apply_tick_blocks_best(
+            st, op, "global")))
     flat_main = recheck_recorded(
         "mergetree_flat", text["shapes"]["mergetree_flat"],
         text["inputs"]["mergetree_flat"], mtc.apply_tick_best,
@@ -1866,7 +1984,10 @@ def main() -> int:
     steps_main = recheck_recorded(
         "matrix_steps", steps["shapes"], steps["inputs"],
         mxc.apply_tick_steps_best, mxk.apply_tick_steps, steps_bound,
-        ops_of=lambda st: int(st.vec_valid.sum() + st.r_valid.sum()))
+        ops_of=lambda st: int(st.vec_valid.sum() + st.r_valid.sum()),
+        other=lambda st, b: mxc.apply_tick_steps_best(st, b, "global"))
+    steps_split = steps_breakdown(
+        steps["inputs"][max(steps["shapes"], key=steps["shapes"].get)])
     del steps["inputs"]
     if "--trace" in sys.argv[1:]:
         trace_main_path(device)
@@ -1901,13 +2022,20 @@ def main() -> int:
          "at_K32": {key: deli[key] for key in
                     ("shape", "ms", "plain_ms", "bound_ms")}},
         {"name": "mergetree_blocks", "route": "cuda",
-         "source": "fluidframework_tpu_torch/csrc/mergetree_blocks.cu",
+         "source": "fluidframework_tpu_torch/csrc/mergetree_blocks_smem.cu",
+         "global_source": "fluidframework_tpu_torch/csrc/mergetree_blocks.cu",
          "replaces": "fluidframework_tpu/ops/mergetree_blocks_pallas.py:73",
          "launches": launches["mergetree_blocks"],
-         "launches_by_path": by_path["mergetree_blocks"], **blocks_main,
-         "library_ms": None,
+         "launches_by_path": by_path["mergetree_blocks"],
+         "variant_launches": {
+             name: text["launches"][name]["mergetree_blocks_variants"]
+             for name in ("a", "b")},
+         **blocks_main, "library_ms": None,
          "at_full_size": {key: blocks_full[key] for key in
-                          ("shape", "ms", "plain_ms", "bound_ms")}},
+                          ("shape", "variant", "ms", "ms_global", "plain_ms",
+                           "bound_ms")},
+         "global_by_shape": {key: blocks_large[key] for key in
+                             ("shape", "variant", "max_abs_err")}},
         {"name": "mergetree_flat", "route": "cuda",
          "source": "fluidframework_tpu_torch/csrc/mergetree_flat.cu",
          "replaces": "fluidframework_tpu/ops/mergetree_pallas.py:274",
@@ -1926,11 +2054,19 @@ def main() -> int:
                           ("shape", "ms", "plain_ms", "bound_ms")},
          "clamp_shape_max_abs_err": matrix_clamp["max_abs_err"]},
         {"name": "matrix_steps", "route": "cuda",
-         "source": "fluidframework_tpu_torch/csrc/matrix_steps.cu",
+         "source": "fluidframework_tpu_torch/csrc/matrix_steps_smem.cu",
+         "global_source": "fluidframework_tpu_torch/csrc/matrix_steps.cu",
          "replaces": "fluidframework_tpu/ops/matrix_pallas.py:362",
          "launches": launches["matrix_steps"],
-         "launches_by_path": by_path["matrix_steps"], **steps_main,
-         "library_ms": None},
+         "launches_by_path": by_path["matrix_steps"],
+         "variant_launches": {"matrix_steps": steps["variants"]},
+         **steps_main, "library_ms": None,
+         "ms_by_part": steps_split,
+         "clamp_shape": {key: steps_clamp[key] for key in
+                         ("shape", "variant", "max_abs_err",
+                          "docs_with_a_full_cell_log")},
+         "global_by_shape": {key: steps_large[key] for key in
+                             ("shape", "variant", "max_abs_err")}},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -35,6 +35,7 @@ NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
+_optin: dict[int, int] = {}
 
 
 class KernelError(RuntimeError):
@@ -166,3 +167,19 @@ def check(rc: int, what: str) -> None:
     """Raise on a non-zero cudaError_t returned by a launcher."""
     if rc != 0:
         raise KernelError(f"{what}: CUDA launch failed with cudaError {rc}")
+
+
+def smem_limit(name: str, index: int) -> int:
+    """The per-block shared-memory limit with opt-in
+    (``cudaDevAttrMaxSharedMemoryPerBlockOptin``; 232,448 bytes on an
+    H100) of card ``index``, read once through ``<name>_optin`` of
+    ``csrc/<name>.cu`` while that card is current (the caller makes it
+    so). The shape checks of the shared-memory kernels compare against
+    it."""
+    if index not in _optin:
+        got = getattr(load(name), f"{name}_optin")()
+        if got <= 0:
+            raise KernelError(f"cannot read the shared-memory limit of "
+                              f"cuda:{index}")
+        _optin[index] = got
+    return _optin[index]

@@ -2,20 +2,23 @@
 
 Replace ``fluidframework_tpu/ops/matrix_pallas.py:_tick_kernel`` (wrapper
 ``apply_tick_pallas``) and ``:_step_kernel`` (wrapper
-``apply_tick_steps_pallas``). Both kernels are CUDA C++ for ``sm_90a``
+``apply_tick_steps_pallas``). The kernels are CUDA C++ for ``sm_90a``
 (``csrc/matrix_tick.cu`` and ``csrc/matrix_steps.cu``, with the shared
 device functions in ``csrc/matrix_apply.cuh`` and the merge step in
 ``csrc/merge_apply.cuh``): one thread block per document copies its two
 permutation-vector axes and its cell row to the outputs and applies the
-document's ops (or steps) in order, in place. They are bound by the bytes
-they move (both axes and the cell table in and out once, the op planes
-in).
+document's ops (or steps) in order, in place. The step tick has a second
+variant, ``csrc/matrix_steps_smem.cu`` (``"smem"``), which stages the
+document in shared memory; ``csrc/matrix_steps.cu`` (``"global"``) takes
+documents too large for it. :func:`steps_variant` picks one by shape
+alone, never by failure.
 
 :func:`apply_tick_best` and :func:`apply_tick_steps_best` launch the
 kernels for CUDA tensors and run the plain versions
 (:func:`.matrix_kernel.apply_tick`, :func:`.matrix_kernel.
 apply_tick_steps`) only for tensors on the CPU. :data:`tick` and
-:data:`steps` count each kernel's launches, in all and by shape.
+:data:`steps` count each kernel's launches, in all, by shape and (the
+step tick) by variant.
 """
 
 from __future__ import annotations
@@ -36,14 +39,17 @@ class Launches:
     def __init__(self) -> None:
         self.launches = 0
         self.shapes: dict[tuple[int, ...], int] = {}
+        self.variants: dict[str, int] = {}
 
     def reset(self) -> None:
         self.launches = 0
         self.shapes.clear()
+        self.variants.clear()
 
-    def add(self, shape: tuple[int, ...]) -> None:
+    def add(self, shape: tuple[int, ...], variant: str = "global") -> None:
         self.launches += 1
         self.shapes[shape] = self.shapes.get(shape, 0) + 1
+        self.variants[variant] = self.variants.get(variant, 0) + 1
 
 
 #: The op tick's launches, by (B, K, S, C, W).
@@ -65,6 +71,45 @@ TICK_LAYOUT = (*_state_names(),
 STEPS_LAYOUT = (*_state_names(),
                 *(f"step_{f}" for f in mxk.MatrixStepBatch._fields),
                 *(f"o_{f}" for f in _state_names()), "frame")
+#: The shared-memory step launcher's order: the same without the frame.
+STEPS_SMEM_LAYOUT = STEPS_LAYOUT[:-1]
+
+#: Ints of the shared-memory step kernel's header (``MXS_HEADER_INTS``).
+SMEM_HEADER_INTS = 256
+#: Threads of the shared-memory step kernel: one prefetches each step
+#: plane, so a run holds at most (256 - 12) // 5 cells.
+SMEM_THREADS = 256
+SMEM_MAX_RUN = (SMEM_THREADS - 12) // 5
+
+
+
+def steps_smem_bytes(s: int, p: int, w: int, c: int, r: int) -> int:
+    """Dynamic shared memory the shared-memory step kernel takes per
+    document: a header, both axes' 7 + P + W planes of S, the five cell
+    planes of C, the two axes' frames (vis and cum), two step buffers and
+    the run's handles, matches and written entries (``smem_ints`` in
+    ``csrc/matrix_steps_smem.cu``; its launcher refuses any other
+    number)."""
+    return 4 * (SMEM_HEADER_INTS + 2 * (7 + p + w) * s + 5 * c + 4 * s
+                + 2 * (12 + 5 * r) + 4 * r)
+
+
+def steps_variant(s: int, p: int, w: int, c: int, r: int,
+                  limit: int) -> str:
+    """``"smem"`` when one document fits ``limit`` bytes of shared memory
+    (the card's per-block opt-in limit; the kernel has no static shared
+    memory) and its runs are at most :data:`SMEM_MAX_RUN` cells, else
+    ``"global"``."""
+    fits = steps_smem_bytes(s, p, w, c, r) <= limit and r <= SMEM_MAX_RUN
+    return "smem" if fits else "global"
+
+
+def smem_limit(dev: torch.device) -> int:
+    """The per-block shared-memory opt-in limit of ``dev``."""
+    index = dev.index if dev.index is not None else \
+        torch.cuda.current_device()
+    with torch.cuda.device(index):
+        return _build.smem_limit("matrix_steps_smem", index)
 
 
 def _check_state(state: mxk.MatrixState, what: str):
@@ -133,9 +178,12 @@ def apply_tick_best(state: mxk.MatrixState, ops: mxk.MatrixOpBatch
 
 
 def apply_tick_steps_best(state: mxk.MatrixState,
-                          batch: mxk.MatrixStepBatch) -> mxk.MatrixState:
+                          batch: mxk.MatrixStepBatch,
+                          variant: str | None = None) -> mxk.MatrixState:
     """Drop-in for :func:`.matrix_kernel.apply_tick_steps`: a new
-    :class:`MatrixState`; the inputs are not modified."""
+    :class:`MatrixState`; the inputs are not modified. ``variant``
+    ("smem" or "global") overrides the choice by shape (to time one
+    against the other); a document that does not fit raises."""
     if state.rows.length.device.type == "cpu":
         return mxk.apply_tick_steps(state, batch)
     what = "matrix step tick"
@@ -147,9 +195,25 @@ def apply_tick_steps_best(state: mxk.MatrixState,
         _build.need(getattr(batch, name), f"{what}: step {name}",
                     torch.bool if name in ("vec_valid", "r_valid")
                     else torch.int32, (b, t, r) if run else (b, t), dev)
+    limit = smem_limit(dev)
+    if variant is None:
+        variant = steps_variant(s, p, w, c, r, limit)
+    elif variant not in ("smem", "global"):
+        raise _build.KernelInputError(f"{what}: no variant {variant!r}")
     out = _empty_like(state)
-    frame = torch.empty((b, 2, 2, s), dtype=torch.int32, device=dev)
-    _launch("matrix_steps", STEPS_LAYOUT, (b, s, p, w, c, t, r),
-            (*mxk.leaves(state), *batch, *mxk.leaves(out), frame), dev)
-    steps.add((b, t, r, s, c, w))
+    if variant == "smem":
+        if steps_variant(s, p, w, c, r, limit) != "smem":
+            raise _build.KernelInputError(
+                f"{what}: a document at (S={s}, P={p}, W={w}, C={c}, R={r}) "
+                f"takes {steps_smem_bytes(s, p, w, c, r)} bytes of shared "
+                f"memory (the card has {limit}) or more than "
+                f"{SMEM_MAX_RUN} cells a run")
+        _launch("matrix_steps_smem", STEPS_SMEM_LAYOUT,
+                (b, s, p, w, c, t, r, steps_smem_bytes(s, p, w, c, r)),
+                (*mxk.leaves(state), *batch, *mxk.leaves(out)), dev)
+    else:
+        frame = torch.empty((b, 2, 2, s), dtype=torch.int32, device=dev)
+        _launch("matrix_steps", STEPS_LAYOUT, (b, s, p, w, c, t, r),
+                (*mxk.leaves(state), *batch, *mxk.leaves(out), frame), dev)
+    steps.add((b, t, r, s, c, w), variant)
     return out

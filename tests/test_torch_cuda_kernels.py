@@ -280,32 +280,105 @@ def test_flat_kernel_matches_plain(cuda, b, s, k, p, w, ticks):
         _assert_equal(got, want, (b, s, k))
 
 
+@pytest.mark.parametrize("variant", [None, "global"])
 @pytest.mark.parametrize("b,nb,bk,k,p,w,ticks,head", [
     (1, 1, 8, 1, 1, 1, 1, 0.0), (6, 4, 16, 8, 2, 1, 4, 0.0),
-    (40, 4, 128, 32, 4, 4, 3, 0.2), (9, 3, 32, 70, 2, 2, 2, 0.9)])
-def test_block_kernel_matches_plain(cuda, b, nb, bk, k, p, w, ticks, head):
+    (40, 4, 128, 32, 4, 4, 3, 0.2), (9, 3, 32, 70, 2, 2, 2, 0.9),
+    (3, 16, 512, 16, 4, 4, 2, 0.5)])
+def test_block_kernel_matches_plain(cuda, b, nb, bk, k, p, w, ticks, head,
+                                    variant):
     """Kernel 3 == its plain version (planes, summaries, overflow index,
     rebalance stats) tick by tick through the serving step (the tick,
-    then the rebalance ladder); the last case overflows blocks
-    mid-tick."""
+    then the rebalance ladder), in the variant the shape picks (shared
+    memory, except the 16 x 512 rows, which do not fit) and in the
+    global-memory one; the 0.9-head case overflows blocks mid-tick."""
     rng = np.random.default_rng(b * 13 + nb * bk + k)
     want = mtb.init_state(b, nb, bk, p, w, device="cpu")
     got = _to(want, cuda)
     saw_ovf = False
     ms = torch.zeros(b, dtype=torch.int32)
+    picked = variant or mtbc.choose_variant(nb, bk, p, w, k,
+                                            mtbc.smem_limit(cuda))
+    assert picked == ("global" if nb * bk > 4096 else "smem") or variant
     for fields in _merge_ticks(rng, b, k, ticks, 32 * w, head):
         want, want_ovf = mtb.apply_tick_blocks(want, _batch(fields, "cpu"))
         want, want_rs = mtb.maybe_rebalance_stats(want, ms, min(k, 8))
-        before = mtbc.launches
-        got, got_ovf = mtbc.apply_tick_blocks_best(got, _batch(fields, cuda))
+        before = mtbc.launches, dict(mtbc.variants)
+        got, got_ovf = mtbc.apply_tick_blocks_best(got, _batch(fields, cuda),
+                                                   variant)
         got, got_rs = mtb.maybe_rebalance_stats(got, ms.to(cuda), min(k, 8))
         torch.cuda.synchronize()
-        assert mtbc.launches == before + 1
+        assert mtbc.launches == before[0] + 1
+        assert mtbc.variants[picked] == before[1][picked] + 1
         _assert_equal(got, want, (b, nb, bk, k))
         assert torch.equal(got_ovf.cpu(), want_ovf)
         assert torch.equal(got_rs.cpu(), want_rs)
         saw_ovf |= bool((want_ovf != int(mtb.OVF_NONE)).any())
-    assert saw_ovf or head < 0.5
+    assert saw_ovf or head < 0.9
+
+
+def _inexact_blocks(rng, b, nb, bk, p, w, k):
+    """(state, ops) of a block table whose summaries are NOT its planes':
+    random fills, live lengths (some negative), newest seqs and tombstone
+    counts, so hot and cold blocks give frames in which a position falls
+    inside several slots or none; removed and overlap-marked slots (sign
+    bits included), clients past the overlap words, annotate keys out of
+    range and positions off both ends."""
+    shape = (b, nb, bk)
+    rem = rng.random(shape) < 0.3
+    over = rng.integers(-2**31, 2**31, (b, nb, bk, w), dtype=np.int64)
+    planes = {
+        "length": rng.integers(0, 9, shape),
+        "ins_seq": rng.integers(0, 40, shape),
+        "ins_client": rng.integers(0, 8, shape),
+        "rem_seq": np.where(rem, rng.integers(0, 40, shape),
+                            int(mtk.NONE_SEQ)),
+        "rem_client": np.where(rem, rng.integers(0, 8, shape), -1),
+        "rem_overlap": np.where(rng.random((b, nb, bk, w)) < 0.2, over, 0),
+        "pool_start": rng.integers(0, 1000, shape),
+        "prop_val": rng.integers(0, 5, (b, nb, bk, p)),
+        "blk_count": rng.integers(0, bk + 1, (b, nb)),
+        "blk_live_len": rng.integers(-5, 8 * bk, (b, nb)),
+        "blk_max_seq": rng.integers(0, 45, (b, nb)),
+        "blk_tomb": rng.integers(0, 5, (b, nb))}
+    planes["count"] = planes["blk_count"].sum(axis=1)
+    state = mtb.BlockMergeState(**{
+        f: torch.from_numpy(np.ascontiguousarray(v.astype(np.int32)))
+        for f, v in planes.items()})
+    pos = rng.integers(-2, 8 * bk, (b, k))
+    ops = {"valid": rng.random((b, k)) < 0.9,
+           "kind": rng.integers(0, 3, (b, k)), "pos": pos,
+           "end": pos + rng.integers(0, 12, (b, k)),
+           "seq": 41 + np.arange(k)[None].repeat(b, 0),
+           "ref_seq": rng.integers(0, 45, (b, k)),
+           "client": rng.integers(0, 32 * w + 4, (b, k)),
+           "pool_start": rng.integers(0, 1000, (b, k)),
+           "text_len": rng.integers(1, 9, (b, k)),
+           "prop_key": rng.integers(-1, p + 1, (b, k)),
+           "prop_val": rng.integers(0, 5, (b, k))}
+    ops = mtk.MergeOpBatch(**{
+        f: torch.from_numpy(np.ascontiguousarray(
+            v if f == "valid" else v.astype(np.int32)))
+        for f, v in ops.items()})
+    return state, ops
+
+
+@pytest.mark.parametrize("variant", ["smem", "global"])
+@pytest.mark.parametrize("b,nb,bk,p,w,k", [(64, 4, 32, 2, 2, 16),
+                                          (16, 3, 128, 4, 4, 24)])
+def test_block_kernel_on_inexact_summaries(cuda, b, nb, bk, p, w, k,
+                                           variant):
+    """Kernel 3 == its plain version, both variants, on tables whose block
+    summaries disagree with their slots: the reductions over the whole
+    table decide alike."""
+    state, ops = _inexact_blocks(np.random.default_rng(b + bk + k), b, nb,
+                                 bk, p, w, k)
+    want, want_ovf = mtb.apply_tick_blocks(state, ops)
+    got, got_ovf = mtbc.apply_tick_blocks_best(_to(state, cuda),
+                                               _to(ops, cuda), variant)
+    torch.cuda.synchronize()
+    _assert_equal(got, want, (b, nb, bk, variant))
+    assert torch.equal(got_ovf.cpu(), want_ovf)
 
 
 def test_merge_wrappers_refuse_what_the_kernels_do_not_take(cuda):
@@ -526,36 +599,129 @@ def test_matrix_tick_kernel_matches_plain(cuda, b, s, c, k, w, ticks):
         assert int(want.cell_count.max()) > c
 
 
+@pytest.mark.parametrize("variant", [None, "global"])
 @pytest.mark.parametrize("b,s,c,k,r,w,ticks", [
     (1, 8, 8, 2, 1, 1, 1), (6, 64, 64, 24, 4, 1, 3),
-    (20, 256, 256, 64, 8, 8, 3)])
-def test_matrix_steps_kernel_matches_plain(cuda, b, s, c, k, r, w, ticks):
+    (20, 256, 256, 64, 8, 8, 3), (9, 128, 16, 40, 8, 2, 2),
+    (3, 4096, 64, 24, 4, 1, 2)])
+def test_matrix_steps_kernel_matches_plain(cuda, b, s, c, k, r, w, ticks,
+                                           variant):
     """Kernel 6 == its plain version tick by tick in the step layout
     (last_vec_seq carried across ticks, stale-ref cells alone in their
-    runs), and both equal the op tick on the same flat stream."""
+    runs), and both equal the op tick on the same flat stream; in the
+    variant the shape picks (shared memory, except S = 4,096, which does
+    not fit) and in the global-memory one. The C = 16 case fills the cell
+    log: the write clamps at C - 1 while the count passes C."""
     rng = np.random.default_rng(b * 5 + s + k + r)
     streams = [_matrix_stream(rng, k * ticks, 32 * w, 3) for _ in range(b)]
     want = mxk.init_state(b, s, c, w, device="cpu")
     got = _matrix_to(want, cuda)
     flat = _matrix_to(want, cuda)
     lvs = [0] * b
+    picked = variant or mxc.steps_variant(s, 1, w, c, r,
+                                          mxc.smem_limit(cuda))
+    assert picked == ("global" if s > 2048 else "smem") or variant
     for t in range(ticks):
         chunk = [x[t * k:(t + 1) * k] for x in streams]
         steps = mxk.make_matrix_step_batch(chunk, b, r, list(lvs), "cpu")
         want = mxk.apply_tick_steps(want, steps)
-        before = mxc.steps.launches
+        before = mxc.steps.launches, mxc.steps.variants.get(picked, 0)
         got = mxc.apply_tick_steps_best(got, mxk.MatrixStepBatch(
-            *(f.to(cuda) for f in steps)))
+            *(f.to(cuda) for f in steps)), variant)
         flat = mxc.apply_tick_best(flat, mxk.make_matrix_op_batch(
             chunk, b, k, device=cuda))
         torch.cuda.synchronize()
-        assert mxc.steps.launches == before + 1
+        assert mxc.steps.launches == before[0] + 1
+        assert mxc.steps.variants[picked] == before[1] + 1
         _assert_matrix_equal(got, want, (b, s, c, k, t))
         _assert_matrix_equal(flat, want, (b, s, c, k, t, "flat"))
         for d, ops in enumerate(chunk):
             for op in ops:
                 if op["target"] != mxk.MX_CELL:
                     lvs[d] = max(lvs[d], op["seq"])
+    if c == 16:
+        assert int(want.cell_count.max()) > c
+
+
+def _wild_matrix(rng, b, s, c, w, t, r):
+    """(state, steps) of random matrix planes: in every other document
+    lengths near 2**30 or negative, so a frame's prefix wraps or falls
+    (the lookups' linear pass); elsewhere small lengths (the binary
+    search); cell logs with duplicate keys, unused entries and counts
+    from 0 to past C; random vector ops, runs and frames."""
+    def axis():
+        wild = (np.arange(b) % 2 == 1)[:, None]
+        big = rng.integers(-3, 2**30 + 9, (b, s))
+        rem = rng.random((b, s)) < 0.3
+        over = rng.integers(-2**31, 2**31, (b, s, w), dtype=np.int64)
+        planes = {
+            "valid": rng.random((b, s)) < 0.8,
+            "length": np.where(wild & (rng.random((b, s)) < 0.5), big,
+                               rng.integers(0, 4, (b, s))),
+            "ins_seq": rng.integers(0, 40, (b, s)),
+            "ins_client": rng.integers(0, 6, (b, s)),
+            "rem_seq": np.where(rem, rng.integers(0, 40, (b, s)),
+                                int(mtk.NONE_SEQ)),
+            "rem_client": np.where(rem, rng.integers(0, 6, (b, s)), -1),
+            "rem_overlap": np.where(rng.random((b, s, w)) < 0.2, over, 0),
+            "pool_start": rng.integers(0, 500, (b, s)),
+            "prop_val": rng.integers(0, 3, (b, s, 1)),
+            "count": rng.integers(0, s + 1, b)}
+        return mtk.MergeState(**{
+            f: torch.from_numpy(np.ascontiguousarray(
+                v if f == "valid" else v.astype(np.int32)))
+            for f, v in planes.items()})
+    cells = {"cell_rh": rng.integers(-1, 12, (b, c)),
+             "cell_ch": rng.integers(-1, 12, (b, c)),
+             "cell_val": rng.integers(0, 99, (b, c)),
+             "cell_seq": rng.integers(0, 40, (b, c)),
+             "cell_used": rng.random((b, c)) < 0.5,
+             "cell_count": rng.integers(0, c + 3, b)}
+    state = mxk.MatrixState(axis(), axis(), **{
+        f: torch.from_numpy(np.ascontiguousarray(
+            v if f == "cell_used" else v.astype(np.int32)))
+        for f, v in cells.items()})
+    pos = rng.integers(-1, 12, (b, t))
+    vec = {"vec_valid": rng.random((b, t)) < 0.5,
+           "kind": rng.integers(0, 2, (b, t)),
+           "target": rng.integers(0, 3, (b, t)), "pos": pos,
+           "end": pos + rng.integers(0, 4, (b, t)),
+           "count": rng.integers(1, 4, (b, t)),
+           "handle_base": rng.integers(0, 500, (b, t)),
+           "seq": 41 + np.arange(t)[None].repeat(b, 0),
+           "ref_seq": rng.integers(0, 45, (b, t)),
+           "client": rng.integers(0, 32 * w + 4, (b, t)),
+           "run_ref": rng.integers(0, 45, (b, t)),
+           "run_client": rng.integers(0, 6, (b, t)),
+           "r_valid": rng.random((b, t, r)) < 0.6,
+           "r_row": rng.integers(-1, 14, (b, t, r)),
+           "r_col": rng.integers(-1, 14, (b, t, r)),
+           "r_value": rng.integers(1, 99, (b, t, r)),
+           "r_seq": rng.integers(41, 99, (b, t, r))}
+    steps = mxk.MatrixStepBatch(**{
+        f: torch.from_numpy(np.ascontiguousarray(
+            v if f in ("vec_valid", "r_valid") else v.astype(np.int32)))
+        for f, v in vec.items()})
+    return state, steps
+
+
+@pytest.mark.parametrize("variant", ["smem", "global"])
+@pytest.mark.parametrize("b,s,c,w,t,r", [(32, 40, 24, 1, 12, 4),
+                                        (8, 256, 256, 2, 20, 8)])
+def test_matrix_steps_kernel_on_wild_frames(cuda, b, s, c, w, t, r,
+                                           variant):
+    """Kernel 6 == its plain version, both variants, on random planes
+    whose frames wrap (the lookups' linear pass), on small ones (the
+    binary search), and on cell logs with duplicates and odd counts."""
+    state, steps = _wild_matrix(np.random.default_rng(b + s + c + t), b, s,
+                                c, w, t, r)
+    want = mxk.apply_tick_steps(state, steps)
+    got = mxc.apply_tick_steps_best(_matrix_to(state, cuda),
+                                    mxk.MatrixStepBatch(
+                                        *(f.to(cuda) for f in steps)),
+                                    variant)
+    torch.cuda.synchronize()
+    _assert_matrix_equal(got, want, (b, s, c, variant))
 
 
 def test_matrix_wrappers_refuse_what_the_kernels_do_not_take(cuda):
