@@ -31,17 +31,19 @@ equality: every plane is integer), then drives the port's main paths:
   against the op tick's grids.
 
 It prints each kernel's launch shapes on the main paths and re-checks
-every kernel == plain at each of them: the map fold and the deli on
-inputs of that shape (the deli at the map path's, text path A's and
-matrix path A's shapes), the two merge ticks and the two matrix ticks on
-the very inputs the paths gave them (every call's, kept while the paths
-ran), where they are also timed per launch. The block merge tick and the
-matrix step tick run in the variant their shape picks (shared memory on
-every path); each is also held to its plain version, and timed on the
-same inputs, in its global-memory variant (``ms_global``), which runs
-alone at a shape too large for shared memory. Then it prints the
-kernels' launch counts, per path, per variant and in all, and their
-times.
+every kernel == plain at each of them: the map fold on inputs of that
+shape, the deli, the two merge ticks and the two matrix ticks on the very
+inputs the paths gave them (every call's, kept while the paths ran:
+the deli on the map path, text path A and matrix path A), where they are
+also timed per launch. The deli, the block merge tick and both matrix
+ticks have two variants each, picked by shape: the deli's warp variant
+(one warp a document) wherever a document has 16 client lanes or more
+and fits shared memory, else its one-thread variant; the others'
+shared-memory variant wherever a document fits, which every path's do.
+Each variant is held to the plain version, and timed, on the same inputs
+(``ms_global``, ``ms_thread``), and the other variant runs alone at a
+shape that forces it. Then it prints the kernels' launch counts, per
+path, per variant and in all, and their times.
 
 Phases print one line each. Any failed check exits non-zero before the
 last line, which is the JSON device record
@@ -123,6 +125,9 @@ STEPS_RMAX = 8
 STEPS_S = 256
 STEPS_TICKS = 6
 STEPS_STREAMS = 256
+# A deli lane count past one block's shared memory for the warp variant
+# (4 documents x 16 bytes a client > 232,448 bytes on an H100).
+DELI_LARGE_C = 4096
 
 
 def fail(msg: str) -> None:
@@ -136,19 +141,27 @@ def check(cond: bool, msg: str) -> None:
 
 
 L2_FLUSH_BYTES = 256 << 20  # well past the H100's 50 MB L2
+# A device-side wait (about 1 ms at the H100's clock) between the L2 flush
+# and the start event: the host enqueues the timed call during it, so the
+# time between the events is the call's device time, not the host's time
+# in the wrapper (which took most of a sub-0.2 ms launch's reading
+# without it).
+PAD_CYCLES = 2_000_000
 
 
 def cuda_time_ms(fn, reps: int) -> float:
     """Mean device ms of ``fn()`` over ``reps`` calls, each timed alone
     with CUDA events after a write of 256 MB that evicts the L2, so
-    every call finds its inputs in device memory as a serving tick does
-    (one warm-up call first)."""
+    every call finds its inputs in device memory as a serving tick does,
+    and a device wait that lets the host enqueue the call before its
+    start event runs (one warm-up call first)."""
     import torch
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     fn()
     pairs = []
     for _ in range(reps):
         flush.zero_()
+        torch.cuda._sleep(PAD_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -299,9 +312,10 @@ def deli_inputs(gen, device, b=DOCS, k=K_SEQ, c=CLIENTS + 1):
 
 
 def check_deli(device, b=DOCS, k=K_SEQ, c=CLIENTS + 1,
-               every_outcome: bool = True) -> dict:
+               every_outcome: bool = True, time_it: bool = True) -> dict:
     """Kernel 2 against its plain version on one deli tick of shape
-    (B, K, C); ``every_outcome`` also requires the inputs to reach every
+    (B, K, C), in the variant the shape picks and in the other one where
+    it fits; ``every_outcome`` also requires the inputs to reach every
     nack code and every outcome (true of the K = 32 tick)."""
     import torch
 
@@ -309,35 +323,51 @@ def check_deli(device, b=DOCS, k=K_SEQ, c=CLIENTS + 1,
     from fluidframework_tpu_torch.ops import sequencer_cuda as seqc
     gen = torch.Generator(device=device).manual_seed(2)
     state, ops = deli_inputs(gen, device, b, k, c)
-    got_s, got_t = seqc.process_batch_best(state, ops)
+    limit = seqc.smem_limit(device)
+    variant = seqc.deli_variant(b, k, c, limit)
+    runs = ("warp", "thread") if seqc.warp_smem_bytes(c) <= limit \
+        else ("thread",)
     want_s, want_t = seqk.process_batch(state, ops)
-    torch.cuda.synchronize()
-    err = max(max_abs_err(got_s, want_s), max_abs_err(got_t, want_t))
-    check(err == 0, f"deli kernel != plain version (max |err| {err})")
-    for name, a, b in zip(seqk.SequencerState._fields, got_s, want_s):
-        check(torch.equal(a, b), f"deli state plane {name} differs")
-    for name, a, b in zip(seqk.TicketBatch._fields, got_t, want_t):
-        check(torch.equal(a, b), f"deli ticket plane {name} differs")
-    codes = torch.bincount(got_t.nack_code.flatten().long(), minlength=7)
-    outs = torch.bincount(got_t.kind.flatten().long(), minlength=3)
+    err = 0
+    for v in runs:
+        got_s, got_t = seqc.process_batch_best(state, ops, v)
+        torch.cuda.synchronize()
+        err = max(err, max_abs_err(got_s, want_s), max_abs_err(got_t, want_t))
+        check(err == 0, f"deli kernel ({v}) != plain version at {(b, k, c)} "
+              f"(max |err| {err})")
+        for name, x, y in zip(seqk.SequencerState._fields, got_s, want_s):
+            check(torch.equal(x, y), f"deli ({v}) state plane {name} differs")
+        for name, x, y in zip(seqk.TicketBatch._fields, got_t, want_t):
+            check(torch.equal(x, y), f"deli ({v}) ticket plane {name} differs")
+    codes = torch.bincount(want_t.nack_code.flatten().long(), minlength=7)
+    outs = torch.bincount(want_t.kind.flatten().long(), minlength=3)
     check(not every_outcome
           or (bool((codes[1:] > 0).all()) and bool((outs > 0).all())),
           f"deli inputs miss an outcome: nack codes {codes.tolist()} "
           f"outcomes {outs.tolist()}")
-    ms = cuda_time_ms(lambda: seqc.process_batch_best(state, ops), 20)
-    plain_ms = cuda_time_ms(lambda: seqk.process_batch(state, ops), 3)
+    out = {"shape": [b, k, c], "variant": variant, "max_abs_err": err,
+           "nack_codes": codes.tolist(), "outcomes": outs.tolist()}
+    if time_it:
+        for v in runs:
+            out[f"ms_{v}"] = cuda_time_ms(
+                lambda: seqc.process_batch_best(state, ops, v), 20)
+        out["ms"] = out[f"ms_{variant}"]
+        out["plain_ms"] = cuda_time_ms(lambda: seqk.process_batch(state, ops),
+                                       3)
+        out["bound_ms"], out["bound_by"] = deli_bound(state, ops)
+    print(f"kernel sequencer_tick: {json.dumps(out)}", flush=True)
+    return out
+
+
+def deli_bound(state, ops) -> tuple[float, str]:
+    """Kernel 2's bound on these inputs: the state in and out once, the 11
+    op planes read and the 5 ticket planes written once; about 60 integer
+    ops an op and 4 a client lane for each MSN."""
     b, c = state.active.shape
     k = ops.kind.shape[1]
     state_bytes = b * (3 * 4 + 1) + b * c * (3 * 4 + 4 * 1)
     nbytes = 2 * state_bytes + b * k * (6 * 4 + 5 * 1) + b * k * 5 * 4
-    nops = b * k * (60 + 4 * c)
-    b_ms, b_by = bound(nbytes, nops)
-    print(f"kernel sequencer_tick: B={b} K={k} C={c} equal=True "
-          f"max_abs_err={err} nack_codes={codes.tolist()} "
-          f"outcomes={outs.tolist()} ms={ms:.4f} plain_ms={plain_ms:.4f} "
-          f"bound_ms={b_ms:.4f} ({b_by})", flush=True)
-    return {"shape": [b, k, c], "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by}
+    return bound(nbytes, b * k * (60 + 4 * c))
 
 
 # -- phase 4: the main path ----------------------------------------------------
@@ -425,6 +455,7 @@ def serve(device, script, docs, plain: bool = False,
         seqc.launches = 0
         mfc.shapes.clear()
         seqc.shapes.clear()
+        seqc.variants.clear()
         t0 = time.perf_counter()
         names = [f"doc{d}" for d in range(docs)]
         ids = [[service.connect(n, lambda m: None).client_id
@@ -455,12 +486,13 @@ def serve(device, script, docs, plain: bool = False,
                     "sequencer_tick": seqc.launches}
         shapes = {"map_fold": dict(mfc.shapes),
                   "sequencer_tick": dict(seqc.shapes)}
+        deli_variants = dict(seqc.variants)
     sample = np.linspace(0, docs - 1, 64).astype(int).tolist()
     return {
         "service": service, "storm": storm, "seq_host": seq_host,
         "merge_host": merge_host, "acks": acks, "submitted": submitted,
         "names": names, "launches": launches, "shapes": shapes,
-        "t_join": t_join,
+        "deli_variants": deli_variants, "t_join": t_join,
         "t_serve": t_serve,
         "entries": {names[d]: merge_host.map_entries(names[d], "default",
                                                      "root")
@@ -501,9 +533,12 @@ def main_path(device) -> dict:
     import numpy as np
     import torch
 
+    from fluidframework_tpu_torch.ops import sequencer_cuda as seqc
     docs = DOCS
     script = make_script(7, docs, TICKS, K_MAP, FRAMES_PER_TICK)
-    run = serve(device, script, docs)
+    recorded: dict = {}
+    with recording(seqc, "process_batch_best", recorded):
+        run = serve(device, script, docs)
     storm = run["storm"]
     n_frames = len(script)
     # Every frame acked, none with an error.
@@ -523,6 +558,8 @@ def main_path(device) -> dict:
           f"{run['submitted']} - dups {dups}")
     for name, n in run["launches"].items():
         check(n > 0, f"kernel {name} was not launched on the main path")
+    deli_picks(device, run["shapes"]["sequencer_tick"], run["deli_variants"],
+               "the map path")
     # Equal to a second run with the plain versions.
     plain = serve(device, script, docs, plain=True)
     for a, b, what in ((run["seq_host"]._state, plain["seq_host"]._state,
@@ -566,7 +603,22 @@ def main_path(device) -> dict:
         {name: [[*shape, n] for shape, n in sorted(by.items())]
          for name, by in run["shapes"].items()}), flush=True)
     out["shapes"] = run["shapes"]
+    out["deli_variants"] = run["deli_variants"]
+    out["deli_inputs"] = recorded
     return out
+
+
+def deli_picks(device, shapes: dict, variants: dict, where: str) -> None:
+    """Fail unless a path's deli launches went to the variant each launch
+    shape picks."""
+    from fluidframework_tpu_torch.ops import sequencer_cuda as seqc
+    limit = seqc.smem_limit(device)
+    want: dict = {}
+    for (b, k, c), n in shapes.items():
+        v = seqc.deli_variant(b, k, c, limit)
+        want[v] = want.get(v, 0) + n
+    check(variants == want, f"{where} launched the deli's variants "
+          f"{variants}, its shapes pick {want}")
 
 
 def at_main_path_shapes(name: str, shapes: dict, checked: dict,
@@ -1020,21 +1072,28 @@ def text_main_path(device) -> dict:
     shapes: dict = {"mergetree_blocks": {}, "mergetree_flat": {},
                     "sequencer_tick": {}}
     inputs: dict = {"mergetree_blocks": {}, "mergetree_flat": {}}
+    deli: dict = {}
     out: dict = {}
     for name, drive in (("a", text_path_a), ("b", text_path_b)):
         for mod in (mtc, mtbc, seqc):
             mod.launches = 0
             mod.shapes.clear()
         mtbc.variants.update(smem=0, **{"global": 0})
+        seqc.variants.clear()
+        deli[name] = {"inputs": {}}
         with recording(mtbc, "apply_tick_blocks_best",
                        inputs["mergetree_blocks"]), \
-                recording(mtc, "apply_tick_best", inputs["mergetree_flat"]):
+                recording(mtc, "apply_tick_best", inputs["mergetree_flat"]), \
+                recording(seqc, "process_batch_best", deli[name]["inputs"]):
             run = drive(device)
         torch.cuda.synchronize()
         launches[name] = {"mergetree_blocks": mtbc.launches,
                           "mergetree_flat": mtc.launches,
                           "sequencer_tick": seqc.launches,
-                          "mergetree_blocks_variants": dict(mtbc.variants)}
+                          "mergetree_blocks_variants": dict(mtbc.variants),
+                          "sequencer_tick_variants": dict(seqc.variants)}
+        deli[name]["shapes"] = dict(seqc.shapes)
+        deli_picks(device, seqc.shapes, seqc.variants, f"text path {name}")
         for key, mod in (("mergetree_blocks", mtbc), ("mergetree_flat", mtc),
                          ("sequencer_tick", seqc)):
             for shape, n in mod.shapes.items():
@@ -1093,20 +1152,23 @@ def text_main_path(device) -> dict:
         {name: [[*shape, n] for shape, n in sorted(by.items())]
          for name, by in shapes.items()}), flush=True)
     return {"launches": launches, "shapes": shapes, "inputs": inputs,
-            "paths": out}
+            "deli": deli, "paths": out}
 
 
 def recheck_recorded(name: str, shapes: dict, inputs: dict, kernel, plain,
                      bound_of, ops_of=lambda op: int(op.valid.sum()),
-                     other=None) -> dict:
-    """Hold a text kernel against its plain version on the inputs of
-    EVERY call the text main paths made to it, at every shape; then time
-    it, and its plain version, on each call of the shape with the most
-    launches. ms, plain ms and bound are means per launch over those
-    calls; the error is the largest over every check. ``other`` is the
-    kernel's other variant (the global-memory one where the paths ran the
-    shared-memory one): it is held to the plain version on the same
-    inputs and timed on the same calls in this call (``ms_global``)."""
+                     other=None, other_name: str = "global",
+                     time_all: bool = False) -> dict:
+    """Hold a kernel against its plain version on the inputs of EVERY call
+    the main paths made to it, at every shape, and time it on every call
+    (``by_call``: each call's shape and ms, with ``other``'s ms). ms,
+    plain ms and bound are means per launch over the calls of the shape
+    with the most launches (over every call where ``time_all``); the
+    error is the largest over every check. ``other`` is the kernel's
+    other variant (``other_name``: the global-memory one where the paths
+    ran the shared-memory one): it is held to the plain version on the
+    same inputs and timed on the same calls in this call
+    (``ms_<other_name>``)."""
     import torch
     check(bool(shapes) and {sh: len(c) for sh, c in inputs.items()}
           == shapes, f"{name}: launches by shape {shapes}, inputs kept "
@@ -1123,13 +1185,22 @@ def recheck_recorded(name: str, shapes: dict, inputs: dict, kernel, plain,
                       f"path's inputs at {shape} (max |err| {err})")
                 worst = max(worst, err)
     top = max(shapes, key=lambda sh: shapes[sh])
-    calls = inputs[top]
-    ms = [cuda_time_ms(lambda: kernel(st, op), 3) for st, op in calls]
-    ms_other = [cuda_time_ms(lambda: other(st, op), 3) for st, op in calls] \
-        if other else []
+    by_call = []
+    for shape in sorted(shapes):
+        for st, op in inputs[shape]:
+            by_call.append([*shape, cuda_time_ms(lambda: kernel(st, op), 3),
+                            *([cuda_time_ms(lambda: other(st, op), 3)]
+                              if other else [])])
+    n = len(top)
+    summed = [row for row in by_call if time_all or tuple(row[:n]) == top]
+    calls = [c for sh in sorted(shapes) for c in inputs[sh]
+             if time_all or sh == top]
+    ms = [row[n] for row in summed]
+    ms_other = [row[n + 1] for row in summed] if other else []
     plain_ms = [cuda_time_ms(lambda: plain(st, op), 1) for st, op in calls]
     bounds = [bound_of(st, op) for st, op in calls]
     by = [b for _, b in bounds]
+    key = f"ms_{other_name}"
     out = {"shape": list(top), "max_abs_err": worst,
            "shapes_checked": len(shapes),
            "calls_checked": sum(shapes.values()),
@@ -1138,11 +1209,11 @@ def recheck_recorded(name: str, shapes: dict, inputs: dict, kernel, plain,
            / len(calls),
            "ms": sum(ms) / len(ms), "ms_min": min(ms), "ms_max": max(ms),
            "plain_ms": sum(plain_ms) / len(plain_ms),
-           **({"ms_global": sum(ms_other) / len(ms_other),
-               "ms_global_min": min(ms_other),
-               "ms_global_max": max(ms_other)} if other else {}),
+           **({key: sum(ms_other) / len(ms_other),
+               f"{key}_min": min(ms_other),
+               f"{key}_max": max(ms_other)} if other else {}),
            "bound_ms": sum(b for b, _ in bounds) / len(bounds),
-           "bound_by": max(set(by), key=by.count)}
+           "bound_by": max(set(by), key=by.count), "by_call": by_call}
     print(f"kernel {name} on the main path's inputs: {json.dumps(out)}",
           flush=True)
     return out
@@ -1282,10 +1353,14 @@ def steps_bound(state, steps) -> tuple[float, str]:
 
 def check_matrix_tick(device, b=MATRIX_B, k=MATRIX_K, s=MATRIX_S,
                       c=MATRIX_C, w=MATRIX_W, fill_ticks=2,
-                      time_it=True) -> dict:
+                      time_it=True, negative=False) -> dict:
     """Kernel 5 against its plain version on one tick of shape (B, K, S,
     C, W) from a state that ``fill_ticks`` plain ticks part filled (mixed
-    targets, 32 W writers): every plane must be equal."""
+    targets, 32 W writers), in the variant the shape picks and, where that
+    is the shared-memory one, in the global-memory one too: every plane
+    must be equal. ``negative`` sets two docs in three to a cell count of
+    -1 or -2, whose appends both variants drop as the plain version
+    does."""
     import numpy as np
     import torch
 
@@ -1296,19 +1371,30 @@ def check_matrix_tick(device, b=MATRIX_B, k=MATRIX_K, s=MATRIX_S,
     state = mxk.init_state(b, s, c, w, device)
     for f in ticks[:-1]:
         state = mxk.apply_tick(state, matrix_batch(f, device))
+    if negative:
+        third = torch.arange(b, device=device) % 3
+        state = state._replace(cell_count=torch.where(
+            third == 0, state.cell_count, -third.to(torch.int32)))
     ops = matrix_batch(ticks[-1], device)
-    got = mxc.apply_tick_best(state, ops)
+    variant = mxc.tick_variant(s, 1, w, c, k, mxc.smem_limit(device))
     want = mxk.apply_tick(state, ops)
-    torch.cuda.synchronize()
-    err = max_abs_err(got, want)
-    check(err == 0, f"matrix op tick kernel != plain version at "
-          f"{(b, k, s, c, w)} (max |err| {err})")
+    err = 0
+    for v in (variant, "global") if variant == "smem" else (variant,):
+        got = mxc.apply_tick_best(state, ops, v)
+        torch.cuda.synchronize()
+        err = max(err, max_abs_err(got, want))
+        check(err == 0, f"matrix op tick kernel ({v}) != plain version at "
+              f"{(b, k, s, c, w)} (max |err| {err})")
     full = int((want.cell_count >= c).sum())
-    out = {"shape": [b, k, s, c, w], "max_abs_err": err,
+    out = {"shape": [b, k, s, c, w], "variant": variant, "max_abs_err": err,
            "docs_with_a_full_cell_log": full,
+           "docs_with_a_negative_count": int((state.cell_count < 0).sum()),
            "max_cell_count": int(want.cell_count.max())}
     if time_it:
         out["ms"] = cuda_time_ms(lambda: mxc.apply_tick_best(state, ops), 10)
+        if variant == "smem":
+            out["ms_global"] = cuda_time_ms(
+                lambda: mxc.apply_tick_best(state, ops, "global"), 10)
         out["plain_ms"] = cuda_time_ms(lambda: mxk.apply_tick(state, ops), 1)
         out["bound_ms"], out["bound_by"] = matrix_bound(state, ops)
     print(f"kernel matrix_tick: {json.dumps(out)}", flush=True)
@@ -1729,22 +1815,36 @@ def matrix_main_path(device) -> dict:
     launches: dict = {}
     shapes: dict = {"matrix_tick": {}, "sequencer_tick": {}}
     inputs: dict = {}
+    tick_shapes: dict = {}
+    deli: dict = {}
     out: dict = {}
     for name, drive in (("a", matrix_path_a), ("b", matrix_path_b)):
         mxc.tick.reset()
         mxc.steps.reset()
         seqc.launches = 0
         seqc.shapes.clear()
-        with recording(mxc, "apply_tick_best", inputs, mxc.tick):
+        seqc.variants.clear()
+        inputs[name] = {}
+        deli[name] = {"inputs": {}}
+        with recording(mxc, "apply_tick_best", inputs[name], mxc.tick), \
+                recording(seqc, "process_batch_best", deli[name]["inputs"]):
             run = drive(device)
         torch.cuda.synchronize()
         launches[name] = {"matrix_tick": mxc.tick.launches,
                           "matrix_steps": mxc.steps.launches,
-                          "sequencer_tick": seqc.launches}
+                          "sequencer_tick": seqc.launches,
+                          "matrix_tick_variants": dict(mxc.tick.variants),
+                          "sequencer_tick_variants": dict(seqc.variants)}
         for key, by in (("matrix_tick", mxc.tick.shapes),
                         ("sequencer_tick", seqc.shapes)):
             for shape, n in by.items():
                 shapes[key][shape] = shapes[key].get(shape, 0) + n
+        tick_shapes[name] = dict(mxc.tick.shapes)
+        deli[name]["shapes"] = dict(seqc.shapes)
+        check(mxc.tick.variants.get("smem", 0) == mxc.tick.launches,
+              f"matrix path {name} launched the op tick's variants "
+              f"{mxc.tick.variants}: its documents fit shared memory")
+        deli_picks(device, seqc.shapes, seqc.variants, f"matrix path {name}")
         host = run["merge_host"]
         if name == "a":
             msgs = [m for m in run["service"].get_deltas(run["doc"], 0)
@@ -1808,7 +1908,7 @@ def matrix_main_path(device) -> dict:
         {name: [[*shape, n] for shape, n in sorted(by.items())]
          for name, by in shapes.items()}), flush=True)
     return {"launches": launches, "shapes": shapes, "inputs": inputs,
-            "paths": out}
+            "tick_shapes": tick_shapes, "deli": deli, "paths": out}
 
 
 def device_busy(prof) -> tuple[float, list]:
@@ -1914,14 +2014,21 @@ def main() -> int:
 
     from fluidframework_tpu_torch.ops import _build
     t0 = time.perf_counter()
-    _build.build_all(["map_fold", "sequencer_tick", "mergetree_flat",
-                      "mergetree_blocks", "mergetree_blocks_smem",
-                      "matrix_tick", "matrix_steps", "matrix_steps_smem"])
+    _build.build_all(["map_fold", "sequencer_tick", "sequencer_tick_warp",
+                      "mergetree_flat", "mergetree_blocks",
+                      "mergetree_blocks_smem", "matrix_tick",
+                      "matrix_tick_smem", "matrix_steps",
+                      "matrix_steps_smem"])
     print(f"build: {time.perf_counter() - t0:.2f} s "
           f"({_build.BUILD_DIR})", flush=True)
 
     fold = check_map_fold(device)
     deli = check_deli(device)
+    # A C past one block's shared memory runs the one-thread deli alone.
+    deli_large = check_deli(device, b=64, k=K_SEQ, c=DELI_LARGE_C,
+                            every_outcome=False, time_it=False)
+    check(deli_large["variant"] == "thread",
+          f"C = {DELI_LARGE_C} did not run the deli's one-thread variant")
     blocks_full = check_blocks_tick(device)
     burst = check_blocks_tick(device, k=BURST_K, head=0.9, fill_ticks=1,
                               time_it=False)
@@ -1934,8 +2041,19 @@ def main() -> int:
           "16 x 512-slot rows did not run the block tick's global variant")
     matrix_full = check_matrix_tick(device)
     matrix_clamp = check_matrix_tick(device, c=MATRIX_FULL_C, time_it=False)
-    check(matrix_clamp["docs_with_a_full_cell_log"] > 0,
-          "the clamp tick filled no cell log")
+    check(matrix_clamp["docs_with_a_full_cell_log"] > 0
+          and matrix_clamp["variant"] == "smem",
+          "the op tick's clamp check filled no cell log in shared memory")
+    matrix_negative = check_matrix_tick(device, b=4096, time_it=False,
+                                        negative=True)
+    check(matrix_negative["docs_with_a_negative_count"] > 0
+          and matrix_negative["variant"] == "smem",
+          "the op tick's negative-count check ran no negative count in "
+          "shared memory")
+    matrix_large = check_matrix_tick(device, b=64, s=4096, c=STEPS_S, w=1,
+                                     fill_ticks=1, time_it=False)
+    check(matrix_large["variant"] == "global",
+          "S = 4,096 did not run the op tick's global variant")
     steps_clamp = check_steps_tick(device, 4096, STEPS_S, MATRIX_FULL_C, 1)
     check(steps_clamp["docs_with_a_full_cell_log"] > 0
           and steps_clamp["variant"] == "smem",
@@ -1951,14 +2069,31 @@ def main() -> int:
     fold_main = at_main_path_shapes(
         "map_fold", shapes["map_fold"], fold,
         lambda b, k, s: check_map_fold(device, b, k, s))
-    deli_shapes = dict(shapes["sequencer_tick"])
-    for by in (text["shapes"]["sequencer_tick"],
-               matrix["shapes"]["sequencer_tick"]):
-        for shape, n in by.items():
-            deli_shapes[shape] = deli_shapes.get(shape, 0) + n
-    deli_main = at_main_path_shapes(
-        "sequencer_tick", deli_shapes, deli,
-        lambda b, k, c: check_deli(device, b, k, c, every_outcome=False))
+    from fluidframework_tpu_torch.ops import sequencer as seqk
+    from fluidframework_tpu_torch.ops import sequencer_cuda as seqc
+    # The deli on every path that launches it, on the inputs that path
+    # gave it: both variants held to the plain version and timed on the
+    # same calls.
+    deli_paths = {"map": (shapes["sequencer_tick"], path["deli_inputs"])}
+    for key, src in (("text_a", text["deli"]["a"]),
+                     ("matrix_a", matrix["deli"]["a"])):
+        deli_paths[key] = (src["shapes"], src["inputs"])
+    deli_main = {}
+    for key, (by, kept) in deli_paths.items():
+        got = recheck_recorded(
+            f"sequencer_tick ({key})", by, kept,
+            lambda st, op: seqc.process_batch_best(st, op, "warp"),
+            seqk.process_batch, deli_bound,
+            other=lambda st, op: seqc.process_batch_best(st, op, "thread"),
+            other_name="thread", time_all=True)
+        got["ms_warp"] = got.pop("ms")
+        for end in ("min", "max"):
+            got[f"ms_warp_{end}"] = got.pop(f"ms_{end}")
+        got["variant"] = seqc.deli_variant(*got["shape"],
+                                           seqc.smem_limit(device))
+        got["ms"] = got[f"ms_{got['variant']}"]
+        deli_main[key] = got
+    del path["deli_inputs"], text["deli"], matrix["deli"]
     from fluidframework_tpu_torch.ops import mergetree_blocks as mtb
     from fluidframework_tpu_torch.ops import mergetree_blocks_cuda as mtbc
     from fluidframework_tpu_torch.ops import mergetree_cuda as mtc
@@ -1977,9 +2112,16 @@ def main() -> int:
     del text["inputs"]
     from fluidframework_tpu_torch.ops import matrix_cuda as mxc
     from fluidframework_tpu_torch.ops import matrix_kernel as mxk
-    tick_main = recheck_recorded(
-        "matrix_tick", matrix["shapes"]["matrix_tick"], matrix["inputs"],
-        mxc.apply_tick_best, mxk.apply_tick, matrix_bound)
+    # Kernel 5 per matrix path, both variants on the same recorded calls:
+    # path B's shape with the most launches, every call of path A.
+    tick_main = {
+        key: recheck_recorded(
+            f"matrix_tick ({key})", matrix["tick_shapes"][name],
+            matrix["inputs"][name], mxc.apply_tick_best, mxk.apply_tick,
+            matrix_bound,
+            other=lambda st, op: mxc.apply_tick_best(st, op, "global"),
+            time_all=name == "a")
+        for key, name in (("matrix_b", "b"), ("matrix_a", "a"))}
     del matrix["inputs"]
     steps_main = recheck_recorded(
         "matrix_steps", steps["shapes"], steps["inputs"],
@@ -2006,6 +2148,8 @@ def main() -> int:
         for name in ("map_fold", "sequencer_tick", "mergetree_blocks",
                      "mergetree_flat", "matrix_tick", "matrix_steps")}
     launches = {name: sum(n.values()) for name, n in by_path.items()}
+    deli_top = max(deli_main.values(), key=lambda r: r["calls_checked"])
+    tick_top = tick_main["matrix_b"]
     kernels = [
         {"name": "map_fold", "route": "cuda",
          "source": "fluidframework_tpu_torch/csrc/map_fold.cu",
@@ -2014,13 +2158,27 @@ def main() -> int:
          "launches_by_path": by_path["map_fold"], **fold_main,
          "library_ms": None},
         {"name": "sequencer_tick", "route": "cuda",
-         "source": "fluidframework_tpu_torch/csrc/sequencer_tick.cu",
+         "source": "fluidframework_tpu_torch/csrc/sequencer_tick_warp.cu",
+         "thread_source": "fluidframework_tpu_torch/csrc/sequencer_tick.cu",
          "replaces": "fluidframework_tpu/ops/sequencer_pallas.py:217",
          "launches": launches["sequencer_tick"],
-         "launches_by_path": by_path["sequencer_tick"], **deli_main,
-         "library_ms": None,
+         "launches_by_path": by_path["sequencer_tick"],
+         "variant_launches": {
+             "map": path["deli_variants"],
+             **{f"{p}_{n}": text["launches"][n]["sequencer_tick_variants"]
+                for p, n in (("text", "a"), ("text", "b"))},
+             **{f"matrix_{n}": matrix["launches"][n][
+                 "sequencer_tick_variants"] for n in ("a", "b")}},
+         **{key: deli_top[key] for key in (
+             "shape", "variant", "ms", "ms_warp", "ms_thread", "plain_ms",
+             "bound_ms", "bound_by")},
+         "max_abs_err": max(r["max_abs_err"] for r in deli_main.values()),
+         "by_path": deli_main, "library_ms": None,
          "at_K32": {key: deli[key] for key in
-                    ("shape", "ms", "plain_ms", "bound_ms")}},
+                    ("shape", "variant", "ms", "ms_warp", "ms_thread",
+                     "plain_ms", "bound_ms", "max_abs_err", "nack_codes")},
+         "thread_by_shape": {key: deli_large[key] for key in
+                             ("shape", "variant", "max_abs_err")}},
         {"name": "mergetree_blocks", "route": "cuda",
          "source": "fluidframework_tpu_torch/csrc/mergetree_blocks_smem.cu",
          "global_source": "fluidframework_tpu_torch/csrc/mergetree_blocks.cu",
@@ -2045,14 +2203,28 @@ def main() -> int:
          "at_full_size": {key: flat_full[key] for key in
                           ("shape", "ms", "plain_ms", "bound_ms")}},
         {"name": "matrix_tick", "route": "cuda",
-         "source": "fluidframework_tpu_torch/csrc/matrix_tick.cu",
+         "source": "fluidframework_tpu_torch/csrc/matrix_tick_smem.cu",
+         "global_source": "fluidframework_tpu_torch/csrc/matrix_tick.cu",
          "replaces": "fluidframework_tpu/ops/matrix_pallas.py:158",
          "launches": launches["matrix_tick"],
-         "launches_by_path": by_path["matrix_tick"], **tick_main,
-         "library_ms": None,
+         "launches_by_path": by_path["matrix_tick"],
+         "variant_launches": {
+             f"matrix_{n}": matrix["launches"][n]["matrix_tick_variants"]
+             for n in ("a", "b")},
+         **tick_top,
+         "max_abs_err": max(r["max_abs_err"] for r in tick_main.values()),
+         "by_path": tick_main, "library_ms": None,
          "at_full_size": {key: matrix_full[key] for key in
-                          ("shape", "ms", "plain_ms", "bound_ms")},
-         "clamp_shape_max_abs_err": matrix_clamp["max_abs_err"]},
+                          ("shape", "variant", "ms", "ms_global", "plain_ms",
+                           "bound_ms")},
+         "clamp_shape": {key: matrix_clamp[key] for key in
+                         ("shape", "variant", "max_abs_err",
+                          "docs_with_a_full_cell_log")},
+         "negative_count": {key: matrix_negative[key] for key in
+                            ("shape", "variant", "max_abs_err",
+                             "docs_with_a_negative_count")},
+         "global_by_shape": {key: matrix_large[key] for key in
+                             ("shape", "variant", "max_abs_err")}},
         {"name": "matrix_steps", "route": "cuda",
          "source": "fluidframework_tpu_torch/csrc/matrix_steps_smem.cu",
          "global_source": "fluidframework_tpu_torch/csrc/matrix_steps.cu",

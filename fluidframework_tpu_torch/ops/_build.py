@@ -183,3 +183,14 @@ def smem_limit(name: str, index: int) -> int:
                               f"cuda:{index}")
         _optin[index] = got
     return _optin[index]
+
+
+def device_smem_limit(dev, name: str) -> int:
+    """:func:`smem_limit` of torch device ``dev`` (the current card when
+    it names no index), read through ``csrc/<name>.cu``."""
+    import torch
+
+    index = dev.index if dev.index is not None else \
+        torch.cuda.current_device()
+    with torch.cuda.device(index):
+        return smem_limit(name, index)

@@ -7,18 +7,19 @@ Replace ``fluidframework_tpu/ops/matrix_pallas.py:_tick_kernel`` (wrapper
 device functions in ``csrc/matrix_apply.cuh`` and the merge step in
 ``csrc/merge_apply.cuh``): one thread block per document copies its two
 permutation-vector axes and its cell row to the outputs and applies the
-document's ops (or steps) in order, in place. The step tick has a second
-variant, ``csrc/matrix_steps_smem.cu`` (``"smem"``), which stages the
-document in shared memory; ``csrc/matrix_steps.cu`` (``"global"``) takes
-documents too large for it. :func:`steps_variant` picks one by shape
-alone, never by failure.
+document's ops (or steps) in order, in place. Each tick has a second
+variant, ``csrc/matrix_tick_smem.cu`` and ``csrc/matrix_steps_smem.cu``
+(``"smem"``, their common parts in ``csrc/matrix_smem.cuh``), which
+stages the document in shared memory; the global-memory kernels
+(``"global"``) take documents too large for it. :func:`tick_variant` and
+:func:`steps_variant` pick one by shape alone, never by failure.
 
 :func:`apply_tick_best` and :func:`apply_tick_steps_best` launch the
 kernels for CUDA tensors and run the plain versions
 (:func:`.matrix_kernel.apply_tick`, :func:`.matrix_kernel.
 apply_tick_steps`) only for tensors on the CPU. :data:`tick` and
-:data:`steps` count each kernel's launches, in all, by shape and (the
-step tick) by variant.
+:data:`steps` count each kernel's launches, in all, by shape and by
+variant.
 """
 
 from __future__ import annotations
@@ -64,7 +65,8 @@ def _state_names() -> tuple[str, ...]:
             *(f for f in mxk.MatrixState._fields if f not in ("rows", "cols")))
 
 
-#: The order in which each launcher reads its pointer array.
+#: The order in which each launcher reads its pointer array (both op
+#: tick launchers read the same).
 TICK_LAYOUT = (*_state_names(),
                *(f"op_{f}" for f in mxk.MatrixOpBatch._fields),
                *(f"o_{f}" for f in _state_names()))
@@ -80,7 +82,29 @@ SMEM_HEADER_INTS = 256
 #: plane, so a run holds at most (256 - 12) // 5 cells.
 SMEM_THREADS = 256
 SMEM_MAX_RUN = (SMEM_THREADS - 12) // 5
+#: The most ops one stretch of the shared-memory op tick resolves before
+#: its writes (``MXT_STRETCH``), and the op planes it stages
+#: (``MXT_OP_FIELDS``).
+TICK_STRETCH = 64
+TICK_OP_FIELDS = 13
 
+
+def tick_smem_bytes(s: int, p: int, w: int, c: int, k: int) -> int:
+    """Dynamic shared memory the shared-memory op tick takes per document:
+    a header, both axes' 7 + P + W planes of S, the five cell planes of C,
+    the walk's two scratch planes of S, the 13 op planes of K and a
+    stretch's handles, matches and written entries (``smem_ints`` in
+    ``csrc/matrix_tick_smem.cu``; its launcher refuses any other
+    number)."""
+    return 4 * (SMEM_HEADER_INTS + 2 * (7 + p + w) * s + 5 * c + 2 * s
+                + TICK_OP_FIELDS * k + 4 * TICK_STRETCH)
+
+
+def tick_variant(s: int, p: int, w: int, c: int, k: int, limit: int) -> str:
+    """``"smem"`` when one document and its ops fit ``limit`` bytes of
+    shared memory (the card's per-block opt-in limit; the kernel has no
+    static shared memory), else ``"global"``."""
+    return "smem" if tick_smem_bytes(s, p, w, c, k) <= limit else "global"
 
 
 def steps_smem_bytes(s: int, p: int, w: int, c: int, r: int) -> int:
@@ -106,10 +130,7 @@ def steps_variant(s: int, p: int, w: int, c: int, r: int,
 
 def smem_limit(dev: torch.device) -> int:
     """The per-block shared-memory opt-in limit of ``dev``."""
-    index = dev.index if dev.index is not None else \
-        torch.cuda.current_device()
-    with torch.cuda.device(index):
-        return _build.smem_limit("matrix_steps_smem", index)
+    return _build.device_smem_limit(dev, "matrix_steps_smem")
 
 
 def _check_state(state: mxk.MatrixState, what: str):
@@ -157,10 +178,12 @@ def _empty_like(state: mxk.MatrixState) -> mxk.MatrixState:
         *(torch.empty_like(t) for t in state[2:]))
 
 
-def apply_tick_best(state: mxk.MatrixState, ops: mxk.MatrixOpBatch
-                    ) -> mxk.MatrixState:
+def apply_tick_best(state: mxk.MatrixState, ops: mxk.MatrixOpBatch,
+                    variant: str | None = None) -> mxk.MatrixState:
     """Drop-in for :func:`.matrix_kernel.apply_tick`: a new
-    :class:`MatrixState`; the inputs are not modified."""
+    :class:`MatrixState`; the inputs are not modified. ``variant``
+    ("smem" or "global") overrides the choice by shape (to time one
+    against the other); a document that does not fit raises."""
     if state.rows.length.device.type == "cpu":
         return mxk.apply_tick(state, ops)
     what = "matrix op tick"
@@ -170,10 +193,25 @@ def apply_tick_best(state: mxk.MatrixState, ops: mxk.MatrixOpBatch
         _build.need(getattr(ops, name), f"{what}: op {name}",
                     torch.bool if name == "valid" else torch.int32, (b, k),
                     dev)
+    limit = smem_limit(dev)
+    if variant is None:
+        variant = tick_variant(s, p, w, c, k, limit)
+    elif variant not in ("smem", "global"):
+        raise _build.KernelInputError(f"{what}: no variant {variant!r}")
+    if variant == "smem":
+        nbytes = tick_smem_bytes(s, p, w, c, k)
+        if nbytes > limit:
+            raise _build.KernelInputError(
+                f"{what}: a document at (S={s}, P={p}, W={w}, C={c}, K={k}) "
+                f"takes {nbytes} bytes of shared memory (the card has "
+                f"{limit})")
+        name, ints = "matrix_tick_smem", (b, s, p, w, c, k, nbytes)
+    else:
+        name, ints = "matrix_tick", (b, s, p, w, c, k)
     out = _empty_like(state)
-    _launch("matrix_tick", TICK_LAYOUT, (b, s, p, w, c, k),
+    _launch(name, TICK_LAYOUT, ints,
             (*mxk.leaves(state), *ops, *mxk.leaves(out)), dev)
-    tick.add((b, k, s, c, w))
+    tick.add((b, k, s, c, w), variant)
     return out
 
 

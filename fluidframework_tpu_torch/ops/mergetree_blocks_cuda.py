@@ -75,10 +75,7 @@ def choose_variant(nb: int, bk: int, p: int, w: int, k: int,
 
 def smem_limit(dev: torch.device) -> int:
     """The per-block shared-memory opt-in limit of ``dev``."""
-    index = dev.index if dev.index is not None else \
-        torch.cuda.current_device()
-    with torch.cuda.device(index):
-        return _build.smem_limit("mergetree_blocks_smem", index)
+    return _build.device_smem_limit(dev, "mergetree_blocks_smem")
 
 
 def apply_tick_blocks_best(state: mtb.BlockMergeState, ops: mtk.MergeOpBatch,

@@ -34,6 +34,23 @@ def test_launcher_reads_pointers_in_layout_order():
     assert tuple(name for name, _ in reads) == seqc.LAYOUT
 
 
+@pytest.mark.parametrize("source", ["sequencer_tick", "sequencer_tick_warp"])
+def test_both_deli_launchers_read_the_bindings_layout(source):
+    """The one-thread and the warp deli launchers read the same pointer
+    array, in the binding's order, and the warp one takes its shared
+    memory size after (B, C, K)."""
+    layout, reads = _source_layout(source)
+    assert layout == seqc.LAYOUT
+    assert [int(i) for _, i in reads] == list(range(len(seqc.LAYOUT)))
+    assert tuple(name for name, _ in reads) == seqc.LAYOUT
+    src = (_build.CSRC / f"{source}.cu").read_text()
+    ints = re.search(source + r"_launch\(void\*\* p,(.*?)void\* stream\)",
+                     src, re.S).group(1)
+    want = ["B", "C", "K"] + (["smem_bytes"] if source.endswith("warp")
+                              else [])
+    assert re.findall(r"int (\w+)", ints) == want
+
+
 def test_library_name_tracks_source_flags_and_compiler(monkeypatch):
     monkeypatch.setattr(_build, "nvcc_path", lambda: "/cuda/bin/nvcc")
     _src, lib = _build._paths("sequencer_tick")
@@ -72,9 +89,10 @@ def test_merge_kernel_layouts_match_bindings(source, binding):
 
 
 @pytest.mark.parametrize("source,name", [("matrix_tick", "TICK_LAYOUT"),
+                                         ("matrix_tick_smem", "TICK_LAYOUT"),
                                          ("matrix_steps", "STEPS_LAYOUT")])
 def test_matrix_kernel_layouts_match_bindings(source, name):
-    """Both matrix tick launchers read their pointer array in the order
+    """The matrix tick launchers read their pointer array in the order
     their layout string names, and that order is the binding's."""
     from fluidframework_tpu_torch.ops import matrix_cuda as mxc
 
@@ -107,6 +125,20 @@ def test_library_name_tracks_the_shared_header(monkeypatch, tmp_path):
     (tmp_path / "merge_apply.cuh").write_text("// changed\n")
     monkeypatch.setattr(_build, "CSRC", tmp_path)
     assert _build._paths("mergetree_flat")[1] != lib
+
+
+@pytest.mark.parametrize("kernel", ["matrix_tick_smem", "matrix_steps_smem"])
+def test_library_name_tracks_the_matrix_smem_header(monkeypatch, tmp_path,
+                                                    kernel):
+    """A change to csrc/matrix_smem.cuh rebuilds both shared-memory
+    matrix kernels, which include it."""
+    monkeypatch.setattr(_build, "nvcc_path", lambda: "/cuda/bin/nvcc")
+    lib = _build._paths(kernel)[1]
+    for f in _build.CSRC.iterdir():
+        (tmp_path / f.name).write_bytes(f.read_bytes())
+    (tmp_path / "matrix_smem.cuh").write_text("// changed\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    assert _build._paths(kernel)[1] != lib
 
 
 class _FakeLauncher:

@@ -123,20 +123,122 @@ def _deli_inputs(rng, b, k, c):
     return state, ops
 
 
+@pytest.mark.parametrize("variant", [None, "warp", "thread"])
 @pytest.mark.parametrize("b,k,c", [(1, 1, 2), (300, 7, 3), (1000, 32, 5),
                                    (129, 64, 17)])
-def test_deli_kernel_matches_plain(cuda, b, k, c):
+def test_deli_kernel_matches_plain(cuda, b, k, c, variant):
     rng = np.random.default_rng(b + 11 * k + c)
     state, ops = _deli_inputs(rng, b, k, c)
     want_s, want_t = seqk.process_batch(_on(state, seqk.SequencerState, "cpu"),
                                         _on(ops, seqk.OpBatch, "cpu"))
-    before = seqc.launches
+    picked = variant or seqc.deli_variant(b, k, c, seqc.smem_limit(cuda))
+    before = seqc.launches, seqc.variants.get(picked, 0)
     got_s, got_t = seqc.process_batch_best(
-        _on(state, seqk.SequencerState, cuda), _on(ops, seqk.OpBatch, cuda))
+        _on(state, seqk.SequencerState, cuda), _on(ops, seqk.OpBatch, cuda),
+        variant)
     torch.cuda.synchronize()
-    assert seqc.launches == before + 1
+    assert seqc.launches == before[0] + 1
+    assert seqc.variants[picked] == before[1] + 1
     _assert_equal(got_s, want_s, (b, k, c, "state"))
     _assert_equal(got_t, want_t, (b, k, c, "tickets"))
+
+
+def _deli_every_outcome(rng, b, k, c):
+    """A deli tick whose ops reach every nack code and every outcome:
+    C - 1 live lanes (90% active) and the ghost lane, client ops with
+    dups and gaps, refSeq below MSN, summarize without scope, joins,
+    leaves, noops, no-client ops and nack_future controls."""
+    from fluidframework_tpu_torch.protocol.messages import MessageType as MT
+
+    lanes = np.arange(c)[None, :]
+    active = (lanes < c - 1) & (rng.random((b, c)) < 0.9)
+    seq = rng.integers(20, 40, b).astype(np.int32)
+    cref = np.minimum(rng.integers(5, 20, (b, c)), seq[:, None])
+    live = np.where(active, cref, 2**31 - 1).min(axis=1)
+    msn = np.where(active.any(axis=1), live, seq).astype(np.int32)
+    state = dict(seq=seq, msn=msn, last_sent_msn=msn.copy(),
+                 nack_future=rng.random(b) < 0.02, active=active,
+                 cseq=rng.integers(0, 6, (b, c)).astype(np.int32),
+                 cref=cref.astype(np.int32),
+                 clu=rng.integers(0, 1000, (b, c)).astype(np.int32),
+                 csum=rng.random((b, c)) < 0.5,
+                 cnack=(rng.random((b, c)) < 0.05) & active,
+                 cevict=np.ones((b, c), bool))
+    choice = np.array([int(MT.OPERATION)] * 10 + [
+        int(MT.NOOP), int(MT.SUMMARIZE), int(MT.CLIENT_JOIN),
+        int(MT.CLIENT_LEAVE), int(MT.NO_CLIENT), int(MT.CONTROL),
+        int(MT.SUMMARY_ACK)], np.int32)
+    kind = rng.choice(choice, size=(b, k))
+    system = np.isin(kind, [int(MT.CLIENT_JOIN), int(MT.CLIENT_LEAVE),
+                            int(MT.NO_CLIENT), int(MT.CONTROL)])
+    iota = np.arange(k)[None, :]
+    ops = dict(
+        valid=rng.random((b, k)) < 0.95, kind=kind,
+        slot=np.where(system & (rng.random((b, k)) < 0.9), -1,
+                      rng.integers(0, c, (b, k))).astype(np.int32),
+        target=rng.integers(0, c, (b, k)).astype(np.int32),
+        client_seq=(iota // 4 + rng.integers(0, 4, (b, k))).astype(np.int32),
+        ref_seq=np.where(rng.random((b, k)) < 0.1, -1,
+                         rng.integers(0, 60, (b, k))).astype(np.int32),
+        timestamp=rng.integers(1000, 2000, (b, k)).astype(np.int32),
+        has_contents=rng.random((b, k)) < 0.5,
+        can_summarize=rng.random((b, k)) < 0.5,
+        can_evict=rng.random((b, k)) < 0.8,
+        is_nack_future=rng.random((b, k)) < 0.2)
+    return state, ops
+
+
+def _deli_emptying(rng, b, k, c):
+    """A deli tick of service ops only (joins, leaves, no-client ops,
+    noops, controls) over documents with at most three live clients: the
+    leaves empty documents, so the MSN takes the no-client branch
+    (INT32_MAX over no active lane, then the seq)."""
+    state, ops = _deli_inputs(rng, b, k, c)
+    state["active"][:, 3:] = False
+    ops["kind"] = rng.choice(np.array([1, 2, 2, 2, 11, 0, 13], np.int32),
+                             size=(b, k))
+    ops["slot"] = np.where(rng.random((b, k)) < 0.9, -1,
+                           ops["slot"]).astype(np.int32)
+    ops["target"] = rng.integers(0, 3, (b, k)).astype(np.int32)
+    return state, ops
+
+
+@pytest.mark.parametrize("variant", ["warp", "thread"])
+@pytest.mark.parametrize("b,k,c", [(64, 32, 5), (64, 32, 33),
+                                   (32, 64, 129), (16, 128, 257)])
+def test_deli_kernel_reaches_every_outcome(cuda, b, k, c, variant):
+    """Both variants == the plain version where the ops reach every nack
+    code and every outcome, at C = 5, 33, 129 and 257 (lanes not a
+    multiple of 32, and more than one client a lane)."""
+    state, ops = _deli_every_outcome(np.random.default_rng(b + k + c), b, k,
+                                     c)
+    want_s, want_t = seqk.process_batch(_on(state, seqk.SequencerState, "cpu"),
+                                        _on(ops, seqk.OpBatch, "cpu"))
+    assert (torch.bincount(want_t.nack_code.flatten().long(),
+                           minlength=7)[1:] > 0).all()
+    assert (torch.bincount(want_t.kind.flatten().long(), minlength=3)
+            > 0).all()
+    got_s, got_t = seqc.process_batch_best(
+        _on(state, seqk.SequencerState, cuda), _on(ops, seqk.OpBatch, cuda),
+        variant)
+    torch.cuda.synchronize()
+    _assert_equal(got_s, want_s, (b, k, c, variant, "state"))
+    _assert_equal(got_t, want_t, (b, k, c, variant, "tickets"))
+
+
+@pytest.mark.parametrize("variant", ["warp", "thread"])
+@pytest.mark.parametrize("b,k,c", [(40, 64, 17), (9, 100, 129)])
+def test_deli_kernel_when_leaves_empty_the_document(cuda, b, k, c, variant):
+    state, ops = _deli_emptying(np.random.default_rng(b * 3 + k + c), b, k, c)
+    want_s, want_t = seqk.process_batch(_on(state, seqk.SequencerState, "cpu"),
+                                        _on(ops, seqk.OpBatch, "cpu"))
+    assert not bool(want_s.active.any(dim=1).all())
+    got_s, got_t = seqc.process_batch_best(
+        _on(state, seqk.SequencerState, cuda), _on(ops, seqk.OpBatch, cuda),
+        variant)
+    torch.cuda.synchronize()
+    _assert_equal(got_s, want_s, (b, k, c, variant, "state"))
+    _assert_equal(got_t, want_t, (b, k, c, variant, "tickets"))
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
@@ -151,8 +253,19 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     s = seqk.init_state(4, 3, cuda)
     ops = seqk.make_op_batch([[]] * 4, 4, 8, cuda)
     bad = ops._replace(kind=ops.kind.t().contiguous().t())
+    before = seqc.launches
     with pytest.raises(ValueError, match="kind"):
         seqc.process_batch_best(s, bad)
+    with pytest.raises(ValueError, match="no variant"):
+        seqc.process_batch_best(s, ops, "block")
+    # The warp variant stages a block's four documents' client lanes in
+    # shared memory: a C past the card's limit is refused, not launched.
+    c = seqc.smem_limit(cuda) // (seqc.WARP_DOCS * seqc.WARP_CLIENT_BYTES) + 1
+    wide = seqk.init_state(4, c, cuda)
+    assert seqc.deli_variant(4, 8, c, seqc.smem_limit(cuda)) == "thread"
+    with pytest.raises(ValueError, match="shared memory"):
+        seqc.process_batch_best(wide, ops, "warp")
+    assert seqc.launches == before
 
 
 def test_storm_slice_on_the_card_matches_the_cpu(cuda):
@@ -573,14 +686,24 @@ def _assert_matrix_equal(got, want, where=""):
         assert torch.equal(a.cpu(), b.cpu()), (where, f)
 
 
-@pytest.mark.parametrize("b,s,c,k,w,ticks", [
-    (1, 8, 4, 1, 1, 1), (5, 64, 64, 16, 1, 3), (24, 256, 1024, 32, 8, 3),
-    (9, 128, 16, 40, 2, 2)])
-def test_matrix_tick_kernel_matches_plain(cuda, b, s, c, k, w, ticks):
+@pytest.mark.parametrize("b,s,c,k,w,ticks,variant", [
+    (*shape, variant) for shape in [
+        (1, 8, 4, 1, 1, 1), (5, 64, 64, 16, 1, 3), (16, 100, 128, 32, 4, 3),
+        (24, 256, 1024, 32, 8, 3), (9, 128, 16, 40, 2, 2),
+        (3, 4096, 64, 24, 1, 2)]
+    for variant in (None, "smem", "global")
+    if not (shape[1] == 4096 and variant == "smem")])
+def test_matrix_tick_kernel_matches_plain(cuda, b, s, c, k, w, ticks,
+                                          variant):
     """Kernel 5 == its plain version tick by tick: concurrent refs, up to
-    256 writers (W = 8, overlap bits in the sign bit), removes; the last
-    case fills the 16-entry cell log (the write clamps at C - 1 while the
-    count passes C)."""
+    256 writers (W = 8, overlap bits in the sign bit), removes; at the
+    matrix host's batched shape (S = 100, C = 128, W = 4) and at full size;
+    in the variant the shape picks (shared memory, except S = 4,096, which
+    does not fit) and in each one that fits. The C = 16 case fills the cell
+    log (the write clamps at C - 1 while the count passes C)."""
+    fits = mxc.tick_variant(s, 1, w, c, k, mxc.smem_limit(cuda)) == "smem"
+    assert fits == (s < 4096)
+    picked = variant or ("smem" if fits else "global")
     rng = np.random.default_rng(b * 17 + s + c + k)
     streams = [_matrix_stream(rng, k * ticks, 32 * w, 4) for _ in range(b)]
     want = mxk.init_state(b, s, c, w, device="cpu")
@@ -589,14 +712,95 @@ def test_matrix_tick_kernel_matches_plain(cuda, b, s, c, k, w, ticks):
         chunk = [x[t * k:(t + 1) * k] for x in streams]
         want = mxk.apply_tick(want, mxk.make_matrix_op_batch(chunk, b, k,
                                                              device="cpu"))
-        before = mxc.tick.launches
+        before = mxc.tick.launches, mxc.tick.variants.get(picked, 0)
         got = mxc.apply_tick_best(got, mxk.make_matrix_op_batch(
-            chunk, b, k, device=cuda))
+            chunk, b, k, device=cuda), variant)
         torch.cuda.synchronize()
-        assert mxc.tick.launches == before + 1
+        assert mxc.tick.launches == before[0] + 1
+        assert mxc.tick.variants[picked] == before[1] + 1
         _assert_matrix_equal(got, want, (b, s, c, k, t))
     if c == 16:
         assert int(want.cell_count.max()) > c
+
+
+def _wild_ops(rng, b, k, w, vec_p):
+    """A matrix op batch of random planes: a ``vec_p`` share of row and
+    col ops of every kind (insert, remove, annotate) at random positions,
+    cell ops at rows and cols from -1 to past the axes, a few ops with a
+    target that is none of rows, cols or cell, 15% invalid ops, refs and
+    clients at random (overlap bits past W words too)."""
+    r = rng.random((b, k))
+    target = np.where(r < vec_p, rng.integers(0, 2, (b, k)),
+                      np.where(r < 0.95, mxk.MX_CELL, 3))
+    pos = rng.integers(-1, 12, (b, k))
+    planes = {"valid": rng.random((b, k)) < 0.85, "target": target,
+              "kind": rng.integers(0, 3, (b, k)), "pos": pos,
+              "end": pos + rng.integers(0, 4, (b, k)),
+              "count": rng.integers(0, 4, (b, k)),
+              "handle_base": rng.integers(0, 500, (b, k)),
+              "row": rng.integers(-1, 14, (b, k)),
+              "col": rng.integers(-1, 14, (b, k)),
+              "value": rng.integers(1, 99, (b, k)),
+              "seq": 41 + np.arange(k)[None].repeat(b, 0),
+              "ref_seq": rng.integers(0, 45, (b, k)),
+              "client": rng.integers(0, 32 * w + 4, (b, k))}
+    return mxk.MatrixOpBatch(**{
+        f: torch.from_numpy(np.ascontiguousarray(
+            v if f == "valid" else v.astype(np.int32)))
+        for f, v in planes.items()})
+
+
+@pytest.mark.parametrize("variant", ["smem", "global"])
+@pytest.mark.parametrize("b,s,c,w,k,vec_p", [
+    (32, 40, 24, 1, 30, 0.15), (8, 256, 256, 2, 64, 0.15),
+    (16, 100, 16, 2, 200, 0.03), (12, 33, 8, 1, 40, 0.5)])
+def test_matrix_tick_kernel_on_wild_frames(cuda, b, s, c, w, k, vec_p,
+                                          variant):
+    """Kernel 5 == its plain version, both variants, on random planes
+    whose frames wrap (every other document) and on small ones, cell logs
+    with duplicate keys, unused entries and counts from -3 (appends at a
+    negative index are dropped) to past C (they clamp at C - 1), and op
+    lists whose cell stretches run long (200 ops, 3% vector ops) or are
+    broken by every vector-op kind, invalid ops and other targets."""
+    rng = np.random.default_rng(b + s + c + k)
+    state, _ = _wild_matrix(rng, b, s, c, w, 1, 1)
+    state = state._replace(cell_count=torch.from_numpy(
+        rng.integers(-3, c + 3, b).astype(np.int32)))
+    ops = _wild_ops(rng, b, k, w, vec_p)
+    want = mxk.apply_tick(state, ops)
+    got = mxc.apply_tick_best(_matrix_to(state, cuda), mxk.MatrixOpBatch(
+        *(f.to(cuda) for f in ops)), variant)
+    torch.cuda.synchronize()
+    _assert_matrix_equal(got, want, (b, s, c, k, variant))
+
+
+@pytest.mark.parametrize("variant", ["smem", "global"])
+@pytest.mark.parametrize("count", [-1, -2])
+def test_matrix_tick_kernel_drops_appends_at_negative_counts(cuda, count,
+                                                            variant):
+    """At a negative cell count a new key's append lands at
+    min(count, C - 1) < 0 and is dropped, while the count still grows: the
+    plain version's rule (and the JAX Pallas kernels'), in both
+    variants."""
+    layout = [dict(target=mxk.MX_ROWS, kind=mtk.MT_INSERT, pos=0, count=8,
+                   handle_base=0, seq=1, ref_seq=0, client=0),
+              dict(target=mxk.MX_COLS, kind=mtk.MT_INSERT, pos=0, count=8,
+                   handle_base=0, seq=2, ref_seq=1, client=0)]
+    state = mxk.apply_tick(mxk.init_state(2, 16, 8, 1, device="cpu"),
+                           mxk.make_matrix_op_batch([layout] * 2, 2, 2,
+                                                    device="cpu"))
+    state = state._replace(cell_count=torch.tensor([count, 0],
+                                                   dtype=torch.int32))
+    cells = [[dict(target=mxk.MX_CELL, row=i, col=i, value=5 + i, seq=3 + i,
+                   ref_seq=2, client=1) for i in range(3)]] * 2
+    ops = mxk.make_matrix_op_batch(cells, 2, 3, device="cpu")
+    want = mxk.apply_tick(state, ops)
+    assert int(want.cell_used[0].sum()) == 3 + count
+    assert want.cell_count.tolist() == [count + 3, 3]
+    got = mxc.apply_tick_best(_matrix_to(state, cuda), mxk.MatrixOpBatch(
+        *(f.to(cuda) for f in ops)), variant)
+    torch.cuda.synchronize()
+    _assert_matrix_equal(got, want, (count, variant))
 
 
 @pytest.mark.parametrize("variant", [None, "global"])
@@ -752,6 +956,15 @@ def test_matrix_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     for fn, st, batch, what in cases:
         with pytest.raises(_build.KernelInputError, match=what):
             fn(st, batch)
+    # A variant that does not exist, and a document forced into shared
+    # memory it does not fit (S = 4,096), are refused, not launched.
+    with pytest.raises(_build.KernelInputError, match="no variant"):
+        mxc.apply_tick_best(state, ops, "warp")
+    large = mxk.init_state(2, 4096, 64, 1, cuda)
+    assert mxc.tick_variant(4096, 1, 1, 64, 4, mxc.smem_limit(cuda)) \
+        == "global"
+    with pytest.raises(_build.KernelInputError, match="shared memory"):
+        mxc.apply_tick_best(large, ops, "smem")
     assert (mxc.tick.launches, mxc.steps.launches) == before
 
 

@@ -187,6 +187,50 @@ def test_cell_ops_leave_both_axes_and_clamp_at_capacity():
     assert int(ts.cell_val[0, 7]) == 11  # the last three landed at C - 1
 
 
+@pytest.mark.parametrize("tick", ["op", "steps"])
+def test_negative_cell_counts_drop_the_append_as_the_pallas_kernels(tick):
+    """At a negative cell count the append index min(count, C - 1) is
+    negative. The port's plain ticks drop the write (the count still
+    grows), exactly as the JAX Pallas kernels do (``lane_c == idx``
+    matches no lane), every plane equal. The JAX XLA ticks index with
+    ``.at[idx]``, which wraps to C + idx: the reference disagrees with
+    itself there, and the XLA result differs in ``cell_rh``."""
+    layout = [dict(target=mxk.MX_ROWS, kind=mtk.MT_INSERT, pos=0, count=8,
+                   handle_base=0, seq=1, ref_seq=0, client=0),
+              dict(target=mxk.MX_COLS, kind=mtk.MT_INSERT, pos=0, count=8,
+                   handle_base=0, seq=2, ref_seq=1, client=0)]
+    js, ts = states(b=2, s=16, c=8, w=1)
+    js = jmxk.apply_tick(js, jmxk.make_matrix_op_batch([layout] * 2, 2, 2))
+    ts = mxk.apply_tick(ts, mxk.make_matrix_op_batch([layout] * 2, 2, 2,
+                                                     device="cpu"))
+    counts = np.array([-1, -2], np.int32)
+    js = js._replace(cell_count=jnp.asarray(counts))
+    ts = ts._replace(cell_count=torch.from_numpy(counts.copy()))
+    cells = [[dict(target=mxk.MX_CELL, row=3, col=4, value=7, seq=3,
+                   ref_seq=2, client=1)],
+             [dict(target=mxk.MX_CELL, row=5, col=6, value=9, seq=3,
+                   ref_seq=2, client=1)]]
+    if tick == "op":
+        pallas = jmxp.apply_tick_pallas(
+            js, jmxk.make_matrix_op_batch(cells, 2, 1), interpret=True)
+        xla = jmxk.apply_tick(js, jmxk.make_matrix_op_batch(cells, 2, 1))
+        port = mxk.apply_tick(ts, mxk.make_matrix_op_batch(cells, 2, 1,
+                                                           device="cpu"))
+    else:
+        jb = jmxk.make_matrix_step_batch(cells, 2, r_max=1,
+                                         last_vec_seq=[2, 2])
+        pallas = jmxp.apply_tick_steps_pallas(js, jb, interpret=True)
+        xla = jmxk.apply_tick_steps(js, jb)
+        port = mxk.apply_tick_steps(ts, mxk.make_matrix_step_batch(
+            cells, 2, r_max=1, last_vec_seq=[2, 2], device="cpu"))
+    assert_planes_equal(jplanes(pallas), tplanes(port))
+    assert port.cell_count.tolist() == [0, -1]
+    assert not port.cell_used.any()
+    wrapped = jplanes(xla)
+    assert not np.array_equal(wrapped["cell_rh"], tplanes(port)["cell_rh"])
+    assert wrapped["cell_rh"][0, 7] >= 0 and wrapped["cell_rh"][1, 6] >= 0
+
+
 def _step_chunks(streams_, k, r_max, device=None):
     """(jax, torch) step batches per chunk, carrying last_vec_seq across
     chunks as the serving host does."""

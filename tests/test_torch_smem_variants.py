@@ -1,15 +1,18 @@
-"""The shared-memory variants of kernels 3 and 6, without a card.
+"""The two variants of kernels 2, 3, 5 and 6, without a card.
 
 Which variant a wrapper launches is decided by shape alone: the bytes of
-shared memory one document takes (``smem_bytes``, ``steps_smem_bytes``,
-the same formulas the launchers check) against the card's per-block
-opt-in limit. These tests pin that choice at the shapes the main paths
-launch (text paths A and B, the burst tick, the step layout) and past the
-limit, read the new sources' pointer layouts and sizes against the
-bindings, and hold the plain versions, which both variants must equal on
-the card, to the JAX package on the inputs the card tests use for the
-hard cases: block summaries that disagree with their slots, and matrix
-frames whose prefix wraps.
+shared memory one document (the deli: one block of documents) takes
+(``smem_bytes``, ``steps_smem_bytes``, ``tick_smem_bytes``,
+``warp_smem_bytes``, the same formulas the launchers check) against the
+card's per-block opt-in limit, and for the deli the number of client
+lanes. These tests pin that choice at the shapes the main paths launch
+(text paths A and B, the burst tick, the step layout, matrix paths A and
+B, the deli on the map, text and matrix paths) and past the limit, read
+the new sources' pointer layouts and sizes against the bindings, and hold
+the plain versions, which both variants must equal on the card, to the
+JAX package on the inputs the card tests use for the hard cases: block
+summaries that disagree with their slots, and matrix frames whose prefix
+wraps.
 """
 
 from __future__ import annotations
@@ -29,7 +32,15 @@ from fluidframework_tpu_torch.ops import matrix_cuda as mxc
 from fluidframework_tpu_torch.ops import matrix_kernel as mxk
 from fluidframework_tpu_torch.ops import mergetree_blocks as mtb
 from fluidframework_tpu_torch.ops import mergetree_blocks_cuda as mtbc
-from tests.test_torch_cuda_kernels import _inexact_blocks, _wild_matrix
+from fluidframework_tpu_torch.ops import sequencer as seqk
+from fluidframework_tpu_torch.ops import sequencer_cuda as seqc
+from tests.test_torch_cuda_kernels import (
+    _deli_every_outcome,
+    _inexact_blocks,
+    _on,
+    _wild_matrix,
+    _wild_ops,
+)
 
 #: cudaDevAttrMaxSharedMemoryPerBlockOptin of an H100.
 H100_OPTIN = 232_448
@@ -66,8 +77,47 @@ def test_step_tick_variant_by_shape(shape, nbytes, variant):
     assert mxc.SMEM_MAX_RUN == 48
 
 
+@pytest.mark.parametrize("shape,nbytes,variant", [
+    # matrix path B at batched width: S = 100, W = 4, C = 128, K = 32
+    ((100, 1, 4, 128, 32), 16_672, "smem"),
+    # the full-size check: S = 256, W = 8, C = 1,024
+    ((256, 1, 8, 1024, 32), 59_008, "smem"),
+    # matrix path A: the layout flush, then the mixed flushes of 256 ops
+    # on 576 vector slots as the cell log grows to 4,097 entries
+    ((64, 1, 1, 256, 32), 13_952, "smem"),
+    ((576, 1, 8, 4097, 256), 175_636, "smem"),
+    # one more doubling of that cell log, and a document of 4,096 slots,
+    # do not fit
+    ((576, 1, 8, 8193, 256), 257_556, "global"),
+    ((4096, 1, 1, 64, 24), 332_256, "global")])
+def test_op_tick_variant_by_shape(shape, nbytes, variant):
+    assert mxc.tick_smem_bytes(*shape) == nbytes
+    assert mxc.tick_variant(*shape, H100_OPTIN) == variant
+    assert mxc.tick_variant(*shape, nbytes) == "smem"
+    assert mxc.tick_variant(*shape, nbytes - 1) == "global"
+
+
+@pytest.mark.parametrize("shape,nbytes,variant", [
+    # the map path: 10,240 docs x 4 clients and the ghost lane
+    ((10240, 4, 5), 320, "thread"),
+    # text path A (128 clients) and matrix path A (256 clients)
+    ((1, 128, 129), 8_256, "warp"),
+    ((1, 256, 257), 16_448, "warp"),
+    # the fewest lanes the warp variant takes
+    ((64, 32, 15), 960, "thread"),
+    ((64, 32, 16), 1_024, "warp"),
+    # a block's four documents at the card's limit, and one lane past it
+    ((1, 2, 3632), 232_448, "warp"),
+    ((1, 2, 3633), 232_512, "thread"),
+    ((64, 32, 4096), 262_144, "thread")])
+def test_deli_variant_by_shape(shape, nbytes, variant):
+    assert seqc.warp_smem_bytes(shape[2]) == nbytes
+    assert seqc.deli_variant(*shape, H100_OPTIN) == variant
+
+
 def _source(name: str) -> str:
-    return (_build.CSRC / f"{name}.cu").read_text()
+    path = _build.CSRC / (name if name.endswith(".cuh") else f"{name}.cu")
+    return path.read_text()
 
 
 def _layout_and_reads(name: str) -> tuple[tuple, list]:
@@ -80,10 +130,13 @@ def _layout_and_reads(name: str) -> tuple[tuple, list]:
 
 @pytest.mark.parametrize("name,layout", [
     ("mergetree_blocks_smem", mtbc.SMEM_LAYOUT),
-    ("matrix_steps_smem", mxc.STEPS_SMEM_LAYOUT)])
+    ("matrix_steps_smem", mxc.STEPS_SMEM_LAYOUT),
+    ("matrix_tick_smem", mxc.TICK_LAYOUT),
+    ("sequencer_tick_warp", seqc.LAYOUT)])
 def test_smem_launchers_read_the_bindings_layout(name, layout):
-    """The shared-memory launchers read the global launchers' pointers
-    without the scratch planes, in the order their layout string names."""
+    """The shared-memory (and warp) launchers read the other variants'
+    pointers without the scratch planes, in the order their layout string
+    names."""
     got, reads = _layout_and_reads(name)
     assert got == layout
     assert [int(i) for _, i in reads] == list(range(len(layout)))
@@ -99,16 +152,26 @@ def test_smem_constants_match_the_sources():
         == mtbc.SMEM_HEADER_INTS
     assert define("mergetree_blocks_smem", "MTS_OP_FIELDS") \
         == mtbc.SMEM_OP_FIELDS
-    assert define("matrix_steps_smem", "MXS_HEADER_INTS") \
+    # Both matrix kernels take their header and threads from the shared
+    # header.
+    assert define("matrix_smem.cuh", "MXS_HEADER_INTS") \
         == mxc.SMEM_HEADER_INTS
-    assert define("matrix_steps_smem", "MXS_THREADS") == mxc.SMEM_THREADS
+    assert define("matrix_smem.cuh", "MXS_THREADS") == mxc.SMEM_THREADS
+    for name in ("matrix_steps_smem", "matrix_tick_smem"):
+        assert '#include "matrix_smem.cuh"' in _source(name)
     assert define("matrix_steps_smem", "MXS_VEC_FIELDS") == 12
     assert define("matrix_steps_smem", "MXS_RUN_FIELDS") == 5
+    assert define("matrix_tick_smem", "MXT_STRETCH") == mxc.TICK_STRETCH
+    assert define("matrix_tick_smem", "MXT_OP_FIELDS") \
+        == mxc.TICK_OP_FIELDS == len(mxk.MatrixOpBatch._fields)
+    assert define("sequencer_tick_warp", "DELI_WARPS") == seqc.WARP_DOCS
+    assert define("sequencer_tick_warp", "DELI_CLIENT_BYTES") \
+        == seqc.WARP_CLIENT_BYTES
 
 
 def test_cpu_tensors_take_the_plain_versions_and_count_nothing():
-    """On the CPU both wrappers return the plain result whatever variant
-    is asked for, and no launch or variant is counted."""
+    """On the CPU every two-variant wrapper returns the plain result
+    whatever variant is asked for, and no launch or variant is counted."""
     state, ops = _inexact_blocks(np.random.default_rng(1), 3, 2, 8, 2, 1, 6)
     before = mtbc.launches, dict(mtbc.variants)
     want, want_ovf = mtb.apply_tick_blocks(state, ops)
@@ -124,6 +187,23 @@ def test_cpu_tensors_take_the_plain_versions_and_count_nothing():
     assert all(torch.equal(x, y)
                for x, y in zip(mxk.leaves(got), mxk.leaves(want)))
     assert (mxc.steps.launches, mxc.steps.variants) == counted
+    ops = _wild_ops(np.random.default_rng(3), 2, 12, 1, 0.2)
+    counted = mxc.tick.launches, dict(mxc.tick.variants)
+    want = mxk.apply_tick(mstate, ops)
+    for variant in (None, "smem", "global"):
+        got = mxc.apply_tick_best(mstate, ops, variant)
+        assert all(torch.equal(x, y)
+                   for x, y in zip(mxk.leaves(got), mxk.leaves(want)))
+    assert (mxc.tick.launches, mxc.tick.variants) == counted
+    st, op = _deli_every_outcome(np.random.default_rng(4), 4, 12, 33)
+    st, op = _on(st, seqk.SequencerState, "cpu"), _on(op, seqk.OpBatch, "cpu")
+    counted = seqc.launches, dict(seqc.shapes), dict(seqc.variants)
+    want_s, want_t = seqk.process_batch(st, op)
+    for variant in (None, "warp", "thread"):
+        got_s, got_t = seqc.process_batch_best(st, op, variant)
+        assert all(torch.equal(x, y) for x, y in zip(got_s, want_s))
+        assert all(torch.equal(x, y) for x, y in zip(got_t, want_t))
+    assert (seqc.launches, seqc.shapes, seqc.variants) == counted
 
 
 def test_launch_counters_split_by_variant():
