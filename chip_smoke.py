@@ -31,19 +31,19 @@ equality: every plane is integer), then drives the port's main paths:
   against the op tick's grids.
 
 It prints each kernel's launch shapes on the main paths and re-checks
-every kernel == plain at each of them: the map fold on inputs of that
-shape, the deli, the two merge ticks and the two matrix ticks on the very
-inputs the paths gave them (every call's, kept while the paths ran:
-the deli on the map path, text path A and matrix path A), where they are
-also timed per launch. The deli, the block merge tick and both matrix
-ticks have two variants each, picked by shape: the deli's warp variant
-(one warp a document) wherever a document has 16 client lanes or more
-and fits shared memory, else its one-thread variant; the others'
-shared-memory variant wherever a document fits, which every path's do.
-Each variant is held to the plain version, and timed, on the same inputs
-(``ms_global``, ``ms_thread``), and the other variant runs alone at a
-shape that forces it. Then it prints the kernels' launch counts, per
-path, per variant and in all, and their times.
+every kernel == plain at each of them, on the very inputs the paths gave
+them (every call's, kept while the paths ran: the map fold on the map
+path; the deli on the map path, text path A and matrix path A), where
+they are also timed per launch. Every kernel has two variants, picked by
+shape: the map fold's warp variant (one warp a document) at every
+shape; the deli's warp variant wherever a document has 16 client lanes
+or more and fits shared memory, else its one-thread variant; the four
+merge and matrix ticks' shared-memory variant wherever a document fits,
+which every path's do. Each variant is held to the plain version, and
+timed, on the same inputs (``ms_block``, ``ms_thread``, ``ms_global``),
+and each old variant but the map fold's also runs alone at a shape that
+forces it. Then it prints the kernels' launch counts, per path, per
+variant and in all, and their times.
 
 Phases print one line each. Any failed check exits non-zero before the
 last line, which is the JSON device record
@@ -227,37 +227,56 @@ def map_fold_inputs(gen, device, b=DOCS, k=K_MAP, s=KEY_SLOTS):
     return state, words.contiguous(), lo, hi, base
 
 
+def windowed_ops(words, lo, hi) -> int:
+    """The ops a fold's windows hold: sum of max(0, min(hi, K) - max(lo,
+    0))."""
+    window = (hi.clamp(max=words.shape[1]) - lo.clamp(min=0)).clamp(min=0)
+    return int(window.sum().item())
+
+
+def fold_bound(state, words, lo, hi, base) -> tuple[float, str]:
+    """Kernel 1's bound on these inputs: each windowed word read once, the
+    three [B] window planes and the [B, S] planes in and out once; about
+    8 integer ops a word and 12 a slot."""
+    b, s = state.present.shape
+    n_ops = windowed_ops(words, lo, hi)
+    plane_bytes = b * s * (1 + 4 + 4) + 4 * b
+    nbytes = 4 * n_ops + 12 * b + 2 * plane_bytes
+    return bound(nbytes, 8 * n_ops + 12 * b * s)
+
+
 def check_map_fold(device, b=DOCS, k=K_MAP, s=KEY_SLOTS) -> dict:
+    """Kernel 1 against its plain version on one synthetic storm tick of
+    shape (B, K, S), in both variants, each timed (``ms_block``)."""
     import torch
 
     from fluidframework_tpu_torch.ops import map_fold_cuda as mfc
     from fluidframework_tpu_torch.ops import map_kernel as mk
     gen = torch.Generator(device=device).manual_seed(1)
     state, words, lo, hi, base = map_fold_inputs(gen, device, b, k, s)
-    got = mfc.fold_words(state, words, lo, hi, base)
     want = mk.fold_words_plain(state, words, lo, hi, base)
-    torch.cuda.synchronize()
-    err = max_abs_err(got, want)
-    check(err == 0, f"map fold kernel != plain version (max |err| {err})")
-    for f in mk.MapState._fields:
-        check(torch.equal(getattr(got, f), getattr(want, f)),
-              f"map fold plane {f} differs")
-    ms = cuda_time_ms(lambda: mfc.fold_words(state, words, lo, hi, base), 20)
-    plain_ms = cuda_time_ms(
+    variant = mfc.fold_variant(b, k, s)
+    err = 0
+    out = {"shape": [b, words.shape[1], s], "variant": variant}
+    for v in ("warp", "block"):
+        got = mfc.fold_words(state, words, lo, hi, base, v)
+        torch.cuda.synchronize()
+        err = max(err, max_abs_err(got, want))
+        check(err == 0, f"map fold kernel ({v}) != plain version "
+              f"(max |err| {err})")
+        for f in mk.MapState._fields:
+            check(torch.equal(getattr(got, f), getattr(want, f)),
+                  f"map fold ({v}) plane {f} differs")
+        out[f"ms_{v}"] = cuda_time_ms(
+            lambda: mfc.fold_words(state, words, lo, hi, base, v), 20)
+    out["ms"] = out[f"ms_{variant}"]
+    out["max_abs_err"] = err
+    out["windowed_ops"] = windowed_ops(words, lo, hi)
+    out["plain_ms"] = cuda_time_ms(
         lambda: mk.fold_words_plain(state, words, lo, hi, base), 3)
-    b, s = state.present.shape
-    window = (hi.clamp(max=words.shape[1]) - lo.clamp(min=0)).clamp(min=0)
-    n_ops = int(window.sum().item())
-    plane_bytes = b * s * (1 + 4 + 4) + 4 * b
-    nbytes = 4 * n_ops + 12 * b + 2 * plane_bytes
-    nops = 8 * n_ops + 12 * b * s
-    b_ms, b_by = bound(nbytes, nops)
-    print(f"kernel map_fold: B={b} K={words.shape[1]} S={s} windowed_ops="
-          f"{n_ops} equal=True max_abs_err={err} ms={ms:.4f} "
-          f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by})",
-          flush=True)
-    return {"shape": [b, words.shape[1], s], "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by}
+    out["bound_ms"], out["bound_by"] = fold_bound(state, words, lo, hi, base)
+    print(f"kernel map_fold: {json.dumps(out)}", flush=True)
+    return out
 
 
 def deli_inputs(gen, device, b=DOCS, k=K_SEQ, c=CLIENTS + 1):
@@ -454,6 +473,7 @@ def serve(device, script, docs, plain: bool = False,
         mfc.launches = 0
         seqc.launches = 0
         mfc.shapes.clear()
+        mfc.variants.update(warp=0, block=0)
         seqc.shapes.clear()
         seqc.variants.clear()
         t0 = time.perf_counter()
@@ -487,12 +507,14 @@ def serve(device, script, docs, plain: bool = False,
         shapes = {"map_fold": dict(mfc.shapes),
                   "sequencer_tick": dict(seqc.shapes)}
         deli_variants = dict(seqc.variants)
+        fold_variants = dict(mfc.variants)
     sample = np.linspace(0, docs - 1, 64).astype(int).tolist()
     return {
         "service": service, "storm": storm, "seq_host": seq_host,
         "merge_host": merge_host, "acks": acks, "submitted": submitted,
         "names": names, "launches": launches, "shapes": shapes,
-        "deli_variants": deli_variants, "t_join": t_join,
+        "deli_variants": deli_variants, "fold_variants": fold_variants,
+        "t_join": t_join,
         "t_serve": t_serve,
         "entries": {names[d]: merge_host.map_entries(names[d], "default",
                                                      "root")
@@ -533,11 +555,14 @@ def main_path(device) -> dict:
     import numpy as np
     import torch
 
+    from fluidframework_tpu_torch.ops import map_fold_cuda as mfc
     from fluidframework_tpu_torch.ops import sequencer_cuda as seqc
     docs = DOCS
     script = make_script(7, docs, TICKS, K_MAP, FRAMES_PER_TICK)
     recorded: dict = {}
-    with recording(seqc, "process_batch_best", recorded):
+    folds: dict = {}
+    with recording(seqc, "process_batch_best", recorded), \
+            recording(mfc, "fold_words", folds):
         run = serve(device, script, docs)
     storm = run["storm"]
     n_frames = len(script)
@@ -560,6 +585,13 @@ def main_path(device) -> dict:
         check(n > 0, f"kernel {name} was not launched on the main path")
     deli_picks(device, run["shapes"]["sequencer_tick"], run["deli_variants"],
                "the map path")
+    picked: dict = {}
+    for (b, k, s), n in run["shapes"]["map_fold"].items():
+        v = mfc.fold_variant(b, k, s)
+        picked[v] = picked.get(v, 0) + n
+    check({v: n for v, n in run["fold_variants"].items() if n} == picked,
+          f"the map path launched the fold's variants "
+          f"{run['fold_variants']}, its shapes pick {picked}")
     # Equal to a second run with the plain versions.
     plain = serve(device, script, docs, plain=True)
     for a, b, what in ((run["seq_host"]._state, plain["seq_host"]._state,
@@ -604,7 +636,9 @@ def main_path(device) -> dict:
          for name, by in run["shapes"].items()}), flush=True)
     out["shapes"] = run["shapes"]
     out["deli_variants"] = run["deli_variants"]
+    out["fold_variants"] = run["fold_variants"]
     out["deli_inputs"] = recorded
+    out["fold_inputs"] = folds
     return out
 
 
@@ -619,23 +653,6 @@ def deli_picks(device, shapes: dict, variants: dict, where: str) -> None:
         want[v] = want.get(v, 0) + n
     check(variants == want, f"{where} launched the deli's variants "
           f"{variants}, its shapes pick {want}")
-
-
-def at_main_path_shapes(name: str, shapes: dict, checked: dict,
-                        check_at) -> dict:
-    """Hold a kernel against its plain version at every shape the main
-    path launched it at that ``checked`` (the phase-3 result) did not
-    cover. Returns the result at the shape with the most launches, with
-    the largest error over every check."""
-    results = {tuple(checked["shape"]): checked}
-    for shape in shapes:
-        if shape not in results:
-            results[shape] = check_at(*shape)
-    check(bool(shapes), f"no launch shapes recorded for {name}")
-    top = max(shapes, key=lambda sh: shapes[sh])
-    out = dict(results[top])
-    out["max_abs_err"] = max(r["max_abs_err"] for r in results.values())
-    return out
 
 
 # -- the text kernels against their plain versions -----------------------------
@@ -766,13 +783,16 @@ def flat_bound(state, ops) -> tuple[float, str]:
     return bound(nbytes, 12 * int(ops.valid.sum()) * s)
 
 
-def check_flat_tick(device, fill_ticks=2) -> dict:
+def check_flat_tick(device, fill_ticks=2, time_it=True, b=TEXT_DOCS,
+                    s=TEXT_NB * TEXT_BK) -> dict:
     """Kernel 4 against its plain version on one tick of shape (B, K, S,
-    P, W) = (TEXT_DOCS, TEXT_K, TEXT_NB x TEXT_BK, TEXT_P, TEXT_W), from a
-    table that ``fill_ticks`` plain ticks part filled."""
+    P, W) = (b, TEXT_K, s, TEXT_P, TEXT_W), from a table that
+    ``fill_ticks`` plain ticks part filled, in the variant the shape picks
+    and, where that is the shared-memory one, in the global-memory one
+    too (timed beside it: ``ms_global``)."""
     import numpy as np
     import torch
-    b, k, s, p, w = TEXT_DOCS, TEXT_K, TEXT_NB * TEXT_BK, TEXT_P, TEXT_W
+    k, p, w = TEXT_K, TEXT_P, TEXT_W
 
     from fluidframework_tpu_torch.ops import mergetree_cuda as mtc
     from fluidframework_tpu_torch.ops import mergetree_kernel as mtk
@@ -782,16 +802,23 @@ def check_flat_tick(device, fill_ticks=2) -> dict:
     for f in ticks[:-1]:
         state = mtk.apply_tick(state, op_batch(f, device))
     ops = op_batch(ticks[-1], device)
-    got = mtc.apply_tick_best(state, ops)
+    variant = mtc.choose_variant(s, p, w, k, mtc.smem_limit(device))
     want = mtk.apply_tick(state, ops)
-    torch.cuda.synchronize()
-    err = max_abs_err(got, want)
-    check(err == 0, f"flat merge kernel != plain version at "
-          f"{(b, k, s, p, w)} (max |err| {err})")
-    out = {"shape": [b, k, s, p, w], "max_abs_err": err,
-           "ms": cuda_time_ms(lambda: mtc.apply_tick_best(state, ops), 10),
-           "plain_ms": cuda_time_ms(lambda: mtk.apply_tick(state, ops), 1)}
-    out["bound_ms"], out["bound_by"] = flat_bound(state, ops)
+    err = 0
+    for v in (variant, "global") if variant == "smem" else (variant,):
+        got = mtc.apply_tick_best(state, ops, v)
+        torch.cuda.synchronize()
+        err = max(err, max_abs_err(got, want))
+        check(err == 0, f"flat merge kernel ({v}) != plain version at "
+              f"{(b, k, s, p, w)} (max |err| {err})")
+    out = {"shape": [b, k, s, p, w], "variant": variant, "max_abs_err": err}
+    if time_it:
+        out["ms"] = cuda_time_ms(lambda: mtc.apply_tick_best(state, ops), 10)
+        if variant == "smem":
+            out["ms_global"] = cuda_time_ms(
+                lambda: mtc.apply_tick_best(state, ops, "global"), 10)
+        out["plain_ms"] = cuda_time_ms(lambda: mtk.apply_tick(state, ops), 1)
+        out["bound_ms"], out["bound_by"] = flat_bound(state, ops)
     print(f"kernel mergetree_flat: {json.dumps(out)}", flush=True)
     return out
 
@@ -828,21 +855,23 @@ def plain_host_versions():
 @contextlib.contextmanager
 def recording(mod, attr: str, kept: dict, counts=None):
     """Wrap the kernel wrapper ``mod.<attr>`` for the duration: each call
-    appends a copy of its inputs to ``kept[shape]``, the launch shape the
-    wrapper counted it by (``counts.shapes``, ``counts`` defaulting to
-    ``mod``). Launches are still counted by the wrapper alone."""
+    appends a copy of its (tensor or tuple) arguments to ``kept[shape]``,
+    the launch shape the wrapper counted it by (``counts.shapes``,
+    ``counts`` defaulting to ``mod``). Launches are still counted by the
+    wrapper alone."""
     import torch
     inner = getattr(mod, attr)
     counts = mod if counts is None else counts
 
     def copy(planes):
-        return type(planes)(*(copy(t) if isinstance(t, tuple) else t.clone()
-                              for t in planes))
+        if not isinstance(planes, tuple):
+            return planes.clone()
+        return type(planes)(*(copy(t) for t in planes))
 
-    def wrapped(state, ops):
-        inputs = copy(state), copy(ops)
+    def wrapped(*args):
+        inputs = tuple(copy(a) for a in args)
         seen = dict(counts.shapes)
-        out = inner(state, ops)
+        out = inner(*args)
         for shape, n in counts.shapes.items():
             if n != seen.get(shape, 0):
                 kept.setdefault(shape, []).append(inputs)
@@ -1079,6 +1108,7 @@ def text_main_path(device) -> dict:
             mod.launches = 0
             mod.shapes.clear()
         mtbc.variants.update(smem=0, **{"global": 0})
+        mtc.variants.update(smem=0, **{"global": 0})
         seqc.variants.clear()
         deli[name] = {"inputs": {}}
         with recording(mtbc, "apply_tick_blocks_best",
@@ -1091,6 +1121,7 @@ def text_main_path(device) -> dict:
                           "mergetree_flat": mtc.launches,
                           "sequencer_tick": seqc.launches,
                           "mergetree_blocks_variants": dict(mtbc.variants),
+                          "mergetree_flat_variants": dict(mtc.variants),
                           "sequencer_tick_variants": dict(seqc.variants)}
         deli[name]["shapes"] = dict(seqc.shapes)
         deli_picks(device, seqc.shapes, seqc.variants, f"text path {name}")
@@ -1129,6 +1160,13 @@ def text_main_path(device) -> dict:
         check(mtbc.variants["smem"] == mtbc.launches,
               f"text path {name} launched the block tick's global variant "
               f"({mtbc.variants}): its rows fit shared memory")
+        limit = mtc.smem_limit(device) if mtc.launches else 0
+        picked = {"smem": 0, "global": 0}
+        for (_b, kk, ss, pp, ww), n in mtc.shapes.items():
+            picked[mtc.choose_variant(ss, pp, ww, kk, limit)] += n
+        check(mtc.variants == picked,
+              f"text path {name} launched the flat tick's variants "
+              f"{mtc.variants}, its shapes pick {picked}")
         plain = drive(device, plain=True)
         text_pools_equal(host, plain["merge_host"])
         if name == "a":
@@ -1156,7 +1194,8 @@ def text_main_path(device) -> dict:
 
 
 def recheck_recorded(name: str, shapes: dict, inputs: dict, kernel, plain,
-                     bound_of, ops_of=lambda op: int(op.valid.sum()),
+                     bound_of,
+                     ops_of=lambda args: int(args[1].valid.sum()),
                      other=None, other_name: str = "global",
                      time_all: bool = False) -> dict:
     """Hold a kernel against its plain version on the inputs of EVERY call
@@ -1164,21 +1203,22 @@ def recheck_recorded(name: str, shapes: dict, inputs: dict, kernel, plain,
     (``by_call``: each call's shape and ms, with ``other``'s ms). ms,
     plain ms and bound are means per launch over the calls of the shape
     with the most launches (over every call where ``time_all``); the
-    error is the largest over every check. ``other`` is the kernel's
-    other variant (``other_name``: the global-memory one where the paths
-    ran the shared-memory one): it is held to the plain version on the
-    same inputs and timed on the same calls in this call
-    (``ms_<other_name>``)."""
+    error is the largest over every check. Each call's arguments are
+    passed as recorded; ``ops_of`` counts the ops of one call's
+    arguments. ``other`` is the kernel's other variant (``other_name``:
+    the global-memory one where the paths ran the shared-memory one): it
+    is held to the plain version on the same inputs and timed on the
+    same calls in this call (``ms_<other_name>``)."""
     import torch
     check(bool(shapes) and {sh: len(c) for sh, c in inputs.items()}
           == shapes, f"{name}: launches by shape {shapes}, inputs kept "
           f"{ {sh: len(c) for sh, c in inputs.items()} }")
     worst = 0
     for shape in sorted(shapes):
-        for state, ops in inputs[shape]:
-            want = plain(state, ops)
+        for args in inputs[shape]:
+            want = plain(*args)
             for run in (kernel, other) if other else (kernel,):
-                got = run(state, ops)
+                got = run(*args)
                 torch.cuda.synchronize()
                 err = max_abs_err(got, want)
                 check(err == 0, f"{name} kernel != plain version on the main "
@@ -1187,9 +1227,9 @@ def recheck_recorded(name: str, shapes: dict, inputs: dict, kernel, plain,
     top = max(shapes, key=lambda sh: shapes[sh])
     by_call = []
     for shape in sorted(shapes):
-        for st, op in inputs[shape]:
-            by_call.append([*shape, cuda_time_ms(lambda: kernel(st, op), 3),
-                            *([cuda_time_ms(lambda: other(st, op), 3)]
+        for args in inputs[shape]:
+            by_call.append([*shape, cuda_time_ms(lambda: kernel(*args), 3),
+                            *([cuda_time_ms(lambda: other(*args), 3)]
                               if other else [])])
     n = len(top)
     summed = [row for row in by_call if time_all or tuple(row[:n]) == top]
@@ -1197,15 +1237,15 @@ def recheck_recorded(name: str, shapes: dict, inputs: dict, kernel, plain,
              if time_all or sh == top]
     ms = [row[n] for row in summed]
     ms_other = [row[n + 1] for row in summed] if other else []
-    plain_ms = [cuda_time_ms(lambda: plain(st, op), 1) for st, op in calls]
-    bounds = [bound_of(st, op) for st, op in calls]
+    plain_ms = [cuda_time_ms(lambda: plain(*args), 1) for args in calls]
+    bounds = [bound_of(*args) for args in calls]
     by = [b for _, b in bounds]
     key = f"ms_{other_name}"
     out = {"shape": list(top), "max_abs_err": worst,
            "shapes_checked": len(shapes),
            "calls_checked": sum(shapes.values()),
            "calls_timed": len(calls),
-           "valid_ops_mean": sum(ops_of(op) for _, op in calls)
+           "valid_ops_mean": sum(ops_of(args) for args in calls)
            / len(calls),
            "ms": sum(ms) / len(ms), "ms_min": min(ms), "ms_max": max(ms),
            "plain_ms": sum(plain_ms) / len(plain_ms),
@@ -2014,8 +2054,9 @@ def main() -> int:
 
     from fluidframework_tpu_torch.ops import _build
     t0 = time.perf_counter()
-    _build.build_all(["map_fold", "sequencer_tick", "sequencer_tick_warp",
-                      "mergetree_flat", "mergetree_blocks",
+    _build.build_all(["map_fold", "map_fold_warp", "sequencer_tick",
+                      "sequencer_tick_warp", "mergetree_flat",
+                      "mergetree_flat_smem", "mergetree_blocks",
                       "mergetree_blocks_smem", "matrix_tick",
                       "matrix_tick_smem", "matrix_steps",
                       "matrix_steps_smem"])
@@ -2035,6 +2076,9 @@ def main() -> int:
     check(burst["overflowed_docs"] > 0,
           "the burst tick overflowed no block")
     flat_full = check_flat_tick(device)
+    flat_large = check_flat_tick(device, time_it=False, b=16, s=4096)
+    check(flat_large["variant"] == "global",
+          "4,096-slot rows did not run the flat tick's global variant")
     blocks_large = check_blocks_tick(device, time_it=False, b=256, nb=16,
                                      bk=512)
     check(blocks_large["variant"] == "global",
@@ -2066,9 +2110,16 @@ def main() -> int:
     matrix = matrix_main_path(device)
     steps = matrix_steps_path(device)
     shapes = path["shapes"]
-    fold_main = at_main_path_shapes(
-        "map_fold", shapes["map_fold"], fold,
-        lambda b, k, s: check_map_fold(device, b, k, s))
+    from fluidframework_tpu_torch.ops import map_fold_cuda as mfc
+    from fluidframework_tpu_torch.ops import map_kernel as mk
+    # The fold on every call the map path made, both variants held to the
+    # plain version and timed on the same calls.
+    fold_main = recheck_recorded(
+        "map_fold", shapes["map_fold"], path["fold_inputs"],
+        mfc.fold_words, mk.fold_words_plain, fold_bound,
+        ops_of=lambda args: windowed_ops(*args[1:4]),
+        other=lambda *args: mfc.fold_words(*args, variant="block"),
+        other_name="block")
     from fluidframework_tpu_torch.ops import sequencer as seqk
     from fluidframework_tpu_torch.ops import sequencer_cuda as seqc
     # The deli on every path that launches it, on the inputs that path
@@ -2093,7 +2144,8 @@ def main() -> int:
                                            seqc.smem_limit(device))
         got["ms"] = got[f"ms_{got['variant']}"]
         deli_main[key] = got
-    del path["deli_inputs"], text["deli"], matrix["deli"]
+    del path["deli_inputs"], path["fold_inputs"], text["deli"], \
+        matrix["deli"]
     from fluidframework_tpu_torch.ops import mergetree_blocks as mtb
     from fluidframework_tpu_torch.ops import mergetree_blocks_cuda as mtbc
     from fluidframework_tpu_torch.ops import mergetree_cuda as mtc
@@ -2108,7 +2160,8 @@ def main() -> int:
     flat_main = recheck_recorded(
         "mergetree_flat", text["shapes"]["mergetree_flat"],
         text["inputs"]["mergetree_flat"], mtc.apply_tick_best,
-        mtk.apply_tick, flat_bound)
+        mtk.apply_tick, flat_bound,
+        other=lambda st, op: mtc.apply_tick_best(st, op, "global"))
     del text["inputs"]
     from fluidframework_tpu_torch.ops import matrix_cuda as mxc
     from fluidframework_tpu_torch.ops import matrix_kernel as mxk
@@ -2126,7 +2179,8 @@ def main() -> int:
     steps_main = recheck_recorded(
         "matrix_steps", steps["shapes"], steps["inputs"],
         mxc.apply_tick_steps_best, mxk.apply_tick_steps, steps_bound,
-        ops_of=lambda st: int(st.vec_valid.sum() + st.r_valid.sum()),
+        ops_of=lambda args: int(args[1].vec_valid.sum()
+                                + args[1].r_valid.sum()),
         other=lambda st, b: mxc.apply_tick_steps_best(st, b, "global"))
     steps_split = steps_breakdown(
         steps["inputs"][max(steps["shapes"], key=steps["shapes"].get)])
@@ -2152,11 +2206,17 @@ def main() -> int:
     tick_top = tick_main["matrix_b"]
     kernels = [
         {"name": "map_fold", "route": "cuda",
-         "source": "fluidframework_tpu_torch/csrc/map_fold.cu",
+         "source": "fluidframework_tpu_torch/csrc/map_fold_warp.cu",
+         "block_source": "fluidframework_tpu_torch/csrc/map_fold.cu",
          "replaces": "fluidframework_tpu/ops/map_pallas.py:41",
          "launches": launches["map_fold"],
-         "launches_by_path": by_path["map_fold"], **fold_main,
-         "library_ms": None},
+         "launches_by_path": by_path["map_fold"],
+         "variant_launches": {"map": path["fold_variants"]},
+         **fold_main, "variant": mfc.fold_variant(*fold_main["shape"]),
+         "library_ms": None,
+         "at_full_size": {key: fold[key] for key in
+                          ("shape", "variant", "ms", "ms_warp", "ms_block",
+                           "plain_ms", "bound_ms", "max_abs_err")}},
         {"name": "sequencer_tick", "route": "cuda",
          "source": "fluidframework_tpu_torch/csrc/sequencer_tick_warp.cu",
          "thread_source": "fluidframework_tpu_torch/csrc/sequencer_tick.cu",
@@ -2195,13 +2255,20 @@ def main() -> int:
          "global_by_shape": {key: blocks_large[key] for key in
                              ("shape", "variant", "max_abs_err")}},
         {"name": "mergetree_flat", "route": "cuda",
-         "source": "fluidframework_tpu_torch/csrc/mergetree_flat.cu",
+         "source": "fluidframework_tpu_torch/csrc/mergetree_flat_smem.cu",
+         "global_source": "fluidframework_tpu_torch/csrc/mergetree_flat.cu",
          "replaces": "fluidframework_tpu/ops/mergetree_pallas.py:274",
          "launches": launches["mergetree_flat"],
-         "launches_by_path": by_path["mergetree_flat"], **flat_main,
-         "library_ms": None,
+         "launches_by_path": by_path["mergetree_flat"],
+         "variant_launches": {
+             name: text["launches"][name]["mergetree_flat_variants"]
+             for name in ("a", "b")},
+         **flat_main, "library_ms": None,
          "at_full_size": {key: flat_full[key] for key in
-                          ("shape", "ms", "plain_ms", "bound_ms")}},
+                          ("shape", "variant", "ms", "ms_global", "plain_ms",
+                           "bound_ms")},
+         "global_by_shape": {key: flat_large[key] for key in
+                             ("shape", "variant", "max_abs_err")}},
         {"name": "matrix_tick", "route": "cuda",
          "source": "fluidframework_tpu_torch/csrc/matrix_tick_smem.cu",
          "global_source": "fluidframework_tpu_torch/csrc/matrix_tick.cu",

@@ -23,9 +23,10 @@
 // overlap words), the cell log and the two frames are staged in dynamic
 // shared memory and written back once; a step's planes are prefetched
 // into registers while the step before runs. The walk is the flat merge
-// step of merge_apply.cuh rewritten for shared memory: each thread owns a
-// contiguous run of slots, so a scan is a warp scan and one barrier, and
-// the shift moves whole fields, one warp per field (smem_doc.cuh). The two
+// step of merge_apply.cuh rewritten for shared memory (flat_smem.cuh):
+// each thread owns a contiguous run of slots, so a scan is a warp scan
+// and one barrier, and the shift moves each thread's own slots through
+// registers, only those the op changes. The two
 // axes' frames are built at once, half the warps each, with two barriers.
 // A run's cells are independent until they write (the frame is fixed for
 // the run), so each warp takes whole cells: the row and col handles — a
@@ -292,10 +293,11 @@ matrix_steps_smem_kernel(SmemStepsArgs a) {
       next = fetch(plane, steps + t + 1, R);
     const int target = s[V_TARGET];
     if (s[V_VALID] && (target == MX_ROWS || target == MX_COLS))
-      walk(axis[target],
-           mx::vec_op(s[V_KIND], s[V_POS], s[V_END], s[V_COUNT],
-                      s[V_HANDLE_BASE], s[V_SEQ], s[V_REF_SEQ], s[V_CLIENT]),
-           h, par, vis[0], cum[0]);
+      walk<MXS_THREADS>(
+          axis[target],
+          mx::vec_op(s[V_KIND], s[V_POS], s[V_END], s[V_COUNT],
+                     s[V_HANDLE_BASE], s[V_SEQ], s[V_REF_SEQ], s[V_CLIENT]),
+          h, par, vis[0], cum[0]);
     const int* rv = s + MXS_VEC_FIELDS;
     bool any = false;
     for (int j = 0; j < R; ++j) any = any || rv[R_VALID * R + j];

@@ -1,17 +1,22 @@
 """Hopper map-fold kernel: the windowed SharedMap LWW fold on the card.
 
 Replaces ``fluidframework_tpu/ops/map_pallas.py:_fold_kernel`` (its
-``fold_words`` / ``apply_tick_words_pallas`` wrappers). The kernel is
-CUDA C++ for ``sm_90a`` in ``csrc/map_fold.cu``: one thread block per
-document strides once over the document's op window, takes the last clear
-with a block max-reduce and each slot's last live op with a shared-memory
-``atomicMax``, then writes each slot once. It is bound by the bytes it
-moves (4 bytes per windowed op plus the [B, S] planes in and out).
+``fold_words`` / ``apply_tick_words_pallas`` wrappers). Two CUDA C++
+kernels for ``sm_90a``, bound by the bytes they move (4 bytes per
+windowed op plus the [B, S] planes in and out), each taking a slot's last
+live op after the last in-window clear:
 
-:func:`fold_words` launches the kernel for CUDA tensors and runs the plain
-version (:func:`.map_kernel.fold_words_plain`) only for tensors on the
-CPU. ``launches`` counts kernel launches and ``shapes`` counts them by
-(B, K, S).
+* ``csrc/map_fold_warp.cu`` (variant ``"warp"``): one warp a document,
+  several a block; 16-byte loads of the window, a 64-bit shared-memory
+  ``atomicMax`` of (op index, word) per slot, no block barrier;
+* ``csrc/map_fold.cu`` (variant ``"block"``): one 256-thread block a
+  document, a block max-reduce of the clear and a shared ``atomicMax`` of
+  op indices.
+
+:func:`fold_words` picks the variant by shape (:func:`fold_variant`) and
+runs the plain version (:func:`.map_kernel.fold_words_plain`) only for
+tensors on the CPU. ``launches`` counts kernel launches, ``shapes`` counts
+them by (B, K, S) and ``variants`` by variant.
 """
 
 from __future__ import annotations
@@ -27,21 +32,35 @@ from . import map_kernel as mk
 launches = 0
 #: The same launches by (B, K, S).
 shapes: dict[tuple[int, int, int], int] = {}
+#: The same launches by variant.
+variants: dict[str, int] = {"warp": 0, "block": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+#: Each variant's source; both launchers take the same arguments.
+_SOURCES = {"warp": "map_fold_warp", "block": "map_fold"}
 
 
-def _lib():
-    return _build.bind("map_fold", [_P, _I, _I, _P, _P, _P, _P, _P, _P, _P,
-                                    _P, _P, _P, _P, _I, _P])
+def _lib(variant: str = "warp"):
+    return _build.bind(_SOURCES[variant],
+                       [_P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                        _P, _I, _P])
+
+
+def fold_variant(b: int, k: int, s: int) -> str:
+    """The variant a fold of shape (B, K, S) launches: ``"warp"`` at every
+    shape the kernels take (1 <= S <= 1024)."""
+    return "warp"
 
 
 def fold_words(state: mk.MapState, words: torch.Tensor, lo: torch.Tensor,
-               hi: torch.Tensor, base_seq: torch.Tensor) -> mk.MapState:
+               hi: torch.Tensor, base_seq: torch.Tensor,
+               variant: str | None = None) -> mk.MapState:
     """Windowed LWW fold (see :func:`.map_kernel.fold_words_plain`):
     ``words`` i32[B, K]; ``lo``/``hi``/``base_seq`` i32[B]. Returns a new
-    :class:`MapState`; the inputs are not modified."""
+    :class:`MapState`; the inputs are not modified. ``variant`` ("warp"
+    or "block") overrides the choice by shape (to time one against the
+    other)."""
     global launches
     dev = words.device
     if dev.type == "cpu":
@@ -62,7 +81,11 @@ def fold_words(state: mk.MapState, words: torch.Tensor, lo: torch.Tensor,
     _build.need(state.present, "map fold: present", torch.bool, (b, s), dev)
     _build.need(state.value, "map fold: value", torch.int32, (b, s), dev)
     _build.need(state.vseq, "map fold: vseq", torch.int32, (b, s), dev)
-    fn = _lib()
+    if variant is None:
+        variant = fold_variant(b, k, s)
+    elif variant not in variants:
+        raise _build.KernelInputError(f"map fold: no variant {variant!r}")
+    fn = _lib(variant)
     with torch.cuda.device(dev):
         out = mk.MapState(*(torch.empty_like(f) for f in state))
         rc = fn(words.data_ptr(), b, k, lo.data_ptr(), hi.data_ptr(),
@@ -72,9 +95,10 @@ def fold_words(state: mk.MapState, words: torch.Tensor, lo: torch.Tensor,
                 out.value.data_ptr(), out.vseq.data_ptr(),
                 out.cleared_seq.data_ptr(), s,
                 torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(rc, "map_fold_kernel")
+    _build.check(rc, f"{_SOURCES[variant]}_kernel")
     launches += 1
     shapes[(b, k, s)] = shapes.get((b, k, s), 0) + 1
+    variants[variant] += 1
     return out
 
 

@@ -62,6 +62,7 @@ def test_library_name_tracks_source_flags_and_compiler(monkeypatch):
 
 
 MERGE_KERNELS = [("mergetree_flat", "mergetree_cuda"),
+                 ("mergetree_flat_smem", "mergetree_cuda"),
                  ("mergetree_blocks", "mergetree_blocks_cuda")]
 
 
@@ -139,6 +140,52 @@ def test_library_name_tracks_the_matrix_smem_header(monkeypatch, tmp_path,
     (tmp_path / "matrix_smem.cuh").write_text("// changed\n")
     monkeypatch.setattr(_build, "CSRC", tmp_path)
     assert _build._paths(kernel)[1] != lib
+
+
+@pytest.mark.parametrize("kernel", ["mergetree_flat_smem", "matrix_tick_smem",
+                                    "matrix_steps_smem"])
+def test_library_name_tracks_the_flat_smem_header(monkeypatch, tmp_path,
+                                                  kernel):
+    """A change to csrc/flat_smem.cuh (the shared-memory flat merge step)
+    rebuilds the flat tick's shared-memory variant and both shared-memory
+    matrix kernels, which include it."""
+    monkeypatch.setattr(_build, "nvcc_path", lambda: "/cuda/bin/nvcc")
+    lib = _build._paths(kernel)[1]
+    for f in _build.CSRC.iterdir():
+        (tmp_path / f.name).write_bytes(f.read_bytes())
+    (tmp_path / "flat_smem.cuh").write_text("// changed\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    assert _build._paths(kernel)[1] != lib
+
+
+@pytest.mark.parametrize("variant,source", [("smem", "mergetree_flat_smem"),
+                                            ("global", "mergetree_flat")])
+def test_flat_binding_binds_each_variants_launcher(monkeypatch, variant,
+                                                   source):
+    """Each flat-tick variant binds its own source's launcher, with the
+    binding's layout, and the shared-memory one takes its bytes as a
+    sixth int."""
+    from fluidframework_tpu_torch.ops import mergetree_cuda as mtc
+
+    seen = []
+    monkeypatch.setattr(_build, "bind", lambda name, args, layout: seen.append(
+        (name, len(args), layout)))
+    mtc._lib(variant)
+    assert seen == [(source, 1 + (6 if variant == "smem" else 5) + 1,
+                     mtc.LAYOUT)]
+
+
+@pytest.mark.parametrize("variant,source", [("warp", "map_fold_warp"),
+                                            ("block", "map_fold")])
+def test_fold_binding_binds_each_variants_launcher(monkeypatch, variant,
+                                                   source):
+    from fluidframework_tpu_torch.ops import map_fold_cuda as mfc
+
+    seen = []
+    monkeypatch.setattr(_build, "bind", lambda name, args: seen.append(
+        (name, len(args))))
+    mfc._lib(variant)
+    assert seen == [(source, 16)]
 
 
 class _FakeLauncher:

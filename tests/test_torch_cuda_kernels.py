@@ -74,19 +74,53 @@ def _fold_inputs(rng, b, k, s):
     return state, words, lo, hi, base
 
 
+@pytest.mark.parametrize("variant", [None, "warp", "block"])
 @pytest.mark.parametrize("b,k,s", [(1, 1, 1), (37, 300, 1024),
-                                   (64, 2048, 64), (513, 33, 7)])
-def test_map_fold_kernel_matches_plain(cuda, b, k, s):
+                                   (64, 2048, 64), (513, 33, 7),
+                                   (9, 130, 64), (20, 1023, 1024)])
+def test_map_fold_kernel_matches_plain(cuda, b, k, s, variant):
+    """Kernel 1 == its plain version in both variants (None: the one the
+    shape picks), with windows that start below 0, end past K or are
+    empty, slots past S, K % 4 != 0 and S = 1,024."""
     rng = np.random.default_rng(b * 7 + k + s)
     state, words, lo, hi, base = _fold_inputs(rng, b, k, s)
     args = [torch.from_numpy(a) for a in (words, lo, hi, base)]
     want = mk.fold_words_plain(_on(state, mk.MapState, "cpu"), *args)
-    before = mfc.launches
+    picked = variant or mfc.fold_variant(b, k, s)
+    assert picked == (variant or "warp")
+    before = mfc.launches, mfc.variants[picked]
     got = mfc.fold_words(_on(state, mk.MapState, cuda),
-                         *(a.to(cuda) for a in args))
+                         *(a.to(cuda) for a in args), variant=variant)
     torch.cuda.synchronize()
-    assert mfc.launches == before + 1
-    _assert_equal(got, want, (b, k, s))
+    assert (mfc.launches, mfc.variants[picked]) == (before[0] + 1,
+                                                    before[1] + 1)
+    _assert_equal(got, want, (b, k, s, variant))
+
+
+@pytest.mark.parametrize("variant", ["warp", "block"])
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_map_fold_kernel_on_unaligned_rows_and_all_clear_rows(cuda, offset,
+                                                              variant):
+    """Kernel 1 == its plain version on a ``words`` view that starts 4,
+    8 or 12 bytes past a 16-byte boundary (every row's window then has an
+    unaligned head and tail), with every third row all clears."""
+    b, k, s = 33, 257, 64
+    rng = np.random.default_rng(offset)
+    state, words, lo, hi, base = _fold_inputs(rng, b, k, s)
+    words[::3] = mk.MAP_CLEAR | (5 << 2)
+    flat = torch.zeros(b * k + 8, dtype=torch.int32, device=cuda)
+    view = flat[offset:offset + b * k].view(b, k)
+    view.copy_(torch.from_numpy(words).to(cuda))
+    assert view.is_contiguous() and view.data_ptr() % 16 == 4 * offset
+    args = [torch.from_numpy(a) for a in (lo, hi, base)]
+    want = mk.fold_words_plain(_on(state, mk.MapState, "cpu"),
+                               torch.from_numpy(words), *args)
+    got = mfc.fold_words(_on(state, mk.MapState, cuda), view,
+                         *(a.to(cuda) for a in args), variant=variant)
+    torch.cuda.synchronize()
+    _assert_equal(got, want, (offset, variant))
+    assert bool((want.cleared_seq[::3]
+                 != torch.from_numpy(state["cleared_seq"][::3])).any())
 
 
 def _deli_inputs(rng, b, k, c):
@@ -250,6 +284,10 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="key slots"):
         mfc.fold_words(mk.init_state(4, 2048, cuda), words.int(), lohi,
                        lohi, lohi)
+    before = mfc.launches
+    with pytest.raises(ValueError, match="no variant"):
+        mfc.fold_words(state, words.int(), lohi, lohi, lohi, "thread")
+    assert mfc.launches == before
     s = seqk.init_state(4, 3, cuda)
     ops = seqk.make_op_batch([[]] * 4, 4, 8, cuda)
     bad = ops._replace(kind=ops.kind.t().contiguous().t())
@@ -375,22 +413,91 @@ def _to(state, device):
     return type(state)(*(t.to(device) for t in state))
 
 
+@pytest.mark.parametrize("variant", [None, "global"])
 @pytest.mark.parametrize("b,s,k,p,w,ticks", [
     (1, 8, 1, 1, 1, 1), (5, 64, 16, 2, 1, 3), (33, 512, 32, 4, 4, 2),
-    (7, 300, 40, 3, 2, 3)])
-def test_flat_kernel_matches_plain(cuda, b, s, k, p, w, ticks):
+    (7, 300, 40, 3, 2, 3), (2, 1000, 24, 4, 4, 2), (1, 1500, 16, 2, 2, 2),
+    (2, 4096, 24, 4, 4, 2)])
+def test_flat_kernel_matches_plain(cuda, b, s, k, p, w, ticks, variant):
     """Kernel 4 == its plain version tick by tick from an empty table
-    (and past capacity, where segments fall off the end)."""
+    (and past capacity, where segments fall off the end), in the variant
+    the shape picks (shared memory, except the 4,096-slot rows, which do
+    not fit) and in the global-memory one; the shared-memory walk's shift
+    runs with one, two, four (S = 1,000) and six (S = 1,500) slots a
+    thread."""
     rng = np.random.default_rng(b * 31 + s + k)
     want = mtk.init_state(b, s, p, w, device="cpu")
     got = _to(want, cuda)
+    picked = variant or mtc.choose_variant(s, p, w, k, mtc.smem_limit(cuda))
+    assert picked == ("global" if s > 2048 else "smem") or variant
     for fields in _merge_ticks(rng, b, k, ticks, 32 * w):
         want = mtk.apply_tick(want, _batch(fields, "cpu"))
-        before = mtc.launches
-        got = mtc.apply_tick_best(got, _batch(fields, cuda))
+        before = mtc.launches, mtc.variants[picked]
+        got = mtc.apply_tick_best(got, _batch(fields, cuda), variant)
         torch.cuda.synchronize()
-        assert mtc.launches == before + 1
-        _assert_equal(got, want, (b, s, k))
+        assert (mtc.launches, mtc.variants[picked]) == (before[0] + 1,
+                                                        before[1] + 1)
+        _assert_equal(got, want, (b, s, k, variant))
+
+
+def _wild_flat(rng, b, s, p, w, k):
+    """(state, ops) of random flat tables: counts from below 0 to past S
+    (the shift's wrapped reads), in every other document lengths near
+    2**30 or negative (prefixes that wrap), removed and overlap-marked
+    slots (sign bits included), clients past the overlap words, annotate
+    keys out of range and positions off both ends."""
+    rem = rng.random((b, s)) < 0.3
+    over = rng.integers(-2**31, 2**31, (b, s, w), dtype=np.int64)
+    wild = (np.arange(b) % 2 == 1)[:, None]
+    planes = {
+        "valid": rng.random((b, s)) < 0.85,
+        "length": np.where(wild & (rng.random((b, s)) < 0.3),
+                           rng.integers(-3, 2**30, (b, s)),
+                           rng.integers(0, 9, (b, s))),
+        "ins_seq": rng.integers(0, 40, (b, s)),
+        "ins_client": rng.integers(0, 8, (b, s)),
+        "rem_seq": np.where(rem, rng.integers(0, 40, (b, s)),
+                            int(mtk.NONE_SEQ)),
+        "rem_client": np.where(rem, rng.integers(0, 8, (b, s)), -1),
+        "rem_overlap": np.where(rng.random((b, s, w)) < 0.2, over, 0),
+        "pool_start": rng.integers(0, 1000, (b, s)),
+        "prop_val": rng.integers(0, 5, (b, s, p)),
+        "count": rng.integers(-2, s + 4, b)}
+    state = mtk.MergeState(**{
+        f: torch.from_numpy(np.ascontiguousarray(
+            v if f == "valid" else v.astype(np.int32)))
+        for f, v in planes.items()})
+    pos = rng.integers(-2, 8 * s, (b, k))
+    ops = {"valid": rng.random((b, k)) < 0.9,
+           "kind": rng.integers(0, 3, (b, k)), "pos": pos,
+           "end": pos + rng.integers(0, 12, (b, k)),
+           "seq": 41 + np.arange(k)[None].repeat(b, 0),
+           "ref_seq": rng.integers(0, 45, (b, k)),
+           "client": rng.integers(0, 32 * w + 4, (b, k)),
+           "pool_start": rng.integers(0, 1000, (b, k)),
+           "text_len": rng.integers(1, 9, (b, k)),
+           "prop_key": rng.integers(-1, p + 1, (b, k)),
+           "prop_val": rng.integers(0, 5, (b, k))}
+    ops = mtk.MergeOpBatch(**{
+        f: torch.from_numpy(np.ascontiguousarray(
+            v if f == "valid" else v.astype(np.int32)))
+        for f, v in ops.items()})
+    return state, ops
+
+
+@pytest.mark.parametrize("variant", ["smem", "global"])
+@pytest.mark.parametrize("b,s,p,w,k", [(16, 40, 2, 2, 30),
+                                      (8, 300, 3, 1, 48),
+                                      (6, 129, 1, 2, 64)])
+def test_flat_kernel_on_wild_tables(cuda, b, s, p, w, k, variant):
+    """Kernel 4 == its plain version, both variants, on random tables
+    filled past capacity or with negative counts, whose prefixes wrap,
+    with removes and annotates by clients at or past 32 * W."""
+    state, ops = _wild_flat(np.random.default_rng(b + s + k), b, s, p, w, k)
+    want = mtk.apply_tick(state, ops)
+    got = mtc.apply_tick_best(_to(state, cuda), _to(ops, cuda), variant)
+    torch.cuda.synchronize()
+    _assert_equal(got, want, (b, s, variant))
 
 
 @pytest.mark.parametrize("variant", [None, "global"])
@@ -510,6 +617,17 @@ def test_merge_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         mtc.apply_tick_best(flat._replace(valid=flat.valid.int()), ops)
     with pytest.raises(ValueError, match="op valid"):
         mtc.apply_tick_best(flat, ops._replace(valid=ops.valid.cpu()))
+    before = mtc.launches
+    with pytest.raises(ValueError, match="no variant"):
+        mtc.apply_tick_best(flat, ops, "warp")
+    # A row past one block's shared memory is refused by the shared-memory
+    # variant, not launched.
+    wide = mtk.init_state(2, 4096, 4, 4, cuda)
+    assert mtc.choose_variant(4096, 4, 4, 4, mtc.smem_limit(cuda)) \
+        == "global"
+    with pytest.raises(ValueError, match="shared memory"):
+        mtc.apply_tick_best(wide, ops, "smem")
+    assert mtc.launches == before
 
 
 def _text_traffic(rng, docs, rounds, writers, head):
@@ -617,7 +735,8 @@ def test_failed_flat_launch_leaves_flush(cuda, monkeypatch):
     from fluidframework_tpu_torch.server import merge_host as mh
 
     monkeypatch.setattr(mh._BlockMergePool, "BK", 16)
-    monkeypatch.setattr(mtc, "_lib", lambda: (lambda *args: 700))
+    monkeypatch.setattr(mtc, "_lib", lambda variant="global": (
+        lambda *args: 700))
     host = mh.KernelMergeHost(flush_threshold=10**9, device=cuda)
     before = mtc.launches
     with pytest.raises(_build.KernelError, match="cudaError 700"):

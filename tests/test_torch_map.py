@@ -126,3 +126,38 @@ def test_map_state_round_trips_through_numpy():
         assert back[f].dtype == v.dtype and np.array_equal(back[f], v)
     state.value[0, 0] = 123  # the port's copy never aliases the caller's
     assert planes["value"][0, 0] != 123
+
+
+@pytest.mark.parametrize("case", ["lo_below_0", "hi_past_k", "all_clear",
+                                  "k_not_multiple_of_4", "s_1024"])
+def test_windowed_fold_matches_pallas_at_the_edges(case):
+    """The windows and shapes both variants of the fold's kernel must
+    take: windows that start below 0 (seq still counts from lo), end past
+    K or are empty, rows of clears only, K % 4 != 0 (the warp variant's
+    unaligned tails) and the most key slots, S = 1,024."""
+    rng = np.random.default_rng(300 + len(case))
+    b = 6
+    k = 37 if case == "k_not_multiple_of_4" else 24
+    s = 1024 if case == "s_1024" else 8
+    words = _rand_words(rng, b, k, s + 2)
+    lo = rng.integers(0, 4, b).astype(np.int32)
+    hi = rng.integers(0, k + 1, b).astype(np.int32)
+    if case == "lo_below_0":
+        lo = rng.integers(-5, 0, b).astype(np.int32)
+    if case == "hi_past_k":
+        hi = rng.integers(k, k + 6, b).astype(np.int32)
+        hi[0] = lo[0]  # and one empty window
+    if case == "all_clear":
+        words[::2] = jmk.MAP_CLEAR | (3 << 2)
+    base = rng.integers(0, 500, b).astype(np.int32)
+    prior = {"present": rng.random((b, s)) < 0.5,
+             "value": rng.integers(0, 1 << 20, (b, s)).astype(np.int32),
+             "vseq": rng.integers(-1, 100, (b, s)).astype(np.int32),
+             "cleared_seq": rng.integers(-1, 50, b).astype(np.int32)}
+    jstate = jmk.MapState(**{f: jnp.asarray(v) for f, v in prior.items()})
+    tstate = convert.map_state_from_numpy(prior, "cpu")
+    pallas = jmp.fold_words(jstate, jnp.asarray(words.view(np.int32)),
+                            jnp.asarray(lo), jnp.asarray(hi),
+                            jnp.asarray(base), interpret=True)
+    got = tmf.fold_words(tstate, _t(words), _t(lo), _t(hi), _t(base))
+    _assert_equal(pallas, got, case)

@@ -171,3 +171,40 @@ def test_merge_engine_matches_jax():
              s.seq, s.client, s.removed_seq, s.removed_client,
              sorted(s.removed_overlap), s.props)
             for s in jax_engine.segments]
+
+
+@pytest.mark.parametrize("case,s,k,clients,pallas", [
+    ("past_capacity", 16, 12, 32, False),
+    ("past_capacity_at_lane_width", 128, 48, 32, True),
+    ("wide_clients", 64, 12, 38, True)])
+def test_apply_tick_matches_jax_at_the_edges(case, s, k, clients, pallas):
+    """Inputs both variants of the flat tick's kernel must take: a table
+    filled past capacity (segments fall off the end and the shift reads
+    wrap), and removes by clients at or past 32 * W (the overlap bit
+    clamps to the last word's top bit). The plain version equals the JAX
+    package's XLA tick tick by tick, and its Pallas kernel (interpret
+    mode) where that kernel's lane padding does not widen the table: the
+    Pallas kernel pads S to 128 lanes, so below that a tick that fills
+    the table keeps, until it ends, the segments the XLA tick drops
+    (ROADMAP Queue C)."""
+    from tests.test_torch_cuda_kernels import _merge_ticks
+
+    b, p, w = 3, 2, 1
+    rng = np.random.default_rng(s + k + clients)
+    js = jmtk.init_state(b, s, p, w)
+    ps = jmtk.init_state(b, s, p, w)
+    ts = mtk.init_state(b, s, p, w, device="cpu")
+    for fields in _merge_ticks(rng, b, k, 3, clients):
+        tb = mtk.MergeOpBatch(**{f: torch.from_numpy(np.ascontiguousarray(
+            fields[f])) for f in mtk.MergeOpBatch._fields})
+        jb = jmtk.MergeOpBatch(**{f: jnp.asarray(fields[f])
+                                  for f in jmtk.MergeOpBatch._fields})
+        js, ts = jmtk.apply_tick(js, jb), mtk.apply_tick(ts, tb)
+        assert_planes_equal(jplanes(js), tplanes(ts), case)
+        if pallas:
+            ps = jmtp.apply_tick_pallas(ps, jb, interpret=True)
+            assert_planes_equal(jplanes(ps), tplanes(ts), (case, "pallas"))
+    if case.startswith("past_capacity"):
+        assert int(ts.count.max()) > s
+    else:
+        assert int(ts.rem_seq.ne(mtk.NONE_SEQ).sum()) > 0

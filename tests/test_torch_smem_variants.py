@@ -1,18 +1,20 @@
-"""The two variants of kernels 2, 3, 5 and 6, without a card.
+"""The two variants of kernels 1-6, without a card.
 
 Which variant a wrapper launches is decided by shape alone: the bytes of
 shared memory one document (the deli: one block of documents) takes
 (``smem_bytes``, ``steps_smem_bytes``, ``tick_smem_bytes``,
 ``warp_smem_bytes``, the same formulas the launchers check) against the
-card's per-block opt-in limit, and for the deli the number of client
-lanes. These tests pin that choice at the shapes the main paths launch
-(text paths A and B, the burst tick, the step layout, matrix paths A and
-B, the deli on the map, text and matrix paths) and past the limit, read
-the new sources' pointer layouts and sizes against the bindings, and hold
-the plain versions, which both variants must equal on the card, to the
-JAX package on the inputs the card tests use for the hard cases: block
-summaries that disagree with their slots, and matrix frames whose prefix
-wraps.
+card's per-block opt-in limit, for the deli the number of client lanes,
+and for the map fold a rule by shape (the warp variant at every shape).
+These tests pin that choice at the shapes the main paths launch (the map
+path, text paths A and B, the burst tick, the flat tick's overflow
+replays, the step layout, matrix paths A and B, the deli on the map, text
+and matrix paths) and past the limit, read the new sources' pointer
+layouts and sizes against the bindings, and hold the plain versions,
+which both variants must equal on the card, to the JAX package on the
+inputs the card tests use for the hard cases: block summaries that
+disagree with their slots, matrix frames whose prefix wraps, and flat
+tables filled past capacity.
 """
 
 from __future__ import annotations
@@ -28,16 +30,22 @@ from fluidframework_tpu.ops import matrix_kernel as jmxk
 from fluidframework_tpu.ops import mergetree_blocks as jmtb
 from fluidframework_tpu.ops import mergetree_kernel as jmtk
 from fluidframework_tpu_torch.ops import _build
+from fluidframework_tpu_torch.ops import map_fold_cuda as mfc
+from fluidframework_tpu_torch.ops import map_kernel as mk
 from fluidframework_tpu_torch.ops import matrix_cuda as mxc
 from fluidframework_tpu_torch.ops import matrix_kernel as mxk
 from fluidframework_tpu_torch.ops import mergetree_blocks as mtb
 from fluidframework_tpu_torch.ops import mergetree_blocks_cuda as mtbc
+from fluidframework_tpu_torch.ops import mergetree_cuda as mtc
+from fluidframework_tpu_torch.ops import mergetree_kernel as mtk
 from fluidframework_tpu_torch.ops import sequencer as seqk
 from fluidframework_tpu_torch.ops import sequencer_cuda as seqc
 from tests.test_torch_cuda_kernels import (
     _deli_every_outcome,
+    _fold_inputs,
     _inexact_blocks,
     _on,
+    _wild_flat,
     _wild_matrix,
     _wild_ops,
 )
@@ -61,6 +69,36 @@ def test_block_tick_variant_by_shape(shape, nbytes, variant):
     assert mtbc.choose_variant(*shape, H100_OPTIN) == variant
     assert mtbc.choose_variant(*shape, nbytes) == "smem"
     assert mtbc.choose_variant(*shape, nbytes - 1) == "global"
+
+
+@pytest.mark.parametrize("shape,nbytes,variant", [
+    # text paths A and B's overflow replays: one document of 256 or 512
+    # slots, K = 32 (the full-size check's rows too), and a 120-op burst
+    ((256, 4, 4, 32), 19_840, "smem"),
+    ((512, 4, 4, 32), 37_248, "smem"),
+    ((512, 4, 4, 120), 41_120, "smem"),
+    # the largest row that fits the card, and one slot more
+    ((3382, 4, 4, 32), 232_408, "smem"),
+    ((3383, 4, 4, 32), 232_476, "global"),
+    # the forced-global check's rows
+    ((4096, 4, 4, 32), 280_960, "global")])
+def test_flat_tick_variant_by_shape(shape, nbytes, variant):
+    assert mtc.smem_bytes(*shape) == nbytes
+    assert mtc.choose_variant(*shape, H100_OPTIN) == variant
+    assert mtc.choose_variant(*shape, nbytes) == "smem"
+    assert mtc.choose_variant(*shape, nbytes - 1) == "global"
+
+
+@pytest.mark.parametrize("shape", [
+    # the map path: 10,240 docs x K = 1,024 x 64 key slots
+    (10240, 1024, 64),
+    # the fewest and the most key slots, K % 4 != 0, an empty K
+    (1, 1, 1), (37, 300, 1024), (513, 33, 7), (4, 0, 16)])
+def test_fold_variant_by_shape(shape):
+    """The map fold launches its warp variant at every shape: no shape
+    where the block variant won has been measured."""
+    assert mfc.fold_variant(*shape) == "warp"
+    assert set(mfc.variants) == {"warp", "block"}
 
 
 @pytest.mark.parametrize("shape,nbytes,variant", [
@@ -129,6 +167,7 @@ def _layout_and_reads(name: str) -> tuple[tuple, list]:
 
 
 @pytest.mark.parametrize("name,layout", [
+    ("mergetree_flat_smem", mtc.LAYOUT),
     ("mergetree_blocks_smem", mtbc.SMEM_LAYOUT),
     ("matrix_steps_smem", mxc.STEPS_SMEM_LAYOUT),
     ("matrix_tick_smem", mxc.TICK_LAYOUT),
@@ -167,6 +206,58 @@ def test_smem_constants_match_the_sources():
     assert define("sequencer_tick_warp", "DELI_WARPS") == seqc.WARP_DOCS
     assert define("sequencer_tick_warp", "DELI_CLIENT_BYTES") \
         == seqc.WARP_CLIENT_BYTES
+
+
+def test_flat_smem_constants_match_the_sources():
+    """Kernel 4's shared-memory byte formula takes its constants from
+    the kernel, which stages every MergeOpBatch field; it and both
+    shared-memory matrix kernels run the walk of ``flat_smem.cuh``."""
+    def define(name, macro):
+        return int(re.search(rf"#define {macro} (\d+)", _source(name))[1])
+    assert define("mergetree_flat_smem", "MFS_HEADER_INTS") \
+        == mtc.SMEM_HEADER_INTS
+    assert define("mergetree_flat_smem", "MFS_OP_FIELDS") \
+        == mtc.SMEM_OP_FIELDS == len(mtk.MergeOpBatch._fields)
+    for name in ("mergetree_flat_smem", "matrix_smem.cuh"):
+        assert '#include "flat_smem.cuh"' in _source(name)
+    assert "void walk(" in _source("flat_smem.cuh")
+    assert "void walk(" not in _source("matrix_smem.cuh")
+
+
+def test_both_fold_launchers_take_the_same_arguments():
+    """The warp and the block map-fold launchers take the same argument
+    list, which the binding passes to either."""
+    def params(name):
+        src = _source(name)
+        body = re.search(name + r"_launch\((.*?)\)\s*\{", src,
+                         re.S).group(1)
+        return [p.split()[-1].lstrip("*") for p in body.split(",")], \
+            [" ".join(p.split()[:-1]) for p in body.split(",")]
+    assert params("map_fold_warp") == params("map_fold")
+    assert params("map_fold")[0][:3] == ["words", "B", "K"]
+
+
+@pytest.mark.parametrize("variant", [None, "smem", "global"])
+def test_cpu_flat_tick_takes_the_plain_version_and_counts_nothing(variant):
+    state, ops = _wild_flat(np.random.default_rng(5), 3, 24, 2, 2, 12)
+    before = mtc.launches, dict(mtc.shapes), dict(mtc.variants)
+    want = mtk.apply_tick(state, ops)
+    got = mtc.apply_tick_best(state, ops, variant)
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+    assert (mtc.launches, mtc.shapes, mtc.variants) == before
+
+
+@pytest.mark.parametrize("variant", [None, "warp", "block"])
+def test_cpu_fold_takes_the_plain_version_and_counts_nothing(variant):
+    state, words, lo, hi, base = _fold_inputs(np.random.default_rng(6), 9,
+                                              37, 16)
+    st = _on(state, mk.MapState, "cpu")
+    args = [torch.from_numpy(a) for a in (words, lo, hi, base)]
+    before = mfc.launches, dict(mfc.shapes), dict(mfc.variants)
+    want = mk.fold_words_plain(st, *args)
+    got = mfc.fold_words(st, *args, variant=variant)
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+    assert (mfc.launches, mfc.shapes, mfc.variants) == before
 
 
 def test_cpu_tensors_take_the_plain_versions_and_count_nothing():
@@ -254,3 +345,26 @@ def test_plain_step_tick_matches_jax_on_wild_frames(seed):
     got = [np.asarray(x) for x in (*jnew.rows, *jnew.cols, *jnew[2:])]
     for a, b in zip(got, mxk.leaves(new)):
         assert np.array_equal(a, b.numpy())
+
+
+@pytest.mark.parametrize("seed,s,count_hi", [(0, 24, 30), (1, 40, 44),
+                                             (2, 33, 0)])
+def test_plain_flat_tick_matches_jax_on_wild_tables(seed, s, count_hi):
+    """The plain flat tick equals the JAX package's on random tables
+    filled past capacity (counts up to past S: the shift's wrapped reads)
+    or with negative counts, whose prefixes wrap, with removes and
+    annotates by clients at or past 32 * W: the inputs of the card's
+    wild-table test, both variants of kernel 4 held to the same plain
+    version."""
+    state, ops = _wild_flat(np.random.default_rng(30 + seed), 4, s, 2, 2,
+                            16)
+    if count_hi == 0:
+        state = state._replace(count=-state.count.abs() - 1)
+    else:
+        state = state._replace(count=torch.full_like(state.count, count_hi))
+    jnew = jmtk.apply_tick(_jax(state, jmtk.MergeState),
+                           _jax(ops, jmtk.MergeOpBatch))
+    new = mtk.apply_tick(state, ops)
+    for f in mtk.MergeState._fields:
+        assert np.array_equal(np.asarray(getattr(jnew, f)),
+                              getattr(new, f).numpy()), f
