@@ -15,6 +15,15 @@ equality: every plane is integer), then drives the port's main paths:
   words per doc per tick) through ``RouterliciousService`` /
   ``KernelSequencerHost`` / ``KernelMergeHost`` / ``StormController``,
   checked against a plain-version run and a numpy fold;
+* the same frames served crash-safe, as the JAX bench deploys config 3:
+  a group-commit tick WAL and a git snapshot store in the machine's temp
+  dir, no ack before its tick's fsync, a checkpoint after the joins and
+  before tick 4; held to the WAL-less run (WAL records == tick blobs,
+  planes, acks); then a fresh stack on the card recovers it (the tick-4
+  head and the WAL tail replayed through the serving tick), held to the
+  live durable stack, and a client joins 64 docs of both; then one kill
+  (``wal.pre_fsync``) of a chaos-harness serving process on the card,
+  recovered to its twin's digest;
 * SharedString text serving: BASELINE.json config 2 (1 doc, 128 clients
   joined through the service, rounds of concurrent inserts and removes
   through their connections, the merger lambda feeding
@@ -32,8 +41,9 @@ equality: every plane is integer), then drives the port's main paths:
 
 It prints each kernel's launch shapes on the main paths and re-checks
 every kernel == plain at each of them, on the very inputs the paths gave
-them (every call's, kept while the paths ran: the map fold on the map
-path; the deli on the map path, text path A and matrix path A), where
+them (every call's, kept while the paths ran: the map fold on the map,
+durable and recover paths; the deli on those, text path A and matrix
+path A), where
 they are also timed per launch. Every kernel has two variants, picked by
 shape: the map fold's warp variant (one warp a document) at every
 shape; the deli's warp variant wherever a document has 16 client lanes
@@ -53,9 +63,9 @@ result. It imports nothing of JAX and nothing of ``fluidframework_tpu``.
 
     python3 chip_smoke.py --trace
 
-serves the map path's ticks and the text and matrix paths once more
-(matrix path B at two flushes), under ``torch.profiler``, and prints the
-card's busy time and idle share.
+serves the map path's ticks (WAL-less and durable) and the text and
+matrix paths once more (matrix path B at two flushes), under
+``torch.profiler``, and prints the card's busy time and idle share.
 """
 
 from __future__ import annotations
@@ -425,10 +435,18 @@ def make_script(seed: int, docs: int, ticks: int, k: int, frames: int):
 
 
 def serve(device, script, docs, plain: bool = False,
-          ticks_ctx=contextlib.nullcontext) -> dict:
+          ticks_ctx=contextlib.nullcontext, storm_kw=None,
+          threshold: int = 10**9, before_tick=None, on_push=None,
+          on_submit=None) -> dict:
     """Build the port's service stack on ``device`` and serve ``script``;
     ``plain`` swaps in the kernels' plain versions for the whole run, and
-    ``ticks_ctx()`` is entered around the served frames (not the joins)."""
+    ``ticks_ctx()`` is entered around the served frames (not the joins).
+    ``storm_kw`` adds StormController arguments (the durable path's WAL
+    and snapshot store), ``threshold`` is its flush threshold in docs,
+    ``before_tick(storm, tick)`` runs before each tick's first frame (and
+    once with ``TICKS`` before the resend), and ``on_push(rid, ack)``
+    sees every ack as it is pushed, ``on_submit(rid)`` every frame just
+    before it is submitted."""
     import numpy as np
 
     from fluidframework_tpu_torch.ops import map_fold_cuda as mfc
@@ -468,8 +486,9 @@ def serve(device, script, docs, plain: bool = False,
         clock = iter(range(1000, 1 << 30, 3))
         service._clock = lambda: next(clock)
         storm = StormController(service, seq_host, merge_host,
-                                flush_threshold_docs=10**9,
-                                max_key_slots=KEY_SLOTS, pipeline_depth=1)
+                                flush_threshold_docs=threshold,
+                                max_key_slots=KEY_SLOTS, pipeline_depth=1,
+                                **(storm_kw or {}))
         mfc.launches = 0
         seqc.launches = 0
         mfc.shapes.clear()
@@ -486,18 +505,28 @@ def serve(device, script, docs, plain: bool = False,
         t_join = time.perf_counter() - t0
         acks: dict = {}
         submitted = 0
+
+        def push(p, rid):
+            acks.setdefault(rid, []).append(p)
+            if on_push is not None:
+                on_push(rid, p)
         with ticks_ctx():
             t1 = time.perf_counter()
+            at = None
             for tick, rid, entries, payload in script:
-                if tick == TICKS:
+                if tick == TICKS and at != TICKS:
                     storm.flush()  # the ticks settle before the resend
                     t_serve = time.perf_counter() - t1
+                if before_tick is not None and tick != at:
+                    before_tick(storm, tick)
+                at = tick
                 hdr = {"op": "storm", "rid": rid, "docs": [
                     [names[d], ids[d][c], c0, ref, k]
                     for d, c, c0, ref, k in entries]}
-                storm.submit_frame(
-                    lambda p, rid=rid: acks.setdefault(rid, []).append(p),
-                    hdr, memoryview(payload))
+                if on_submit is not None:
+                    on_submit(rid)
+                storm.submit_frame(lambda p, rid=rid: push(p, rid),
+                                   hdr, memoryview(payload))
                 submitted += sum(e[4] for e in entries)
             storm.flush()
         if device.type == "cuda":
@@ -639,6 +668,8 @@ def main_path(device) -> dict:
     out["fold_variants"] = run["fold_variants"]
     out["deli_inputs"] = recorded
     out["fold_inputs"] = folds
+    out["walless"] = run
+    out["script"] = script
     return out
 
 
@@ -653,6 +684,329 @@ def deli_picks(device, shapes: dict, variants: dict, where: str) -> None:
         want[v] = want.get(v, 0) + n
     check(variants == want, f"{where} launched the deli's variants "
           f"{variants}, its shapes pick {want}")
+
+
+# -- phase 4b: the durable path ----------------------------------------------------
+
+#: The durable path checkpoints after the joins (the genesis head) and
+#: before this tick; recover() restores the later head.
+DURABLE_HEAD_TICK = 4
+#: A fresh client joins this many sampled docs of the recovered stack.
+DURABLE_JOIN_DOCS = 64
+
+
+def serve_durable(device, script, root: pathlib.Path, hooks: dict,
+                  ticks_ctx=contextlib.nullcontext) -> dict:
+    """Serve ``script`` as ``serve`` does, crash-safe: a group-commit WAL
+    under ``root/spill``, a git snapshot store under ``root/git``, the
+    flush threshold at one tick's docs (each tick runs as soon as its
+    frames are in, the group commit of tick N overlapping tick N+1), a
+    checkpoint after the joins and one before tick ``DURABLE_HEAD_TICK``.
+    ``hooks`` collects each checkpoint's seconds, the fsyncs, and each
+    frame's submit and ack times and the watermark at its push."""
+    from fluidframework_tpu_torch.server.durable_store import \
+        GitSnapshotStore
+    hooks.update(checkpoint_s=[], fsyncs=0, sent={}, pushed={})
+
+    def before_tick(storm, tick):
+        if tick == 0:
+            # Count every fsync of the tick WAL (the writer thread's).
+            hooks["wal"] = storm._group_wal
+            log = storm._group_wal._log
+            real_sync = log.sync
+
+            def counted():
+                hooks["fsyncs"] += 1
+                real_sync()
+            log.sync = counted
+        if tick in (0, DURABLE_HEAD_TICK):
+            t0 = time.perf_counter()
+            storm.checkpoint()
+            hooks["checkpoint_s"].append(time.perf_counter() - t0)
+
+    def on_push(rid, ack):
+        hooks["pushed"][rid] = (time.perf_counter(),
+                                hooks["wal"].durable_len)
+
+    def on_submit(rid):
+        hooks["sent"][rid] = time.perf_counter()
+    return serve(device, script, DOCS,
+                 storm_kw=dict(spill_dir=str(root / "spill"),
+                               durability="group",
+                               snapshots=GitSnapshotStore(root / "git")),
+                 threshold=DOCS, before_tick=before_tick, on_push=on_push,
+                 on_submit=on_submit, ticks_ctx=ticks_ctx)
+
+
+def tick_of(rid) -> int:
+    return TICKS if rid == "resend" else rid // FRAMES_PER_TICK
+
+
+def map_planes_by_doc(merge_host, names, device):
+    """The map planes' rows of ``names``, in that order."""
+    import torch
+
+    from fluidframework_tpu_torch.server.merge_host import ChannelKey
+    rows = torch.tensor([merge_host._map_rows[ChannelKey(
+        n, "default", "root")].row for n in names], device=device)
+    return [plane.index_select(0, rows) for plane in merge_host._xstate]
+
+
+def read_blobs_once(storm) -> None:
+    """Serve each tick blob's read once for the rest of ``storm``'s life:
+    the checks' ``records_overlapping`` parses a whole blob a doc and a
+    tick (as the reference does), 42 MB at this width."""
+    import functools
+    storm._read_blob = functools.lru_cache(maxsize=None)(storm._read_blob)
+
+
+def record_key(messages) -> list:
+    return [(m.sequence_number, m.client_sequence_number, m.client_id,
+             m.reference_sequence_number, m.minimum_sequence_number,
+             json.dumps(m.contents, sort_keys=True)) for m in messages]
+
+
+def durable_path(device, walless: dict, script) -> dict:
+    """BASELINE config 3 served crash-safe (group-commit WAL, acks after
+    fsync, checkpoints), held to the WAL-less run of ``main_path`` in this
+    call; then a fresh stack on the card recovers it (the tick-4 head,
+    the WAL tail replayed through the serving tick) and is held to the
+    live durable stack; then a fresh client joins 64 sampled docs of both
+    stacks through the deli."""
+    import itertools
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from fluidframework_tpu_torch.native import _NativeOpLog
+    from fluidframework_tpu_torch.ops import map_fold_cuda as mfc
+    from fluidframework_tpu_torch.ops import sequencer_cuda as seqc
+    from fluidframework_tpu_torch.server.bus import StateStore
+    from fluidframework_tpu_torch.server.durable_store import \
+        GitSnapshotStore
+    from fluidframework_tpu_torch.server.kernel_host import \
+        KernelSequencerHost
+    from fluidframework_tpu_torch.server.merge_host import KernelMergeHost
+    from fluidframework_tpu_torch.server.routerlicious import \
+        RouterliciousService
+    from fluidframework_tpu_torch.server.storm import (
+        StormController, choose_pipeline_depth, materialize_storm_records)
+    root = pathlib.Path(tempfile.mkdtemp(prefix="ff-durable-"))
+    try:
+        hooks: dict = {}
+        deli_in: dict = {}
+        fold_in: dict = {}
+        with recording(seqc, "process_batch_best", deli_in), \
+                recording(mfc, "fold_words", fold_in):
+            run = serve_durable(device, script, root, hooks)
+        storm, wal = run["storm"], run["storm"]._group_wal
+        base = walless["storm"]
+        for name, n in run["launches"].items():
+            check(n > 0, f"kernel {name} was not launched on the durable "
+                  "path")
+        deli_picks(device, run["shapes"]["sequencer_tick"],
+                   run["deli_variants"], "the durable path")
+        n_wal = len(wal)
+        check(n_wal == TICKS + 1 and wal.durable_len == n_wal,
+              f"the WAL holds {n_wal} records ({wal.durable_len} durable), "
+              f"want {TICKS + 1}")
+        for i in range(n_wal):
+            check(bytes(wal.read(i)) == base._tick_blobs[i],
+                  f"WAL record {i} != the WAL-less run's tick blob {i}")
+        for a, b, what in ((run["seq_host"]._state,
+                            walless["seq_host"]._state, "sequencer"),
+                           (run["merge_host"]._xstate,
+                            walless["merge_host"]._xstate, "map")):
+            for f, x, y in zip(a._fields, a, b):
+                check(torch.equal(x, y), f"{what} plane {f}: durable run "
+                      "!= WAL-less run")
+        ra, rb = ack_rows(run["acks"]), ack_rows(walless["acks"])
+        check(ra.keys() == rb.keys() and all(
+            len(ra[r]) == 1 and len(rb[r]) == 1
+            and np.array_equal(ra[r][0], rb[r][0]) for r in ra),
+            "acks: durable run != WAL-less run")
+        for rid, (p,) in run["acks"].items():
+            tick = tick_of(rid)
+            check("error" not in p and p["dw"] > tick,
+                  f"frame {rid} of tick {tick} acked with dw {p.get('dw')}")
+            check(hooks["pushed"][rid][1] > tick,
+                  f"frame {rid} of tick {tick} was acked before its fsync "
+                  f"(durable watermark {hooks['pushed'][rid][1]} at push)")
+        check(storm.stats == base.stats, "durable stats != WAL-less stats")
+        oplog = "native" if isinstance(wal._log, _NativeOpLog) \
+            else "python"
+        led = storm.ledger.records()[:TICKS]
+
+        def p50(stage):
+            xs = sorted(r[stage] for r in led)
+            return xs[len(xs) // 2] / 1e6
+        lat = sorted(1e3 * (hooks["pushed"][rid][0] - hooks["sent"][rid])
+                     for rid in hooks["pushed"])
+        att = storm.ledger.attribution()
+        commit = att.get("wal_commit_wait", {}).get("total_ms", 0.0)
+        dispatch = att.get("device_dispatch", {}).get("total_ms", 0.0)
+        serve_s = run["t_serve"] - sum(hooks["checkpoint_s"])
+        names = run["names"]
+        sample = np.linspace(0, DOCS - 1, 64).astype(int).tolist()
+        t_checks = time.perf_counter()
+        read_blobs_once(storm)
+        live = {
+            "cps": run["seq_host"].checkpoint_all(),
+            "maps": map_planes_by_doc(run["merge_host"], names, device),
+            "counter": run["service"].store.get("client_counter"),
+            "recs": {names[d]: storm.records_overlapping(names[d], 0)
+                     for d in sample}}
+        # One materialization over every sampled doc's records: each
+        # tick's blob is read once.
+        live["msgs"] = record_key(materialize_storm_records(
+            [r for recs in live["recs"].values() for r in recs],
+            "default", "root", storm.read_tick_words))
+        phase_s = {"serve_checks": time.perf_counter() - t_checks}
+        wal_bytes = (root / "spill" / "storm_tick_words.log").stat().st_size
+        wal.close()
+
+        # Recover on a fresh stack on the card. The service resumes the
+        # client counter the live one reached (what its durable state
+        # store would carry across a restart), so new clients get new ids.
+        store = StateStore()
+        store.put("client_counter", live["counter"])
+        seq2 = KernelSequencerHost(num_slots=CLIENTS, initial_capacity=DOCS,
+                                   device=device)
+        merge2 = KernelMergeHost(flush_threshold=10**9, row_capacity=DOCS,
+                                 device=device)
+        svc2 = RouterliciousService(merge_host=merge2,
+                                    batched_deli_host=seq2, auto_pump=False,
+                                    store=store)
+        storm2 = StormController(
+            svc2, seq2, merge2, flush_threshold_docs=DOCS,
+            max_key_slots=KEY_SLOTS, pipeline_depth=1,
+            spill_dir=str(root / "spill"), durability="group",
+            snapshots=GitSnapshotStore(root / "git"))
+        deli_rec: dict = {}
+        fold_rec: dict = {}
+        mfc.launches = seqc.launches = 0
+        mfc.shapes.clear()
+        seqc.shapes.clear()
+        with recording(seqc, "process_batch_best", deli_rec), \
+                recording(mfc, "fold_words", fold_rec):
+            t0 = time.perf_counter()
+            info = storm2.recover()
+            torch.cuda.synchronize()
+            recover_s = time.perf_counter() - t0
+            joined = [names[d] for d in sample[:DURABLE_JOIN_DOCS]]
+            clock = itertools.count(1 << 24, 3)
+            svc2._clock = lambda: next(clock)
+            for n in joined:
+                svc2.connect(n, lambda m: None)
+            svc2.pump()
+            torch.cuda.synchronize()
+        rec_launches = {"map_fold": mfc.launches,
+                        "sequencer_tick": seqc.launches}
+        rec_shapes = {"map_fold": dict(mfc.shapes),
+                      "sequencer_tick": dict(seqc.shapes)}
+        check(info["restored_from"] is not None
+              and info["replayed_ticks"] == n_wal - DURABLE_HEAD_TICK,
+              f"recover() {info}: want the tick-{DURABLE_HEAD_TICK} head and "
+              f"{n_wal - DURABLE_HEAD_TICK} replayed ticks")
+        for name, n in rec_launches.items():
+            check(n > 0, f"kernel {name} was not launched on the recover "
+                  "path")
+        t_checks = time.perf_counter()
+        read_blobs_once(storm2)
+        # The recovered planes, per doc (a recovered host lays its rows
+        # out in the snapshot's doc order, the live one in join order).
+        for f, x, y in zip(merge2._xstate._fields, live["maps"],
+                           map_planes_by_doc(merge2, names, device)):
+            check(torch.equal(x, y), f"recovered map plane {f} != live")
+        got = {n: storm2.records_overlapping(n, 0) for n in live["recs"]}
+        for n, recs in live["recs"].items():
+            check(got[n] == recs, f"recovered records of {n} != live")
+            check(merge2.map_entries(n, "default", "root")
+                  == run["merge_host"].map_entries(n, "default", "root"),
+                  f"recovered map_entries({n}) != live")
+        check(record_key(materialize_storm_records(
+            [r for recs in got.values() for r in recs], "default", "root",
+            storm2.read_tick_words)) == live["msgs"],
+            "recovered messages of the sampled docs != live")
+        cps = seq2.checkpoint_all()
+        check({n: cp for n, cp in cps.items() if n not in joined}
+              == {n: cp for n, cp in live["cps"].items()
+                  if n not in joined},
+              "recovered sequencer checkpoints != live")
+        # The same clients join the live durable stack's docs: the deli
+        # on its rows and on the recovered rows must agree.
+        clock_live = itertools.count(1 << 24, 3)
+        run["service"]._clock = lambda: next(clock_live)
+        for n in joined:
+            run["service"].connect(n, lambda m: None)
+        run["service"].pump()
+        live_cps = run["seq_host"].checkpoint_all()
+        check(all(cps[n] == live_cps[n] for n in joined)
+              and all(len(cps[n].clients) == CLIENTS + 1 for n in joined),
+              "sequencer rows after a join: recovered != live")
+        phase_s["recover_checks"] = time.perf_counter() - t_checks
+        storm2._group_wal.close()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out = {"ticks": TICKS, "docs": DOCS, "k": K_MAP, "depth": 1,
+           "serve_s": serve_s, "ticks_per_s": TICKS / serve_s,
+           "merged_ops_per_s": TICKS * DOCS * K_MAP / serve_s,
+           "wal_commit_wait_ms": p50("wal_commit_wait"),
+           "device_dispatch_ms": p50("device_dispatch"),
+           "wal_append_ms": p50("wal_append"),
+           "scatter_ms": p50("scatter"), "readback_ms": p50("readback"),
+           "harvest_ms": p50("ack_pack") + p50("fanout_publish")
+           + p50("wal_append"),
+           "ack_latency_ms": {"p50": lat[len(lat) // 2],
+                              "p99": lat[min(len(lat) - 1,
+                                             int(0.99 * len(lat)))]},
+           "wal_bytes": wal_bytes, "fsyncs": hooks["fsyncs"],
+           "checkpoint_s": hooks["checkpoint_s"], "recover_s": recover_s,
+           "replayed_ticks": info["replayed_ticks"], "oplog": oplog,
+           "auto_depth": choose_pipeline_depth(att, 1),
+           "commit_over_dispatch": commit / dispatch if dispatch else None,
+           "check_s": phase_s,
+           "launches": run["launches"], "recover_launches": rec_launches}
+    print("durable_path: " + json.dumps(out), flush=True)
+    out.update(shapes=run["shapes"], deli_variants=run["deli_variants"],
+               fold_variants=run["fold_variants"], deli_inputs=deli_in,
+               fold_inputs=fold_in, recover_shapes=rec_shapes,
+               recover_deli_inputs=deli_rec, recover_fold_inputs=fold_rec)
+    return out
+
+
+def chaos_smoke(device) -> dict:
+    """One kill on the card: the chaos harness's twin and killed lives
+    serve on ``device``; the killed run must recover to the twin's
+    digest with no acked op lost."""
+    import shutil
+    import tempfile
+
+    from fluidframework_tpu_torch.tools import chaos
+    tmp = tempfile.mkdtemp(prefix="ff-chaos-")
+    try:
+        t0 = time.perf_counter()
+        try:
+            report = chaos.run_chaos(tmp, "wal.pre_fsync", kill_hits=2,
+                                     device=device.type, seed=0, docs=64,
+                                     k=256, ticks=5, cp_every=2,
+                                     timeout=300)
+        except AssertionError as err:
+            fail(f"chaos run on the card: {str(err)[:2000]}")
+        seconds = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(report["killed"] and report["lives"] >= 2,
+          f"the chaos run did not kill and recover: {report['lives']} "
+          "lives")
+    out = {key: report[key] for key in (
+        "kill_point", "kill_hits", "killed", "lives", "acked_rounds",
+        "docs", "k", "ticks", "device")}
+    out["seconds"] = seconds
+    print("chaos_smoke: " + json.dumps(out), flush=True)
+    return out
 
 
 # -- the text kernels against their plain versions -----------------------------
@@ -1984,6 +2338,33 @@ def trace_main_path(device) -> dict:
     return out
 
 
+def trace_durable_path(device) -> dict:
+    """The durable path's serve again under ``torch.profiler`` (its own
+    temp dir, deleted after): device busy ms against the host's wall ms
+    over the served ticks, the checkpoints included."""
+    import shutil
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    script = make_script(7, DOCS, TICKS, K_MAP, FRAMES_PER_TICK)
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    root = pathlib.Path(tempfile.mkdtemp(prefix="ff-durable-trace-"))
+    try:
+        run = serve_durable(device, script, root, {},
+                            ticks_ctx=lambda: prof)
+        run["storm"]._group_wal.close()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    busy_ms, top = device_busy(prof)
+    serve_ms = run["t_serve"] * 1e3
+    out = {"serve_ms": serve_ms, "device_busy_ms": busy_ms,
+           "idle_share": 1 - busy_ms / serve_ms if busy_ms else None,
+           "top_device_ms": top}
+    print("trace_durable: " + json.dumps(out), flush=True)
+    return out
+
+
 def trace_text_paths(device) -> dict:
     """Both text paths again, each whole under ``torch.profiler``: device
     busy ms against the host's wall ms over the path (an upper bound on
@@ -2106,6 +2487,8 @@ def main() -> int:
     check(steps_large["variant"] == "global",
           "S = 4,096 did not run the step tick's global variant")
     path = main_path(device)
+    durable = durable_path(device, path.pop("walless"), path.pop("script"))
+    chaos_smoke(device)
     text = text_main_path(device)
     matrix = matrix_main_path(device)
     steps = matrix_steps_path(device)
@@ -2125,7 +2508,23 @@ def main() -> int:
     # The deli on every path that launches it, on the inputs that path
     # gave it: both variants held to the plain version and timed on the
     # same calls.
-    deli_paths = {"map": (shapes["sequencer_tick"], path["deli_inputs"])}
+    fold_by_path = {
+        key: recheck_recorded(
+            f"map_fold ({key})", by, kept, mfc.fold_words,
+            mk.fold_words_plain, fold_bound,
+            ops_of=lambda args: windowed_ops(*args[1:4]),
+            other=lambda *args: mfc.fold_words(*args, variant="block"),
+            other_name="block")
+        for key, by, kept in (
+            ("durable", durable["shapes"]["map_fold"],
+             durable["fold_inputs"]),
+            ("recover", durable["recover_shapes"]["map_fold"],
+             durable["recover_fold_inputs"]))}
+    deli_paths = {"map": (shapes["sequencer_tick"], path["deli_inputs"]),
+                  "durable": (durable["shapes"]["sequencer_tick"],
+                              durable["deli_inputs"]),
+                  "recover": (durable["recover_shapes"]["sequencer_tick"],
+                              durable["recover_deli_inputs"])}
     for key, src in (("text_a", text["deli"]["a"]),
                      ("matrix_a", matrix["deli"]["a"])):
         deli_paths[key] = (src["shapes"], src["inputs"])
@@ -2146,6 +2545,9 @@ def main() -> int:
         deli_main[key] = got
     del path["deli_inputs"], path["fold_inputs"], text["deli"], \
         matrix["deli"]
+    for key in ("deli_inputs", "fold_inputs", "recover_deli_inputs",
+                "recover_fold_inputs"):
+        del durable[key]
     from fluidframework_tpu_torch.ops import mergetree_blocks as mtb
     from fluidframework_tpu_torch.ops import mergetree_blocks_cuda as mtbc
     from fluidframework_tpu_torch.ops import mergetree_cuda as mtc
@@ -2187,12 +2589,15 @@ def main() -> int:
     del steps["inputs"]
     if "--trace" in sys.argv[1:]:
         trace_main_path(device)
+        trace_durable_path(device)
         trace_text_paths(device)
         trace_matrix_paths(device)
     # Each path's own launches, counted from 0 just before it and read
     # just after; a kernel's "launches" is their sum.
     by_path = {
         name: {"map": path["launches"].get(name, 0),
+               "durable": durable["launches"].get(name, 0),
+               "recover": durable["recover_launches"].get(name, 0),
                "text_a": text["launches"]["a"].get(name, 0),
                "text_b": text["launches"]["b"].get(name, 0),
                "matrix_a": matrix["launches"]["a"].get(name, 0),
@@ -2211,8 +2616,15 @@ def main() -> int:
          "replaces": "fluidframework_tpu/ops/map_pallas.py:41",
          "launches": launches["map_fold"],
          "launches_by_path": by_path["map_fold"],
-         "variant_launches": {"map": path["fold_variants"]},
+         "variant_launches": {"map": path["fold_variants"],
+                              "durable": durable["fold_variants"]},
          **fold_main, "variant": mfc.fold_variant(*fold_main["shape"]),
+         "max_abs_err": max([fold_main["max_abs_err"]] + [
+             r["max_abs_err"] for r in fold_by_path.values()]),
+         "by_path": {key: {k: r[k] for k in (
+             "shape", "calls_checked", "max_abs_err", "ms", "ms_block",
+             "plain_ms", "bound_ms", "bound_by")}
+             for key, r in fold_by_path.items()},
          "library_ms": None,
          "at_full_size": {key: fold[key] for key in
                           ("shape", "variant", "ms", "ms_warp", "ms_block",
@@ -2225,6 +2637,7 @@ def main() -> int:
          "launches_by_path": by_path["sequencer_tick"],
          "variant_launches": {
              "map": path["deli_variants"],
+             "durable": durable["deli_variants"],
              **{f"{p}_{n}": text["launches"][n]["sequencer_tick_variants"]
                 for p, n in (("text", "a"), ("text", "b"))},
              **{f"matrix_{n}": matrix["launches"][n][

@@ -15,9 +15,10 @@ flush =
   2. merger    — the CUDA map-fold kernel (ops/map_fold_cuda.py) applies
                  the sequenced ops using the ticket windows without a host
                  round trip,
-  3. scriptorium — one columnar record per (doc, tick), kept in process
-                 memory (per-op messages are materialized lazily on the
-                 read path, see :func:`materialize_storm_records`),
+  3. scriptorium — one columnar record per (doc, tick): the tick WAL
+                 with a spill dir, process memory without one (per-op
+                 messages are materialized lazily on the read path, see
+                 :func:`materialize_storm_records`),
   4. broadcaster — one compact frame per doc into the fan-out hop,
   5. alfred    — per-frame acks pushed back to the submitting session.
 
@@ -25,15 +26,25 @@ Delivery contract: at-least-once with kernel-side dedup — an un-acked
 frame may be resent verbatim; ops whose client_seq the sequencer has
 already seen come back OUT_IGNORED (deli/lambda.ts:257).
 
-Scope of this port: the WAL-less mode (``durability="none"`` with no
-``spill_dir``), pipeline depths 0 and 1, single- and
-multi-tenant composition, and the per-doc quarantine freeze: a doc whose
-device sentinel trips is frozen alone while its batch peers keep
-serving. The disk WAL, snapshot checkpoint/recover, the quarantine's
-read and readmit halves (they need the durable records and a snapshot
-store) and the mega-doc, residency, history, replication and placement
-planes are not ported: the controller raises ``NotImplementedError``
-when asked for them.
+Durability: with a ``spill_dir`` every harvested tick is one CRC-framed
+record of the tick WAL (``storm_tick_words.log``, the same bytes the
+reference writes). ``durability="group"`` hands it to the group-commit
+writer thread and withholds each frame's ack until the fsync watermark
+passes its tick (acks carry it as ``dw``); ``"sync"`` fsyncs inline per
+tick; ``"none"`` appends without fsync. ``checkpoint()`` publishes the
+sequencer rows and merge-host planes to a content-addressed snapshot
+store; ``recover()`` restores the head on a fresh stack and replays the
+WAL tail through the serving tick itself, on the same device and
+kernels. Pipeline depth is any N >= 0, or ``"auto"`` (re-decided from
+the stage ledger's commit-wait against dispatch time).
+
+Scope of this port: the map-only storm tick with its WAL, snapshot and
+recovery, single- and multi-tenant composition, and the per-doc
+quarantine (freeze, read through the durable records, readmit from the
+snapshot). The mega-doc, residency, history, replication and placement
+planes are not ported: they stay ``None``, and a snapshot or WAL record
+that names one of them raises, as the reference does when no manager is
+attached.
 """
 
 from __future__ import annotations
@@ -183,9 +194,36 @@ def _storm_tick(seq_state: seqk.SequencerState, map_state: mk.MapState,
     return seq_state, map_state, n_seq, first, last, msn, bad, kstats
 
 
-#: Format version stamped on every storm tick header ("v") — the
-#: reference's current version, so tick blobs stay byte-identical.
+#: Format version stamped on every storm tick header ("v") and on storm
+#: snapshot records ("format_version") — the reference's current
+#: versions, so tick blobs and snapshots stay byte-identical. Readers
+#: accept 0..CURRENT and refuse anything newer.
 STORM_WAL_VERSION = 3
+STORM_SNAPSHOT_VERSION = 3
+
+
+def choose_pipeline_depth(attribution: dict, current: int = 1) -> int:
+    """Pick the serving pipeline depth from OBSERVED stage attribution:
+    commit-wait under a quarter of the dispatch time -> depth 0 (serial:
+    the fsync is cheap, pipelining pays a staging generation and lagged
+    acks for nothing); at least half -> depth >= 1 (overlap the group
+    commit with the next dispatch); the band between is hysteresis
+    (keep the current depth). Needs >= 8 ticks of ledger window to act;
+    returns ``current`` until then. The thresholds are the reference's;
+    what a device's ratio is comes from its own stage ledger."""
+    win = attribution.get("_window", {})
+    if win.get("ticks", 0) < 8:
+        return current
+    commit = attribution.get("wal_commit_wait", {}).get("total_ms", 0.0)
+    dispatch = attribution.get("device_dispatch", {}).get("total_ms", 0.0)
+    if dispatch <= 0.0:
+        return current
+    ratio = commit / dispatch
+    if ratio < 0.25:
+        return 0
+    if ratio >= 0.5:
+        return max(current, 1)
+    return current
 
 
 class _Readback:
@@ -223,7 +261,14 @@ class StormController:
     Overload behavior: the inbound frame queue is bounded
     (``max_pending_docs``) and an optional admission controller gates the
     tick ingress; refused frames get a busy-nack carrying
-    ``retry_after_s`` instead of queueing without bound."""
+    ``retry_after_s`` instead of queueing without bound. A per-doc poison
+    (device sentinel tripping on a tick output) quarantines ONLY that
+    document: its in-flight ops nack retryable, catch-up reads keep
+    serving from the durable records with :meth:`quarantined_map_entries`
+    as the scalar fold, and :meth:`readmit_doc` rebuilds it from snapshot
+    + WAL replay while every other doc keeps serving. A WAL whose fsync
+    breaker opens degrades the controller to read-only until the
+    half-open probes heal it."""
 
     #: Per-op count sanity bound (one doc's batch within one frame).
     MAX_COUNT = 1 << 16
@@ -233,7 +278,7 @@ class StormController:
                  channel: str = "root",
                  flush_threshold_docs: int = 4096,
                  max_key_slots: int = 64,
-                 pipeline_depth: int = 1,
+                 pipeline_depth: int | str = 1,
                  spill_dir: str | None = None,
                  durability: str | None = None,
                  snapshots=None,
@@ -248,21 +293,6 @@ class StormController:
                  tick_slot_budget: int | None = None,
                  qos_borrow_fraction: float = 0.5,
                  logger=None) -> None:
-        if durability not in ("group", "sync", "none", None):
-            raise ValueError(f"unknown durability mode {durability!r}")
-        if spill_dir is not None or durability in ("group", "sync") \
-                or wal_commit_latency_s:
-            raise NotImplementedError(
-                "the storm WAL (spill_dir / durability='group'|'sync') is "
-                "not ported yet; serve with durability='none' and no "
-                "spill_dir")
-        if snapshots is not None or snapshot_interval_ticks is not None:
-            raise NotImplementedError(
-                "storm checkpoint/recover (snapshots=) is not ported yet")
-        if pipeline_depth not in (0, 1):
-            raise NotImplementedError(
-                f"pipeline_depth {pipeline_depth!r} is not ported yet "
-                "(0 and 1 are)")
         self.service = service
         self.seq_host = seq_host
         self.merge_host = merge_host
@@ -287,13 +317,79 @@ class StormController:
         self._cohort_cache = CountedLRU(
             8, registry=merge_host.metrics, prefix="storm.cohort_cache")
         self._tick_counter = 0  # tick blob index
-        # Tick words blobs (the scriptorium payload), in process memory.
+        # Tick words blobs (the scriptorium payload): with a spill dir they
+        # ride the disk WAL; without one they stay in process memory.
         self._tick_blobs: dict[int, bytes] = {}
         # doc -> [(first_seq, last_seq, tick_id)] for ticks that
         # sequenced ops — the compact in-RAM index over the tick blobs.
         self._doc_ticks: dict[str, list[tuple[int, int, int]]] = {}
-        self.durability = "none"
-        self.snapshots = None
+        # Durability mode of the tick WAL (CRC-framed OpLog either way):
+        #   "group" — group-commit writer thread (durable_store.
+        #             GroupCommitLog): the harvest pays a queue put, fsyncs
+        #             batch on the writer thread, and ACKS ARE WITHHELD
+        #             until the durability watermark passes the tick;
+        #   "sync"  — append + fdatasync inline per tick;
+        #   "none"  — append only, no fsync.
+        # None (default) = "group" with a spill dir, else no WAL. An
+        # explicit "group"/"sync" without a spill dir fails loudly.
+        if durability not in ("group", "sync", "none", None):
+            raise ValueError(f"unknown durability mode {durability!r}")
+        if durability in ("group", "sync") and spill_dir is None:
+            raise ValueError(
+                f"durability={durability!r} needs a spill_dir (the WAL "
+                "lives there); pass durability='none' for WAL-less "
+                "serving")
+        if durability is None:
+            durability = "group" if spill_dir is not None else "none"
+        self.durability = durability
+        self._blob_log = None
+        self._group_wal = None
+        self._spill_path = None
+        # (tick_id, [(frame, ack payload)], harvest_ns, ledger record)
+        # awaiting the durability watermark — drained in tick order on
+        # the serving thread.
+        self._unacked: list[tuple[int, list, int, dict | None]] = []
+        if spill_dir is not None:
+            import pathlib
+
+            from ..native import OpLog
+            from .durable_store import GroupCommitLog
+            root = pathlib.Path(spill_dir)
+            root.mkdir(parents=True, exist_ok=True)
+            path = root / "storm_tick_words.log"
+            self._spill_path = path  # trim_tick_blobs rewrite target
+            if durability == "group":
+                # commit_latency_s models a replicated log's quorum round
+                # trip; 0 = local disk.
+                self._group_wal = GroupCommitLog(
+                    path, commit_latency_s=wal_commit_latency_s)
+                self._blob_log = self._group_wal
+            else:
+                self._blob_log = OpLog(path)
+            # Restart/reuse: the RAM (first, last, tick) index and the
+            # tick counter rebuild from the journaled blobs, so catch-up
+            # reads survive a restart and a reused spill dir cannot alias
+            # fresh tick ids onto stale blobs.
+            for tick_id in range(len(self._blob_log)):
+                header, _off = self._parse_header(
+                    bytes(self._blob_log.read(tick_id)))
+                for entry in header["docs"]:
+                    doc, _c, _c0, _r, _n, ns, fs, ls, _m, _w = entry
+                    if ns > 0:
+                        self._doc_ticks.setdefault(doc, []).append(
+                            (fs, ls, tick_id))
+            self._tick_counter = len(self._blob_log)
+        # Snapshot backend (GitSnapshotStore surface). With an interval,
+        # flush() checkpoints every N ticks; recover() restores the head
+        # and replays the WAL tail.
+        self.snapshots = snapshots
+        self.snapshot_interval_ticks = snapshot_interval_ticks
+        self._last_checkpoint_tick = self._tick_counter
+        self._in_checkpoint = False
+        # WAL-replay mode (recover(), readmit_doc()): THE serving tick,
+        # with timestamps pinned to the recorded ones and no re-persist.
+        self._replay = False
+        self._replay_ts: int | None = None
         self._trim_gate = _TrimGate()
         self.admission = admission
         self.max_pending_docs = max_pending_docs
@@ -344,9 +440,20 @@ class StormController:
         self._traced_pending = 0
         self._staged_ns = {"ingress_decode": 0, "admission": 0}
         # Depth-N pipeline: up to N ticks stay in flight; each round
-        # HARVESTS the due tick BEFORE staging the next one. Depth 0 is
-        # the serial shape (dispatch → readback → ack per round).
-        self.pipeline_depth = pipeline_depth
+        # HARVESTS the due tick BEFORE staging the next one, so tick N's
+        # WAL append (and its group fsync, on the writer thread) runs
+        # concurrent with tick N+1's scatter and dispatch. Acks stay
+        # withheld on the durable watermark; they lag dispatch by at most
+        # ``depth`` ticks. Depth 0 is the serial shape (dispatch →
+        # readback → append → fsync barrier → ack per round).
+        # "auto" starts overlapped and re-decides every
+        # ``depth_adapt_every`` ticks from the ledger's observed
+        # wal_commit_wait against device_dispatch (choose_pipeline_depth).
+        self._auto_depth = pipeline_depth == "auto"
+        self._depth_adapted_at = 0
+        self.depth_adapt_every = 64  # ticks between adaptation checks
+        self.pipeline_depth = 1 if self._auto_depth \
+            else max(0, pipeline_depth)
         self._inflight: list[dict] = []
         self._last_harvest: float | None = None
         self._last_harvest_done_ns: int | None = None
@@ -408,34 +515,41 @@ class StormController:
             raise ValueError(
                 f"storm key slot {max_slot} >= max_key_slots "
                 f"{self.max_key_slots}")
-        tc = trace_context(header)
+        # Admission gates run AFTER validation and only on live traffic —
+        # replay (recovery / readmit) re-runs already-admitted history.
+        tc = None if self._replay else trace_context(header)
         if not isinstance(tc, (int, str)):
             tc = None  # client-opaque JSON; unhashable shapes are ignored
         trace = None
+        staged = (0, 0)
         t_validated = time.monotonic_ns()
-        retry = self._admit(push, header, docs, offset, tenant_id, client_id)
-        t_admitted = time.monotonic_ns()
-        if retry is not None:
-            return  # shed: its decode/admit ns never reaches a tick
-        staged = (t_validated - ingress_ns, t_admitted - t_validated)
-        self._staged_ns["ingress_decode"] += staged[0]
-        self._staged_ns["admission"] += staged[1]
-        if tc is not None \
-                and self._traced_pending < self.max_traces_per_tick:
-            trace = (tc, self._trace_seq)
-            self._trace_seq += 1
-            self._traced_pending += 1
-            self.tracer.mark(trace, "ingress", ingress_ns)
-            self.tracer.mark(trace, "admit", t_admitted)
+        if not self._replay:
+            retry = self._admit(push, header, docs, offset, tenant_id,
+                                client_id)
+            t_admitted = time.monotonic_ns()
+            if retry is not None:
+                return  # shed: its decode/admit ns never reaches a tick
+            staged = (t_validated - ingress_ns, t_admitted - t_validated)
+            self._staged_ns["ingress_decode"] += staged[0]
+            self._staged_ns["admission"] += staged[1]
+            if tc is not None \
+                    and self._traced_pending < self.max_traces_per_tick:
+                trace = (tc, self._trace_seq)
+                self._trace_seq += 1
+                self._traced_pending += 1
+                self.tracer.mark(trace, "ingress", ingress_ns)
+                self.tracer.mark(trace, "admit", t_admitted)
         self._frames.append(_Frame(push, header.get("rid"), docs, words,
                                    counts, meta, trace, staged, None,
                                    tenant_id, ingress_ns))
         self._pending_docs += len(docs)
         self.stats["submitted_ops"] += offset
-        self.qos.note_submitted(tenant_id, offset)
-        self.qos.note_buffered(tenant_id, len(docs))
-        if tenant_id != "default":
-            self.qos.note_doc_tenants(tenant_id, (d for d, *_ in docs))
+        if not self._replay:
+            self.qos.note_submitted(tenant_id, offset)
+            self.qos.note_buffered(tenant_id, len(docs))
+            if tenant_id != "default":
+                self.qos.note_doc_tenants(tenant_id,
+                                          (d for d, *_ in docs))
         if self._pending_docs >= self.flush_threshold_docs:
             # Threshold-triggered: only run FULL rounds.
             self.flush(force=False)
@@ -443,9 +557,9 @@ class StormController:
     def _admit(self, push, header: dict, docs: list, n_ops: int,
                tenant_id: str, client_id: str | None) -> float | None:
         """Shed checks for one validated frame, in deterministic order:
-        quarantine, bounded queue, token buckets. A refusal pushes ONE
-        busy-nack with ``retry_after_s`` and returns the hint; None
-        admits."""
+        quarantine, degraded (WAL breaker open), bounded queue, token
+        buckets. A refusal pushes ONE busy-nack with ``retry_after_s``
+        and returns the hint; None admits."""
         qdocs = [d for d, *_ in docs if d in self.quarantined]
         if qdocs:
             # The WHOLE frame is refused (acks are positional per frame,
@@ -456,6 +570,16 @@ class StormController:
                               self.busy_retry_s,
                               docs=[d for d, *_ in docs],
                               quarantined=qdocs)
+        if self.wal_degraded:
+            self.stats["degraded_rejects"] += 1
+            if self._group_wal.failed:
+                # TERMINAL writer death (not a disk that may heal):
+                # retrying is pointless; say so.
+                return self._shed(push, header, n_ops, "wal-failed",
+                                  self.busy_retry_s, retryable=False)
+            cooldown = self._group_wal.breaker.cooldown_s
+            return self._shed(push, header, n_ops, "degraded",
+                              max(cooldown, self.busy_retry_s))
         if self.max_pending_docs is not None:
             n = len(docs)
             cap = self.qos.pending_cap(tenant_id, self.max_pending_docs)
@@ -513,25 +637,116 @@ class StormController:
                 break
         if force:
             self._harvest()
-        # RSS hygiene OFF the per-tick path (see _TrimGate).
+            if self._group_wal is not None and self._unacked:
+                from .durable_store import WalDegradedError
+                try:
+                    # Drain barrier: a forced flush settles everything, so
+                    # withheld acks go out now — after their fsync, never
+                    # before (the acked-durable contract).
+                    self._group_wal.sync()
+                except WalDegradedError:
+                    # Fsync breaker open: acks STAY withheld and the
+                    # controller serves read-only until the half-open
+                    # probes heal the WAL and a later flush drains here.
+                    self.merge_host.metrics.counter(
+                        "storm.degraded_flushes").inc()
+                else:
+                    self._drain_durable_acks()
+        if (self.snapshot_interval_ticks is not None
+                and self.snapshots is not None
+                and not self._replay and not self._in_checkpoint
+                and not self.wal_degraded and not self.quarantined
+                and self._tick_counter - self._last_checkpoint_tick
+                >= self.snapshot_interval_ticks):
+            self.checkpoint()
+        # Maintenance cadence OFF the per-tick path: the adaptive depth
+        # re-decides here (never inside a round), then the arena trim.
+        if self._auto_depth and not self._replay and (
+                self.stats["ticks"] - self._depth_adapted_at
+                >= self.depth_adapt_every):
+            self._depth_adapted_at = self.stats["ticks"]
+            self.set_pipeline_depth(choose_pipeline_depth(
+                self.ledger.attribution(), self.pipeline_depth))
         if self._trim_gate.due(self.stats["ticks"]):
             _malloc_trim()
 
+    def set_pipeline_depth(self, depth: int) -> None:
+        """Change the serving pipeline depth between rounds: settle the
+        in-flight ticks first (a shrink must not orphan them), then the
+        staging-generation ring resizes on the next round."""
+        depth = max(0, int(depth))
+        if depth == self.pipeline_depth:
+            return
+        self._harvest()
+        self.pipeline_depth = depth
+        self.merge_host.metrics.gauge("storm.pipeline.depth").set(depth)
+
+    @property
+    def wal_degraded(self) -> bool:
+        """True while the WAL writer's fsync circuit breaker is open: the
+        controller serves reads and withholds acks, and _admit nacks
+        every write with a retryable "degraded" code."""
+        return (self._group_wal is not None
+                and self._group_wal.breaker.is_open)
+
     @property
     def durable_watermark(self) -> int | None:
-        """None: serving without a WAL."""
+        """Ticks proven durable (fsynced): everything below this tick id
+        survives a crash. None = serving without a WAL."""
+        if self._group_wal is not None:
+            return self._group_wal.durable_len
+        if self._blob_log is not None:
+            return len(self._blob_log) if self.durability == "sync" else 0
         return None
 
     @property
     def acked_watermark(self) -> int | None:
-        """The watermark client acks carry (None without a WAL)."""
-        return None
+        """The watermark client acks gate on: local durability (the
+        replication plane that would lower it is not ported)."""
+        return self.durable_watermark
+
+    def _drain_durable_acks(self) -> None:
+        """Push withheld acks whose tick the WAL has fsynced — on the
+        serving thread (harvest / forced flush), never the writer thread,
+        so session pushes stay single-threaded."""
+        dw = self._group_wal.durable_len
+        if self._inflight and self._unacked and self._unacked[0][0] < dw:
+            # Chaos kill class "fsync-complete-before-readback": tick N
+            # is durable and about to ack while a later tick's device
+            # work is still in flight.
+            faults.crashpoint("storm.overlap_fsynced")
+        while self._unacked and self._unacked[0][0] < dw:
+            _tick, acks, t_harvested, led = self._unacked.pop(0)
+            t_drain = time.monotonic_ns()
+            if led is not None:
+                # The tick's commit-wait: harvest done → fsync watermark
+                # passed (the acked-durable latency the ledger attributes).
+                self.ledger.amend(led, "wal_commit_wait",
+                                  t_drain - t_harvested)
+            faults.crashpoint("storm.pre_ack")
+            for frame, payload in acks:
+                payload["dw"] = dw
+                if frame.trace is not None:
+                    self.tracer.mark(frame.trace, "durable", t_drain)
+                    self._stamp_trace_ack(frame, payload)
+                if frame.t0:
+                    self.qos.observe_ack(frame.tenant,
+                                         (t_drain - frame.t0) / 1e9)
+                frame.push(payload)
 
     def _push_synth_acks(self, acks: list, mega_plans: dict) -> None:
         """Deliver acks for a cohort that resolved to zero descs: nothing
         sequenced, so each frame's ack carries the rows its plan
-        synthesized (none without the mega-doc plane)."""
+        synthesized (none without the mega-doc plane). The acked-before-
+        durable discipline still applies: barrier the group commit before
+        pushing; a degraded WAL withholds them like tick acks."""
         from ..protocol.codec import StormAck
+        if self._group_wal is not None and not self._replay:
+            from .durable_store import WalDegradedError
+            try:
+                self._group_wal.sync()
+            except WalDegradedError:
+                return  # not durable: withhold (clients resend)
         dw = self.acked_watermark
         for ack_i, (frame, _i0, _i1) in enumerate(acks):
             if frame.push is None:
@@ -565,6 +780,11 @@ class StormController:
         per doc row per tick). With ``require_full``, a round whose
         DISJOINT doc set falls short of the tick threshold declines
         (returns False)."""
+        if self.wal_degraded and not self._replay:
+            # Breaker open: do NOT advance device state ahead of a WAL
+            # that cannot journal it — frames stay queued (new ones are
+            # already nacked at _admit).
+            return False
         round_start = time.perf_counter()
         queue_depth = self._pending_docs
         frames, self._frames, self._pending_docs = self._frames, [], 0
@@ -579,7 +799,14 @@ class StormController:
 
         # Tick composition is the QoS seam (server/qos.py): one frame per
         # doc per tick (per-doc FIFO — a colliding frame stays buffered).
-        qplan = self.qos.compose(frames, self.tick_slot_budget)
+        if self._replay:
+            # Replay never re-composes: the recorded cohort IS the
+            # composition, and scheduler state comes from the tick
+            # headers.
+            qplan = {"selected": frames, "kept": [], "charge": {},
+                     "slices": {}, "quantum": None}
+        else:
+            qplan = self.qos.compose(frames, self.tick_slot_budget)
         selected: list[_Frame] = qplan["selected"]
         kept: list[_Frame] = qplan["kept"]
         full_bar = self.flush_threshold_docs \
@@ -593,16 +820,21 @@ class StormController:
             self._pending_docs += sum(len(f.docs) for f in frames)
             return False
         self.qos.commit(qplan)
-        faults.crashpoint("storm.qos_mid_compose")
+        if not self._replay:
+            faults.crashpoint("storm.qos_mid_compose")
         self._frames.extend(f._replace(staged_ns=(0, 0))
                             for f in kept)
         self._pending_docs += sum(len(f.docs) for f in kept)
-        self.qos.reset_pending(self._frames)
+        if not self._replay:
+            self.qos.reset_pending(self._frames)
         # HARVEST-FIRST: settle the due tick BEFORE staging this one; this
         # also frees the harvested tick's staging generation for reuse.
         while len(self._inflight) >= max(1, self.pipeline_depth):
             self._harvest_one(self._inflight.pop(0))
-        now = self.service._clock()
+        # WAL replay re-runs the tick with its RECORDED timestamp so the
+        # sequencer planes (client last_update) rebuild identically.
+        now = (self._replay_ts if self._replay_ts is not None
+               else self.service._clock())
         descs: list[tuple[str, str, int, int, int]] = []
         frame_words: list[np.ndarray] = []   # one payload view per frame
         frame_counts: list[np.ndarray] = []
@@ -618,9 +850,14 @@ class StormController:
         if not descs:
             self._push_synth_acks(acks, {})
             return True
-        stage_ns = dict(self._staged_ns)
-        self._staged_ns = {"ingress_decode": 0, "admission": 0}
-        self._traced_pending = 0  # next round gets a fresh cap
+        if self._replay:
+            # Replay rounds record nothing and must not steal ns staged by
+            # live frames (readmit replays interleave with serving).
+            stage_ns = {}
+        else:
+            stage_ns = dict(self._staged_ns)
+            self._staged_ns = {"ingress_decode": 0, "admission": 0}
+            self._traced_pending = 0  # next round gets a fresh cap
         t_scatter0 = time.monotonic_ns()
 
         seq_host, merge_host = self.seq_host, self.merge_host
@@ -720,14 +957,26 @@ class StormController:
         t_dispatched = time.monotonic_ns()
         stage_ns["scatter"] = t_dispatch0 - t_scatter0
         stage_ns["device_dispatch"] = t_dispatched - t_dispatch0
-        for frame, _i0, _i1 in acks:
-            if frame.trace is not None:
-                self.tracer.mark(frame.trace, "dispatch", t_dispatched)
+        if not self._replay:
+            for frame, _i0, _i1 in acks:
+                if frame.trace is not None:
+                    self.tracer.mark(frame.trace, "dispatch", t_dispatched)
         self._inflight.append(rec)
+        if self._group_wal is not None and not self._replay:
+            # Chaos kill class "mid-overlap dispatch": this tick's device
+            # work is enqueued while the previous tick's group commit may
+            # still be in flight on the writer thread.
+            faults.crashpoint("storm.overlap_dispatch")
         if self.pipeline_depth == 0:
-            # Serial: settle this tick NOW — readback and acks — before
-            # anything else may stage.
+            # Serial: settle this tick NOW — readback, WAL append, the
+            # full durability barrier and its acks — before anything else
+            # may stage.
             self._harvest_one(self._inflight.pop(0))
+        elif self._group_wal is not None and self._unacked \
+                and not self._replay:
+            # Opportunistic NON-blocking drain: a tick whose fsync
+            # completed while this round staged and dispatched acks now.
+            self._drain_durable_acks()
         return True
 
     def _staging_gen(self, b_seq: int, b_map: int, k: int) -> dict:
@@ -736,6 +985,11 @@ class StormController:
         are NEVER ones a still-in-flight tick's copies read or write. A
         geometry change reallocates just the generation it lands on."""
         n = self.pipeline_depth + 1
+        if len(self._staging) != n:
+            # A depth change (set_pipeline_depth harvested every tick
+            # first, so no generation is in flight) resizes the ring.
+            self._staging = [None] * n
+            self._staging_idx = 0
         self._staging_idx = (self._staging_idx + 1) % n
         gen = self._staging[self._staging_idx]
         if gen is None or gen["shape"] != (b_seq, b_map, k):
@@ -766,10 +1020,17 @@ class StormController:
         return gen
 
     def idle_drain(self) -> bool:
-        """Bounded, NON-blocking idle-path service: run buffered
-        partial-cohort tails, and harvest an in-flight tick whose device
-        results have already landed. Returns True when anything
+        """Bounded, NON-blocking idle-path service: release acks whose
+        group commit completed, run buffered partial-cohort tails, and
+        harvest an in-flight tick whose device results have already
+        landed. Unlike :meth:`flush` it never blocks on the durability
+        barrier while ticks are in flight. Returns True when anything
         progressed."""
+        moved = False
+        if self._group_wal is not None and self._unacked:
+            before = len(self._unacked)
+            self._drain_durable_acks()
+            moved = len(self._unacked) != before
         if self._frames:
             # A partial tail below the tick threshold: the senders are
             # BLOCKED on these acks — settle fully.
@@ -777,8 +1038,21 @@ class StormController:
             return True
         if self._inflight and self._inflight[0]["out"].ready():
             self._harvest_one(self._inflight.pop(0))
-            return True
-        return False
+            moved = True
+        if not self._inflight and self._unacked \
+                and self._group_wal is not None:
+            # Pipeline EMPTY, only the group commit outstanding: a
+            # lockstep sender is blocked on exactly this fsync — take it
+            # and release the acks now instead of next poll.
+            from .durable_store import WalDegradedError
+            try:
+                self._group_wal.sync()
+            except WalDegradedError:
+                pass  # degraded: acks stay withheld until healed
+            else:
+                self._drain_durable_acks()
+                moved = True
+        return moved
 
     def _harvest(self) -> None:
         while self._inflight:
@@ -789,6 +1063,11 @@ class StormController:
         n_seq, first, last, msn, bad, kstats = rec["out"].wait()
         kstats = kstats.tolist()
         t_readback = time.monotonic_ns()
+        if self._group_wal is not None and not self._replay:
+            # Chaos kill class "readback-before-fsync": this tick's
+            # results are read back but its durable record has not yet
+            # reached the writer thread — nothing of it was ever acked.
+            faults.crashpoint("storm.readback_pre_wal")
         stage_ns = rec.get("stage_ns", {})
         stage_ns["readback"] = t_readback - t_read0
         map_rows = rec["map_rows"]
@@ -805,9 +1084,10 @@ class StormController:
         bad_rows = bad[map_rows]
         any_bad = bool(bad_rows.any())
         bad_l = bad_rows.tolist()
-        for frame, _i0, _i1 in rec["acks"]:
-            if frame.trace is not None:
-                self.tracer.mark(frame.trace, "sequenced", t_readback)
+        if not self._replay:
+            for frame, _i0, _i1 in rec["acks"]:
+                if frame.trace is not None:
+                    self.tracer.mark(frame.trace, "sequenced", t_readback)
         fanout = self.service.fanout
         now = rec["now"]
         mrows = rec["mrows"]
@@ -822,8 +1102,9 @@ class StormController:
         w_offs[1:] = np.cumsum(counts_col[:-1].astype(np.int64) * 4)
         offsets = w_offs.tolist()
         header_docs = []
+        replaying = self._replay
         doc_tick_counts = self.doc_tick_counts
-        pubs: list = [] if fanout is not None else None
+        pubs: list = [] if fanout is not None and not replaying else None
         for i, (doc, client, cseq0, ref, count) in enumerate(rec["descs"]):
             ns, fs, ls, m = ns_l[i], fs_l[i], ls_l[i], m_l[i]
             mrow = mrows[i]
@@ -831,6 +1112,8 @@ class StormController:
                 mrow.last_seq = ls
             header_docs.append([doc, client, cseq0, ref, count,
                                 ns, fs, ls, m, offsets[i]])
+            if replaying:
+                continue  # the index already holds replayed ticks
             if ns > 0:
                 dt = self._doc_ticks.setdefault(doc, [])
                 dt.append((fs, ls, tick_id))
@@ -873,10 +1156,46 @@ class StormController:
             hdr["qos"] = rec["qos_state"]
         header = _json.dumps(hdr, separators=(",", ":")).encode()
         prefix = _struct.pack("<I", len(header)) + header
-        self._tick_blobs[tick_id] = prefix + b"".join(
-            bytes(memoryview(p)) for p in word_parts)
+        if replaying:
+            pass  # the blob IS the replay source; never re-persist it
+        elif self._group_wal is not None:
+            # Group commit: the harvest pays ONE queue put; the join, CRC,
+            # append and fsync run on the writer thread, which holds the
+            # frames' receive-buffer views until the record is written.
+            # The tick's acks wait for the watermark (_drain_durable_acks).
+            idx = self._group_wal.append([prefix, *word_parts])
+            assert idx == tick_id, (idx, tick_id)
+            if self.pipeline_depth == 0:
+                # Serial: the durability barrier is tick time ON this
+                # thread, so it is measured directly as the commit-wait
+                # stage (no amend at drain).
+                from .durable_store import WalDegradedError
+                t_sync0 = time.monotonic_ns()
+                try:
+                    self._group_wal.sync()
+                except WalDegradedError:
+                    # Breaker open: acks stay withheld (not durable);
+                    # _admit is already shedding new writes.
+                    self.merge_host.metrics.counter(
+                        "storm.degraded_flushes").inc()
+                stage_ns["wal_commit_wait"] = (time.monotonic_ns()
+                                               - t_sync0)
+        elif self._blob_log is not None:
+            blob_bytes = prefix + b"".join(
+                bytes(memoryview(p)) for p in word_parts)
+            idx = self._blob_log.append(blob_bytes)
+            assert idx == tick_id, (idx, tick_id)
+            if self.durability == "sync":
+                t_sync0 = time.monotonic_ns()
+                self._blob_log.sync()
+                stage_ns["wal_commit_wait"] = (time.monotonic_ns()
+                                               - t_sync0)
+        else:
+            self._tick_blobs[tick_id] = prefix + b"".join(
+                bytes(memoryview(p)) for p in word_parts)
         t_wal = time.monotonic_ns()
-        stage_ns["wal_append"] = t_wal - t_fanout
+        stage_ns["wal_append"] = (t_wal - t_fanout
+                                  - stage_ns.get("wal_commit_wait", 0))
         # Stats BEFORE acks: once an ack leaves the process, this host's
         # bookkeeping must already reflect the tick.
         self.stats["ticks"] += 1
@@ -893,7 +1212,7 @@ class StormController:
             kstats[KSTAT_REBALANCE_FIRED])
         kmetrics.counter("storm.device.blocks_touched").inc(
             kstats[KSTAT_BLOCKS_TOUCHED])
-        if rec.get("qos_slices"):
+        if not replaying and rec.get("qos_slices"):
             seq_by_t: dict[str, int] = {}
             for frame, i0, i1 in rec["acks"]:
                 seq_by_t[frame.tenant] = seq_by_t.get(frame.tenant, 0) \
@@ -924,27 +1243,240 @@ class StormController:
             acks.append((frame, payload))
         t_harvest_done = time.monotonic_ns()
         stage_ns["ack_pack"] += t_harvest_done - t_ack0
-        start_ns = rec.get("start_ns", t_harvest_done)
-        wall_ns = t_harvest_done - start_ns
-        if self._last_harvest_done_ns is not None:
-            wall_ns = min(wall_ns,
-                          t_harvest_done - self._last_harvest_done_ns)
-        self._last_harvest_done_ns = t_harvest_done
-        self.ledger.record(tick_id, rec.get("queue_depth", 0),
-                           len(rec["descs"]), rec["submitted"],
-                           stage_ns, wall_ns=max(0, wall_ns),
-                           depth=rec.get("depth", self.pipeline_depth))
-        dw = self.durable_watermark
-        t_ack_tx = time.monotonic_ns()
-        for frame, payload in acks:
-            faults.crashpoint("storm.pre_ack")
-            payload["dw"] = dw
-            if frame.trace is not None:
-                self._stamp_trace_ack(frame, payload)
-            if frame.t0:
-                self.qos.observe_ack(frame.tenant,
-                                     (t_ack_tx - frame.t0) / 1e9)
-            frame.push(payload)
+        # The tick's ledger record (replay ticks are reconstruction, not
+        # serving — they don't pollute attribution). Group-mode
+        # commit-wait is unknown until the fsync watermark passes the
+        # tick; the drain backfills it on the record object.
+        led = None
+        if not replaying:
+            start_ns = rec.get("start_ns", t_harvest_done)
+            wall_ns = t_harvest_done - start_ns
+            if self._last_harvest_done_ns is not None:
+                wall_ns = min(wall_ns,
+                              t_harvest_done - self._last_harvest_done_ns)
+            self._last_harvest_done_ns = t_harvest_done
+            led = self.ledger.record(tick_id, rec.get("queue_depth", 0),
+                                     len(rec["descs"]), rec["submitted"],
+                                     stage_ns, wall_ns=max(0, wall_ns),
+                                     depth=rec.get("depth",
+                                                   self.pipeline_depth))
+        if self._group_wal is not None and not replaying:
+            # Withhold until fsynced — then deliver in tick order with the
+            # durability watermark stamped on. The serial shape already
+            # measured its inline barrier (led=None: no amend at drain).
+            self._unacked.append((tick_id, acks, t_harvest_done,
+                                  led if self.pipeline_depth > 0
+                                  else None))
+            self._drain_durable_acks()
+        else:
+            dw = self.durable_watermark
+            t_ack_tx = time.monotonic_ns()
+            for frame, payload in acks:
+                faults.crashpoint("storm.pre_ack")
+                payload["dw"] = dw
+                if frame.trace is not None:
+                    self._stamp_trace_ack(frame, payload)
+                if frame.t0:
+                    self.qos.observe_ack(frame.tenant,
+                                         (t_ack_tx - frame.t0) / 1e9)
+                frame.push(payload)
+
+    # -- snapshot / recovery ---------------------------------------------------
+    #
+    # The crash-consistency pair: checkpoint() writes a device-pool
+    # snapshot (sequencer rows + merge-host planes + the WAL tick
+    # watermark) to the content-addressed snapshot store; recover()
+    # restores the head and replays the WAL tail THROUGH THE SERVING TICK
+    # itself (same kernels, recorded timestamps), so a restarted
+    # controller reconverges byte-identically with an uninterrupted twin.
+    # tools/chaos.py kills the process at every dangerous point and
+    # proves exactly that.
+
+    SNAPSHOT_DOC = "__storm__"
+
+    def checkpoint(self) -> str:
+        """Settle everything (harvest + durability barrier), then publish
+        one snapshot atomically: upload first, flip the head ref last —
+        a crash mid-checkpoint leaves the previous head intact."""
+        assert self.snapshots is not None, "no snapshot store attached"
+        from .durable_store import WalDegradedError
+        if self.wal_degraded:
+            raise WalDegradedError(
+                "checkpoint() while the WAL fsync breaker is open: the "
+                "snapshot watermark cannot barrier on durability")
+        if self.quarantined:
+            # A snapshot now would capture the quarantined docs' POISONED
+            # rows — and readmit_doc rebuilds from the snapshot head.
+            raise RuntimeError(
+                f"checkpoint() with quarantined docs "
+                f"{sorted(self.quarantined)}: readmit them first (a "
+                "snapshot would capture their poisoned rows)")
+        self._in_checkpoint = True
+        try:
+            self.flush()
+            if self.wal_degraded:
+                # The breaker may have opened during the settle flush
+                # (flush swallows the barrier failure to keep serving).
+                raise WalDegradedError(
+                    "WAL fsync breaker opened during the checkpoint "
+                    "flush; snapshot watermark would not be durable")
+            if self.quarantined:
+                raise RuntimeError(
+                    f"sentinel quarantined {sorted(self.quarantined)} "
+                    "during the checkpoint flush; readmit before "
+                    "snapshotting")
+            import dataclasses
+            snap = {
+                "kind": "storm-checkpoint",
+                "format_version": STORM_SNAPSHOT_VERSION,
+                "tick_watermark": self._tick_counter,
+                "sequencer": {
+                    doc: dataclasses.asdict(cp)
+                    for doc, cp in self.seq_host.checkpoint_all().items()},
+                "merge_host": self.merge_host.export_state(),
+            }
+            if not self.qos.is_trivial():
+                # Fair-composition state (deficits + rotation), rolled
+                # forward at recover() by the WAL tail's "qos" headers.
+                snap["qos"] = self.qos.export_state()
+            handle = self.snapshots.upload(self.SNAPSHOT_DOC, snap)
+            faults.crashpoint("snapshot.pre_publish")
+            self.snapshots.set_head(self.SNAPSHOT_DOC, handle)
+            self._last_checkpoint_tick = self._tick_counter
+            return handle
+        finally:
+            self._in_checkpoint = False
+
+    def recover(self) -> dict:
+        """Restore the snapshot head (when one exists) into the sequencer
+        and merge hosts on this controller's device, then replay the WAL
+        ticks past the snapshot's watermark. Call once on a FRESH
+        controller stack, before serving."""
+        assert not self._frames and not self._inflight, (
+            "recover() on a controller already serving")
+        restored_from = None
+        start = 0
+        if self.snapshots is not None:
+            head = self.snapshots.head(self.SNAPSHOT_DOC)
+            snap = self.snapshots.get(self.SNAPSHOT_DOC, head)
+            if snap is not None:
+                version = snap.get("format_version", 0)
+                if not 0 <= version <= STORM_SNAPSHOT_VERSION:
+                    raise ValueError(
+                        f"storm snapshot format v{version} is newer than "
+                        f"this reader (max v{STORM_SNAPSHOT_VERSION})")
+                for plane, what in (("megadoc", "mega-doc combiner"),
+                                    ("history", "history-plane branch")):
+                    if snap.get(plane) is not None:
+                        raise RuntimeError(
+                            f"snapshot holds {what} state, a plane this "
+                            "package does not port")
+                from .sequencer import SequencerCheckpoint
+                for doc, cp in sorted(snap["sequencer"].items()):
+                    self.seq_host.restore(doc, SequencerCheckpoint(**cp))
+                self.merge_host.import_state(snap["merge_host"])
+                if snap.get("qos") is not None:
+                    self.qos.import_state(snap["qos"])
+                start = snap["tick_watermark"]
+                restored_from = head
+            elif self._blob_log is not None and len(self._blob_log) > 0:
+                # Durable ticks but no readable snapshot: serving EMPTY
+                # live state over an acked history would silently diverge
+                # from what clients already saw — fail loudly.
+                raise RuntimeError(
+                    f"recover(): WAL holds {len(self._blob_log)} durable "
+                    "ticks but no snapshot head is readable; refusing to "
+                    "serve empty state over an acked history")
+        # Memory-only serving with snapshots: tick ids continue past the
+        # watermark, so fresh ticks never alias.
+        self._tick_counter = max(self._tick_counter, start)
+        durable = len(self._blob_log) if self._blob_log is not None else 0
+        if self._blob_log is not None and start > durable:
+            # Snapshot watermark ahead of the WAL (an unfsynced tail died
+            # with the host under durability != "group"): the snapshot
+            # holds the full state, but tick ids must stay 1:1 with WAL
+            # record indices, so pad docs-less filler ticks.
+            import json as _json
+            import struct as _struct
+            header = _json.dumps({"ts": 0, "docs": []},
+                                 separators=(",", ":")).encode()
+            filler = _struct.pack("<I", len(header)) + header
+            while len(self._blob_log) < start:
+                self._blob_log.append(filler)
+            if self._group_wal is not None:
+                self._group_wal.sync()
+            durable = len(self._blob_log)
+        replayed = 0
+        if restored_from is not None and start < durable:
+            replayed = self._replay_wal(start, durable)
+        self._last_checkpoint_tick = self._tick_counter
+        return {"restored_from": restored_from, "replayed_ticks": replayed}
+
+    def _replay_wal(self, start: int, end: int) -> int:
+        """Re-run ticks [start, end) from their durable blobs through the
+        serving path: same cohorts, same recorded timestamps, no
+        re-persisting (the blob being replayed IS the durable record)."""
+        self._replay = True
+        try:
+            for tick in range(start, end):
+                blob = self._read_blob(tick)
+                header, off = self._parse_header(blob)
+                if header.get("qos") is not None:
+                    # Roll the scheduler forward to the state this tick
+                    # was composed against.
+                    self.qos.import_state(header["qos"])
+                if header.get("mg") is not None:
+                    raise RuntimeError(
+                        "WAL holds mega-doc control records, a plane this "
+                        "package does not port")
+                hp = header.get("hp")
+                if hp is not None:
+                    # History-plane control record: a trimmed-tick filler
+                    # is stateless; anything else needs the plane.
+                    self._tick_counter = tick + 1
+                    if hp.get("op") == "trimmed" or hp.get("trimmed"):
+                        continue
+                    raise RuntimeError(
+                        "WAL holds history-plane control records, a plane "
+                        "this package does not port")
+                self._tick_counter = tick
+                self._replay_ts = header["ts"]
+                entries = [e[:5] for e in header["docs"]]
+                payload = memoryview(blob)[off:]
+                self._adopt_replay_clients(entries, header)
+                self.submit_frame(None, {"docs": entries, "rid": None},
+                                  payload)
+                self.flush()
+        finally:
+            self._replay = False
+            self._replay_ts = None
+        assert self._tick_counter == end, (self._tick_counter, end)
+        return end - start
+
+    def _adopt_replay_clients(self, entries: list, header: dict) -> None:
+        """A client named by a durable tick header that the restored row
+        does not know joined AFTER the restore source (membership rides
+        the bus tier, never the storm WAL). Replaying its frame against
+        the ghost lane would silently drop ops the live tick acked, so
+        adopt the client at its RECORDED dedup prefix: ``cseq`` just
+        below the first sequenced op and ``cref`` at the entry's ref."""
+        rec_by_doc = {e[0]: e for e in header["docs"]}
+        for doc, client, cseq0, ref, count in entries:
+            row = self.seq_host._rows.get(doc)
+            if row is not None and client in self.seq_host._slots[row]:
+                continue
+            ns = rec_by_doc[doc][5]
+            self.seq_host._row(doc)
+            cp = self.seq_host.checkpoint(doc)
+            cp.clients.append({
+                "client_id": client,
+                "client_seq": cseq0 + (count - ns) - 1,
+                "ref_seq": ref,
+                "last_update": header["ts"],
+                "can_evict": True, "can_summarize": True,
+                "nack": False,
+            })
+            self.seq_host.restore(doc, cp)
 
     # -- per-doc quarantine ----------------------------------------------------
     #
@@ -984,19 +1516,108 @@ class StormController:
         self.qos.reset_pending(self._frames)
 
     def quarantined_map_entries(self, doc_id: str) -> dict:
-        """Serving a frozen doc's map by folding its durable records needs
-        the storm WAL, which is not ported (ROADMAP Queue A 6)."""
-        raise NotImplementedError(
-            "quarantined_map_entries needs the storm WAL's durable records "
-            "(not ported; ROADMAP Queue A 6)")
+        """Scalar-engine serving for a quarantined doc: fold the durable
+        columnar records (poison-free by construction — the ticket plane
+        is exact even when the served planes corrupt) into the converged
+        map. The doc stays readable at scalar cost while frozen."""
+        from ..dds.map_data import MapData
+        records = self.records_overlapping(doc_id, 0)
+        data = MapData()
+        for m in materialize_storm_records(records, self.datastore,
+                                           self.channel,
+                                           blob_reader=self.read_tick_words):
+            data.process(m.contents["contents"]["contents"], False, None)
+        return dict(data.items())
 
     def readmit_doc(self, doc_id: str, verify: bool = True) -> dict:
-        """Rebuilding a frozen doc from the snapshot head and its WAL tail
-        needs the storm WAL and a snapshot store, which are not ported
-        (ROADMAP Queue A 6)."""
-        raise NotImplementedError(
-            "readmit_doc needs the storm WAL and a snapshot store (not "
-            "ported; ROADMAP Queue A 6)")
+        """From-snapshot rebuild of ONE quarantined document: restore its
+        sequencer row and map row from the snapshot head, replay its WAL
+        tail through the serving tick (recorded timestamps, single-doc
+        cohorts), verify against the scalar fold, and lift the freeze.
+        The rest of the batch serves normally throughout."""
+        assert doc_id in self.quarantined, f"{doc_id!r} not quarantined"
+        assert self.snapshots is not None, \
+            "readmit_doc needs a snapshot store"
+        self.flush()  # settle peers; the doc itself has nothing buffered
+        head = self.snapshots.head(self.SNAPSHOT_DOC)
+        snap = self.snapshots.get(self.SNAPSHOT_DOC, head)
+        assert snap is not None, "no readable snapshot head to rebuild from"
+        from .sequencer import SequencerCheckpoint
+        cp = snap["sequencer"].get(doc_id)
+        assert cp is not None, f"snapshot holds no sequencer row for {doc_id}"
+        self.seq_host.restore(doc_id, SequencerCheckpoint(**cp))
+        self._restore_map_row(doc_id, snap["merge_host"])
+        start = snap["tick_watermark"]
+        end = saved_counter = self._tick_counter
+        replayed = 0
+        self._replay = True
+        try:
+            for tick in range(start, end):
+                blob = self._read_blob(tick)
+                header, off = self._parse_header(blob)
+                for entry in header["docs"]:
+                    doc, client, cseq0, ref, count = entry[:5]
+                    if doc != doc_id or count <= 0:
+                        continue
+                    w_off = entry[9]
+                    self._tick_counter = tick
+                    self._replay_ts = header["ts"]
+                    words = memoryview(blob)[off + w_off:
+                                             off + w_off + count * 4]
+                    self.submit_frame(
+                        None, {"docs": [[doc, client, cseq0, ref, count]],
+                               "rid": None}, words)
+                    self.flush()
+                    replayed += 1
+                    break
+        finally:
+            self._replay = False
+            self._replay_ts = None
+            self._tick_counter = saved_counter
+        if verify:
+            rebuilt = self.merge_host.map_entries(doc_id, self.datastore,
+                                                  self.channel)
+            shadow = self.quarantined_map_entries(doc_id)
+            assert rebuilt == shadow, (
+                f"readmit of {doc_id!r} diverged from the durable-record "
+                f"fold: {rebuilt} != {shadow}")
+        info = self.quarantined.pop(doc_id)
+        self.stats["readmitted_docs"] += 1
+        self.merge_host.metrics.counter("storm.readmits").inc()
+        return {"doc": doc_id, "reason": info["reason"],
+                "replayed_ticks": replayed, "snapshot": head}
+
+    def _restore_map_row(self, doc_id: str, host_snap: dict) -> None:
+        """Overwrite the doc's LIVE device map row, in place on its
+        device, with its snapshot row (or init defaults when the snapshot
+        predates the row) — the map half of the per-doc rebuild; peers'
+        rows and the planes' storage are untouched."""
+        live_row = self._storm_map_row(doc_id)
+        from .merge_host import _nd_unpack
+        m = host_snap["map"]
+        snap_row = None
+        for rec in m["rows"]:
+            if list(rec["key"]) == [doc_id, self.datastore, self.channel]:
+                snap_row = rec["row"]
+                break
+        xs = self.merge_host._xstate
+        s_live = xs.present.shape[1]
+        vals = {"present": np.zeros(s_live, np.bool_),
+                "value": np.zeros(s_live, np.int32),
+                "vseq": np.full(s_live, -1, np.int32),
+                "cleared_seq": np.int32(-1)}
+        if snap_row is not None:
+            planes = {f: _nd_unpack(m["planes"][f])
+                      for f in mk.MapState._fields}
+            s_snap = planes["present"].shape[1]
+            assert s_snap <= s_live, (
+                f"snapshot map row wider than live ({s_snap} > {s_live})")
+            for f in ("present", "value", "vseq"):
+                vals[f][:s_snap] = planes[f][snap_row]
+            vals["cleared_seq"] = planes["cleared_seq"][snap_row]
+        for f in mk.MapState._fields:
+            getattr(xs, f)[live_row] = torch.as_tensor(vals[f]).to(
+                self.device)
 
     # -- read path -------------------------------------------------------------
 
@@ -1017,6 +1638,16 @@ class StormController:
         return header, 4 + hlen
 
     def _read_blob(self, tick_id: int) -> bytes:
+        if self._blob_log is not None:
+            if (self._group_wal is not None
+                    and tick_id >= self._group_wal.durable_len):
+                # Catch-up reads ARE durability proof to clients: a record
+                # must never leave this process ahead of its fsync, so
+                # reading an in-flight tick barriers the group commit
+                # first (with the breaker open this raises
+                # WalDegradedError instead of serving unfsynced bytes).
+                self._group_wal.sync()
+            return bytes(self._blob_log.read(tick_id))
         return self._tick_blobs[tick_id]
 
     def read_tick_words(self, tick_id: int) -> bytes:
@@ -1024,6 +1655,42 @@ class StormController:
         blob = self._read_blob(tick_id)
         _header, off = self._parse_header(blob)
         return blob[off:]
+
+    def trim_tick_blobs(self, ticks: set[int]) -> int:
+        """Rewrite superseded tick blobs to tiny filler records: tick ids
+        stay 1:1 with WAL positions — only the bytes shrink. Callers have
+        already proven the ticks are below the checkpoint watermark and
+        referenced by no live catch-up index. The filler parses as a
+        valid docs-less tick header, so a reused spill dir rescans
+        cleanly."""
+        if not ticks:
+            return 0
+        import json as _json
+        import struct as _struct
+        header = _json.dumps(
+            {"v": STORM_WAL_VERSION, "ts": 0, "docs": [],
+             "hp": {"op": "trimmed"}}, separators=(",", ":")).encode()
+        filler = _struct.pack("<I", len(header)) + header
+
+        def transform(idx: int, data: bytes) -> bytes | None:
+            if idx in ticks and len(data) > len(filler):
+                return filler
+            return None
+
+        if self._group_wal is not None:
+            return self._group_wal.rewrite_records(transform)
+        if self._blob_log is not None:
+            from .durable_store import rewrite_oplog_records
+            self._blob_log, changed = rewrite_oplog_records(
+                self._blob_log, self._spill_path, transform)
+            return changed
+        changed = 0
+        for tick in ticks:
+            blob = self._tick_blobs.get(tick)
+            if blob is not None and len(blob) > len(filler):
+                self._tick_blobs[tick] = filler
+                changed += 1
+        return changed
 
     def records_overlapping(self, doc_id: str, from_seq: int,
                             to_seq: int | None = None) -> list[dict]:
@@ -1069,6 +1736,9 @@ class StormController:
                 f"channel {key} already serves dict-path ops; storm and "
                 "dict traffic cannot mix on one channel")
         return mrow
+
+    def _storm_map_row(self, doc_id: str) -> int:
+        return self._storm_mrow(doc_id).row
 
 
 def materialize_storm_records(records: list[dict], datastore: str,
@@ -1132,4 +1802,5 @@ def materialize_storm_records(records: list[dict], datastore: str,
     return out
 
 
-__all__ = ["StormController", "materialize_storm_records"]
+__all__ = ["StormController", "choose_pipeline_depth",
+           "materialize_storm_records"]

@@ -259,3 +259,22 @@ def test_need_refuses_what_a_kernel_does_not_take(case):
         _build.need(bad, "x", torch.int32, want, t.device)
     assert isinstance(err.value, ValueError)
     assert isinstance(err.value, _build.KernelError)
+
+
+def test_oplog_library_builds_from_the_ports_own_source():
+    """The op log's g++ library lands in the port's git-ignored build
+    directory, named by a hash of the port's copy of ``oplog.cpp`` (not
+    the reference package's)."""
+    import hashlib
+
+    from fluidframework_tpu_torch import native
+    from fluidframework_tpu_torch.native import _loader
+
+    src = native._SRC
+    assert src == _build.PKG / "native" / "oplog.cpp"
+    assert _loader._BUILD_DIR == _build.BUILD_DIR / "native"
+    assert native.native_available()
+    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    lib = _loader._BUILD_DIR / f"liboplog.{digest}.so"
+    assert lib.is_file()
+    assert native._configured._name == str(lib)
