@@ -37,13 +37,21 @@ equality: every plane is integer), then drives the port's main paths:
   checked against a scalar PermutationVector + LWW replay and a
   plain-version run; and the matrix step tick at the reference matrix
   benchmark's step layout (16,384 docs, six ticks of 64 ops), checked
-  against the op tick's grids.
+  against the op tick's grids;
+* SharedTree serving: BASELINE.json config 5 (subtree insert/move, 1k
+  docs: 1,024 docs x 4 clients joined through the service, 8 rounds of
+  one concurrent wire edit per client, bursts that exhaust a rank gap
+  and two-set_value edits that leave the device), every doc's tree
+  checked against a ``Transaction`` replay of its sequenced edits; and
+  the tree tick (plain PyTorch: the reference's is XLA, not Pallas) at
+  the reference tree benchmark's shape (8,192 docs x 256 slots, six
+  ticks of K=32), checked against a scalar replay and a CPU run.
 
 It prints each kernel's launch shapes on the main paths and re-checks
 every kernel == plain at each of them, on the very inputs the paths gave
 them (every call's, kept while the paths ran: the map fold on the map,
-durable and recover paths; the deli on those, text path A and matrix
-path A), where
+durable and recover paths; the deli on those, text path A, matrix path
+A and tree path A), where
 they are also timed per launch. Every kernel has two variants, picked by
 shape: the map fold's warp variant (one warp a document) at every
 shape; the deli's warp variant wherever a document has 16 client lanes
@@ -63,9 +71,10 @@ result. It imports nothing of JAX and nothing of ``fluidframework_tpu``.
 
     python3 chip_smoke.py --trace
 
-serves the map path's ticks (WAL-less and durable) and the text and
-matrix paths once more (matrix path B at two flushes), under
-``torch.profiler``, and prints the card's busy time and idle share.
+serves the map path's ticks (WAL-less and durable) and the text,
+matrix and tree paths once more (matrix path B at two flushes, tree path
+A), under ``torch.profiler``, and prints the card's busy time and idle
+share.
 """
 
 from __future__ import annotations
@@ -135,6 +144,35 @@ STEPS_RMAX = 8
 STEPS_S = 256
 STEPS_TICKS = 6
 STEPS_STREAMS = 256
+# BASELINE.json config 5 (SharedTree subtree insert/move, 1k docs batched
+# rebase) through the service: 1,024 docs with config 3's 4 clients
+# joined to each, TREE_ROUNDS rounds of one wire edit per client against
+# the tree as the previous round left it; 16 docs also take a burst of
+# 24 inserts before one anchor (rank exhaustion: the overflow route) and
+# 8 docs a two-set_value edit (an unsupported shape: the scalar route).
+TREE_DOCS = 1024
+TREE_CLIENTS = 4
+TREE_ROUNDS = 8
+TREE_BURST_DOCS = 16
+TREE_BURST = 24
+TREE_BURST_ROUND = 2
+TREE_SHAPE_DOCS = 8
+TREE_SHAPE_ROUND = 5
+TREE_SAMPLE_DOCS = 32
+# The tree tick at bench_tree's shape (bench.py:1070): 8,192 docs x 256
+# slots, K = 32, 6 ticks of one seeded stream tiled over the docs; the
+# same ticks on CPU tensors for TREE_B_CPU_DOCS docs.
+TREE_B_DOCS = 8192
+TREE_B_SLOTS = 256
+TREE_B_K = 32
+TREE_B_TICKS = 6
+TREE_B_CPU_DOCS = 64
+# int32 operations per (op, slot) of the tree tick outside the subtree
+# sweep, counted from ops/tree_kernel.py (sibling set 5, count 1, the
+# four masked reductions 12, target and seed 2, the five plane updates
+# 10); the sweep does 3 per slot a pass.
+TREE_OPS_PER_SLOT = 30
+TREE_SWEEP_OPS_PER_SLOT = 3
 # A deli lane count past one block's shared memory for the warp variant
 # (4 documents x 16 bytes a client > 232,448 bytes on an H100).
 DELI_LARGE_C = 4096
@@ -2305,6 +2343,553 @@ def matrix_main_path(device) -> dict:
             "tick_shapes": tick_shapes, "deli": deli, "paths": out}
 
 
+# -- the tree paths -----------------------------------------------------------
+
+
+def tree_node(nid: str, payload=None, **traits) -> dict:
+    return {"id": nid, "definition": "n", "payload": payload,
+            "traits": {k: list(v) for k, v in traits.items()}}
+
+
+def tree_range(nid: str) -> dict:
+    return {"start": {"referenceSibling": nid, "side": "before"},
+            "end": {"referenceSibling": nid, "side": "after"}}
+
+
+def tree_wire_edit(rng, view, counter, client: str, keep=()) -> dict:
+    """One wire edit in the mix of ``tests/test_tree_host.py``'s
+    ``random_tree_edit`` against ``view``: subtree inserts 45% (30% with
+    1-2 kids; at a trait's end or start, or before or after a sibling),
+    set_value 20%, single-node detach 15%, move (detach + insert) 20%.
+    Nodes in ``keep`` are never detached or moved."""
+    root = "root"
+    attached = [nid for nid in view.nodes
+                if nid == root or view.nodes[nid].parent is not None]
+    non_root = [n for n in attached if n != root]
+    movable = [n for n in non_root if n not in keep]
+    roll = rng.random()
+    if roll < 0.45 or not non_root:
+        nid = f"n{next(counter)}"
+        spec = tree_node(nid, payload=rng.randrange(100))
+        if rng.random() < 0.3:
+            spec["traits"]["kids"] = [tree_node(f"{nid}k{i}")
+                                      for i in range(rng.randrange(1, 3))]
+        anchor = rng.choice(attached)
+        if anchor != root and rng.random() < 0.5:
+            place = {"referenceSibling": anchor,
+                     "side": rng.choice(["before", "after"])}
+        else:
+            place = {"referenceTrait": {"parent": anchor,
+                                        "label": rng.choice(["children",
+                                                             "kids"])},
+                     "side": rng.choice(["start", "end"])}
+        changes = [{"type": "build", "source": [spec],
+                    "destination": f"b-{nid}"},
+                   {"type": "insert", "source": f"b-{nid}",
+                    "destination": place}]
+    elif roll < 0.65 or not movable:
+        changes = [{"type": "set_value", "node": rng.choice(non_root),
+                    "payload": rng.randrange(1000)}]
+    elif roll < 0.8:
+        changes = [{"type": "detach",
+                    "source": tree_range(rng.choice(movable))}]
+    else:
+        dest = rng.choice(attached)
+        if dest != root and rng.random() < 0.5:
+            place = {"referenceSibling": dest,
+                     "side": rng.choice(["before", "after"])}
+        else:
+            place = {"referenceTrait": {"parent": dest,
+                                        "label": "children"},
+                     "side": rng.choice(["start", "end"])}
+        mid = f"m-{next(counter)}"
+        changes = [{"type": "detach",
+                    "source": tree_range(rng.choice(movable)),
+                    "destination": mid},
+                   {"type": "insert", "source": mid, "destination": place}]
+    return {"type": "edit",
+            "edit": {"id": f"{client}-e{next(counter)}", "changes": changes}}
+
+
+@contextlib.contextmanager
+def timed_tree_ticks(device, ticks: list):
+    """Wrap the tree tick for the duration: each call appends its CUDA
+    event pair (start, end) to ``ticks`` (None off the card)."""
+    import torch
+
+    from fluidframework_tpu_torch.ops import tree_kernel as tk
+    inner = tk.apply_tick
+
+    def wrapped(*args):
+        if device.type != "cuda":
+            ticks.append(None)
+            return inner(*args)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = inner(*args)
+        end.record()
+        ticks.append((start, end))
+        return out
+    tk.apply_tick = wrapped
+    try:
+        yield
+    finally:
+        tk.apply_tick = inner
+
+
+def tree_path_a(device) -> dict:
+    """BASELINE config 5 through the service: TREE_CLIENTS clients join
+    each of TREE_DOCS docs (the deli kernel sequences the joins), then
+    TREE_ROUNDS rounds in which every client submits one wire edit
+    through its connection, picked from the tree as the previous round
+    left it, at that round's last seq (so a round's edits are
+    concurrent, and some target nodes another client just detached or
+    moved). Burst docs take TREE_BURST inserts before one anchor in
+    round TREE_BURST_ROUND; shape docs one two-set_value edit in round
+    TREE_SHAPE_ROUND. Each round is one pump (the merger checkpoints
+    flush the host: a tree tick over every row), then one ``flush()``.
+    The harness replays each round's sequenced edits through
+    ``Transaction`` into its own views (``replay_s``, inside the wall
+    time)."""
+    import itertools
+    import random
+
+    import torch
+
+    from fluidframework_tpu_torch.dds.tree_core import (
+        VALID,
+        Transaction,
+        TreeSnapshot,
+    )
+    from fluidframework_tpu_torch.protocol.messages import (
+        DocumentMessage,
+        MessageType,
+    )
+    from fluidframework_tpu_torch.server.kernel_host import \
+        KernelSequencerHost
+    from fluidframework_tpu_torch.server.merge_host import KernelMergeHost
+    from fluidframework_tpu_torch.server.routerlicious import \
+        RouterliciousService
+
+    seq_host = KernelSequencerHost(num_slots=TREE_CLIENTS,
+                                   initial_capacity=TREE_DOCS, device=device)
+    merge_host = KernelMergeHost(flush_threshold=1 << 30, device=device)
+    service = RouterliciousService(merge_host=merge_host,
+                                   batched_deli_host=seq_host,
+                                   auto_pump=False)
+    clock = iter(range(1000, 1 << 40, 3))
+    service._clock = lambda: next(clock)
+    inner_flush = merge_host.flush
+    flushes = []
+
+    def flush():
+        t = time.perf_counter()
+        inner_flush()
+        flushes.append(time.perf_counter() - t)
+    merge_host.flush = flush
+    names = [f"tree{d}" for d in range(TREE_DOCS)]
+    burst = set(range(0, TREE_DOCS, TREE_DOCS // TREE_BURST_DOCS))
+    shape = set(range(1, TREE_DOCS, TREE_DOCS // TREE_SHAPE_DOCS))
+    rng = random.Random(8)
+    counter = itertools.count()
+    views = [TreeSnapshot() for _ in names]
+    edits: list[list] = [[] for _ in names]
+    ticks: list = []
+    replay_s = 0.0
+    with timed_tree_ticks(device, ticks):
+        t0 = time.perf_counter()
+        conns = [[service.connect(name, lambda m: None)
+                  for _ in range(TREE_CLIENTS)] for name in names]
+        service.pump()
+        head = [service.get_deltas(name, 0)[-1].sequence_number
+                for name in names]
+        cseq = [[0] * TREE_CLIENTS for _ in names]
+
+        def send(d, i, op):
+            cseq[d][i] += 1
+            conns[d][i].submit([DocumentMessage(
+                client_sequence_number=cseq[d][i],
+                reference_sequence_number=head[d],
+                type=MessageType.OPERATION,
+                contents={"address": "default",
+                          "contents": {"address": "tree", "contents": op}})])
+        for r in range(TREE_ROUNDS):
+            for d in range(TREE_DOCS):
+                anchor = f"anchor{d}"
+                for i, c in enumerate(conns[d]):
+                    client = c.client_id
+                    if d in burst and r == 0 and i == 0:
+                        op = {"type": "edit", "edit": {
+                            "id": f"{client}-anchor", "changes": [
+                                {"type": "build",
+                                 "source": [tree_node(anchor)],
+                                 "destination": "b-anchor"},
+                                {"type": "insert", "source": "b-anchor",
+                                 "destination": {"referenceTrait": {
+                                     "parent": "root",
+                                     "label": "children"},
+                                     "side": "end"}}]}}
+                    elif d in shape and r == TREE_SHAPE_ROUND and i == 0:
+                        ids = ([n for n in views[d].nodes][:2]
+                               + ["root", "root"])[:2]
+                        op = {"type": "edit", "edit": {
+                            "id": f"{client}-pair", "changes": [
+                                {"type": "set_value", "node": n,
+                                 "payload": j} for j, n in enumerate(ids)]}}
+                    else:
+                        op = tree_wire_edit(rng, views[d], counter, client,
+                                            keep=(anchor,))
+                    send(d, i, op)
+                if d in burst and r == TREE_BURST_ROUND:
+                    for j in range(TREE_BURST):
+                        nid = f"w{d}-{j}"
+                        send(d, 0, {"type": "edit", "edit": {
+                            "id": f"{conns[d][0].client_id}-w{j}",
+                            "changes": [
+                                {"type": "build",
+                                 "source": [tree_node(nid)],
+                                 "destination": f"b-{nid}"},
+                                {"type": "insert", "source": f"b-{nid}",
+                                 "destination": {"referenceSibling": anchor,
+                                                 "side": "before"}}]}})
+            service.pump()
+            merge_host.flush()
+            t = time.perf_counter()
+            for d, name in enumerate(names):
+                msgs = service.get_deltas(name, head[d])
+                for m in msgs:
+                    if m.type != MessageType.OPERATION:
+                        continue
+                    edits[d].append(m)
+                    txn = Transaction(views[d])
+                    if txn.apply_edit(
+                            m.contents["contents"]["contents"]["edit"]) \
+                            == VALID:
+                        views[d] = txn.snapshot
+                if msgs:
+                    head[d] = msgs[-1].sequence_number
+            replay_s += time.perf_counter() - t
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    merge_host.flush = inner_flush
+    tick_ms = ([s.elapsed_time(e) for s, e in ticks]
+               if device.type == "cuda" else [])
+    return {"service": service, "merge_host": merge_host,
+            "seq_host": seq_host, "names": names, "views": views,
+            "edits": edits, "burst": burst, "shape": shape,
+            "wall_s": wall_s, "replay_s": replay_s, "flush_s": sum(flushes),
+            "flushes": len(flushes), "tick_ms": tick_ms,
+            "tree_ticks": len(ticks)}
+
+
+def tree_main_path(device) -> dict:
+    """Tree path A with every kernel's launch count zeroed just before it
+    and read just after (the deli's calls recorded for the re-check),
+    checked against a ``Transaction`` replay of every doc's sequenced
+    edits."""
+    import torch
+
+    from fluidframework_tpu_torch.ops import map_fold_cuda as mfc
+    from fluidframework_tpu_torch.ops import matrix_cuda as mxc
+    from fluidframework_tpu_torch.ops import mergetree_blocks_cuda as mtbc
+    from fluidframework_tpu_torch.ops import mergetree_cuda as mtc
+    from fluidframework_tpu_torch.ops import sequencer_cuda as seqc
+    for mod in (mfc, mtbc, mtc, mxc.tick, mxc.steps):
+        mod.launches = 0
+    seqc.launches = 0
+    seqc.shapes.clear()
+    seqc.variants.clear()
+    deli = {"inputs": {}}
+    with recording(seqc, "process_batch_best", deli["inputs"]):
+        run = tree_path_a(device)
+    launches = {"map_fold": mfc.launches, "sequencer_tick": seqc.launches,
+                "mergetree_blocks": mtbc.launches,
+                "mergetree_flat": mtc.launches,
+                "matrix_tick": mxc.tick.launches,
+                "matrix_steps": mxc.steps.launches,
+                "sequencer_tick_variants": dict(seqc.variants)}
+    deli["shapes"] = dict(seqc.shapes)
+    check(launches["sequencer_tick"] > 0,
+          "the deli kernel did not run on tree path A")
+    deli_picks(device, seqc.shapes, seqc.variants, "tree path A")
+    host = run["merge_host"]
+    check(host._tree_state.exists.device.type == device.type,
+          f"tree planes on {host._tree_state.exists.device}, not {device}")
+    n_edits = sum(len(e) for e in run["edits"])
+    want = (TREE_DOCS * TREE_CLIENTS * TREE_ROUNDS
+            + TREE_BURST_DOCS * TREE_BURST)
+    check(n_edits == want, f"config 5 sequenced {n_edits} of {want} edits")
+    for d, name in enumerate(run["names"]):
+        got = host.tree_snapshot(name, "default", "tree")
+        check(got == run["views"][d].serialize(),
+              f"config 5: tree_snapshot({name}) != Transaction replay of "
+              "its sequenced edits")
+    for d in range(0, TREE_DOCS, TREE_DOCS // TREE_SAMPLE_DOCS):
+        name = run["names"][d]
+        summary = host.summarize(name)
+        check(summary == {
+            "datastores": {"default": {"tree": {
+                "kind": "tree", "tree": run["views"][d].serialize()}}},
+            "sequence_number": run["edits"][d][-1].sequence_number},
+            f"config 5: summarize({name}) != the replay")
+    routed = {d for d, name in enumerate(run["names"])
+              if host._tree_rows[(name, "default", "tree")].scalar
+              is not None}
+    check(run["burst"] | run["shape"] <= routed,
+          "a burst or two-set_value doc stayed on the device")
+    check(host.stats["overflow_routed"] == len(routed)
+          and host.stats["device_ops"] > 0,
+          f"config 5 stats {host.stats}")
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    serve_s = run["wall_s"] - run["replay_s"]
+    ticks = run["tick_ms"]
+    out = {"docs": TREE_DOCS, "clients": TREE_CLIENTS,
+           "rounds": TREE_ROUNDS, "edits": n_edits,
+           "wall_s": run["wall_s"], "replay_s": run["replay_s"],
+           "edits_per_s": n_edits / serve_s, "flush_s": run["flush_s"],
+           "flushes": run["flushes"], "tree_ticks": run["tree_ticks"],
+           "tick_ms_mean": sum(ticks) / len(ticks) if ticks else None,
+           "tick_ms_total": sum(ticks) if ticks else None,
+           "tree_slots": host._tree_slots,
+           "scalar_docs": len(routed),
+           "stats": {k: host.stats[k] for k in (
+               "device_ops", "scalar_ops", "overflow_routed",
+               "compactions", "flushes")},
+           "launches": launches}
+    print("tree_main_path: " + json.dumps(out), flush=True)
+    print("tree_main_path_shapes: " + json.dumps(
+        {"sequencer_tick": [[*shape, n] for shape, n in
+                            sorted(deli["shapes"].items())]}), flush=True)
+    return {"launches": launches, "deli": deli, "path": out}
+
+
+def tree_b_stream(rng, n_ops: int, num_slots: int) -> list[dict]:
+    """``bench.py``'s ``_gen_tree_stream``: inserts under random live
+    slots, set_values and single-node detaches."""
+    from fluidframework_tpu_torch.ops import tree_kernel as tk
+
+    ops = []
+    existing = [0]
+    free = list(range(1, num_slots))
+    for _ in range(n_ops):
+        r = rng.random()
+        if free and (r < 0.45 or len(existing) < 3):
+            slot = free.pop(0)
+            ops.append(dict(kind=tk.TREE_INSERT, node=slot,
+                            parent=rng.choice(existing),
+                            payload=rng.randrange(1, 1000)))
+            existing.append(slot)
+        elif r < 0.9:
+            ops.append(dict(kind=tk.TREE_SET_VALUE,
+                            node=rng.choice(existing),
+                            payload=rng.randrange(1, 1000)))
+        else:
+            victims = [s for s in existing if s != 0]
+            if not victims:
+                continue
+            node = rng.choice(victims)
+            ops.append(dict(kind=tk.TREE_DETACH, node=node))
+            existing.remove(node)
+    return ops
+
+
+def tree_scalar_apply(snapshot, op_dicts, slot_names):
+    """Kernel-shaped ops through the scalar Transaction (a copy of
+    ``tests/test_tree_kernel.py``'s ``scalar_apply``, for the three kinds
+    the stream holds): (snapshot,
+    applied flags, passes), ``passes`` the subtree sweep passes each
+    detach needs (its live subtree's height + 1)."""
+    from fluidframework_tpu_torch.dds.tree_core import VALID, Transaction
+    from fluidframework_tpu_torch.ops import tree_kernel as tk
+
+    def height(nid):
+        kids = [c for cs in snapshot.get(nid).traits.values() for c in cs]
+        return 1 + max((height(c) for c in kids), default=0)
+    applied, passes = [], 0
+    for op in op_dicts:
+        name = slot_names[op.get("node", 0)]
+        kind = op["kind"]
+        check(kind in (tk.TREE_SET_VALUE, tk.TREE_DETACH, tk.TREE_INSERT),
+              f"tree B stream holds an op of kind {kind}")
+        if kind == tk.TREE_SET_VALUE:
+            changes = [{"type": "set_value", "node": name,
+                        "payload": op["payload"]}]
+        elif kind == tk.TREE_DETACH:
+            if snapshot.has(name):
+                passes += min(height(name), tk.MAX_DEPTH_PASSES)
+            changes = [{"type": "detach", "source": tree_range(name)}]
+        else:
+            place = {"referenceTrait": {"parent": slot_names[op["parent"]],
+                                        "label": f"t{op.get('trait', 0)}"},
+                     "side": "end"}
+            changes = [
+                {"type": "build",
+                 "source": [{"id": name, "definition": "n",
+                             "payload": op["payload"]}],
+                 "destination": f"b-{name}-{len(applied)}"},
+                {"type": "insert", "source": f"b-{name}-{len(applied)}",
+                 "destination": place}]
+        txn = Transaction(snapshot)
+        ok = txn.apply_edit({"id": "e", "changes": changes}) == VALID
+        if ok:
+            snapshot = txn.snapshot
+        applied.append(ok)
+    return snapshot, applied, passes
+
+
+def tree_state_matches(state, snapshot, slot_names) -> None:
+    """Document 0 of ``state`` against ``snapshot``: existence, payload,
+    parent and trait of every slot, and every trait's sibling order."""
+    from fluidframework_tpu_torch.ops import tree_kernel as tk
+
+    exists = state.exists[0].cpu().numpy()
+    payload = state.payload[0].cpu().numpy()
+    parent = state.parent[0].cpu().numpy()
+    trait = state.trait[0].cpu().numpy()
+    for slot in range(exists.shape[0]):
+        name = slot_names[slot]
+        check(bool(exists[slot]) == snapshot.has(name),
+              f"tree B slot {slot}: exists != the replay")
+        if exists[slot] and slot != 0:
+            node = snapshot.get(name)
+            check(node.payload == int(payload[slot])
+                  and slot_names[int(parent[slot])] == node.parent[0]
+                  and f"t{int(trait[slot])}" == node.parent[1],
+                  f"tree B slot {slot}: payload or parent != the replay")
+    for slot in range(exists.shape[0]):
+        if not exists[slot]:
+            continue
+        for label, children in snapshot.get(slot_names[slot]).traits.items():
+            got = tk.trait_order(state, 0, slot, int(label[1:]))
+            check([slot_names[s] for s in got] == children,
+                  f"tree B: order under slot {slot} != the replay")
+
+
+def count_dispatched(fn):
+    """(fn(), the aten ops it dispatched, views and host scalars left
+    out): each is one launch on the card, by design of the plain
+    version's ops (a view launches nothing, nor does the 0-d host tensor
+    a Python scalar argument becomes)."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    host_scalar = torch.ops.aten.scalar_tensor.default
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if not func.is_view and func is not host_scalar:
+                Count.n += 1
+            return func(*args, **(kwargs or {}))
+    with Count():
+        out = fn()
+    return out, Count.n
+
+
+def tree_path_b(device) -> dict:
+    """The tree tick at ``bench_tree``'s shape on the card: TREE_B_TICKS
+    ticks of K ops over TREE_B_DOCS docs of TREE_B_SLOTS slots, one
+    seeded stream tiled over the docs. Every doc must equal doc 0, doc 0
+    a scalar ``Transaction`` replay, and the first TREE_B_CPU_DOCS docs
+    the same ticks on CPU tensors."""
+    import random
+
+    import torch
+
+    from fluidframework_tpu_torch.dds.tree_core import ROOT_ID, TreeSnapshot
+    from fluidframework_tpu_torch.ops import tree_kernel as tk
+
+    b, n, k = TREE_B_DOCS, TREE_B_SLOTS, TREE_B_K
+    stream = tree_b_stream(random.Random(0), k * TREE_B_TICKS, n)
+    per_tick = [stream[t * k:(t + 1) * k] for t in range(TREE_B_TICKS)]
+    steps = [tk.subtree_steps([ops], k) for ops in per_tick]
+
+    def batch(ops, docs, dev):
+        one = tk.make_tree_op_batch([ops], 1, k, dev)
+        return tk.TreeOpBatch(*(f.expand(docs, k).contiguous()
+                                for f in one))
+    batches = [batch(ops, b, device) for ops in per_tick]
+
+    def run(state, bs):
+        outs = []
+        for bt, st in zip(bs, steps):
+            state, out = tk.apply_tick(state, bt, st)
+            outs.append(out)
+        return state, outs
+    run(tk.init_state(b, n, device), batches)  # warm-up
+    state = tk.init_state(b, n, device)
+    pairs, outs = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for bt, st in zip(batches, steps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, out = tk.apply_tick(state, bt, st)
+        end.record()
+        pairs.append((start, end))
+        outs.append(out)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    ms = [s.elapsed_time(e) for s, e in pairs]
+    # Every document equals document 0.
+    for f, plane in zip(state._fields, state):
+        check(bool((plane == plane[:1]).all()),
+              f"tree B plane {f}: a document differs from document 0")
+    for t, out in enumerate(outs):
+        for f, flags in zip(out._fields, out):
+            check(bool((flags == flags[:1]).all()),
+                  f"tree B tick {t} {f}: a document differs from doc 0")
+    # Document 0 equals the scalar replay.
+    slot_names = {0: ROOT_ID, **{i: f"s{i}" for i in range(1, n)}}
+    snap, passes = TreeSnapshot(), 0
+    for t, ops in enumerate(per_tick):
+        snap, applied, p = tree_scalar_apply(snap, ops, slot_names)
+        passes += p
+        got = outs[t].applied[0, :len(ops)].cpu().tolist()
+        check(got == applied, f"tree B tick {t}: applied != the replay")
+    tree_state_matches(state, snap, slot_names)
+    # The same ticks on CPU tensors for the first TREE_B_CPU_DOCS docs.
+    cpu_state, cpu_outs = run(
+        tk.init_state(TREE_B_CPU_DOCS, n, "cpu"),
+        [batch(ops, TREE_B_CPU_DOCS, "cpu") for ops in per_tick])
+    for f, x, y in zip(state._fields, state, cpu_state):
+        check(torch.equal(x[:TREE_B_CPU_DOCS].cpu(), y),
+              f"tree B plane {f}: card != CPU")
+    for t, (x, y) in enumerate(zip(outs, cpu_outs)):
+        for f, p, q in zip(x._fields, x, y):
+            check(torch.equal(p[:TREE_B_CPU_DOCS].cpu(), q),
+                  f"tree B tick {t} {f}: card != CPU")
+    _, dispatched = count_dispatched(
+        lambda: tk.apply_tick(state, batches[0], steps[0]))
+    torch.cuda.synchronize()
+    # Bound a tick: every plane read once and written once, the op batch
+    # read and the two flag planes written; operations per (op, slot) as
+    # counted in TREE_OPS_PER_SLOT, and the sweep's passes this data
+    # needs (both summed over the ticks, so taken per tick).
+    plane_bytes = b * n * (1 + 4 * 4)
+    nbytes = 2 * plane_bytes + b * k * (1 + 4 * 5) + 2 * b * k
+    valid_ops = len(stream)
+    nops = b * n * (TREE_OPS_PER_SLOT * valid_ops
+                    + TREE_SWEEP_OPS_PER_SLOT * passes) / TREE_B_TICKS
+    bound_ms, bound_by = bound(nbytes, nops)
+    out = {"shape": [b, k, n], "ticks": TREE_B_TICKS,
+           "ms": sum(ms) / len(ms), "ms_min": min(ms), "ms_max": max(ms),
+           "ops_per_s": b * valid_ops / wall_s, "wall_s": wall_s,
+           "launches_per_tick": dispatched,
+           "sweep_steps": sum(map(sum, steps)),
+           "bytes_per_tick": nbytes, "ops_per_tick": nops,
+           "byte_bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "applied": int(sum(int(o.applied[0].sum()) for o in outs)),
+           "overflow": int(sum(int(o.overflow[0].sum()) for o in outs))}
+    print("tree_b: " + json.dumps(out), flush=True)
+    return out
+
+
 def device_busy(prof) -> tuple[float, list]:
     """(busy ms, the six largest events) of a finished profile: the
     summed self time of every CUDA event — kernels and copies, all on
@@ -2410,6 +2995,23 @@ def trace_matrix_paths(device) -> dict:
     return out
 
 
+def trace_tree_path(device) -> dict:
+    """Tree path A again, whole under ``torch.profiler``: device busy ms
+    against the host's wall ms over the path."""
+    from torch.profiler import ProfilerActivity, profile
+
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    with prof:
+        t0 = time.perf_counter()
+        tree_path_a(device)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms, top = device_busy(prof)
+    out = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+           "idle_share": 1 - busy_ms / wall_ms, "top_device_ms": top}
+    print("trace_tree: " + json.dumps(out), flush=True)
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -2492,6 +3094,8 @@ def main() -> int:
     text = text_main_path(device)
     matrix = matrix_main_path(device)
     steps = matrix_steps_path(device)
+    tree = tree_main_path(device)
+    tree_path_b(device)
     shapes = path["shapes"]
     from fluidframework_tpu_torch.ops import map_fold_cuda as mfc
     from fluidframework_tpu_torch.ops import map_kernel as mk
@@ -2526,7 +3130,8 @@ def main() -> int:
                   "recover": (durable["recover_shapes"]["sequencer_tick"],
                               durable["recover_deli_inputs"])}
     for key, src in (("text_a", text["deli"]["a"]),
-                     ("matrix_a", matrix["deli"]["a"])):
+                     ("matrix_a", matrix["deli"]["a"]),
+                     ("tree_a", tree["deli"])):
         deli_paths[key] = (src["shapes"], src["inputs"])
     deli_main = {}
     for key, (by, kept) in deli_paths.items():
@@ -2544,7 +3149,7 @@ def main() -> int:
         got["ms"] = got[f"ms_{got['variant']}"]
         deli_main[key] = got
     del path["deli_inputs"], path["fold_inputs"], text["deli"], \
-        matrix["deli"]
+        matrix["deli"], tree["deli"]
     for key in ("deli_inputs", "fold_inputs", "recover_deli_inputs",
                 "recover_fold_inputs"):
         del durable[key]
@@ -2592,6 +3197,7 @@ def main() -> int:
         trace_durable_path(device)
         trace_text_paths(device)
         trace_matrix_paths(device)
+        trace_tree_path(device)
     # Each path's own launches, counted from 0 just before it and read
     # just after; a kernel's "launches" is their sum.
     by_path = {
@@ -2603,7 +3209,8 @@ def main() -> int:
                "matrix_a": matrix["launches"]["a"].get(name, 0),
                "matrix_b": matrix["launches"]["b"].get(name, 0),
                "matrix_steps": (steps["launches"]
-                                if name == "matrix_steps" else 0)}
+                                if name == "matrix_steps" else 0),
+               "tree_a": tree["launches"].get(name, 0)}
         for name in ("map_fold", "sequencer_tick", "mergetree_blocks",
                      "mergetree_flat", "matrix_tick", "matrix_steps")}
     launches = {name: sum(n.values()) for name, n in by_path.items()}
@@ -2641,7 +3248,8 @@ def main() -> int:
              **{f"{p}_{n}": text["launches"][n]["sequencer_tick_variants"]
                 for p, n in (("text", "a"), ("text", "b"))},
              **{f"matrix_{n}": matrix["launches"][n][
-                 "sequencer_tick_variants"] for n in ("a", "b")}},
+                 "sequencer_tick_variants"] for n in ("a", "b")},
+             "tree_a": tree["launches"]["sequencer_tick_variants"]},
          **{key: deli_top[key] for key in (
              "shape", "variant", "ms", "ms_warp", "ms_thread", "plain_ms",
              "bound_ms", "bound_by")},

@@ -5,8 +5,9 @@ functions here turn state exported by the reference package — given as
 numpy arrays and plain Python values, so nothing of JAX is imported —
 into the port's tensors and hosts, and back:
 
-* :class:`~.ops.sequencer.SequencerState` and :class:`~.ops.map_kernel.
-  MapState` NamedTuples ↔ ``{field: ndarray}``;
+* :class:`~.ops.sequencer.SequencerState`, :class:`~.ops.map_kernel.
+  MapState` and :class:`~.ops.tree_kernel.TreeState` NamedTuples ↔
+  ``{field: ndarray}``;
 * ``KernelMergeHost.export_state()`` snapshots — the map planes, the
   text pools (block and flat planes, text buffers, rows with their client
   and key slots, scalar-routed rows' engines), the matrix state and
@@ -33,6 +34,7 @@ import torch
 from .device import resolve_device
 from .ops import map_kernel as mk
 from .ops import sequencer as seqk
+from .ops import tree_kernel as tk
 from .server.kernel_host import KernelSequencerHost
 from .server.merge_host import KernelMergeHost
 from .server.sequencer import SequencerCheckpoint
@@ -66,10 +68,15 @@ def map_state_from_numpy(arrays, device=None) -> mk.MapState:
     return state_from_numpy(mk.MapState, arrays, device)
 
 
+def tree_state_from_numpy(arrays, device=None) -> tk.TreeState:
+    return state_from_numpy(tk.TreeState, arrays, device)
+
+
 def merge_host_from_export(snap: dict, device=None,
                            **kwargs) -> KernelMergeHost:
     """A fresh port merge host holding an ``export_state()`` snapshot of
-    either package (map, text and matrix channels)."""
+    either package (map, text and matrix channels; tree channels are not
+    snapshotted and come back from a replay of the durable op log)."""
     host = KernelMergeHost(device=device, **kwargs)
     host.import_state(snap)
     return host
@@ -141,4 +148,5 @@ __all__ = [
     "sequencer_state_from_numpy",
     "state_from_numpy",
     "state_to_numpy",
+    "tree_state_from_numpy",
 ]

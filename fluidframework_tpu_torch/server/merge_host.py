@@ -29,12 +29,19 @@ The host owns what the kernels cannot:
   :class:`~fluidframework_tpu_torch.dds.mergetree.MergeEngine`
   (``_quarantine_merge_row``), as is a channel whose writer set passes
   ``max_client_slots``; it readmits once zamboni shrinks the set;
-* materialization of converged text, rich text runs, map entries and
-  matrix grids.
+* materialization of converged text, rich text runs, map entries,
+  matrix grids and trees.
+
+Every SharedTree channel is a row of one
+:class:`~fluidframework_tpu_torch.ops.tree_kernel.TreeState` (its node
+table; SharedTree.ts:446 processCore, Checkout.ts:172 rebase): a flush
+runs one tree tick over every row; an edit shape the tick cannot apply
+atomically, or an op that overflows its rank space or depth, hands the
+channel to the scalar ``Transaction`` replay of its edit log.
 
 Not ported (raise ``NotImplementedError``): sequence-parallel and
 mega-doc pools (``seg_mesh``, ``megadoc_writer_threshold``,
-``promote_merge_row``) and tree channels.
+``promote_merge_row``).
 """
 
 from __future__ import annotations
@@ -46,6 +53,7 @@ import torch
 
 from ..dds.matrix import PermutationVector
 from ..dds.mergetree import Marker, MergeEngine, Segment
+from ..dds.tree_core import ROOT_ID, VALID, Transaction, TreeSnapshot
 from ..device import resolve_device
 from ..ops import _build
 from ..ops import map_kernel as mk
@@ -55,6 +63,7 @@ from ..ops import mergetree_blocks as mtb
 from ..ops import mergetree_blocks_cuda as mtbc
 from ..ops import mergetree_cuda as mtc
 from ..ops import mergetree_kernel as mtk
+from ..ops import tree_kernel as tk
 from ..protocol.messages import MessageType, SequencedDocumentMessage
 from ..utils import faults
 from .kernel_host import _next_pow2, _tick_k
@@ -65,6 +74,10 @@ _MAP_OPS = frozenset({"set", "delete", "clear"})
 # Text pools are append-only; once a row's pool churn passes this mark the
 # host repacks it down to the referenced slices (zamboni for text bytes).
 _TEXT_REPACK_MIN = 1 << 20
+# Tree channels trim their applied edit-log prefix into a materialized
+# base snapshot once it outgrows this (the overflow fallback replays
+# base + remaining log).
+_TREE_LOG_TRIM = 512
 
 # A marker occupies one pool char; stripped at materialization. Real text
 # never contains NUL (the wire format is JSON-ish strings).
@@ -149,6 +162,40 @@ class _MatrixRow:
         # Seq of the newest structural (vector) op — the cell-run fast
         # path is exact only when every cell's refSeq covers it.
         self.last_vec_seq = 0
+
+
+class _TreeRow:
+    """Host bookkeeping for one device-served SharedTree channel: string id
+    → slot interning (the device stores only slots), per-row trait-label
+    interning, and the sequenced-edit log that seeds the scalar fallback."""
+
+    __slots__ = ("row", "slot_of", "info_of", "trait_ids", "trait_rev",
+                 "free", "next_slot", "pending", "raw_log", "scalar",
+                 "last_seq", "base")
+
+    def __init__(self, row: int) -> None:
+        self.row = row
+        self.slot_of: dict[str, int] = {ROOT_ID: 0}
+        self.info_of: dict[int, tuple[str, str]] = {0: (ROOT_ID, "root")}
+        self.trait_ids: dict[str, int] = {}
+        self.trait_rev: list[str] = []
+        self.free: list[int] = []
+        self.next_slot = 1
+        self.pending: list[dict] = []
+        # Sequenced edits since ``base`` — the exact replay source if this
+        # channel leaves the device (unsupported edit shape / rank or
+        # depth overflow). At clean flush boundaries an over-long applied
+        # prefix folds into ``base`` (a device-materialized snapshot),
+        # bounding host memory; the fallback replays base + remaining log.
+        self.raw_log: list[dict] = []
+        self.base: dict | None = None  # serialized TreeSnapshot
+        self.scalar: TreeSnapshot | None = None
+        self.last_seq = 0
+
+
+# Fill values of fresh tree rows and slots (a fresh row's slot 0 is then
+# set live: its root).
+_TREE_FILL = dict(exists=False, parent=-1, trait=0, rank=0, payload=0)
 
 
 def _pad_axis(a: torch.Tensor, axis: int, extra: int, fill) -> torch.Tensor:
@@ -480,7 +527,8 @@ class KernelMergeHost:
     def __init__(self, merge_slots: int = 128, map_slots: int = 32,
                  num_props: int = 4, row_capacity: int = 8,
                  flush_threshold: int = 256, metrics=None,
-                 seg_mesh=None, max_client_slots: int = 1024,
+                 seg_mesh=None, tree_slots: int = 32,
+                 max_client_slots: int = 1024,
                  megadoc_writer_threshold: int | None = None,
                  device: str | torch.device | None = None) -> None:
         from ..utils import MetricsRegistry
@@ -511,6 +559,12 @@ class KernelMergeHost:
         self._matrix_cell_slots = 256
         self._matrix_overlap_words = 1
         self._matrix_rows: dict[ChannelKey, _MatrixRow] = {}
+        # Tree channels share one pooled TreeState [B, N] (uniform slot
+        # axis; both axes grow pow2), allocated at the first tree flush.
+        self._tree_state: tk.TreeState | None = None
+        self._tree_capacity = max(1, row_capacity)
+        self._tree_slots = max(8, tree_slots)
+        self._tree_rows: dict[ChannelKey, _TreeRow] = {}
         self._merge_rows: dict[ChannelKey, _MergeRow] = {}
         self._map_rows: dict[ChannelKey, _MapRow] = {}
         # Map-row recycling (doc residency): released rows reissue before
@@ -654,8 +708,7 @@ class KernelMergeHost:
 
     def ingest(self, doc_id: str, message: SequencedDocumentMessage) -> None:
         """Feed one sequenced message. Non-channel-ops are ignored; merge,
-        map and matrix channel ops are routed to their device rows. Tree
-        ops raise ``NotImplementedError`` (not ported yet)."""
+        map, matrix and tree channel ops are routed to their device rows."""
         if message.type != MessageType.OPERATION:
             return
         envelope = message.contents
@@ -674,8 +727,7 @@ class KernelMergeHost:
             # merge/map sets also use — route by shape FIRST.
             self._ingest_matrix(key, channel_op, message)
         elif kind == "edit" and "edit" in channel_op:
-            raise NotImplementedError(
-                "tree channel ops are not ported to the torch merge host")
+            self._ingest_tree(key, channel_op, message)
         elif kind in _MERGE_OPS:
             self._ingest_merge(key, channel_op, message)
         elif kind in _MAP_OPS:
@@ -1096,6 +1148,7 @@ class KernelMergeHost:
         self._flush_merge()
         self._flush_map()
         self._flush_matrix()
+        self._flush_tree()
         if self._pending_ops:
             self.metrics.histogram("merge_host.tick_seconds").observe(
                 _time.perf_counter() - start)
@@ -1577,13 +1630,455 @@ class KernelMergeHost:
             r.applied_seq = r.last_seq
             r.applied_min_seq = r.min_seq
 
+    # -- tree channels (SharedTree.ts:446 behind the service) ------------------
+    #
+    # Device-served edit shapes (everything else routes the channel to the
+    # scalar fallback, which replays the exact sequenced-edit log through
+    # Transaction — always correct, never fast):
+    #
+    #   [set_value]                      → TREE_SET_VALUE
+    #   [detach(single-node, no dest)]   → TREE_DETACH
+    #   [constraint]                     → TREE_CONSTRAINT_EXISTS (no mutation)
+    #   [build, insert(source=build)]    → TREE_INSERT* chain
+    #   [detach(single, dest), insert]   → TREE_MOVE* (fused subtree move)
+    #
+    # Atomicity argument (a scalar Transaction drops the WHOLE edit when
+    # any change fails): single-change edits are trivially atomic; a
+    # build+insert chain cascades — children/siblings anchor on the
+    # previous insert's node, so a failed first placement starves every
+    # later op of its anchor; a move pair is one device op. Multi-change
+    # edits outside these shapes (e.g. two independent set_values) cannot
+    # cascade, so they are not device-served.
+
+    def _tree_row(self, key: ChannelKey) -> _TreeRow:
+        state = self._tree_rows.get(key)
+        if state is None:
+            row = len(self._tree_rows)
+            if row >= self._tree_capacity:
+                self._grow_tree_rows()
+            state = _TreeRow(row)
+            self._tree_rows[key] = state
+        return state
+
+    def _ensure_tree_state(self) -> None:
+        if self._tree_state is None:
+            self._tree_state = tk.init_state(self._tree_capacity,
+                                             self._tree_slots, self.device)
+
+    def _grow_tree_rows(self) -> None:
+        old = self._tree_capacity
+        self._tree_capacity = old * 2
+        if self._tree_state is not None:
+            padded = {f: _pad_axis(getattr(self._tree_state, f), 0, old,
+                                   _TREE_FILL[f])
+                      for f in tk.TreeState._fields}
+            # Fresh rows must carry a live root in slot 0.
+            padded["exists"][old:, 0] = True
+            self._tree_state = tk.TreeState(**padded)
+
+    def _grow_tree_slots(self, need: int) -> None:
+        new = _next_pow2_width(self._tree_slots, need)
+        if new == self._tree_slots:
+            return
+        extra = new - self._tree_slots
+        if self._tree_state is not None:
+            self._tree_state = tk.TreeState(**{
+                f: _pad_axis(getattr(self._tree_state, f), 1, extra,
+                             _TREE_FILL[f])
+                for f in tk.TreeState._fields})
+        self._tree_slots = new
+
+    def _blank_tree_row(self, row: int) -> None:
+        """Reset one row of the tree planes to a lone root (in place)."""
+        for f in tk.TreeState._fields:
+            getattr(self._tree_state, f)[row] = _TREE_FILL[f]
+        self._tree_state.exists[row, 0] = True
+
+    def _ingest_tree(self, key: ChannelKey, channel_op: dict,
+                     message: SequencedDocumentMessage) -> None:
+        row = self._tree_row(key)
+        seq = message.sequence_number
+        if seq <= row.last_seq:
+            return  # bus replay
+        row.last_seq = seq
+        edit = channel_op["edit"]
+        if row.scalar is not None:
+            self._tree_scalar_apply(row, edit)
+            self.stats["scalar_ops"] += 1
+            return
+        row.raw_log.append(edit)
+        ops = self._encode_tree_edit(row, edit)
+        if row.scalar is not None:
+            # A capacity flush inside encoding overflowed this row and the
+            # scalar replay (from raw_log) already covered this edit.
+            return
+        if ops is None:
+            self._route_tree_to_scalar(row)
+            self.stats["scalar_ops"] += 1
+            return
+        row.pending.extend(ops)
+        self._pending_ops += len(ops)
+
+    def _tree_scalar_apply(self, row: _TreeRow, edit: dict) -> None:
+        txn = Transaction(row.scalar)
+        if txn.apply_edit(edit) == VALID:
+            row.scalar = txn.snapshot
+
+    def _route_tree_to_scalar(self, row: _TreeRow) -> None:
+        """Replay the channel's sequenced edits (on top of the trimmed
+        base snapshot, if any) through the scalar Transaction path and
+        serve it host-side from now on."""
+        snap = (TreeSnapshot.load(row.base) if row.base is not None
+                else TreeSnapshot())
+        for edit in row.raw_log:
+            txn = Transaction(snap)
+            if txn.apply_edit(edit) == VALID:
+                snap = txn.snapshot
+        row.scalar = snap
+        row.raw_log = []  # the snapshot IS the state from here on
+        self._pending_ops -= len(row.pending)
+        row.pending = []
+        if self._tree_state is not None:
+            self._blank_tree_row(row.row)
+        self.stats["overflow_routed"] += 1
+        self._export_stats()
+
+    # -- tree edit translation -------------------------------------------------
+
+    def _tree_trait_id(self, row: _TreeRow, label: Any) -> int:
+        tid = row.trait_ids.get(label)
+        if tid is None:
+            tid = len(row.trait_rev) + 1  # 0 = the root's own trait plane
+            row.trait_ids[label] = tid
+            row.trait_rev.append(label)
+        return tid
+
+    def _encode_tree_edit(self, row: _TreeRow,
+                          edit: dict) -> list[dict] | None:
+        """Device ops for one edit; [] = no state change either way
+        (scalar-invalid or no-op), None = unsupported shape → scalar."""
+        changes = edit.get("changes")
+        if not isinstance(changes, list):
+            return None
+        if len(changes) == 1:
+            ch = changes[0]
+            kind = ch.get("type")
+            if kind == "set_value":
+                slot = row.slot_of.get(ch.get("node"))
+                if slot is None:
+                    return []  # unknown node: scalar-invalid
+                return [dict(kind=tk.TREE_SET_VALUE, node=slot,
+                             payload=self._intern(ch.get("payload")))]
+            if kind == "detach" and ch.get("destination") is None:
+                return self._encode_tree_detach(row, ch.get("source"))
+            if kind == "constraint":
+                return self._encode_tree_constraint(row, ch)
+            return None
+        if len(changes) == 2:
+            first, second = changes
+            if (first.get("type") == "build"
+                    and second.get("type") == "insert"
+                    and second.get("source") == first.get("destination")):
+                return self._encode_tree_build_insert(row, first, second)
+            if (first.get("type") == "detach"
+                    and first.get("destination") is not None
+                    and second.get("type") == "insert"
+                    and second.get("source") == first.get("destination")):
+                return self._encode_tree_move(row, first, second)
+        return None
+
+    @staticmethod
+    def _single_node_range(source: Any) -> tuple[str, bool] | None:
+        """(sibling id, is_real_range) for a same-sibling range; None for
+        ranges the device cannot enumerate (multi-node / trait-based).
+        is_real_range is False for empty or inverted ranges — scalar
+        treats those as a valid no-op / an invalid edit respectively, and
+        either way no state changes."""
+        if not isinstance(source, dict):
+            return None
+        start, end = source.get("start"), source.get("end")
+        if not (isinstance(start, dict) and isinstance(end, dict)):
+            return None
+        sib = start.get("referenceSibling")
+        if sib is None or end.get("referenceSibling") != sib:
+            return None
+        real = (start.get("side") == "before"
+                and end.get("side") == "after")
+        return sib, real
+
+    def _encode_tree_detach(self, row: _TreeRow,
+                            source: Any) -> list[dict] | None:
+        rng = self._single_node_range(source)
+        if rng is None:
+            return None
+        sib, real = rng
+        if not real or sib == ROOT_ID:
+            return []
+        slot = row.slot_of.get(sib)
+        if slot is None:
+            return []  # unknown anchor: scalar-invalid
+        return [dict(kind=tk.TREE_DETACH, node=slot)]
+
+    def _encode_tree_constraint(self, row: _TreeRow,
+                                ch: dict) -> list[dict]:
+        # Constraints never mutate; their only effect is edit validity,
+        # which for a single-change edit changes no state. Emit EXISTS
+        # checks where translatable so the device path is exercised.
+        rng = ch.get("range")
+        if not isinstance(rng, dict):
+            return []
+        ops = []
+        for place in (rng.get("start"), rng.get("end")):
+            if not isinstance(place, dict):
+                continue
+            sib = place.get("referenceSibling")
+            if sib and sib != ROOT_ID:
+                slot = row.slot_of.get(sib)
+                if slot:
+                    ops.append(dict(kind=tk.TREE_CONSTRAINT_EXISTS,
+                                    node=slot))
+        return ops
+
+    _TREE_INVALID = "invalid"
+
+    def _encode_tree_place(self, row: _TreeRow, place: Any):
+        """(insert kind, anchor slot, trait id) | "invalid" (scalar drops
+        the edit — no state change) | None (unsupported)."""
+        if not isinstance(place, dict):
+            return None
+        if "referenceSibling" in place:
+            sib = place["referenceSibling"]
+            if sib == ROOT_ID:
+                return self._TREE_INVALID
+            slot = row.slot_of.get(sib)
+            if slot is None:
+                return self._TREE_INVALID
+            kind = (tk.TREE_INSERT_BEFORE if place.get("side") == "before"
+                    else tk.TREE_INSERT_AFTER)
+            return kind, slot, 0
+        trait = place.get("referenceTrait")
+        if not isinstance(trait, dict):
+            return None
+        pslot = row.slot_of.get(trait.get("parent"))
+        if pslot is None:
+            return self._TREE_INVALID
+        tid = self._tree_trait_id(row, trait.get("label"))
+        kind = (tk.TREE_INSERT_START if place.get("side") == "start"
+                else tk.TREE_INSERT)
+        return kind, pslot, tid
+
+    @staticmethod
+    def _count_spec_nodes(specs: list) -> int | None:
+        total = 0
+        stack = list(specs)
+        while stack:
+            spec = stack.pop()
+            if not isinstance(spec, dict) or "id" not in spec:
+                return None
+            total += 1
+            for child_specs in (spec.get("traits") or {}).values():
+                stack.extend(child_specs)
+        return total
+
+    def _ensure_tree_slots(self, row: _TreeRow, fresh: int) -> None:
+        shortfall = fresh - len(row.free)
+        if shortfall <= 0 or row.next_slot + shortfall <= self._tree_slots:
+            return
+        # Apply pending first so the exists read-back is current, then
+        # reclaim slots of deleted/never-materialized nodes (the tree
+        # zamboni); grow only if that is not enough. NOTE: the flush can
+        # overflow-route THIS row to scalar — callers re-check.
+        self.flush()
+        if row.scalar is None:
+            self._reclaim_tree_slots(row)
+        shortfall = fresh - len(row.free)
+        if shortfall > 0 and row.next_slot + shortfall > self._tree_slots:
+            self._grow_tree_slots(_next_pow2(row.next_slot + shortfall))
+
+    def _reclaim_tree_slots(self, row: _TreeRow) -> None:
+        if self._tree_state is None:
+            return
+        exists = self._tree_state.exists[row.row].cpu().numpy()
+        in_free = set(row.free)
+        for slot in list(row.info_of):
+            if slot != 0 and slot not in in_free and not exists[slot]:
+                node_id, _ = row.info_of.pop(slot)
+                row.slot_of.pop(node_id, None)
+                row.free.append(slot)
+        self.stats["compactions"] += 1
+
+    def _alloc_tree_slot(self, row: _TreeRow, spec: dict) -> int:
+        slot = row.free.pop() if row.free else row.next_slot
+        if slot == row.next_slot:
+            row.next_slot += 1
+        row.slot_of[spec["id"]] = slot
+        row.info_of[slot] = (spec["id"], spec.get("definition", ""))
+        return slot
+
+    def _encode_tree_build_insert(self, row: _TreeRow, build: dict,
+                                  insert: dict) -> list[dict] | None:
+        specs = build.get("source")
+        if not isinstance(specs, list) or not specs:
+            return None
+        count = self._count_spec_nodes(specs)
+        if count is None:
+            return None
+        # Conservative: an id collision with ANY known node (alive or not)
+        # breaks the cascade-atomicity argument (a colliding insert fails
+        # but leaves an EXISTING anchor) — scalar handles it exactly.
+        stack = list(specs)
+        while stack:
+            spec = stack.pop()
+            if spec["id"] in row.slot_of:
+                return None
+            for child_specs in (spec.get("traits") or {}).values():
+                stack.extend(child_specs)
+        place = self._encode_tree_place(row, insert.get("destination"))
+        if place is None:
+            return None
+        if place == self._TREE_INVALID:
+            return []
+        self._ensure_tree_slots(row, count)
+        if row.scalar is not None:
+            return []  # flush inside ensure overflow-routed this row
+        kind, anchor, tid = place
+        ops: list[dict] = []
+        prev_slot = -1
+        for spec in specs:
+            slot = self._alloc_tree_slot(row, spec)
+            if prev_slot < 0:
+                ops.append(dict(kind=kind, node=slot, parent=anchor,
+                                trait=tid,
+                                payload=self._intern(spec.get("payload"))))
+            else:
+                # Later top-level siblings chain after the previous one,
+                # matching the scalar's list splice order.
+                ops.append(dict(kind=tk.TREE_INSERT_AFTER, node=slot,
+                                parent=prev_slot,
+                                payload=self._intern(spec.get("payload"))))
+            prev_slot = slot
+            self._encode_tree_children(row, spec, slot, ops)
+        return ops
+
+    def _encode_tree_children(self, row: _TreeRow, spec: dict,
+                              parent_slot: int, ops: list[dict]) -> None:
+        for label, child_specs in (spec.get("traits") or {}).items():
+            tid = self._tree_trait_id(row, label)
+            for child in child_specs:
+                slot = self._alloc_tree_slot(row, child)
+                ops.append(dict(kind=tk.TREE_INSERT, node=slot,
+                                parent=parent_slot, trait=tid,
+                                payload=self._intern(child.get("payload"))))
+                self._encode_tree_children(row, child, slot, ops)
+
+    _MOVE_KIND = {tk.TREE_INSERT: tk.TREE_MOVE,
+                  tk.TREE_INSERT_START: tk.TREE_MOVE_START,
+                  tk.TREE_INSERT_BEFORE: tk.TREE_MOVE_BEFORE,
+                  tk.TREE_INSERT_AFTER: tk.TREE_MOVE_AFTER}
+
+    def _encode_tree_move(self, row: _TreeRow, detach: dict,
+                          insert: dict) -> list[dict] | None:
+        rng = self._single_node_range(detach.get("source"))
+        if rng is None:
+            return None
+        sib, real = rng
+        if not real or sib == ROOT_ID:
+            return []  # empty/inverted range: no-op or invalid either way
+        slot = row.slot_of.get(sib)
+        if slot is None:
+            return []  # unknown node: scalar-invalid
+        place = self._encode_tree_place(row, insert.get("destination"))
+        if place is None:
+            return None
+        if place == self._TREE_INVALID:
+            return []
+        kind, anchor, tid = place
+        return [dict(kind=self._MOVE_KIND[kind], node=slot, parent=anchor,
+                     trait=tid)]
+
+    def _flush_tree(self) -> None:
+        items = [(key, r) for key, r in self._tree_rows.items()
+                 if r.pending]
+        if not items:
+            return
+        self._ensure_tree_state()
+        k = _tick_k(max(len(r.pending) for _, r in items))
+        per_doc: list[list[dict]] = [[] for _ in range(self._tree_capacity)]
+        for _, r in items:
+            per_doc[r.row] = r.pending
+        batch = tk.make_tree_op_batch(per_doc, self._tree_capacity, k,
+                                      self.device)
+        self._tree_state, outs = tk.apply_tick(
+            self._tree_state, batch, tk.subtree_steps(per_doc, k))
+        overflowed = outs.overflow.any(dim=1).cpu().numpy()
+        self.stats["device_ops"] += sum(len(r.pending) for _, r in items)
+        self.stats["flushes"] += 1
+        for _, r in items:
+            r.pending = []
+        for key, r in items:
+            if overflowed[r.row]:
+                # Rank space or depth exhausted mid-tick: the device state
+                # is partially applied; rebuild exactly from base + log.
+                self._route_tree_to_scalar(r)
+            elif len(r.raw_log) > _TREE_LOG_TRIM:
+                # Clean boundary: the device row reflects the whole log —
+                # fold it into a materialized base snapshot.
+                r.base = self.tree_snapshot(*key)
+                r.raw_log = []
+                self.stats["compactions"] += 1
+
     # -- materialization -------------------------------------------------------
 
     def channels(self, doc_id: str) -> list[ChannelKey]:
         return sorted(
             [k for k in self._merge_rows if k.doc_id == doc_id]
             + [k for k in self._map_rows if k.doc_id == doc_id]
-            + [k for k in self._matrix_rows if k.doc_id == doc_id])
+            + [k for k in self._matrix_rows if k.doc_id == doc_id]
+            + [k for k in self._tree_rows if k.doc_id == doc_id])
+
+    def tree_snapshot(self, doc_id: str, datastore: str,
+                      channel: str) -> dict:
+        """Converged tree of a SharedTree channel in the canonical
+        ``TreeSnapshot.serialize()`` form (byte-comparable to replicas)."""
+        key = ChannelKey(doc_id, datastore, channel)
+        row = self._tree_rows[key]
+        if row.pending:
+            self.flush()
+        if row.scalar is not None:
+            return row.scalar.serialize()
+        if self._tree_state is None:
+            return TreeSnapshot().serialize()
+        exists, parent, trait, rank, payload = (
+            plane[row.row].cpu().numpy() for plane in self._tree_state)
+        # Children of each (parent, trait), rank-ascending (slot index
+        # breaks exact-rank ties — ranks are unique per trait in practice:
+        # colliding midpoints overflow to the scalar path instead).
+        by_parent: dict[int, dict[int, list[int]]] = {}
+        for slot in range(exists.shape[0]):
+            if exists[slot] and slot != 0:
+                by_parent.setdefault(int(parent[slot]), {}).setdefault(
+                    int(trait[slot]), []).append(slot)
+        out: dict[str, dict] = {}
+        for slot in range(exists.shape[0]):
+            if not exists[slot]:
+                continue
+            node_id, definition = row.info_of[slot]
+            traits = {}
+            for tid, slots in sorted(
+                    by_parent.get(slot, {}).items(),
+                    key=lambda kv: row.trait_rev[kv[0] - 1]):
+                slots.sort(key=lambda i: (int(rank[i]), i))
+                traits[row.trait_rev[tid - 1]] = [
+                    row.info_of[i][0] for i in slots]
+            out[node_id] = {
+                "definition": definition,
+                "payload": self._val_rev[payload[slot]],
+                "traits": traits,
+                "parent": (None if slot == 0 else
+                           [row.info_of[int(parent[slot])][0],
+                            row.trait_rev[int(trait[slot]) - 1]]),
+            }
+        return dict(sorted(out.items()))
 
     def matrix_grid(self, doc_id: str, datastore: str,
                     channel: str) -> list[list]:
@@ -1673,6 +2168,9 @@ class KernelMergeHost:
             elif key in self._matrix_rows:
                 channels[key.channel] = {"kind": "matrix",
                                          "grid": self.matrix_grid(*key)}
+            elif key in self._tree_rows:
+                channels[key.channel] = {"kind": "tree",
+                                         "tree": self.tree_snapshot(*key)}
             else:
                 channels[key.channel] = {"kind": "map",
                                          "entries": self.map_entries(*key)}
@@ -1681,6 +2179,8 @@ class KernelMergeHost:
         seqs += [r.last_seq for k, r in self._map_rows.items()
                  if k.doc_id == doc_id]
         seqs += [r.last_seq for k, r in self._matrix_rows.items()
+                 if k.doc_id == doc_id]
+        seqs += [r.last_seq for k, r in self._tree_rows.items()
                  if k.doc_id == doc_id]
         return {"datastores": datastores,
                 "sequence_number": max(seqs, default=0)}
@@ -1691,8 +2191,10 @@ class KernelMergeHost:
     # string/slot mappings in the reference's wire format (same keys, same
     # byte packing: bool planes stay bool), so either package's host
     # imports the other's snapshot: merge pools, the map state and matrix
-    # rows (device and scalar). Tree channels are not ported: their
-    # section stays empty here and refuses on import.
+    # rows (device and scalar). Tree channels are NOT snapshotted: they
+    # rebuild from the scriptorium durable-log replay (the merger lambda
+    # does this on restart); export records their keys so the caller
+    # knows replay is required, and import skips them.
 
     def export_state(self) -> dict:
         """Wire-serializable checkpoint of all device pools + host maps.
@@ -1780,20 +2282,18 @@ class KernelMergeHost:
                 "rows": map_rows,
             },
             "matrix": matrix,
-            "tree_keys": [],
+            # Not snapshotted — these channels need a durable-log replay.
+            "tree_keys": [list(k) for k in self._tree_rows],
             "stats": dict(self.stats),
         }
 
     def import_state(self, snap: dict) -> None:
         """Rebuild a FRESH host from :meth:`export_state` output (of either
         package)."""
-        assert not (self._map_rows or self._merge_rows
-                    or self._matrix_rows), "import_state needs a fresh host"
+        assert not (self._map_rows or self._merge_rows or self._matrix_rows
+                    or self._tree_rows), "import_state needs a fresh host"
         if snap.get("version") != 1:
             raise ValueError(f"unknown snapshot version {snap.get('version')}")
-        if snap.get("tree_keys"):
-            raise NotImplementedError(
-                "snapshot names tree channels; tree is not ported yet")
         self._val_rev = list(snap["vals"])
         self._vals = {repr(v): i for i, v in enumerate(self._val_rev)
                       if i != 0}

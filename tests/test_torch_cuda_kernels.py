@@ -1181,3 +1181,48 @@ def test_failed_matrix_launch_leaves_flush(cuda, monkeypatch):
                                            ["doc0"], 1, 4))
     assert mxc.tick.launches == before
     assert all(r.scalar is None for r in host._matrix_rows.values())
+
+
+# -- the tree tick (plain PyTorch on either device) -----------------------------
+
+
+def _tree_ops(rng, b, n, k):
+    """Seeded tree ops of every kind, anchors anywhere in [-2, n + 2)."""
+    from fluidframework_tpu_torch.ops import tree_kernel as tk
+    per_doc = []
+    for _ in range(b):
+        count = int(rng.integers(0, k + 1))
+        per_doc.append([dict(kind=int(rng.integers(0, 12)),
+                             node=int(rng.integers(-2, n + 2)),
+                             parent=int(rng.integers(-2, n + 2)),
+                             trait=int(rng.integers(0, 3)),
+                             payload=int(rng.integers(0, 5)))
+                        for _ in range(count)])
+    # Chains so detaches and moves sweep deep subtrees.
+    for d in range(0, b, 3):
+        per_doc[d] = [dict(kind=tk.TREE_INSERT, node=i, parent=i - 1)
+                      for i in range(1, k)] + [dict(kind=tk.TREE_DETACH,
+                                                    node=1)]
+    return per_doc
+
+
+@pytest.mark.parametrize("b,n,k", [(5, 32, 32), (64, 64, 40)])
+def test_tree_tick_on_the_card_matches_the_cpu(cuda, b, n, k):
+    """The tree tick on CUDA tensors against the same call on CPU
+    tensors, tick after tick: every plane, ``applied`` and ``overflow``
+    equal."""
+    from fluidframework_tpu_torch.ops import tree_kernel as tk
+
+    rng = np.random.default_rng(3)
+    card = tk.init_state(b, n, cuda)
+    cpu = tk.init_state(b, n, "cpu")
+    for _tick in range(4):
+        per_doc = _tree_ops(rng, b, n, k)
+        steps = tk.subtree_steps(per_doc, k)
+        card, card_out = tk.apply_tick(
+            card, tk.make_tree_op_batch(per_doc, b, k, cuda), steps)
+        cpu, cpu_out = tk.apply_tick(
+            cpu, tk.make_tree_op_batch(per_doc, b, k, "cpu"), steps)
+        assert card.exists.device.type == "cuda"
+        _assert_equal(card, cpu, "state")
+        _assert_equal(card_out, cpu_out, "out")

@@ -25,7 +25,7 @@ export/import both ways. Every matrix plane, ``matrix_grid``,
 ``summarize``, ``stats`` and ``export_state`` must be equal, and the
 grids must equal a scalar PermutationVector + LWW replay.
 
-Tree ops are not ported and must raise naming their family.
+Tree channels are held to JAX in ``tests/test_torch_tree_host.py``.
 """
 
 from __future__ import annotations
@@ -156,15 +156,6 @@ def test_export_import_both_ways():
         back.ingest(doc, _msg(jmsg, seqs[doc], op, ds, ch))
         th.ingest(doc, _msg(tmsg, seqs[doc], op, ds, ch))
     _assert_equal(back, th)
-
-
-@pytest.mark.parametrize("family,op", [
-    ("tree", {"type": "edit", "edit": {}}),
-])
-def test_unported_families_raise(family, op):
-    th = TorchMergeHost(device="cpu")
-    with pytest.raises(NotImplementedError, match=family):
-        th.ingest("doc", _msg(tmsg, 1, op))
 
 
 # -- the text half -------------------------------------------------------------
