@@ -28,7 +28,7 @@ equality: every plane is integer), then drives the port's main paths:
   joined through the service, rounds of concurrent inserts and removes
   through their connections, the merger lambda feeding
   ``KernelMergeHost``), and the host at batched width (8,192 docs x 128
-  writers, six flushes of K=32 ops, 64 docs bursting past a block),
+  writers, four flushes of K=32 ops, 64 docs bursting past a block),
   checked against a scalar ``MergeEngine`` replay and a plain-version run;
 * SharedMatrix serving: BASELINE.json config 4 (a 1k x 1k grid, 256
   clients joined through the service writing cells concurrently, with
@@ -39,13 +39,25 @@ equality: every plane is integer), then drives the port's main paths:
   benchmark's step layout (16,384 docs, six ticks of 64 ops), checked
   against the op tick's grids;
 * SharedTree serving: BASELINE.json config 5 (subtree insert/move, 1k
-  docs: 1,024 docs x 4 clients joined through the service, 8 rounds of
+  docs: 1,024 docs x 4 clients joined through the service, 6 rounds of
   one concurrent wire edit per client, bursts that exhaust a rank gap
   and two-set_value edits that leave the device), every doc's tree
   checked against a ``Transaction`` replay of its sequenced edits; and
   the tree tick (plain PyTorch: the reference's is XLA, not Pallas) at
   the reference tree benchmark's shape (8,192 docs x 256 slots, six
-  ticks of K=32), checked against a scalar replay and a CPU run.
+  ticks of K=32), checked against a scalar replay and a CPU run;
+* the multi-device tier: the reference ``bench_mixed_serving``'s mixed
+  population at full width (8,192 docs, a quarter each of map, text,
+  matrix and tree rows, 12 ticks, 212,992 ops a tick) through
+  ``ShardedServing`` — the all-family ``_mixed_tick`` (kernels 1, 3 and
+  5; kernel 2 for the joins) — on one shard (mixed A: every row held to
+  its family's scalar replay and the whole run to a plain-version run;
+  the staged device rate and each leg's time) and on a virtual mesh of 4
+  shards of the card with 4 simulated hosts (mixed B: every plane and ack
+  equal to mixed A's); and the sequence-parallel merge tick on a virtual
+  mesh of 4 shards (one 65,536-slot document, held to kernel 4 and the
+  flat plain tick) and a merge host whose growing config-2 document
+  migrates into its sharded pool.
 
 It prints each kernel's launch shapes on the main paths and re-checks
 every kernel == plain at each of them, on the very inputs the paths gave
@@ -72,9 +84,9 @@ result. It imports nothing of JAX and nothing of ``fluidframework_tpu``.
     python3 chip_smoke.py --trace
 
 serves the map path's ticks (WAL-less and durable) and the text,
-matrix and tree paths once more (matrix path B at two flushes, tree path
-A), under ``torch.profiler``, and prints the card's busy time and idle
-share.
+matrix, tree and mixed paths once more (matrix path B at two flushes,
+tree path A, mixed A's front door), under ``torch.profiler``, and prints
+the card's busy time and idle share.
 """
 
 from __future__ import annotations
@@ -104,13 +116,13 @@ K_SEQ = 32
 
 # BASELINE.json config 2 at its published width (1 doc, 128 clients), and
 # the host at the batched width bench.py runs that config at (8,192 docs,
-# K=32 ops per doc per tick, 6 ticks), with 64 docs whose head-concentrated
+# K=32 ops per doc per tick, 4 ticks), with 64 docs whose head-concentrated
 # burst (BURST_K ops, 2 * BURST_K + 2 > Bk) overflows a block mid-tick.
 TEXT_CLIENTS = 128
-TEXT_ROUNDS = 16
+TEXT_ROUNDS = 12
 TEXT_DOCS = 8_192
 TEXT_K = 32
-TEXT_FLUSHES = 6
+TEXT_FLUSHES = 4
 BURST_DOCS = 64
 BURST_K = 120
 BURST_FLUSH = 3
@@ -152,7 +164,7 @@ STEPS_STREAMS = 256
 # 8 docs a two-set_value edit (an unsupported shape: the scalar route).
 TREE_DOCS = 1024
 TREE_CLIENTS = 4
-TREE_ROUNDS = 8
+TREE_ROUNDS = 6
 TREE_BURST_DOCS = 16
 TREE_BURST = 24
 TREE_BURST_ROUND = 2
@@ -176,6 +188,32 @@ TREE_SWEEP_OPS_PER_SLOT = 3
 # A deli lane count past one block's shared memory for the warp variant
 # (4 documents x 16 bytes a client > 232,448 bytes on an H100).
 DELI_LARGE_C = 4096
+# bench_mixed_serving's full width (bench.py:602): 8,192 docs, a quarter
+# each of map, text, matrix and tree rows, 12 ticks at map K 64, text and
+# matrix K 16, tree K 8 (212,992 ops a tick), harvest pipeline depth 4;
+# mixed B serves it again on a virtual mesh of 4 shards of the card.
+MIXED_DOCS = 8192
+MIXED_TICKS = 12
+MIXED_K = {"map": 64, "text": 16, "matrix": 16, "tree": 8}
+MIXED_DEPTH = 4
+MIXED_SHARDS = 4
+# The sequence-parallel tier: one document of 65,536 slots (the merge
+# host's default sharded_slot_threshold) over a virtual mesh of 4 shards,
+# 6 ticks of K = 32 ops from 8 writers; and a merge host with a 4,096-slot
+# threshold growing one config-2 document (128 writers, one op each a
+# round) into its sharded pool.
+SEQPAR_S = 65536
+SEQPAR_K = 32
+SEQPAR_TICKS = 6
+SEQPAR_CLIENTS = 8
+SEQPAR_SHARDS = 4
+GROW_THRESHOLD = 4096
+GROW_CLIENTS = 128
+GROW_ROUNDS = 24
+# The msn trails the head by this many rounds: the collab window holds the
+# last GROW_LAG rounds' segments unmerged (zamboni packs everything below
+# it into a few runs), so the table passes 2,048 slots.
+GROW_LAG = 16
 
 
 def fail(msg: str) -> None:
@@ -2890,6 +2928,896 @@ def tree_path_b(device) -> dict:
     return out
 
 
+# -- the multi-device tier -------------------------------------------------------
+
+
+class _Identity:
+    """An interning table whose value ids are the values themselves (the
+    mixed script writes raw ints into cells)."""
+
+    def __getitem__(self, i):
+        return i
+
+
+def mixed_script() -> dict:
+    """``bench_mixed_serving``'s seeded script (bench.py:602): a quarter
+    each of map, text, matrix and tree rows (row r is family r % 4), every
+    row of a family the same traffic a tick; map K 64 (seeded set words),
+    text K 16 (8 inserts of "ab" at the head, 4 one-char removes, 4
+    annotates), matrix K 16 (a row and a col insert, 14 seeded cell
+    writes), tree K 8 (8 inserts at tick 0, then 8 set_values). Returns
+    the per-tick encoded planes, the rows of each family, and the ops of
+    each family in replay form."""
+    import numpy as np
+
+    from fluidframework_tpu_torch.ops import matrix_kernel as mxk
+    from fluidframework_tpu_torch.ops import mergetree_kernel as mtk
+    from fluidframework_tpu_torch.ops import tree_kernel as tk
+    from fluidframework_tpu_torch.server import storm
+    k, docs, ticks = MIXED_K, MIXED_DOCS, MIXED_TICKS
+    rng = np.random.default_rng(11)
+    families = ("map", "text", "matrix", "tree")
+    fam_rows = {f: np.arange(i, docs, 4) for i, f in enumerate(families)}
+    pack_fields = {"text": storm.TEXT_PACK, "matrix": storm.MATRIX_PACK,
+                   "tree": storm.TREE_PACK}
+
+    def text_ops(t):
+        ops = [dict(kind=mtk.MT_INSERT, pos=0, text="ab")
+               for _ in range(k["text"] - 8)]
+        ops += [dict(kind=mtk.MT_REMOVE, pos=i, end=i + 1)
+                for i in range(4)]
+        ops += [dict(kind=mtk.MT_ANNOTATE, pos=0, end=2, prop_key=1,
+                     prop_val=t + 1) for _ in range(4)]
+        return ops
+
+    def matrix_ops(t):
+        ops = [dict(target=mxk.MX_ROWS, kind=mtk.MT_INSERT, pos=0, count=1),
+               dict(target=mxk.MX_COLS, kind=mtk.MT_INSERT, pos=0, count=1)]
+        ops += [dict(target=mxk.MX_CELL, row=int(rng.integers(0, t + 1)),
+                     col=int(rng.integers(0, t + 1)),
+                     value=int(rng.integers(1, 1 << 16)))
+                for _ in range(k["matrix"] - 2)]
+        return ops
+
+    def tree_ops(t):
+        if t == 0:
+            return [dict(kind=tk.TREE_INSERT, node=i + 1, parent=0,
+                         trait=1, payload=i) for i in range(k["tree"])]
+        return [dict(kind=tk.TREE_SET_VALUE, node=i + 1,
+                     payload=t * 100 + i) for i in range(k["tree"])]
+
+    handle, pool = 0, 0
+    ticks_out, replay = [], {f: [] for f in families}
+    for t in range(ticks):
+        words = (rng.integers(0, 1 << 20, k["map"]).astype(np.uint32) << 12
+                 | (rng.integers(0, 32, k["map"]).astype(np.uint32) << 2))
+        per_fam, blob = {"map": words}, ""
+        ref = 1 + t * np.array([k[f] for f in families])
+        for fi, fam in enumerate(families[1:], 1):
+            ops = {"text": text_ops, "matrix": matrix_ops,
+                   "tree": tree_ops}[fam](t)
+            planes = {n: np.zeros(k[fam], np.int32)
+                      for n in pack_fields[fam][1:]}
+            for i, op in enumerate(ops):
+                op = dict(op)
+                if fam == "text" and op["kind"] == mtk.MT_INSERT:
+                    text = op.pop("text")
+                    op.update(pool_start=pool + len(blob),
+                              text_len=len(text))
+                    blob += text
+                if fam == "matrix" and op["target"] != mxk.MX_CELL:
+                    op["handle_base"] = handle
+                    handle += op["count"]
+                for n in planes:
+                    planes[n][i] = op.get(n, 0)
+            if "ref_seq" in planes:
+                planes["ref_seq"][:len(ops)] = ref[fi]
+            per_fam[fam] = planes
+            replay[fam].append(ops)
+        replay["map"].append(words)
+        pool += len(blob)
+        ticks_out.append((per_fam, blob))
+    ops_per_tick = sum(len(fam_rows[f]) * k[f] for f in families)
+    return {"ticks": ticks_out, "fam_rows": fam_rows, "replay": replay,
+            "ops_per_tick": ops_per_tick, "families": families}
+
+
+def mixed_kwargs() -> dict:
+    """``bench_mixed_serving``'s assembly arguments."""
+    k, docs, ticks = MIXED_K, MIXED_DOCS, MIXED_TICKS
+    return dict(num_docs=docs, k=k["map"], num_clients=2, map_slots=32,
+                text_slots=2 * k["text"] * ticks + 64, text_k=k["text"],
+                matrix_vec_slots=4 * ticks + 16, matrix_cell_slots=256,
+                matrix_k=k["matrix"], tree_slots=2 * k["tree"],
+                tree_k=k["tree"])
+
+
+def play_mixed(serving, script, t: int):
+    """Tick ``t`` of the script through the serving front door (submit →
+    pack → feed → tick → harvest)."""
+    per_fam, blob = script["ticks"][t]
+    for fam in script["families"]:
+        n = MIXED_K[fam]
+        cseq0, ref = t * n + 1, 1 + t * n
+        for row in script["fam_rows"][fam].tolist():
+            if fam == "map":
+                serving.submit(row, per_fam["map"], cseq0, ref)
+            else:
+                serving.submit_planes(row, fam, per_fam[fam], n, cseq0, ref,
+                                      text=blob if fam == "text" else "")
+    return serving.tick(now=2 + t)
+
+
+@contextlib.contextmanager
+def plain_mixed_versions():
+    """Swap the mixed tick's and the serving assembly's kernel wrappers
+    for their plain versions for the duration (the plain-version run of
+    the mixed paths)."""
+    from fluidframework_tpu_torch.ops import map_kernel as mk
+    from fluidframework_tpu_torch.ops import matrix_kernel as mxk
+    from fluidframework_tpu_torch.ops import mergetree_blocks as mtb
+    from fluidframework_tpu_torch.ops import sequencer as seqk
+    from fluidframework_tpu_torch.parallel import serving as sv
+    from fluidframework_tpu_torch.server import storm
+    saved = storm.mfc, storm.mtbc, storm.mxc, sv.seqc
+    storm.mfc = type("Plain", (), {"fold_words": staticmethod(
+        mk.fold_words_plain)})
+    storm.mtbc = type("Plain", (), {"apply_tick_blocks_best": staticmethod(
+        mtb.apply_tick_blocks)})
+    storm.mxc = type("Plain", (), {"apply_tick_best": staticmethod(
+        mxk.apply_tick)})
+    sv.seqc = type("Plain", (), {"process_batch_best": staticmethod(
+        seqk.process_batch)})
+    try:
+        yield
+    finally:
+        storm.mfc, storm.mtbc, storm.mxc, sv.seqc = saved
+
+
+@contextlib.contextmanager
+def last_call(mod, attr: str, kept: dict, key: str):
+    """Wrap the kernel wrapper ``mod.<attr>`` for the duration, keeping a
+    copy of the arguments of its LAST call in ``kept[key]`` (the shape the
+    path gives the kernel, re-checked and timed after the path)."""
+    inner = getattr(mod, attr)
+
+    def copy(planes):
+        if not isinstance(planes, tuple):
+            return planes.clone()
+        return type(planes)(*(copy(t) for t in planes))
+
+    def wrapped(*args):
+        kept[key] = tuple(copy(a) for a in args)
+        return inner(*args)
+    setattr(mod, attr, wrapped)
+    try:
+        yield
+    finally:
+        setattr(mod, attr, inner)
+
+
+def mixed_counts_reset() -> None:
+    from fluidframework_tpu_torch.ops import map_fold_cuda as mfc
+    from fluidframework_tpu_torch.ops import matrix_cuda as mxc
+    from fluidframework_tpu_torch.ops import mergetree_blocks_cuda as mtbc
+    from fluidframework_tpu_torch.ops import sequencer_cuda as seqc
+    for mod in (mfc, mtbc, seqc):
+        mod.launches = 0
+        mod.shapes.clear()
+    mfc.variants.update(warp=0, block=0)
+    mtbc.variants.update(smem=0, **{"global": 0})
+    seqc.variants.clear()
+    mxc.tick.reset()
+
+
+def mixed_counts() -> dict:
+    from fluidframework_tpu_torch.ops import map_fold_cuda as mfc
+    from fluidframework_tpu_torch.ops import matrix_cuda as mxc
+    from fluidframework_tpu_torch.ops import mergetree_blocks_cuda as mtbc
+    from fluidframework_tpu_torch.ops import sequencer_cuda as seqc
+    return {"map_fold": mfc.launches, "sequencer_tick": seqc.launches,
+            "mergetree_blocks": mtbc.launches,
+            "matrix_tick": mxc.tick.launches,
+            "shapes": {"map_fold": dict(mfc.shapes),
+                       "sequencer_tick": dict(seqc.shapes),
+                       "mergetree_blocks": dict(mtbc.shapes),
+                       "matrix_tick": dict(mxc.tick.shapes)},
+            "variants": {"map_fold": dict(mfc.variants),
+                         "sequencer_tick": dict(seqc.variants),
+                         "mergetree_blocks": dict(mtbc.variants),
+                         "matrix_tick": dict(mxc.tick.variants)}}
+
+
+def serve_mixed(device, script, shards: int = 1, hosts: int = 1,
+                depth: int = MIXED_DEPTH, record: dict | None = None,
+                ticks_ctx=None) -> dict:
+    """The script through a ``ShardedServing`` on a mesh of ``shards``
+    shards of ``device`` (a virtual mesh past one) with ``hosts``
+    simulated hosts: tick 0 untimed, the rest timed by the host clock
+    (``ticks_ctx`` wraps them, e.g. a profiler); every tick's
+    harvest, the tick outputs, the states and the durable records."""
+    import torch
+
+    from fluidframework_tpu_torch.parallel.mesh import make_mesh
+    from fluidframework_tpu_torch.parallel.serving import ShardedServing
+    from fluidframework_tpu_torch.server import storm
+    serving = ShardedServing(make_mesh([device] * shards), num_hosts=hosts,
+                             pipeline_depth=depth, **mixed_kwargs())
+    outs = []
+    inner = storm._mixed_tick_shards
+
+    def keep(*args, **kw):
+        res = inner(*args, **kw)
+        outs.append([[None if x is None else x.clone() for x in r[5:]]
+                     for r in res])
+        return res
+    storm._mixed_tick_shards = keep
+    record = record if record is not None else {}
+    try:
+        from fluidframework_tpu_torch.ops import map_fold_cuda as mfc
+        from fluidframework_tpu_torch.ops import matrix_cuda as mxc
+        from fluidframework_tpu_torch.ops import \
+            mergetree_blocks_cuda as mtbc
+        from fluidframework_tpu_torch.parallel import serving as sv
+        with last_call(mfc, "fold_words", record, "map_fold"), \
+                last_call(mtbc, "apply_tick_blocks_best", record,
+                          "mergetree_blocks"), \
+                last_call(mxc, "apply_tick_best", record, "matrix_tick"), \
+                last_call(sv.seqc, "process_batch_best", record,
+                          "sequencer_tick"):
+            serving.join_all()
+            harvests = [play_mixed(serving, script, 0)]
+            harvests += serving.flush()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with (ticks_ctx() if ticks_ctx else contextlib.nullcontext()):
+                for t in range(1, len(script["ticks"])):
+                    harvests.append(play_mixed(serving, script, t))
+                harvests += serving.flush()
+                torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+    finally:
+        storm._mixed_tick_shards = inner
+    return {"serving": serving, "harvests": [h for h in harvests
+                                             if any(h.values())],
+            "outs": outs, "wall_s": wall_s}
+
+
+def mixed_states_equal(a, b, what: str) -> None:
+    """Every plane of every family state of two assemblies (read back row
+    by row), their durable records and text pools equal."""
+    import numpy as np
+    for name in a._family_states():
+        for i, (x, y) in enumerate(zip(leaves(a.family_rows(name)),
+                                       leaves(b.family_rows(name)))):
+            check(np.array_equal(x, y), f"{what}: {name} plane {i} differs")
+    check(a.text_pool == b.text_pool, f"{what}: text pools differ")
+    check(sorted(a.durable) == sorted(b.durable)
+          and all(len(a.durable[r]) == len(b.durable[r])
+                  and all(x["n_seq"] == y["n_seq"] and x["first"] == y["first"]
+                          and x["last"] == y["last"]
+                          and x["cseq0"] == y["cseq0"]
+                          for x, y in zip(a.durable[r], b.durable[r]))
+                  for r in a.durable), f"{what}: durable records differ")
+
+
+def mixed_replays(serving, script) -> None:
+    """Every row of each family equals that family's scalar replay: the
+    rows of a family took the same traffic, so every row must equal the
+    family's first row, and the first row a numpy LWW fold (map), a
+    ``MergeEngine`` replay (text), a PermutationVector + LWW grid replay
+    (matrix) and a ``Transaction`` replay (tree)."""
+    import numpy as np
+    import torch
+
+    from fluidframework_tpu_torch.dds.tree_core import ROOT_ID, TreeSnapshot
+    from fluidframework_tpu_torch.ops import matrix_kernel as mxk
+    from fluidframework_tpu_torch.ops import mergetree_kernel as mtk
+    from fluidframework_tpu_torch.parallel.mesh import tree_map
+    rows = script["fam_rows"]
+    names = {"map": "map", "text": "text", "matrix": "matrix",
+             "tree": "tree"}
+    firsts = {}
+    for fam, name in names.items():
+        planes = serving.family_rows(name)
+        first = tree_map(lambda a: a[rows[fam][0]:rows[fam][0] + 1], planes)
+        for i, (plane, one) in enumerate(zip(leaves(planes), leaves(first))):
+            check(np.array_equal(plane[rows[fam]],
+                                 np.broadcast_to(one, (len(rows[fam]),)
+                                                 + one.shape[1:])),
+                  f"mixed: a {fam} row differs from the family's first row "
+                  f"(plane {i})")
+        firsts[fam] = first
+    # Map: seqs 2.. after the one join, K words a tick, last write wins.
+    present = np.zeros(mixed_kwargs()["map_slots"], bool)
+    value = np.zeros_like(present, np.int32)
+    vseq = np.zeros_like(value)
+    seq = 1
+    for words in script["replay"]["map"]:
+        for w in words.tolist():
+            seq += 1
+            slot, kind = (w >> 2) & 0x3FF, w & 3
+            check(kind == 0, "the mixed map script holds a non-set word")
+            present[slot], value[slot], vseq[slot] = True, w >> 12, seq
+    m = firsts["map"]
+    check(np.array_equal(m.present[0], present)
+          and np.array_equal(np.where(present, m.value[0], 0), value)
+          and np.array_equal(np.where(present, m.vseq[0], 0), vseq),
+          "mixed: map rows != the numpy LWW fold")
+    # Text.
+    ops, seq = [], 1
+    for t, tick_ops in enumerate(script["replay"]["text"]):
+        ref = 1 + t * MIXED_K["text"]
+        for op in tick_ops:
+            seq += 1
+            if op["kind"] == mtk.MT_INSERT:
+                wire = {"type": "insert", "pos": op["pos"], "text": "ab"}
+            elif op["kind"] == mtk.MT_REMOVE:
+                wire = {"type": "remove", "start": op["pos"],
+                        "end": op["end"]}
+            else:
+                wire = {"type": "annotate", "start": op["pos"],
+                        "end": op["end"], "props": {"k": op["prop_val"]}}
+            ops.append((wire, seq, ref, "c0"))
+    want = engine_text(ops)
+    check(serving.text_of(int(rows["text"][0])) == want,
+          "mixed: text rows != the MergeEngine replay")
+    # Matrix.
+    ops, seq = [], 1
+    for t, tick_ops in enumerate(script["replay"]["matrix"]):
+        ref = 1 + t * MIXED_K["matrix"]
+        for op in tick_ops:
+            seq += 1
+            if op["target"] == mxk.MX_CELL:
+                wire = {"target": "cell", "row": op["row"], "col": op["col"],
+                        "value": op["value"]}
+            else:
+                wire = {"target": "rows" if op["target"] == mxk.MX_ROWS
+                        else "cols", "type": "insert", "pos": op["pos"],
+                        "count": op["count"]}
+            ops.append((wire, seq, ref, "c0"))
+    one = tree_map(torch.from_numpy, firsts["matrix"])
+    check(mxk.materialize_grid(one, 0, _Identity()) == replay_grid(ops),
+          "mixed: matrix rows != the PermutationVector + LWW replay")
+    # Tree.
+    slots = mixed_kwargs()["tree_slots"]
+    slot_names = {0: ROOT_ID, **{i: f"s{i}" for i in range(1, slots)}}
+    snap = TreeSnapshot()
+    for tick_ops in script["replay"]["tree"]:
+        snap, applied, _ = tree_scalar_apply(snap, tick_ops, slot_names)
+        check(all(applied), "mixed: a tree op failed in the replay")
+    tree_state_matches(tree_map(torch.from_numpy, firsts["tree"]), snap,
+                       slot_names)
+
+
+def mixed_device_rate(device, script) -> dict:
+    """``_mixed_tick`` on inputs staged on the card ahead of time (the
+    kept-fed serving pipeline's device rate): fresh joined states, the
+    script's ticks, CUDA events around the whole series and after every
+    leg. Returns ops/s, ms a tick and each leg's ms a tick."""
+    import numpy as np
+    import torch
+
+    from fluidframework_tpu_torch.ops import tree_kernel as tk
+    from fluidframework_tpu_torch.parallel.mesh import make_mesh
+    from fluidframework_tpu_torch.parallel.serving import ShardedServing
+    from fluidframework_tpu_torch.server import storm
+    kw = mixed_kwargs()
+    rows, docs = script["fam_rows"], kw["num_docs"]
+    fields = {"text": storm.TEXT_PACK, "matrix": storm.MATRIX_PACK,
+              "tree": storm.TREE_PACK}
+    staged = []
+    for t, (per_fam, _blob) in enumerate(script["ticks"]):
+        scalars = np.zeros((docs, 6), np.int32)
+        words = np.zeros((docs, MIXED_K["map"]), np.uint32)
+        packs = {f: np.zeros((docs, len(fields[f]), MIXED_K[f]), np.int32)
+                 for f in fields}
+        for fam in script["families"]:
+            n, r = MIXED_K[fam], rows[fam]
+            scalars[r, 1], scalars[r, 2] = t * n + 1, 1 + t * n
+            scalars[r, 3], scalars[r, 4] = 2 + t, n
+            if fam == "map":
+                scalars[r, 5] = n
+                words[r] = per_fam["map"]
+            else:
+                packs[fam][r, 0, :n] = 1
+                for i, name in enumerate(fields[fam][1:]):
+                    packs[fam][r, i + 1, :n] = per_fam[fam][name]
+        steps = tk.subtree_steps([[{"kind": int(x)} for x in
+                                   per_fam["tree"]["kind"]]],
+                                 MIXED_K["tree"])
+        staged.append((torch.from_numpy(scalars).to(device),
+                       torch.from_numpy(words.view(np.int32)).to(device),
+                       *(torch.from_numpy(packs[f]).to(device)
+                         for f in ("text", "matrix", "tree")), steps))
+
+    def fresh():
+        s = ShardedServing(make_mesh([device]), num_hosts=1, **kw)
+        s.join_all()
+        return [s.seq_state[0], s.map_state[0], s.merge_state[0],
+                s.matrix_state[0], s.tree_state[0]]
+
+    def run(states, marks=None):
+        for t, (*inputs, steps) in enumerate(staged):
+            if marks is not None:
+                marks.append(("start", t, torch.cuda.Event(
+                    enable_timing=True)))
+                marks[-1][2].record()
+
+            def mark(leg, t=t):
+                if marks is not None:
+                    marks.append((leg, t, torch.cuda.Event(
+                        enable_timing=True)))
+                    marks[-1][2].record()
+            out = storm._mixed_tick(*states, *inputs, tree_steps=steps,
+                                    mark=mark)
+            states = list(out[:5])
+        return states
+
+    run(fresh())  # warm-up
+    states = fresh()
+    torch.cuda.synchronize()
+    marks = []
+    t0 = time.perf_counter()
+    run(states, marks)
+    end = torch.cuda.Event(enable_timing=True)
+    end.record()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    ticks = len(staged)
+    total_ms = marks[0][2].elapsed_time(end)
+    legs: dict = {}
+    for (_l0, t0_, e0), (leg, t1, e1) in zip(marks, marks[1:]):
+        if leg != "start" and t0_ == t1:
+            legs[leg] = legs.get(leg, 0.0) + e0.elapsed_time(e1) / ticks
+    ops = script["ops_per_tick"] * ticks
+    return {"device_ops_per_sec": ops / (total_ms / 1e3),
+            "device_tick_ms": total_ms / ticks, "host_s": host_s,
+            "leg_ms": legs, "ticks": ticks}
+
+
+def mixed_path_a(device) -> dict:
+    """Mixed A: ``bench_mixed_serving`` at full width through the port's
+    ``ShardedServing`` on a one-shard mesh, kernels launched (counts
+    zeroed just before, read just after); then the same on the plain
+    versions, every plane, ack, tick output and durable record of the two
+    runs equal; every row of each family held to its scalar replay; the
+    staged device rate; and each kernel held to its plain version on the
+    last call the path made to it."""
+    import torch
+    script = mixed_script()
+    record: dict = {}
+    mixed_counts_reset()
+    run = serve_mixed(device, script, record=record)
+    counts = mixed_counts()
+    for name in ("map_fold", "sequencer_tick", "mergetree_blocks",
+                 "matrix_tick"):
+        check(counts[name] > 0, f"mixed A launched no {name} kernel")
+    serving = run["serving"]
+    with plain_mixed_versions():
+        plain = serve_mixed(device, script)
+    check(run["harvests"] == plain["harvests"],
+          "mixed A: acks of the kernel run != the plain run")
+    check(len(run["harvests"]) == MIXED_TICKS,
+          f"mixed A harvested {len(run['harvests'])} ticks")
+    for t, (x, y) in enumerate(zip(run["outs"], plain["outs"])):
+        for i, (p, q) in enumerate(zip(x[0], y[0])):
+            check((p is None and q is None) or torch.equal(p, q),
+                  f"mixed A tick {t}: output {5 + i} (n_seq, first, last, "
+                  "msn, tree_overflow, text_overflow, kstats) != plain run")
+    mixed_states_equal(serving, plain["serving"], "mixed A vs plain")
+    del plain
+    acked = sum(n for h in run["harvests"] for rows in h.values()
+                for (n, _f, _l) in rows.values())
+    check(acked == script["ops_per_tick"] * MIXED_TICKS,
+          f"mixed A acked {acked} ops of "
+          f"{script['ops_per_tick'] * MIXED_TICKS}")
+    mixed_replays(serving, script)
+    rate = mixed_device_rate(device, script)
+    timed = MIXED_TICKS - 1
+    out = {"docs": MIXED_DOCS, "ticks": MIXED_TICKS, "depth": MIXED_DEPTH,
+           "ops_per_tick": script["ops_per_tick"],
+           "assembly_ops_per_sec": script["ops_per_tick"] * timed
+           / run["wall_s"],
+           "assembly_tick_ms": 1e3 * run["wall_s"] / timed,
+           **rate, "launches": {k: counts[k] for k in (
+               "map_fold", "sequencer_tick", "mergetree_blocks",
+               "matrix_tick")},
+           "launch_shapes": {k: [[*s, n] for s, n in v.items()]
+                             for k, v in counts["shapes"].items()},
+           "rebalance_stats": serving.rebalance_stats,
+           "durable_records": sum(len(v) for v in serving.durable.values())}
+    print("mixed_a: " + json.dumps(out), flush=True)
+    return {"out": out, "counts": counts, "serving": serving,
+            "harvests": run["harvests"], "outs": run["outs"],
+            "record": record, "script": script}
+
+
+def mixed_path_b(device, a: dict) -> dict:
+    """Mixed B: the same script on a virtual mesh of MIXED_SHARDS shards
+    of the card with MIXED_SHARDS simulated hosts. Each host harvests its
+    own rows only; every plane and ack equals mixed A's; global_metrics
+    equals the sum over mixed A's rows."""
+    import numpy as np
+    import torch
+    mixed_counts_reset()
+    run = serve_mixed(device, a["script"], shards=MIXED_SHARDS,
+                      hosts=MIXED_SHARDS)
+    counts = mixed_counts()
+    serving = run["serving"]
+    for h in run["harvests"]:
+        for port in serving.hosts:
+            check(set(h[port.host_id]) <= set(range(port.start, port.stop)),
+                  f"mixed B: host {port.host_id} harvested a foreign row")
+    merged = [{r: v for rows in h.values() for r, v in rows.items()}
+              for h in run["harvests"]]
+    want = [{r: v for rows in h.values() for r, v in rows.items()}
+            for h in a["harvests"]]
+    check(merged == want, "mixed B acks != mixed A's")
+    mixed_states_equal(serving, a["serving"], "mixed B vs mixed A")
+    # The tick outputs, shards in row order, equal mixed A's; the kstats
+    # rebalance cells are batch-wide, the others sum over the shards.
+    for t, (x, y) in enumerate(zip(run["outs"], a["outs"])):
+        for i in range(6):
+            if y[0][i] is None:
+                continue
+            got = torch.cat([shard[i] for shard in x])
+            check(torch.equal(got, y[0][i]),
+                  f"mixed B tick {t}: output {5 + i} != mixed A's")
+        ks = torch.stack([shard[6] for shard in x])
+        check(torch.equal(ks[:, :3].sum(dim=0).to(torch.int32),
+                          y[0][6][:3])
+              and bool((ks[:, 3:] == y[0][6][3:]).all()),
+              f"mixed B tick {t}: kstats != mixed A's")
+    seq_a = a["serving"].family_rows("seq").seq
+    present_a = a["serving"].family_rows("map").present
+    metrics = serving.global_metrics()
+    check(metrics == {"seq": int(seq_a.sum()),
+                      "present": int(np.sum(present_a))},
+          f"mixed B global_metrics {metrics} != the sum over mixed A")
+    out = {"shards": MIXED_SHARDS, "hosts": MIXED_SHARDS,
+           "assembly_ops_per_sec": a["script"]["ops_per_tick"]
+           * (MIXED_TICKS - 1) / run["wall_s"],
+           "assembly_tick_ms": 1e3 * run["wall_s"] / (MIXED_TICKS - 1),
+           "global_metrics": metrics,
+           "launches": {k: counts[k] for k in (
+               "map_fold", "sequencer_tick", "mergetree_blocks",
+               "matrix_tick")},
+           "launch_shapes": {k: [[*s, n] for s, n in v.items()]
+                             for k, v in counts["shapes"].items()}}
+    print("mixed_b: " + json.dumps(out), flush=True)
+    return {"out": out, "counts": counts}
+
+
+def grow_rounds(rng, rounds: int, writers: int, lag: int = 3):
+    """Sequenced SharedString traffic for one document: per round every
+    writer sends ONE op at the round's head ref (inserts 9 in 10, else a
+    remove), positions valid in that frame; the msn is the ref of the
+    round ``lag`` rounds back. Yields (op, seq, ref, msn, client)."""
+    seq, length, refs = 0, 0, [0] * lag
+    for _ in range(rounds):
+        ref, grown, removed = seq, 0, []
+        for w in range(writers):
+            if length > 8 and rng.random() < 0.1:
+                s = rng.randrange(length - 2)
+                e = min(length, s + rng.randint(1, 3))
+                op = {"type": "remove", "start": s, "end": e}
+                removed.append((s, e))
+            else:
+                text = "".join(rng.choice("abcdef")
+                               for _ in range(rng.randint(1, 3)))
+                op = {"type": "insert", "pos": rng.randint(0, length),
+                      "text": text}
+                grown += len(text)
+            seq += 1
+            yield op, seq, ref, refs[0], f"w{w}"
+        length += grown - union_len([s for s, _ in removed],
+                                    [e for _, e in removed])
+        refs = refs[1:] + [ref]
+
+
+def grow_host(device, mesh, traffic) -> dict:
+    """One document's traffic, a round a flush, through three merge hosts:
+    one with the sequence-parallel pools on the card (a virtual mesh: the
+    pool ticks with kernel 4, whose launches are counted and whose last
+    call is held to the plain flat tick), one without them on the card,
+    and the first again on the CPU. After every flush the card's
+    sequence-parallel host must equal its CPU twin (text and, at the end,
+    every plane), and its text must equal the MergeEngine replay and the
+    unsharded host's — except from a flush that starts with the migrated
+    row still holding segments past its slot count: there the reference
+    departs from the replay (ROADMAP Queue C: a block row installed into a
+    flat pool keeps its gaps, and the flat tick's end-of-table placement
+    lands among them), the port with it, and only the twin check holds.
+    The document must end in the sharded pool."""
+    import torch
+
+    from fluidframework_tpu_torch.dds.mergetree import MergeEngine
+    from fluidframework_tpu_torch.ops import mergetree_sharded as mts
+    from fluidframework_tpu_torch.protocol.messages import (
+        MessageType,
+        SequencedDocumentMessage,
+    )
+    from fluidframework_tpu_torch.server.merge_host import (
+        KernelMergeHost,
+        _ShardedMergePool,
+    )
+    from fluidframework_tpu_torch.ops import mergetree_blocks_cuda as mtbc
+    from fluidframework_tpu_torch.ops import mergetree_cuda as mtc
+    from fluidframework_tpu_torch.ops import mergetree_kernel as mtk
+    cpu_mesh = mts.make_seg_mesh(["cpu"] * mesh.size)
+    hosts = {"sharded": KernelMergeHost(
+        flush_threshold=1 << 20, device=device, seg_mesh=mesh,
+        sharded_slot_threshold=GROW_THRESHOLD),
+        "flat": KernelMergeHost(flush_threshold=1 << 20, device=device),
+        "cpu": KernelMergeHost(
+            flush_threshold=1 << 20, device="cpu", seg_mesh=cpu_mesh,
+            sharded_slot_threshold=GROW_THRESHOLD)}
+    serve_s = {name: 0.0 for name in hosts}
+    engine = MergeEngine(local_client=None)
+    departed, migrated_round = None, None
+    # The sequence-parallel host's own launches, counted from 0 just
+    # before each of its flushes and read just after; ``pool_flat``: the
+    # kernel-4 launches of flushes that found the row in the sharded pool.
+    launches = {"mergetree_flat": 0, "mergetree_blocks": 0}
+    pool_flat, pool_flushes = 0, 0
+    kernel4, kept = mtc.apply_tick_best, {}
+
+    def keep(state, ops, *args, **kw):
+        # The sharded pool's last kernel-4 call, for the check below.
+        kept["call"] = (type(state)(*(t.clone() for t in state)),
+                        type(ops)(*(t.clone() for t in ops)))
+        return kernel4(state, ops, *args, **kw)
+
+    def gaps(host) -> int:
+        row = next(iter(host._merge_rows.values()), None)
+        if row is None or not isinstance(row.pool, _ShardedMergePool):
+            return 0
+        st = row.pool.state
+        return int(st.valid[row.row, int(st.count[row.row]):].sum())
+    for r in range(0, len(traffic), GROW_CLIENTS):
+        gapped = gaps(hosts["sharded"])
+        for op, sq, ref, msn, client in traffic[r:r + GROW_CLIENTS]:
+            engine.apply_remote(op, sq, ref, client)
+            for host in hosts.values():
+                host.ingest("doc", SequencedDocumentMessage(
+                    client_id=client, sequence_number=sq,
+                    minimum_sequence_number=msn, client_sequence_number=sq,
+                    reference_sequence_number=ref,
+                    type=MessageType.OPERATION,
+                    contents={"address": "default",
+                              "contents": {"address": "text",
+                                           "contents": op}}))
+        first = next(iter(hosts["sharded"]._merge_rows.values()), None)
+        in_pool = first is not None and isinstance(first.pool,
+                                                   _ShardedMergePool)
+        for name, host in hosts.items():
+            if name == "sharded":
+                mtc.launches = mtbc.launches = 0
+                mtc.apply_tick_best = keep if in_pool else kernel4
+            t0 = time.perf_counter()
+            try:
+                host.flush()
+            finally:
+                mtc.apply_tick_best = kernel4
+            if name != "cpu":
+                torch.cuda.synchronize()
+            serve_s[name] += time.perf_counter() - t0
+            if name == "sharded":
+                launches["mergetree_flat"] += mtc.launches
+                launches["mergetree_blocks"] += mtbc.launches
+                if in_pool:
+                    pool_flat += mtc.launches
+                    pool_flushes += 1
+        texts = {name: h.text("doc", "default", "text")
+                 for name, h in hosts.items()}
+        rnd = r // GROW_CLIENTS
+        row = next(iter(hosts["sharded"]._merge_rows.values()))
+        if migrated_round is None and isinstance(row.pool,
+                                                 _ShardedMergePool):
+            migrated_round = rnd
+        check(texts["sharded"] == texts["cpu"],
+              f"grow round {rnd}: sequence-parallel host on the card != "
+              "on the CPU")
+        if departed is None and (texts["sharded"] != engine.get_text()
+                                 or texts["sharded"] != texts["flat"]):
+            check(gapped > 0, f"grow round {rnd}: the sequence-parallel "
+                  "host departs from the replay outside the reference's "
+                  "gapped-row fault")
+            departed = rnd
+        if departed is None:
+            check(texts["flat"] == engine.get_text(),
+                  f"grow round {rnd}: the unsharded host != the replay")
+    host = hosts["sharded"]
+    row = next(iter(host._merge_rows.values()))
+    check(isinstance(row.pool, _ShardedMergePool),
+          f"the grown document stayed in a {row.pool.slots}-slot pool")
+    check(pool_flushes > 0 and pool_flat >= pool_flushes,
+          f"the sharded pool's {pool_flushes} flushes launched kernel 4 "
+          f"{pool_flat} times")
+    # Kernel 4 against the plain flat tick on the sharded pool's last call.
+    st, ops = kept["call"]
+    err = max_abs_err(kernel4(st, ops), mtk.apply_tick(st, ops))
+    check(err == 0, f"grow: kernel 4 != the flat tick on the sharded pool's "
+          f"inputs (max |err| {err})")
+    pool_tick = {"shape": [st.length.shape[0], ops.kind.shape[1],
+                           st.length.shape[1], st.prop_val.shape[2],
+                           st.rem_overlap.shape[2]],
+                 "variant": mtc.choose_variant(
+                     st.length.shape[1], st.prop_val.shape[2],
+                     st.rem_overlap.shape[2], ops.kind.shape[1],
+                     mtc.smem_limit(st.length.device)),
+                 "max_abs_err": err,
+                 "ms": cuda_time_ms(lambda: kernel4(st, ops), 3),
+                 "plain_ms": cuda_time_ms(lambda: mtk.apply_tick(st, ops), 1),
+                 "bound_ms": flat_bound(st, ops)[0]}
+    twin = next(iter(hosts["cpu"]._merge_rows.values()))
+    for f in type(row.pool.state)._fields:
+        check(torch.equal(getattr(row.pool.state, f).cpu(),
+                          getattr(twin.pool.state, f)),
+              f"grow: sharded pool plane {f}: card != CPU")
+    return {"writers": GROW_CLIENTS, "rounds": GROW_ROUNDS, "lag": GROW_LAG,
+            "ops": len(traffic), "threshold": GROW_THRESHOLD,
+            "pool_slots": row.pool.slots, "migrated_round": migrated_round,
+            "departed_round": departed,
+            "text_len": len(host.text("doc", "default", "text")),
+            "sharded_ops": host.metrics.counter("megadoc.sharded_ops").value,
+            "launches": launches, "pool_flushes": pool_flushes,
+            "pool_kernel4_launches": pool_flat, "pool_tick": pool_tick,
+            "serve_s": serve_s, "stats": host.stats}
+
+
+def seqpar_path(device) -> dict:
+    """The sequence-parallel tier on the card.
+
+    * ``apply_tick_sharded`` on a virtual mesh of SEQPAR_SHARDS shards of
+      the card: one document of SEQPAR_S slots (the merge host's default
+      ``sharded_slot_threshold``), SEQPAR_TICKS ticks of K = SEQPAR_K ops
+      from SEQPAR_CLIENTS writers; every plane equal to kernel 4 and to
+      the port's flat plain tick on the same inputs, every tick. Prints
+      ms and launches a tick.
+    * A ``KernelMergeHost`` with that mesh and a 4,096-slot threshold
+      grows one config-2 document (1 doc x 128 writers) past the
+      threshold, so it migrates into the sharded pool (``grow_host``)."""
+    import random
+
+    import numpy as np
+    import torch
+
+    from fluidframework_tpu_torch.ops import mergetree_cuda as mtc
+    from fluidframework_tpu_torch.ops import mergetree_kernel as mtk
+    from fluidframework_tpu_torch.ops import mergetree_sharded as mts
+    from fluidframework_tpu_torch.protocol.messages import (
+        MessageType,
+        SequencedDocumentMessage,
+    )
+    from fluidframework_tpu_torch.server.merge_host import (
+        KernelMergeHost,
+        _ShardedMergePool,
+    )
+    mesh = mts.make_seg_mesh([device] * SEQPAR_SHARDS)
+    rng = np.random.default_rng(17)
+    ticks = merge_ticks(rng, 1, SEQPAR_K, SEQPAR_TICKS, SEQPAR_CLIENTS)
+    w = mtk.overlap_words_for(SEQPAR_CLIENTS)
+    sharded = mts.shard_merge_state(mtk.init_state(1, SEQPAR_S, 4, w,
+                                                   device), mesh)
+    flat = kern = mtk.init_state(1, SEQPAR_S, 4, w, device)
+    ms, bounds, err = [], [], 0
+    for f in ticks:
+        ops = op_batch(f, device)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        new = mts.apply_tick_sharded(sharded, ops, mesh)
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+        bounds.append(flat_bound(flat, ops))
+        prev = flat
+        flat = mtk.apply_tick(flat, ops)
+        kern = mtc.apply_tick_best(kern, ops)
+        torch.cuda.synchronize()
+        err = max(err, max_abs_err(new, flat), max_abs_err(kern, flat))
+        check(err == 0, "sequence-parallel tick != the flat tick or "
+              f"kernel 4 (max |err| {err})")
+        sharded = new
+    last_ops = op_batch(ticks[-1], device)
+    _, dispatched = count_dispatched(
+        lambda: mts.apply_tick_sharded(prev, last_ops, mesh))
+    torch.cuda.synchronize()
+    # Kernel 4 and the flat plain tick on the last tick's inputs.
+    kernel4_ms = cuda_time_ms(lambda: mtc.apply_tick_best(prev, last_ops), 3)
+    plain_ms = cuda_time_ms(lambda: mtk.apply_tick(prev, last_ops), 1)
+    tick = {"shape": [1, SEQPAR_K, SEQPAR_S, 4, w], "shards": SEQPAR_SHARDS,
+            "ticks": SEQPAR_TICKS, "ms": sum(ms) / len(ms),
+            "ms_min": min(ms), "ms_max": max(ms),
+            "launches_per_tick": dispatched, "kernel4_ms": kernel4_ms,
+            "plain_ms": plain_ms,
+            "bound_ms": sum(b for b, _ in bounds) / len(bounds),
+            "bound_by": bounds[-1][1], "max_abs_err": err,
+            "segments": int(flat.count[0]),
+            "kernel4_variant": mtc.choose_variant(
+                SEQPAR_S, 4, w, SEQPAR_K, mtc.smem_limit(device))}
+
+    traffic = list(grow_rounds(random.Random(23), GROW_ROUNDS,
+                               GROW_CLIENTS, GROW_LAG))
+    grow = grow_host(device, mesh, traffic)
+    out = {"tick": tick, "host": grow}
+    print("seq_parallel: " + json.dumps(out), flush=True)
+    return out
+
+
+def mixed_recheck(device, a: dict) -> dict:
+    """Kernels 1, 2, 3 and 5 held to their plain versions, and timed, on
+    the last call mixed A made to each (the shapes that path gives them),
+    in the variant the shape picks and the other one."""
+    from fluidframework_tpu_torch.ops import map_fold_cuda as mfc
+    from fluidframework_tpu_torch.ops import map_kernel as mk
+    from fluidframework_tpu_torch.ops import matrix_cuda as mxc
+    from fluidframework_tpu_torch.ops import matrix_kernel as mxk
+    from fluidframework_tpu_torch.ops import mergetree_blocks as mtb
+    from fluidframework_tpu_torch.ops import mergetree_blocks_cuda as mtbc
+    from fluidframework_tpu_torch.ops import sequencer as seqk
+    from fluidframework_tpu_torch.ops import sequencer_cuda as seqc
+    record, shapes = a["record"], a["counts"]["shapes"]
+
+    def one(name):
+        check(name in record and len(shapes[name]) == 1,
+              f"mixed A gave {name} the shapes {shapes[name]}")
+        shape = next(iter(shapes[name]))
+        return {shape: 1}, {shape: [record[name]]}
+    out = {}
+    by, kept = one("map_fold")
+    out["map_fold"] = recheck_recorded(
+        "map_fold (mixed_a)", by, kept, mfc.fold_words, mk.fold_words_plain,
+        fold_bound, ops_of=lambda args: windowed_ops(*args[1:4]),
+        other=lambda *args: mfc.fold_words(*args, variant="block"),
+        other_name="block")
+    by, kept = one("mergetree_blocks")
+    out["mergetree_blocks"] = recheck_recorded(
+        "mergetree_blocks (mixed_a)", by, kept,
+        blocks_planes(mtbc.apply_tick_blocks_best),
+        blocks_planes(mtb.apply_tick_blocks), blocks_bound,
+        other=blocks_planes(lambda st, op: mtbc.apply_tick_blocks_best(
+            st, op, "global")))
+    by, kept = one("matrix_tick")
+    out["matrix_tick"] = recheck_recorded(
+        "matrix_tick (mixed_a)", by, kept, mxc.apply_tick_best,
+        mxk.apply_tick, matrix_bound,
+        other=lambda st, op: mxc.apply_tick_best(st, op, "global"))
+    by, kept = one("sequencer_tick")
+    got = recheck_recorded(
+        "sequencer_tick (mixed_a)", by, kept,
+        lambda st, op: seqc.process_batch_best(st, op, "warp"),
+        seqk.process_batch, deli_bound,
+        other=lambda st, op: seqc.process_batch_best(st, op, "thread"),
+        other_name="thread", time_all=True)
+    got["ms_warp"] = got.pop("ms")
+    got["variant"] = seqc.deli_variant(*got["shape"],
+                                       seqc.smem_limit(device))
+    got["ms"] = got[f"ms_{got['variant']}"]
+    out["sequencer_tick"] = got
+    return {name: {k: r[k] for k in r if k != "by_call"}
+            for name, r in out.items()}
+
+
+def trace_mixed_path(device) -> dict:
+    """Mixed A's front-door ticks again under ``torch.profiler``: device
+    busy ms against the host's wall ms over the same ticks (the profiler
+    slows the host, so the idle share is an upper bound)."""
+    from torch.profiler import ProfilerActivity, profile
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    run = serve_mixed(device, mixed_script(), ticks_ctx=lambda: prof)
+    busy_ms, top = device_busy(prof)
+    wall_ms = run["wall_s"] * 1e3
+    out = {"serve_ms": wall_ms, "device_busy_ms": busy_ms,
+           "idle_share": 1 - busy_ms / wall_ms if busy_ms else None,
+           "top_device_ms": top}
+    print("trace_mixed: " + json.dumps(out), flush=True)
+    return out
+
+
 def device_busy(prof) -> tuple[float, list]:
     """(busy ms, the six largest events) of a finished profile: the
     summed self time of every CUDA event — kernels and copies, all on
@@ -3096,6 +4024,15 @@ def main() -> int:
     steps = matrix_steps_path(device)
     tree = tree_main_path(device)
     tree_path_b(device)
+    t_mixed = time.perf_counter()
+    mixed_a = mixed_path_a(device)
+    mixed_b = mixed_path_b(device, mixed_a)
+    mixed_checks = mixed_recheck(device, mixed_a)
+    del mixed_a["record"], mixed_a["serving"], mixed_a["outs"]
+    t_seqpar = time.perf_counter()
+    seqpar = seqpar_path(device)
+    print(f"phase times: mixed {t_seqpar - t_mixed:.1f} s, sequence-parallel "
+          f"{time.perf_counter() - t_seqpar:.1f} s", flush=True)
     shapes = path["shapes"]
     from fluidframework_tpu_torch.ops import map_fold_cuda as mfc
     from fluidframework_tpu_torch.ops import map_kernel as mk
@@ -3198,6 +4135,7 @@ def main() -> int:
         trace_text_paths(device)
         trace_matrix_paths(device)
         trace_tree_path(device)
+        trace_mixed_path(device)
     # Each path's own launches, counted from 0 just before it and read
     # just after; a kernel's "launches" is their sum.
     by_path = {
@@ -3210,7 +4148,10 @@ def main() -> int:
                "matrix_b": matrix["launches"]["b"].get(name, 0),
                "matrix_steps": (steps["launches"]
                                 if name == "matrix_steps" else 0),
-               "tree_a": tree["launches"].get(name, 0)}
+               "tree_a": tree["launches"].get(name, 0),
+               "mixed_a": mixed_a["counts"].get(name, 0),
+               "mixed_b": mixed_b["counts"].get(name, 0),
+               "seqpar_host": seqpar["host"]["launches"].get(name, 0)}
         for name in ("map_fold", "sequencer_tick", "mergetree_blocks",
                      "mergetree_flat", "matrix_tick", "matrix_steps")}
     launches = {name: sum(n.values()) for name, n in by_path.items()}
@@ -3328,6 +4269,16 @@ def main() -> int:
          "global_by_shape": {key: steps_large[key] for key in
                              ("shape", "variant", "max_abs_err")}},
     ]
+    for entry in kernels:
+        name = entry["name"]
+        if name in mixed_checks:
+            entry["mixed_a"] = mixed_checks[name]
+            entry["variant_launches"]["mixed_a"] = \
+                mixed_a["counts"]["variants"][name]
+            entry["variant_launches"]["mixed_b"] = \
+                mixed_b["counts"]["variants"][name]
+        if name == "mergetree_flat":
+            entry["seq_parallel_yardstick"] = seqpar["tick"]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

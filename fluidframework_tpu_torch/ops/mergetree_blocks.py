@@ -585,6 +585,48 @@ def _incremental_spill(state: BlockMergeState, tick_k: int
     return _refresh_summaries(new, touched), int(touched.sum())
 
 
+def rebalance_flags(state: BlockMergeState, tick_k: int) -> torch.Tensor:
+    """The maintenance ladder's three batch-wide inputs, on the device:
+    i32[3] = [danger (a block above cap = Bk - (2*tick_k + 2)),
+    conveyor blocked (the incremental spill cannot restore the cap),
+    tombstone pressure]. Each is an any/all over the batch, so shards of
+    one batch combine theirs with a max (:func:`rebalance_branch`)."""
+    b, nb, bk = state.length.shape
+    headroom = 2 * tick_k + 2
+    cap = bk - headroom
+    c = state.blk_count
+    danger = (c.amax(dim=1) + headroom > bk).any()
+    c1, _e, h = _spill_counts(c, cap)
+    c2 = c1 - h + torch.roll(h, -1, 1)
+    blocked = (c2 > cap).any()
+    tomb_heavy = (state.blk_tomb.sum(dim=1, dtype=I32)
+                  * TOMB_PRESSURE_DEN >= nb * bk).any()
+    return torch.stack((danger, blocked, tomb_heavy)).to(I32)
+
+
+def rebalance_branch(flags) -> int:
+    """0 (no-op), 1 (incremental spill) or 2 (full rebalance) from the
+    host copy of :func:`rebalance_flags`."""
+    danger, blocked, tomb_heavy = (int(v) for v in flags)
+    if not danger:
+        return 0
+    return 2 if blocked or tomb_heavy else 1
+
+
+def apply_rebalance(state: BlockMergeState, min_seq: torch.Tensor,
+                    tick_k: int, branch: int, batch_rows: int | None = None
+                    ) -> tuple[BlockMergeState, int]:
+    """Run the ladder's ``branch``: (state', blocks touched). A full
+    rebalance touches every block of the batch (``batch_rows`` rows, this
+    state's by default: a shard passes the whole batch's)."""
+    b, nb, _bk = state.length.shape
+    if branch == 1:
+        return _incremental_spill(state, tick_k)
+    if branch == 2:
+        return rebalance(state, min_seq), (batch_rows or b) * nb
+    return state, 0
+
+
 def maybe_rebalance_stats(state: BlockMergeState, min_seq: torch.Tensor,
                           tick_k: int
                           ) -> tuple[BlockMergeState, torch.Tensor]:
@@ -597,24 +639,11 @@ def maybe_rebalance_stats(state: BlockMergeState, min_seq: torch.Tensor,
                                                   → incremental spill,
       * otherwise                                 → full rebalance.
 
-    Returns (state', rstats i32[2] = [rebalance_fired, blocks_touched])."""
-    b, nb, bk = state.length.shape
-    headroom = 2 * tick_k + 2
-    cap = bk - headroom
-    c = state.blk_count
-    danger = bool((c.amax(dim=1) + headroom > bk).any())
-    c1, _e, h = _spill_counts(c, cap)
-    c2 = c1 - h + torch.roll(h, -1, 1)
-    local_ok = bool((c2 <= cap).all())
-    tomb_heavy = bool((state.blk_tomb.sum(dim=1, dtype=I32)
-                       * TOMB_PRESSURE_DEN >= nb * bk).any())
-    touched = 0
-    if danger and local_ok and not tomb_heavy:
-        state, touched = _incremental_spill(state, tick_k)
-    elif danger:
-        state = rebalance(state, min_seq)
-        touched = b * nb
-    rstats = torch.tensor([int(danger), touched], dtype=I32,
+    Returns (state', rstats i32[2] = [rebalance_fired, blocks_touched]).
+    The decision reads one i32[3] back to the host."""
+    branch = rebalance_branch(rebalance_flags(state, tick_k).tolist())
+    state, touched = apply_rebalance(state, min_seq, tick_k, branch)
+    rstats = torch.tensor([int(branch > 0), touched], dtype=I32,
                           device=state.count.device)
     return state, rstats
 

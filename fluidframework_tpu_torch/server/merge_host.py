@@ -39,9 +39,11 @@ runs one tree tick over every row; an edit shape the tick cannot apply
 atomically, or an op that overflows its rank space or depth, hands the
 channel to the scalar ``Transaction`` replay of its edit log.
 
-Not ported (raise ``NotImplementedError``): sequence-parallel and
-mega-doc pools (``seg_mesh``, ``megadoc_writer_threshold``,
-``promote_merge_row``).
+Documents too large for one device's table, and documents promoted for
+their writer count (the mega-doc residency class), serve from
+sequence-parallel pools: the segment axis split over ``seg_mesh``
+(``ops/mergetree_sharded.py``). The mesh must be virtual (every shard on
+the host's device), so these pools tick with kernel 4 like a flat pool.
 """
 
 from __future__ import annotations
@@ -63,6 +65,7 @@ from ..ops import mergetree_blocks as mtb
 from ..ops import mergetree_blocks_cuda as mtbc
 from ..ops import mergetree_cuda as mtc
 from ..ops import mergetree_kernel as mtk
+from ..ops import mergetree_sharded as mts
 from ..ops import tree_kernel as tk
 from ..protocol.messages import MessageType, SequencedDocumentMessage
 from ..utils import faults
@@ -83,10 +86,6 @@ _TREE_LOG_TRIM = 512
 # never contains NUL (the wire format is JSON-ish strings).
 _MARKER_CHAR = "\x00"
 
-_NOT_PORTED_MEGA = ("sequence-parallel and mega-doc merge pools are not "
-                    "ported to the torch merge host (ROADMAP Queue A 10)")
-
-
 class ChannelKey(NamedTuple):
     doc_id: str
     datastore: str
@@ -97,7 +96,7 @@ class _MergeRow:
     __slots__ = ("pool", "row", "client_slots", "key_slots", "pending",
                  "raw_log", "scalar", "min_seq", "last_seq",
                  "repack_at", "applied_seq", "applied_min_seq",
-                 "readmit_seen_min")
+                 "readmit_seen_min", "mega_idle")
 
     def __init__(self) -> None:
         self.pool: "_MergePool | None" = None
@@ -121,6 +120,9 @@ class _MergeRow:
         # min_seq at the last failed readmission attempt (scalar rows):
         # the writer set only shrinks when the window advances.
         self.readmit_seen_min = -1
+        # Flushes since a mega-promoted row last had pending ops — the
+        # cooling signal maybe_adapt_megadocs keys on.
+        self.mega_idle = 0
 
 
 class _MapRow:
@@ -521,21 +523,78 @@ class _BlockMergePool(_MergePool):
             np.asarray(starts, np.int32).reshape(self.nb, self.bk))
 
 
+class _ShardedMergePool(_MergePool):
+    """A bucket whose SEGMENT axis is split over a mesh — the serving home
+    for documents too large for one device's table
+    (ops/mergetree_sharded.py, the sequence-parallel path). Everything
+    else about the pool (rows, text, migration) is inherited and every
+    rebuild is re-placed for the mesh. The host takes only a virtual mesh
+    (every shard on its own device), which holds the whole segment axis
+    on that device, so the tick is the flat one: kernel 4 on the card,
+    bit-identical to ``apply_tick_sharded`` on the same mesh.
+
+    Two populations live in pools of this class: documents whose segment
+    tables OUTGREW one device (``sharded_slot_threshold``, the size tier)
+    and documents PROMOTED for write rate (``mega=True`` — the mega-doc
+    residency class)."""
+
+    def __init__(self, slots: int, num_props: int, mesh,
+                 row_capacity: int = 1, overlap_words: int = 1,
+                 mega: bool = False) -> None:
+        self.mesh = mesh
+        self.mega = mega
+        super().__init__(slots, num_props, row_capacity, overlap_words,
+                         mesh.devices[0])
+        self.state = self.place(self.state)
+
+    def compact_state(self, min_seq: np.ndarray, coalesce: bool = False
+                      ) -> mtk.MergeState:
+        return self.place(super().compact_state(min_seq, coalesce))
+
+    def place(self, state: mtk.MergeState) -> mtk.MergeState:
+        return mts.shard_merge_state(state, self.mesh)
+
+
 class KernelMergeHost:
     """Batched device host for the merge-tree and map kernels."""
 
     def __init__(self, merge_slots: int = 128, map_slots: int = 32,
                  num_props: int = 4, row_capacity: int = 8,
                  flush_threshold: int = 256, metrics=None,
-                 seg_mesh=None, tree_slots: int = 32,
+                 seg_mesh=None, sharded_slot_threshold: int = 65536,
+                 tree_slots: int = 32,
                  max_client_slots: int = 1024,
                  megadoc_writer_threshold: int | None = None,
+                 megadoc_demote_idle_flushes: int = 64,
                  device: str | torch.device | None = None) -> None:
+        from ..parallel.mesh import canonical_device, mesh_kind
         from ..utils import MetricsRegistry
-        if seg_mesh is not None or megadoc_writer_threshold is not None:
-            raise NotImplementedError(_NOT_PORTED_MEGA)
         self.device = resolve_device(device)
         self.metrics = metrics if metrics is not None else MetricsRegistry()
+        # Sequence-parallel escape hatch: documents whose segment tables
+        # outgrow one device migrate into pools whose SEGMENT axis is
+        # split over ``seg_mesh`` instead of growing a single-device table
+        # without bound. Misconfiguration fails HERE, not at the first
+        # flush mid-serving: pool slot counts are powers of two, so the
+        # mesh size must be one too, and every shard needs >= 2 slots.
+        self.seg_mesh = seg_mesh
+        if seg_mesh is not None:
+            n_shards = seg_mesh.size
+            if n_shards & (n_shards - 1) != 0:
+                # ValueError, not assert: python -O must not defer this
+                # to the first sharded flush mid-serving.
+                raise ValueError(
+                    f"seg_mesh size {n_shards} must be a power of two "
+                    "(pool slot counts are)")
+            if (mesh_kind(seg_mesh) != "stacked"
+                    or canonical_device(seg_mesh.devices[0])
+                    != canonical_device(self.device)):
+                raise ValueError(
+                    f"seg_mesh {seg_mesh} must hold every shard on the "
+                    f"host's device {self.device} (a virtual mesh)")
+            sharded_slot_threshold = max(sharded_slot_threshold,
+                                         2 * n_shards)
+        self.sharded_slot_threshold = max(8, sharded_slot_threshold)
         self._row_capacity = max(1, row_capacity)
         self._map_capacity = max(1, row_capacity)
         self._merge_slots = max(8, merge_slots)  # smallest bucket size
@@ -549,6 +608,18 @@ class KernelMergeHost:
                                     max_client_slots)
         # Merge channels live in pow2-bucketed pools; maps keep one state.
         self._merge_pools: dict[int, _MergePool] = {}
+        # Mega-doc pools: sequence-parallel pools for PROMOTED docs, keyed
+        # apart from the size tier so a mega doc at (say) 128 slots does
+        # not hijack the block bucket every ordinary 128-slot doc serves
+        # from. Promotion/demotion moves a row between the tiers through
+        # the exact packed-flat seam.
+        self._mega_pools: dict[int, _ShardedMergePool] = {}
+        # Auto-promotion by OBSERVED writer count (None = explicit-only);
+        # a promoted row idle for ``megadoc_demote_idle_flushes`` flushes
+        # demotes back.
+        self.megadoc_writer_threshold = megadoc_writer_threshold
+        self.megadoc_demote_idle_flushes = max(
+            1, megadoc_demote_idle_flushes)
         self._xstate = mk.init_state(self._map_capacity, self._map_slots,
                                      self.device)
         # Matrices (two embedded merge states + a cell table) lazily
@@ -605,9 +676,17 @@ class KernelMergeHost:
         slots = max(_next_pow2(slots), self._merge_slots)
         pool = self._merge_pools.get(slots)
         if pool is None:
-            # The block-structured table IS the single-chip serving path.
-            pool = _BlockMergePool(slots, self._num_props,
-                                   self._row_capacity, device=self.device)
+            if (self.seg_mesh is not None
+                    and slots >= self.sharded_slot_threshold):
+                pool = _ShardedMergePool(slots, self._num_props,
+                                         self.seg_mesh)
+            else:
+                # The block-structured table IS the single-device serving
+                # path; only the sequence-parallel pools stay flat (the
+                # segment axis shards, the block axis would not).
+                pool = _BlockMergePool(slots, self._num_props,
+                                       self._row_capacity,
+                                       device=self.device)
             self._merge_pools[slots] = pool
         return pool
 
@@ -621,8 +700,12 @@ class KernelMergeHost:
 
     def _migrate_merge_row(self, mrow: _MergeRow, target_slots: int) -> None:
         """Move a channel to a bigger bucket (its segment table no longer
-        fits even after compaction)."""
-        self._move_row(mrow, self._pool_for(target_slots))
+        fits even after compaction). A mega-promoted row grows WITHIN the
+        mega tier — capacity pressure never silently demotes it."""
+        if getattr(mrow.pool, "mega", False):
+            self._move_row(mrow, self._mega_pool_for(target_slots))
+        else:
+            self._move_row(mrow, self._pool_for(target_slots))
         self.stats["migrations"] += 1
 
     def _move_row(self, mrow: _MergeRow, dst_pool: _MergePool) -> None:
@@ -657,10 +740,81 @@ class KernelMergeHost:
         dst_pool.text.used[mrow.row] = src_pool.text.used[src_row]
         src_pool.release(src_row)
 
+    # -- mega-doc promotion (the write-rate residency class) -----------------
+
+    def _mega_pool_for(self, slots: int) -> _ShardedMergePool:
+        assert self.seg_mesh is not None, "mega promotion needs a seg_mesh"
+        slots = max(_next_pow2(slots), self._merge_slots,
+                    2 * self.seg_mesh.size)
+        pool = self._mega_pools.get(slots)
+        if pool is None:
+            pool = _ShardedMergePool(slots, self._num_props,
+                                     self.seg_mesh, mega=True)
+            self._mega_pools[slots] = pool
+        return pool
+
+    def is_mega_row(self, key: ChannelKey) -> bool:
+        row = self._merge_rows.get(key)
+        return (row is not None and row.pool is not None
+                and getattr(row.pool, "mega", False))
+
     def promote_merge_row(self, key: ChannelKey) -> None:
-        """Mega-doc promotion moves a row into a sequence-parallel pool;
-        not ported."""
-        raise NotImplementedError(_NOT_PORTED_MEGA)
+        """Mega-doc promotion: move one channel's segment table from its
+        block bucket into a sequence-parallel pool through the packed-flat
+        seam (``mergetree_sharded.from_block_state`` is the tick-side twin
+        of this host move). Pending ops ride along. Idempotent on an
+        already-promoted row; scalar-routed channels refuse."""
+        row = self._merge_rows[key]
+        if row.scalar is not None:
+            raise ValueError(
+                f"{key} is scalar-routed; readmit before promoting")
+        if getattr(row.pool, "mega", False):
+            return
+        dst = self._mega_pool_for(row.pool.slots)
+        # Kill window: the layout is about to move wholesale.
+        faults.crashpoint("megadoc.mid_promotion")
+        self._move_row(row, dst)
+        row.mega_idle = 0
+        self.stats["megadoc_promotions"] += 1
+        self.metrics.counter("megadoc.text_promotions").inc()
+
+    def demote_merge_row(self, key: ChannelKey) -> bool:
+        """Demote a promoted channel back to its single-device block
+        bucket (the block pool's write_row re-blocks the packed document
+        order exactly). A doc whose table exceeds
+        ``sharded_slot_threshold`` stays sequence-parallel (the SIZE
+        tier) — returns False then."""
+        row = self._merge_rows[key]
+        if not getattr(row.pool, "mega", False):
+            return False
+        if row.pool.slots >= self.sharded_slot_threshold:
+            return False
+        faults.crashpoint("megadoc.mid_demotion")
+        self._move_row(row, self._pool_for(row.pool.slots))
+        row.mega_idle = 0
+        self.stats["megadoc_demotions"] += 1
+        self.metrics.counter("megadoc.text_demotions").inc()
+        return True
+
+    def maybe_adapt_megadocs(self) -> None:
+        """Flush-cadence promotion/demotion from OBSERVED load: distinct
+        writers in the PENDING tick promote (instantaneous concurrency,
+        not the historical client table), idle flushes demote. No-op
+        unless ``megadoc_writer_threshold`` is armed and a seg_mesh
+        exists."""
+        if self.megadoc_writer_threshold is None or self.seg_mesh is None:
+            return
+        for key, row in list(self._merge_rows.items()):
+            if row.scalar is not None or row.pool is None:
+                continue
+            if getattr(row.pool, "mega", False):
+                row.mega_idle = 0 if row.pending else row.mega_idle + 1
+                if row.mega_idle >= self.megadoc_demote_idle_flushes:
+                    self.demote_merge_row(key)
+            elif row.pending and len(
+                    {op["client"] for op in row.pending}
+                    ) >= self.megadoc_writer_threshold:
+                self.promote_merge_row(key)
 
     def _map_row(self, key: ChannelKey) -> _MapRow:
         state = self._map_rows.get(key)
@@ -1145,6 +1299,9 @@ class KernelMergeHost:
         self.metrics.gauge("merge_host.queue_depth").set(self._pending_ops)
         start = _time.perf_counter()
         self._readmit_scalar_rows()
+        # Mega tier adaptation BEFORE the merge tick: a row promoted here
+        # serves this very flush from the sequence-parallel pool.
+        self.maybe_adapt_megadocs()
         self._flush_merge()
         self._flush_map()
         self._flush_matrix()
@@ -1334,6 +1491,15 @@ class KernelMergeHost:
                                             pool.client_capacity,
                                             self.device)
             pool.state = pool.apply(batch)
+            if isinstance(pool, _ShardedMergePool):
+                # The reference's sequence-parallel attribution: ops
+                # served by the tier, and its boundary-exchange bound (2
+                # one-hop edge exchanges an op in the split program; the
+                # kernel-4 tick of a virtual mesh exchanges nothing).
+                n_ops = sum(len(r.pending) for r in pool_rows)
+                self.metrics.counter("megadoc.sharded_ops").inc(n_ops)
+                self.metrics.counter(
+                    "megadoc.boundary_exchanges").inc(2 * n_ops)
             overflow = pool.take_overflow()
             if overflow is not None:
                 for r in pool_rows:
@@ -2202,11 +2368,17 @@ class KernelMergeHost:
         self.flush()
         pools = []
         pool_index: dict[int, int] = {}
-        for _slots, pool in sorted(self._merge_pools.items()):
-            kind = "block" if isinstance(pool, _BlockMergePool) else "flat"
+        all_pools = ([(False, s, p) for s, p
+                      in sorted(self._merge_pools.items())]
+                     + [(True, s, p) for s, p
+                        in sorted(self._mega_pools.items())])
+        for mega, _slots, pool in all_pools:
+            kind = ("sharded" if isinstance(pool, _ShardedMergePool)
+                    else "block" if isinstance(pool, _BlockMergePool)
+                    else "flat")
             pool_index[id(pool)] = len(pools)
             pools.append({
-                "kind": kind, "mega": False, "slots": pool.slots,
+                "kind": kind, "mega": mega, "slots": pool.slots,
                 "num_props": pool.num_props,
                 "overlap_words": pool.overlap_words,
                 "capacity": pool.capacity,
@@ -2309,8 +2481,15 @@ class KernelMergeHost:
             elif p["kind"] == "flat":
                 pool = _MergePool(p["slots"], p["num_props"], p["capacity"],
                                   p["overlap_words"], device=self.device)
-            else:
-                raise NotImplementedError(_NOT_PORTED_MEGA)
+            else:  # sharded: needs a seg_mesh like the exporting host's
+                if self.seg_mesh is None:
+                    raise ValueError(
+                        "snapshot holds a sequence-parallel pool but this "
+                        "host has no seg_mesh")
+                pool = _ShardedMergePool(p["slots"], p["num_props"],
+                                         self.seg_mesh, p["capacity"],
+                                         p["overlap_words"],
+                                         mega=p.get("mega", False))
             cls = type(pool.state)
             pool.state = cls(**{
                 f: torch.from_numpy(_nd_unpack(p["planes"][f])).to(
@@ -2322,7 +2501,10 @@ class KernelMergeHost:
             pool.text.used = list(p["text_used"])
             pool.free = list(p["free"])
             pool.members = [None] * p["n_members"]
-            self._merge_pools[p["slots"]] = pool
+            if p.get("mega", False):
+                self._mega_pools[p["slots"]] = pool
+            else:
+                self._merge_pools[p["slots"]] = pool
             pools.append(pool)
 
         for rec in snap["merge_rows"]:

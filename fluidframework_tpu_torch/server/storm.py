@@ -58,8 +58,14 @@ import torch
 
 from ..ops import map_fold_cuda as mfc
 from ..ops import map_kernel as mk
+from ..ops import matrix_cuda as mxc
+from ..ops import matrix_kernel as mxk
+from ..ops import mergetree_blocks as mtb
+from ..ops import mergetree_blocks_cuda as mtbc
+from ..ops import mergetree_kernel as mtk
 from ..ops import opcodes as oc
 from ..ops import sequencer as seqk
+from ..ops import tree_kernel as tk
 from ..protocol.codec import TRACE_KEY, trace_context
 from ..protocol.messages import MessageType, SequencedDocumentMessage
 from ..utils import faults
@@ -192,6 +198,189 @@ def _storm_tick(seq_state: seqk.SequencerState, map_state: mk.MapState,
         (live & bad).sum(dtype=I32),
         zero, zero))
     return seq_state, map_state, n_seq, first, last, msn, bad, kstats
+
+
+def _ticket_window(counts, k: int, dups, n_seq_doc, seq_before):
+    """Per-op (in_window, seq) planes from the closed-form ticket: ops
+    [dups, dups+n_seq) of each row's batch sequence as seq_before+1…"""
+    lo = dups
+    hi = torch.minimum(dups + n_seq_doc, counts)
+    iota = torch.arange(k, dtype=I32, device=counts.device)[None, :]
+    in_win = (iota >= lo[:, None]) & (iota < hi[:, None])
+    seq = seq_before[:, None] + 1 + iota - lo[:, None]
+    return in_win, seq
+
+
+# Packed-plane field orders for the mixed tick's one-array-per-family feed
+# (index 0 is always the submission-valid plane; ``seq`` planes are
+# OMITTED — the device ticket assigns them).
+TEXT_PACK = ("valid", "kind", "pos", "end", "ref_seq", "client",
+             "pool_start", "text_len", "prop_key", "prop_val")
+MATRIX_PACK = ("valid", "target", "kind", "pos", "end", "count",
+               "handle_base", "row", "col", "value", "ref_seq", "client")
+TREE_PACK = ("valid", "kind", "node", "parent", "trait", "payload")
+#: Columns of the [B, 6] per-doc scalar pack.
+SCALAR_PACK = ("slot", "cseq0", "ref", "ts", "seq_counts", "map_counts")
+
+
+def _unpack(pack, names, dups, n_seq_doc, seq_before):
+    """A family's [B, F, K] pack as op planes: the valid plane masked to
+    the ticket window, and the window's seqs."""
+    fields = {name: pack[:, i].contiguous() for i, name in enumerate(names)}
+    valid = fields.pop("valid") != 0
+    counts = valid.sum(dim=1, dtype=I32)
+    win, seqs = _ticket_window(counts, pack.shape[2], dups, n_seq_doc,
+                               seq_before)
+    return fields, valid & win, seqs
+
+
+def _mixed_tick(seq_state: seqk.SequencerState, map_state, merge_state,
+                matrix_state, tree_state, scalars, map_words, text_pack,
+                matrix_pack, tree_pack, tree_steps=None, mark=None):
+    """ALL-FAMILY tick: one closed-form deli ticket sequences every
+    document's batch, then EACH channel family applies its rows' windowed
+    ops — map (the map-fold kernel), merge-tree (the block merge tick
+    kernel, then the block-table maintenance ladder at the tick's msn),
+    matrix (the matrix op tick kernel) and tree (the plain tree tick) —
+    the reference's one-deltas-stream-for-all-op-types contract
+    (deli/lambda.ts:82, scriptorium/lambda.ts:16), with the family routing
+    done by per-family valid planes.
+
+    Family rows share the document axis (row i of every family state IS
+    document i); a family whose valid-plane row is empty no-ops on that
+    document; a family not configured passes ``None``. Per family, ALL op
+    planes arrive as ONE packed i32[B, F, K] tensor (field order
+    ``*_PACK``) and the per-doc sequencer inputs as one i32[B, 6]
+    (``SCALAR_PACK``); map words are the u32 words' bits as i32[B, K].
+    ``tree_steps`` ([K] flags from the host's copy of the tree pack,
+    ``tree_kernel.subtree_steps``) lets the tree tick skip the subtree
+    sweep where no op can detach or move; None sweeps every step.
+    ``mark(leg)`` is called after each leg (deli, map, text, rebalance,
+    matrix, tree) — a timing hook.
+
+    The legs are one sequence of launches; the only host read is the
+    block table's ladder decision (three flags). Returns the reference's
+    12-tuple: (seq', map', merge', matrix', tree', n_seq, first, last,
+    msn, tree_overflow, text_overflow, kstats)."""
+    return _mixed_tick_shards(
+        [(seq_state, map_state, merge_state, matrix_state, tree_state,
+          scalars, map_words, text_pack, matrix_pack, tree_pack)],
+        tree_steps=tree_steps, mark=mark)[0]
+
+
+def _mixed_tick_shards(shards: list, tree_steps=None, mark=None,
+                       mesh=None) -> list:
+    """:func:`_mixed_tick` over the shards of one docs-sharded batch
+    (each entry its ten inputs, on its own device): every leg is issued
+    for every shard before the next leg, so shards on different devices
+    overlap. The block-table ladder decides once for the WHOLE batch — its
+    flags are any/all reductions over every document, combined across the
+    shards and, for a process-spanning ``mesh``, across its processes — so
+    a sharded run lays text rows out exactly as an unsharded one. Returns
+    one 12-tuple per shard."""
+    mark = mark or (lambda _leg: None)
+    st = []
+    for (seq_state, map_state, merge_state, matrix_state, tree_state,
+         scalars, map_words, text_pack, matrix_pack, tree_pack) in shards:
+        slot, cseq0, ref, ts, seq_counts, map_counts = (
+            scalars[:, i] for i in range(6))
+        seq_before = seq_state.seq
+        seq_state, dups, n_seq_doc, msn_doc = seqk.storm_tickets(
+            seq_state, slot, cseq0, ref, ts, seq_counts)
+        st.append(dict(
+            seq=seq_state, map=map_state, text=merge_state,
+            matrix=matrix_state, tree=tree_state, map_words=map_words,
+            text_pack=text_pack, matrix_pack=matrix_pack,
+            tree_pack=tree_pack, seq_counts=seq_counts,
+            map_counts=map_counts, seq_before=seq_before, dups=dups,
+            n_seq=n_seq_doc, msn=msn_doc, text_overflow=None,
+            tree_overflow=None))
+    mark("deli")
+
+    for s in st:
+        if s["map_words"] is not None:
+            lo = s["dups"]
+            hi = torch.minimum(s["dups"] + s["n_seq"], s["map_counts"])
+            s["map"] = _map_leg(s["map"], s["map_words"], lo, hi,
+                                s["seq_before"])
+    mark("map")
+
+    rstats = (0, 0)
+    if st[0]["text_pack"] is not None:
+        for s in st:
+            fields, valid, seqs = _unpack(s["text_pack"], TEXT_PACK,
+                                          s["dups"], s["n_seq"],
+                                          s["seq_before"])
+            ops = mtk.MergeOpBatch(valid=valid, seq=seqs, **fields)
+            s["text"], s["text_overflow"] = mtbc.apply_tick_blocks_best(
+                s["text"], ops)
+        mark("text")
+        rstats = _rebalance_shards(st, mesh)
+        mark("rebalance")
+
+    if st[0]["matrix_pack"] is not None:
+        for s in st:
+            fields, valid, seqs = _unpack(s["matrix_pack"], MATRIX_PACK,
+                                          s["dups"], s["n_seq"],
+                                          s["seq_before"])
+            ops = mxk.MatrixOpBatch(valid=valid, seq=seqs, **fields)
+            s["matrix"] = mxc.apply_tick_best(s["matrix"], ops)
+        mark("matrix")
+
+    if st[0]["tree_pack"] is not None:
+        for s in st:
+            fields, valid, _seqs = _unpack(s["tree_pack"], TREE_PACK,
+                                           s["dups"], s["n_seq"],
+                                           s["seq_before"])
+            ops = tk.TreeOpBatch(valid=valid, **fields)
+            s["tree"], out = tk.apply_tick(s["tree"], ops, tree_steps)
+            s["tree_overflow"] = out.overflow.sum(dim=1, dtype=I32)
+        mark("tree")
+
+    outs = []
+    for s in st:
+        n_seq, seq_before = s["n_seq"], s["seq_before"]
+        first = torch.where(n_seq > 0, seq_before + 1, int(oc.INT32_MAX))
+        last = torch.where(n_seq > 0, seq_before + n_seq, 0)
+        # kstats (the reference's indices): sequenced / dup-dropped totals
+        # over this shard's rows that submitted a batch, no sentinel leg,
+        # and the batch-wide rebalance counters.
+        live = s["seq_counts"] > 0
+        zero = torch.zeros((), dtype=I32, device=n_seq.device)
+        kstats = torch.stack((
+            torch.where(live, n_seq, 0).sum(dtype=I32),
+            torch.where(live, torch.minimum(s["dups"], s["seq_counts"]),
+                        0).sum(dtype=I32),
+            zero, zero + rstats[0], zero + rstats[1]))
+        outs.append((s["seq"], s["map"], s["text"], s["matrix"], s["tree"],
+                     n_seq, first, last, s["msn"], s["tree_overflow"],
+                     s["text_overflow"], kstats))
+    return outs
+
+
+def _rebalance_shards(st: list, mesh) -> tuple[int, int]:
+    """The block-table ladder once for the whole batch: each shard's flags
+    combine with a max (and across the mesh's processes), each shard runs
+    the one branch at its rows' msn. Returns (fired, blocks touched) for
+    the batch."""
+    from ..parallel.mesh import all_reduce
+    tick_k = st[0]["text_pack"].shape[2]
+    flags = torch.stack([mtb.rebalance_flags(s["text"], tick_k).cpu()
+                         for s in st]).amax(dim=0)
+    rows = sum(s["text"].count.shape[0] for s in st)
+    if mesh is not None:
+        flags = all_reduce(mesh, flags, "max")
+        rows *= mesh.world
+    branch = mtb.rebalance_branch(flags.tolist())
+    touched = 0
+    for s in st:
+        s["text"], t = mtb.apply_rebalance(s["text"], s["msn"], tick_k,
+                                           branch, batch_rows=rows)
+        touched = t if branch == 2 else touched + t
+    if branch == 1 and mesh is not None:
+        touched = int(all_reduce(mesh, torch.tensor([touched],
+                                                    dtype=torch.int64)))
+    return int(branch > 0), touched
 
 
 #: Format version stamped on every storm tick header ("v") and on storm

@@ -726,6 +726,42 @@ def test_text_host_on_the_card_matches_the_cpu(cuda, monkeypatch):
         assert card.text(*key) == engine.get_text()
 
 
+def test_sharded_pool_on_the_card_ticks_with_kernel_4(cuda, monkeypatch):
+    """A merge host with a virtual segment mesh of two shards of the card:
+    documents migrate from block pools into its sequence-parallel pool,
+    which ticks with kernel 4 (never the plain sharded program), and
+    every pool, text and stat equals the same host on two CPU shards."""
+    from fluidframework_tpu_torch.ops import mergetree_sharded as mts
+    from fluidframework_tpu_torch.server import merge_host as mh
+
+    def refuse(*args, **kw):
+        raise AssertionError("the host ran the plain sharded tick")
+    monkeypatch.setattr(mh._BlockMergePool, "BK", 16)
+    monkeypatch.setattr(mts, "apply_tick_sharded", refuse)
+    traffic = _bursty_text()
+    mtc.shapes.clear()
+    kw = dict(flush_threshold=10**9, merge_slots=32,
+              sharded_slot_threshold=64)
+    card = _serve_text(mh.KernelMergeHost(
+        seg_mesh=mts.make_seg_mesh([cuda] * 2), device=cuda, **kw), traffic)
+    torch.cuda.synchronize()
+    cpu = _serve_text(mh.KernelMergeHost(
+        seg_mesh=mts.make_seg_mesh(["cpu"] * 2), device="cpu", **kw),
+        traffic)
+    assert card.stats == cpu.stats and card.stats["migrations"] > 0
+    sharded = [p for p in card._merge_pools.values()
+               if isinstance(p, mh._ShardedMergePool)]
+    assert sharded
+    assert any(shape[0] == p.capacity and shape[2] == p.slots
+               for shape in mtc.shapes for p in sharded)
+    assert sorted(card._merge_pools) == sorted(cpu._merge_pools)
+    for slots, pool in cpu._merge_pools.items():
+        _assert_equal(card._merge_pools[slots].state, pool.state, slots)
+        assert card._merge_pools[slots].text.chunks == pool.text.chunks
+    for key in cpu._merge_rows:
+        assert card.text(*key) == cpu.text(*key)
+
+
 def test_failed_flat_launch_leaves_flush(cuda, monkeypatch):
     """A kernel-4 launch that fails (its launcher returns cudaError 700)
     raises out of the text host's ``flush()``: the overflowing channel is
@@ -1226,3 +1262,146 @@ def test_tree_tick_on_the_card_matches_the_cpu(cuda, b, n, k):
         assert card.exists.device.type == "cuda"
         _assert_equal(card, cpu, "state")
         _assert_equal(card_out, cpu_out, "out")
+
+
+# -- the multi-device tier --------------------------------------------------------
+
+
+def _multihost():
+    """``tests/test_torch_multihost.py`` (its seeded mixed script and
+    serving settings), loaded by path: this file runs without the suite's
+    package layout on a machine with a card."""
+    import importlib.util
+    import pathlib
+    path = pathlib.Path(__file__).with_name("test_torch_multihost.py")
+    spec = importlib.util.spec_from_file_location("torch_multihost_script",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _mixed_states(n, device):
+    from fluidframework_tpu_torch.ops import tree_kernel as tk
+    from fluidframework_tpu_torch.protocol.messages import MessageType
+    mh = _multihost()
+    sh, w = mh.SHAPE, mtk.overlap_words_for(mh.CLIENTS)
+    CLIENTS = mh.CLIENTS
+    seq = seqk.init_state(n, CLIENTS + 1, device)
+    seq = seqk.process_batch(seq, seqk.make_op_batch(
+        [[dict(kind=int(MessageType.CLIENT_JOIN), slot=-1, target=c,
+               timestamp=1) for c in range(CLIENTS)] for _ in range(n)],
+        n, CLIENTS, device))[0]
+    return [seq, mk.init_state(n, sh["map_slots"], device),
+            mtb.init_state(n, sh["text_blocks"], sh["text_bk"], 4, w,
+                           device),
+            mxk.init_state(n, sh["vec_slots"], sh["cell_slots"], w, device),
+            tk.init_state(n, sh["tree_slots"], device)]
+
+
+def test_mixed_tick_kernels_match_plain(cuda, monkeypatch):
+    """The all-family mixed tick on the card — kernel 1 (map leg), kernel
+    3 (text leg), kernel 5 (matrix leg) — against the same tick with every
+    kernel's plain version on the card and on the CPU, tick after tick:
+    all 12 outputs equal, and each kernel launched."""
+    from fluidframework_tpu_torch.server import storm
+    Script = _multihost().Script
+    fams = [("map", "text", "matrix", "tree")[r % 4] for r in range(16)]
+    script = Script(fams, 7)
+    runs = {"kernel": (_mixed_states(16, cuda), cuda),
+            "plain": (_mixed_states(16, cuda), cuda),
+            "cpu": (_mixed_states(16, "cpu"), torch.device("cpu"))}
+    plain = dict(
+        mfc=type("P", (), {"fold_words": staticmethod(mk.fold_words_plain)}),
+        mtbc=type("P", (), {"apply_tick_blocks_best": staticmethod(
+            mtb.apply_tick_blocks)}),
+        mxc=type("P", (), {"apply_tick_best": staticmethod(
+            mxk.apply_tick)}))
+    mfc.launches = 0
+    mtbc.launches = 0
+    mxc.tick.reset()
+    for t in range(6):
+        scalars, words, packs, _subs = script.tick(
+            t, "resend" if t == 3 else "fresh")
+        outs = {}
+        for name, (states, dev) in runs.items():
+            with monkeypatch.context() as m:
+                if name == "plain":
+                    for attr, mod in plain.items():
+                        m.setattr(storm, attr, mod)
+                out = storm._mixed_tick(
+                    *states, torch.from_numpy(scalars).to(dev),
+                    torch.from_numpy(words.view(np.int32)).to(dev),
+                    *(torch.from_numpy(packs[f]).to(dev)
+                      for f in ("text", "matrix", "tree")))
+            runs[name] = (list(out[:5]), dev)
+            outs[name] = out
+        for name in ("plain", "cpu"):
+            for i, (a, b) in enumerate(zip(outs["kernel"], outs[name])):
+                for x, y in zip(_flat(a), _flat(b)):
+                    assert torch.equal(x.cpu(), y.cpu()), (t, name, i)
+        if t != 3:
+            script.ack(outs["kernel"][7].cpu().numpy())
+    assert mfc.launches == mtbc.launches == mxc.tick.launches == 6
+
+
+def _flat(x):
+    if x is None:
+        return []
+    if isinstance(x, torch.Tensor):
+        return [x]
+    return [t for part in x for t in _flat(part)]
+
+
+@pytest.mark.parametrize("shards", [2, 4])
+def test_stacked_sharded_tick_matches_kernel_4(cuda, shards):
+    """The sequence-parallel tick on a virtual mesh of shards of the card
+    against kernel 4 (the flat merge tick) and the plain flat tick, tick
+    after tick: every plane equal."""
+    from fluidframework_tpu_torch.ops import mergetree_sharded as mts
+    rng = np.random.default_rng(11)
+    mesh = mts.make_seg_mesh([cuda] * shards)
+    b, s, k, p, w = 2, 256, 8, 4, 1
+    sharded = kern = flat = mtk.init_state(b, s, p, w, cuda)
+    for fields in _merge_ticks(rng, b, k, 6, 8):
+        ops = _batch(fields, cuda)
+        sharded = mts.apply_tick_sharded(sharded, ops, mesh)
+        kern = mtc.apply_tick_best(kern, ops)
+        flat = mtk.apply_tick(flat, ops)
+        _assert_equal(sharded, flat, "sharded")
+        _assert_equal(kern, flat, "kernel 4")
+
+
+def test_sharded_serving_on_the_card_matches_the_cpu(cuda):
+    """ShardedServing on a virtual mesh of two shards of the card against
+    the same submissions on two CPU shards: every harvest and every plane
+    equal (kernels 1, 2, 3 and 5 on the card)."""
+    from fluidframework_tpu_torch.parallel.mesh import make_mesh
+    from fluidframework_tpu_torch.parallel.serving import ShardedServing
+    mh = _multihost()
+    MIXED, Script, submit_script = mh.MIXED, mh.Script, mh.submit_script
+    fams = [("map", "text", "matrix", "tree")[r % 4] for r in range(16)]
+    sides = {dev: ShardedServing(make_mesh([dev] * 2), pipeline_depth=2,
+                                 **MIXED)
+             for dev in ("cuda", "cpu")}
+    for s in sides.values():
+        s.join_all(slots=(0, 1))
+    script = Script(fams, 5)
+    for t in range(5):
+        subs = script.tick(t)[3]
+        harvests = []
+        for s in sides.values():
+            submit_script(s, subs)
+            harvests.append(s.tick())
+        assert harvests[0] == harvests[1], t
+    assert sides["cuda"].flush() == sides["cpu"].flush()
+    for name in sides["cpu"]._family_states():
+        for x, y in zip(_flat_np(sides["cuda"].family_rows(name)),
+                        _flat_np(sides["cpu"].family_rows(name))):
+            assert np.array_equal(x, y), name
+
+
+def _flat_np(x):
+    if isinstance(x, np.ndarray):
+        return [x]
+    return [t for part in x for t in _flat_np(part)]

@@ -46,7 +46,9 @@ def test_importing_every_port_module_loads_no_jax_or_reference():
     modules = json.loads(out.strip().splitlines()[-1])
     for name in ("server.storm", "server.merge_host", "dds.mergetree",
                  "ops.mergetree_cuda", "ops.mergetree_blocks_cuda",
-                 "dds.matrix", "ops.matrix_kernel", "ops.matrix_cuda"):
+                 "dds.matrix", "ops.matrix_kernel", "ops.matrix_cuda",
+                 "parallel.mesh", "parallel.multihost", "parallel.serving",
+                 "ops.mergetree_sharded"):
         assert f"fluidframework_tpu_torch.{name}" in modules
     assert [m for m in modules if _forbidden(m)] == []
 
