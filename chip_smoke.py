@@ -57,7 +57,18 @@ equality: every plane is integer), then drives the port's main paths:
   equal to mixed A's); and the sequence-parallel merge tick on a virtual
   mesh of 4 shards (one 65,536-slot document, held to kernel 4 and the
   flat plain tick) and a merge host whose growing config-2 document
-  migrates into its sharded pool.
+  migrates into its sharded pool;
+* the device-pool planes: tiered residency at the reference
+  ``bench_residency_churn``'s width (a 10,000-slot pool, 10,800 docs
+  ever served, 30 churn frames; every doc's map, from its device row or
+  its cold snapshot, held to a numpy fold and to a no-residency twin),
+  its recovery, and ``bench_residency_storm``'s hydration stampede; the
+  mega-doc tier at ``bench_megadoc_writers``' widest arm (one doc, 10,000
+  writers, promoted onto 8 lanes, against its single-lane twin; its text
+  row moved into a 4-shard sequence-parallel pool and back) and its
+  recovery; ``MegaDocLanes`` on 8,192 docs over 4 virtual shards; one
+  residency and one mega-doc kill of a chaos-harness process, run beside
+  them.
 
 It prints each kernel's launch shapes on the main paths and re-checks
 every kernel == plain at each of them, on the very inputs the paths gave
@@ -85,8 +96,9 @@ result. It imports nothing of JAX and nothing of ``fluidframework_tpu``.
 
 serves the map path's ticks (WAL-less and durable) and the text,
 matrix, tree and mixed paths once more (matrix path B at two flushes,
-tree path A, mixed A's front door), under ``torch.profiler``, and prints
-the card's busy time and idle share.
+tree path A, mixed A's front door), then residency A's churn frames and
+mega A's promoted waves, under ``torch.profiler``, and prints the card's
+busy time and idle share.
 """
 
 from __future__ import annotations
@@ -272,14 +284,21 @@ def leaves(planes) -> list:
     return out
 
 
+def max_abs_err_t(a, b):
+    """Largest |a - b| over every plane of two (nested) NamedTuples of
+    tensors, as a 0-dim int64 tensor on their device (no host wait)."""
+    import torch
+    la, lb = leaves(a), leaves(b)
+    errs = [(x.long() - y.long()).abs().max()
+            for x, y in zip(la, lb) if x.numel()]
+    return torch.stack(errs).max() if errs else \
+        torch.zeros((), dtype=torch.long, device=la[0].device)
+
+
 def max_abs_err(a, b) -> int:
     """Largest |a - b| over every plane of two (nested) NamedTuples of
     tensors."""
-    worst = 0
-    for x, y in zip(leaves(a), leaves(b)):
-        d = (x.long() - y.long()).abs().max().item() if x.numel() else 0
-        worst = max(worst, int(d))
-    return worst
+    return int(max_abs_err_t(a, b))
 
 
 # -- phase 3: kernels against their plain versions -----------------------------
@@ -1282,6 +1301,14 @@ def plain_host_versions():
         kh.seqc, mh.mtc, mh.mtbc, mh.mxc = saved
 
 
+def clone_args(planes):
+    """A copy of a kernel wrapper's argument: a tensor or a (nested)
+    tuple of tensors."""
+    if not isinstance(planes, tuple):
+        return planes.clone()
+    return type(planes)(*(clone_args(t) for t in planes))
+
+
 @contextlib.contextmanager
 def recording(mod, attr: str, kept: dict, counts=None):
     """Wrap the kernel wrapper ``mod.<attr>`` for the duration: each call
@@ -1293,13 +1320,8 @@ def recording(mod, attr: str, kept: dict, counts=None):
     inner = getattr(mod, attr)
     counts = mod if counts is None else counts
 
-    def copy(planes):
-        if not isinstance(planes, tuple):
-            return planes.clone()
-        return type(planes)(*(copy(t) for t in planes))
-
     def wrapped(*args):
-        inputs = tuple(copy(a) for a in args)
+        inputs = tuple(clone_args(a) for a in args)
         seen = dict(counts.shapes)
         out = inner(*args)
         for shape, n in counts.shapes.items():
@@ -1627,47 +1649,57 @@ def recheck_recorded(name: str, shapes: dict, inputs: dict, kernel, plain,
                      bound_of,
                      ops_of=lambda args: int(args[1].valid.sum()),
                      other=None, other_name: str = "global",
-                     time_all: bool = False) -> dict:
+                     time_all: bool = False, time_last: bool = False) -> dict:
     """Hold a kernel against its plain version on the inputs of EVERY call
     the main paths made to it, at every shape, and time it on every call
-    (``by_call``: each call's shape and ms, with ``other``'s ms). ms,
-    plain ms and bound are means per launch over the calls of the shape
-    with the most launches (over every call where ``time_all``); the
+    (``by_call``: each call's shape and ms, with ``other``'s ms). ms and
+    bound are means per launch over the calls of the shape with the most
+    launches (over every call where ``time_all``); the
     error is the largest over every check. Each call's arguments are
     passed as recorded; ``ops_of`` counts the ops of one call's
     arguments. ``other`` is the kernel's other variant (``other_name``:
     the global-memory one where the paths ran the shared-memory one): it
     is held to the plain version on the same inputs and timed on the
-    same calls in this call (``ms_<other_name>``)."""
+    same calls in this call (``ms_<other_name>``). ``time_last`` times
+    only the last call of each shape (every call is still held to the
+    plain version). Plain ms is timed on the last timed call of each
+    timed shape: timing it on every call would double the re-checks'
+    time, most of which is the plain versions'."""
     import torch
     check(bool(shapes) and {sh: len(c) for sh, c in inputs.items()}
           == shapes, f"{name}: launches by shape {shapes}, inputs kept "
           f"{ {sh: len(c) for sh, c in inputs.items()} }")
+    # Every call's error stays on the card until its shape is done: one
+    # host wait a shape, not one a call.
     worst = 0
     for shape in sorted(shapes):
+        errs = []
         for args in inputs[shape]:
             want = plain(*args)
             for run in (kernel, other) if other else (kernel,):
-                got = run(*args)
-                torch.cuda.synchronize()
-                err = max_abs_err(got, want)
-                check(err == 0, f"{name} kernel != plain version on the main "
-                      f"path's inputs at {shape} (max |err| {err})")
-                worst = max(worst, err)
+                errs.append(max_abs_err_t(run(*args), want))
+        err = int(torch.stack(errs).max())
+        check(err == 0, f"{name} kernel != plain version on the main "
+              f"path's inputs at {shape} (max |err| {err})")
+        worst = max(worst, err)
     top = max(shapes, key=lambda sh: shapes[sh])
+    timed = {sh: inputs[sh][-1:] if time_last else inputs[sh]
+             for sh in shapes}
     by_call = []
     for shape in sorted(shapes):
-        for args in inputs[shape]:
+        for args in timed[shape]:
             by_call.append([*shape, cuda_time_ms(lambda: kernel(*args), 3),
                             *([cuda_time_ms(lambda: other(*args), 3)]
                               if other else [])])
     n = len(top)
     summed = [row for row in by_call if time_all or tuple(row[:n]) == top]
-    calls = [c for sh in sorted(shapes) for c in inputs[sh]
+    calls = [c for sh in sorted(shapes) for c in timed[sh]
              if time_all or sh == top]
     ms = [row[n] for row in summed]
     ms_other = [row[n + 1] for row in summed] if other else []
-    plain_ms = [cuda_time_ms(lambda: plain(*args), 1) for args in calls]
+    plain_ms = [cuda_time_ms(lambda: plain(*args), 1)
+                for args in (timed[sh][-1] for sh in sorted(shapes)
+                             if time_all or sh == top)]
     bounds = [bound_of(*args) for args in calls]
     by = [b for _, b in bounds]
     key = f"ms_{other_name}"
@@ -3081,13 +3113,8 @@ def last_call(mod, attr: str, kept: dict, key: str):
     path gives the kernel, re-checked and timed after the path)."""
     inner = getattr(mod, attr)
 
-    def copy(planes):
-        if not isinstance(planes, tuple):
-            return planes.clone()
-        return type(planes)(*(copy(t) for t in planes))
-
     def wrapped(*args):
-        kept[key] = tuple(copy(a) for a in args)
+        kept[key] = tuple(clone_args(a) for a in args)
         return inner(*args)
     setattr(mod, attr, wrapped)
     try:
@@ -3096,36 +3123,38 @@ def last_call(mod, attr: str, kept: dict, key: str):
         setattr(mod, attr, inner)
 
 
-def mixed_counts_reset() -> None:
+def launch_counts_reset() -> None:
+    """Zero the launch counters of kernels 1-5 (the mixed and plane
+    paths)."""
     from fluidframework_tpu_torch.ops import map_fold_cuda as mfc
     from fluidframework_tpu_torch.ops import matrix_cuda as mxc
     from fluidframework_tpu_torch.ops import mergetree_blocks_cuda as mtbc
+    from fluidframework_tpu_torch.ops import mergetree_cuda as mtc
     from fluidframework_tpu_torch.ops import sequencer_cuda as seqc
-    for mod in (mfc, mtbc, seqc):
+    for mod in (mfc, mtbc, mtc, seqc):
         mod.launches = 0
         mod.shapes.clear()
     mfc.variants.update(warp=0, block=0)
     mtbc.variants.update(smem=0, **{"global": 0})
+    mtc.variants.update(smem=0, **{"global": 0})
     seqc.variants.clear()
     mxc.tick.reset()
 
 
-def mixed_counts() -> dict:
+def launch_counts() -> dict:
     from fluidframework_tpu_torch.ops import map_fold_cuda as mfc
     from fluidframework_tpu_torch.ops import matrix_cuda as mxc
     from fluidframework_tpu_torch.ops import mergetree_blocks_cuda as mtbc
+    from fluidframework_tpu_torch.ops import mergetree_cuda as mtc
     from fluidframework_tpu_torch.ops import sequencer_cuda as seqc
-    return {"map_fold": mfc.launches, "sequencer_tick": seqc.launches,
-            "mergetree_blocks": mtbc.launches,
-            "matrix_tick": mxc.tick.launches,
-            "shapes": {"map_fold": dict(mfc.shapes),
-                       "sequencer_tick": dict(seqc.shapes),
-                       "mergetree_blocks": dict(mtbc.shapes),
-                       "matrix_tick": dict(mxc.tick.shapes)},
-            "variants": {"map_fold": dict(mfc.variants),
-                         "sequencer_tick": dict(seqc.variants),
-                         "mergetree_blocks": dict(mtbc.variants),
-                         "matrix_tick": dict(mxc.tick.variants)}}
+    mods = {"map_fold": mfc, "sequencer_tick": seqc,
+            "mergetree_blocks": mtbc, "mergetree_flat": mtc,
+            "matrix_tick": mxc.tick}
+    out = {name: mod.launches for name, mod in mods.items()}
+    out["shapes"] = {name: dict(mod.shapes) for name, mod in mods.items()}
+    out["variants"] = {name: dict(mod.variants)
+                       for name, mod in mods.items()}
+    return out
 
 
 def serve_mixed(device, script, shards: int = 1, hosts: int = 1,
@@ -3387,9 +3416,9 @@ def mixed_path_a(device) -> dict:
     import torch
     script = mixed_script()
     record: dict = {}
-    mixed_counts_reset()
+    launch_counts_reset()
     run = serve_mixed(device, script, record=record)
-    counts = mixed_counts()
+    counts = launch_counts()
     for name in ("map_fold", "sequencer_tick", "mergetree_blocks",
                  "matrix_tick"):
         check(counts[name] > 0, f"mixed A launched no {name} kernel")
@@ -3440,10 +3469,10 @@ def mixed_path_b(device, a: dict) -> dict:
     equals the sum over mixed A's rows."""
     import numpy as np
     import torch
-    mixed_counts_reset()
+    launch_counts_reset()
     run = serve_mixed(device, a["script"], shards=MIXED_SHARDS,
                       hosts=MIXED_SHARDS)
-    counts = mixed_counts()
+    counts = launch_counts()
     serving = run["serving"]
     for h in run["harvests"]:
         for port in serving.hosts:
@@ -3940,6 +3969,1089 @@ def trace_tree_path(device) -> dict:
     return out
 
 
+# -- the device-pool planes: tiered residency and the mega-doc tier ------------
+
+#: Residency A (the reference ``bench_residency_churn``): a pool of
+#: RES_POOL resident docs (``max_resident`` and the sequencer host's
+#: initial capacity), RES_POOL + RES_EXTRA_COLD docs ever served out of a
+#: registered namespace of RES_REGISTERED ids (never-served ids hold no
+#: state anywhere, so the namespace is a name only), joins in chunks of
+#: RES_JOIN_CHUNK, two full-cohort warm ticks, then RES_CHURN_FRAMES
+#: frames of RES_FRAME_DOCS docs x K = RES_K, RES_COLD_PER_FRAME of them
+#: cold.
+RES_REGISTERED = 1_000_000
+RES_POOL = 10_000
+RES_EXTRA_COLD = 800
+RES_JOIN_CHUNK = 1_250
+RES_CHURN_FRAMES = 30
+RES_FRAME_DOCS = 64
+RES_COLD_PER_FRAME = 6
+RES_K = 8
+#: Residency S (the reference ``bench_residency_storm``): every one of
+#: STORM_COLD_DOCS cold docs knocks at simulated t = 0 against a
+#: STORM_POOL-slot pool and a STORM_RATE hydrations/s bucket.
+STORM_COLD_DOCS = 768
+STORM_POOL = 256
+STORM_RATE = 200.0
+#: Mega A (the reference ``bench_megadoc_writers``' widest arm): one doc,
+#: MEGA_WRITERS writers joined through the front door, one frame of K =
+#: MEGA_K ops each, MEGA_LANES lanes, waves of MEGA_WAVE frames in
+#: lane-striped order: every writer's frame, as the reference serves
+#: them (157 waves). MEGA_TEXT_WRITERS of the writers write the doc's
+#: text channel through the service instead, before, during and after
+#: promotion; the merge host's seg_mesh is MEGA_SEG_SHARDS virtual
+#: shards of the card.
+MEGA_WRITERS = 10_000
+MEGA_K = 8
+MEGA_LANES = 8
+MEGA_WAVE = 64
+MEGA_TEXT_WRITERS = 8
+MEGA_SEG_SHARDS = 4
+#: Mega L: MegaDocLanes on mixed B's mesh shape (LANES_DOCS docs on
+#: LANES_SHARDS virtual shards of the card, LANES_HOSTS simulated
+#: hosts): LANES_ROWS lane rows spread over the shards, LANES_WRITERS
+#: writers, LANES_ROUNDS rounds of fresh / dup / gap batches.
+LANES_DOCS = 8192
+LANES_SHARDS = 4
+LANES_HOSTS = 4
+LANES_ROWS = 8
+LANES_WRITERS = 64
+LANES_ROUNDS = 4
+LANES_SLOTS = 32
+
+
+#: The kernel wrappers the plane paths launch: (name, module, attribute).
+PLANE_KERNELS = (("map_fold", "map_fold_cuda", "fold_words"),
+                 ("sequencer_tick", "sequencer_cuda", "process_batch_best"),
+                 ("mergetree_blocks", "mergetree_blocks_cuda",
+                  "apply_tick_blocks_best"),
+                 ("mergetree_flat", "mergetree_cuda", "apply_tick_best"))
+
+
+@contextlib.contextmanager
+def plane_recording(kept: dict):
+    """``recording`` on the four plane-path kernel wrappers at once: every
+    call's arguments kept in ``kept[kernel][shape]``."""
+    import importlib
+    with contextlib.ExitStack() as stack:
+        for name, mod, attr in PLANE_KERNELS:
+            kept[name] = {}
+            stack.enter_context(recording(
+                importlib.import_module(f"fluidframework_tpu_torch.ops.{mod}"),
+                attr, kept[name]))
+        yield
+
+
+def drop_leading_repeats(kept: dict, ref: dict) -> dict:
+    """Drop from ``kept`` (a plane path's calls) each call, from the first
+    on, whose arguments equal ``ref``'s call at the same shape and index:
+    those stand checked by ``ref``'s re-check. Returns the number dropped
+    per kernel."""
+    import torch
+
+    def same(a, b) -> bool:
+        la, lb = leaves(a), leaves(b)
+        return len(la) == len(lb) and all(
+            x.dtype == y.dtype and x.shape == y.shape
+            and bool(torch.equal(x, y)) for x, y in zip(la, lb))
+    dropped = {}
+    for name, by_shape in kept.items():
+        dropped[name] = 0
+        for shape, calls in by_shape.items():
+            theirs = ref.get(name, {}).get(shape, [])
+            n = 0
+            while n < min(len(calls), len(theirs)) \
+                    and same(calls[n], theirs[n]):
+                n += 1
+            del calls[:n]
+            dropped[name] += n
+        for shape in [sh for sh, c in by_shape.items() if not c]:
+            del by_shape[shape]
+    return dropped
+
+
+def plane_recheck(device, name: str, path: str, kept: dict) -> dict | None:
+    """One kernel held to its plain version on every call a plane path
+    made (both variants), and timed on the last call at each launch
+    shape."""
+    from fluidframework_tpu_torch.ops import map_fold_cuda as mfc
+    from fluidframework_tpu_torch.ops import map_kernel as mk
+    from fluidframework_tpu_torch.ops import mergetree_blocks as mtb
+    from fluidframework_tpu_torch.ops import mergetree_blocks_cuda as mtbc
+    from fluidframework_tpu_torch.ops import mergetree_cuda as mtc
+    from fluidframework_tpu_torch.ops import mergetree_kernel as mtk
+    from fluidframework_tpu_torch.ops import sequencer as seqk
+    from fluidframework_tpu_torch.ops import sequencer_cuda as seqc
+    calls = kept.get(name) or {}
+    if not calls:
+        return None
+    shapes = {sh: len(c) for sh, c in calls.items()}
+    label = f"{name} ({path})"
+    if name == "map_fold":
+        return recheck_recorded(
+            label, shapes, calls, mfc.fold_words, mk.fold_words_plain,
+            fold_bound, ops_of=lambda args: windowed_ops(*args[1:4]),
+            other=lambda *args: mfc.fold_words(*args, variant="block"),
+            other_name="block", time_all=True, time_last=True)
+    if name == "mergetree_blocks":
+        return recheck_recorded(
+            label, shapes, calls,
+            blocks_planes(mtbc.apply_tick_blocks_best),
+            blocks_planes(mtb.apply_tick_blocks), blocks_bound,
+            other=blocks_planes(lambda st, op: mtbc.apply_tick_blocks_best(
+                st, op, "global")), time_all=True, time_last=True)
+    if name == "mergetree_flat":
+        return recheck_recorded(
+            label, shapes, calls, mtc.apply_tick_best, mtk.apply_tick,
+            flat_bound,
+            other=lambda st, op: mtc.apply_tick_best(st, op, "global"),
+            time_all=True, time_last=True)
+    # Both variants where a document's lanes fit the warp variant's
+    # shared memory; past it (the mega doc's 10,000 writers) the
+    # one-thread variant alone, the one the shape picks.
+    limit = seqc.smem_limit(device)
+    fits = {sh for sh in calls if seqc.warp_smem_bytes(sh[2]) <= limit}
+    got = {}
+    if fits:
+        got = recheck_recorded(
+            label, {sh: shapes[sh] for sh in fits},
+            {sh: calls[sh] for sh in fits},
+            lambda st, op: seqc.process_batch_best(st, op, "warp"),
+            seqk.process_batch, deli_bound,
+            other=lambda st, op: seqc.process_batch_best(st, op, "thread"),
+            other_name="thread", time_all=True, time_last=True)
+        got["ms_warp"] = got.pop("ms")
+        for end in ("min", "max"):
+            got[f"ms_warp_{end}"] = got.pop(f"ms_{end}")
+        got["variant"] = seqc.deli_variant(*got["shape"], limit)
+        got["ms"] = got[f"ms_{got['variant']}"]
+    wide = sorted(set(calls) - fits)
+    if wide:
+        alone = recheck_recorded(
+            f"{label}, past the warp variant's shared memory",
+            {sh: shapes[sh] for sh in wide}, {sh: calls[sh] for sh in wide},
+            lambda st, op: seqc.process_batch_best(st, op, "thread"),
+            seqk.process_batch, deli_bound, time_all=True, time_last=True)
+        alone.update(variant="thread", ms_thread=alone["ms"])
+        if not got:
+            return alone
+        got["thread_only"] = {k: v for k, v in alone.items()
+                              if k != "by_call"}
+        got["max_abs_err"] = max(got["max_abs_err"], alone["max_abs_err"])
+    return got
+
+
+def residency_stack(device, root: pathlib.Path, pool, clock=None,
+                    **res_kw):
+    """The reference benches' residency stack on the card: a durable bus
+    and state store, a group-commit tick WAL and a git snapshot store
+    under ``root``, a sequencer host sized to the pool, and (``pool`` not
+    None) a ResidencyManager capping it. A pinned service clock."""
+    from fluidframework_tpu_torch.server.durable_store import (
+        DurableMessageBus,
+        FileStateStore,
+        GitSnapshotStore,
+    )
+    from fluidframework_tpu_torch.server.kernel_host import \
+        KernelSequencerHost
+    from fluidframework_tpu_torch.server.merge_host import KernelMergeHost
+    from fluidframework_tpu_torch.server.residency import ResidencyManager
+    from fluidframework_tpu_torch.server.routerlicious import \
+        RouterliciousService
+    from fluidframework_tpu_torch.server.storm import StormController
+    seq_host = KernelSequencerHost(num_slots=2,
+                                   initial_capacity=pool or RES_POOL,
+                                   device=device)
+    merge_host = KernelMergeHost(flush_threshold=10**9, device=device)
+    service = RouterliciousService(
+        bus=DurableMessageBus(str(root / "bus")),
+        store=FileStateStore(str(root / "state")),
+        merge_host=merge_host, batched_deli_host=seq_host,
+        auto_pump=False, idle_check_interval=10**9)
+    ticks = iter(range(1000, 1 << 30, 3))
+    service._clock = lambda: next(ticks)
+    storm = StormController(
+        service, seq_host, merge_host, flush_threshold_docs=10**9,
+        spill_dir=str(root / "spill"), durability="group",
+        snapshots=GitSnapshotStore(str(root / "git")))
+    res = None
+    if pool is not None:
+        kw = dict(max_resident=pool, idle_evict_s=1e9,
+                  hydration_rate_per_s=1e9)
+        kw.update(res_kw)
+        if clock is not None:
+            kw["clock"] = clock
+        res = ResidencyManager(storm, **kw)
+    return service, storm, seq_host, merge_host, res
+
+
+def residency_words(seed, k):
+    """The reference benches' residency words: SETs of slots 0-15 to
+    values 1 .. 2^18 (no deletes or clears)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    slots = rng.integers(0, 16, k).astype(np.uint32)
+    vals = rng.integers(1, 1 << 18, k).astype(np.uint32)
+    return (slots << np.uint32(2)) | (vals << np.uint32(12))
+
+
+def connect_in_chunks(service, docs, chunk) -> dict:
+    clients = {}
+    for base in range(0, len(docs), chunk):
+        for d in docs[base:base + chunk]:
+            clients[d] = service.connect(d, lambda m: None).client_id
+        service.pump()
+    return clients
+
+
+def doc_maps(storm, merge_host, res, docs) -> dict:
+    """Every doc's map (slot -> value): from its device row when resident
+    (the planes read once), else from its cold snapshot in the store."""
+    import numpy as np
+
+    from fluidframework_tpu_torch.server.merge_host import (
+        ChannelKey,
+        _nd_unpack,
+    )
+    from fluidframework_tpu_torch.server.residency import COLD_KEY_PREFIX
+    storm.flush()
+    present = merge_host._xstate.present.cpu().numpy()
+    value = merge_host._xstate.value.cpu().numpy()
+    out = {}
+    for d in docs:
+        key = ChannelKey(d, storm.datastore, storm.channel)
+        if res is None or res.is_resident(d):
+            mrow = merge_host._map_rows.get(key)
+            if mrow is None:
+                out[d] = {}
+                continue
+            row = mrow.row
+            out[d] = {int(s): int(value[row, s])
+                      for s in np.flatnonzero(present[row])}
+            continue
+        snap = storm.snapshots.get(COLD_KEY_PREFIX + d, res.cold_handle(d))
+        m = snap["map_row"] if snap else None
+        if m is None:
+            out[d] = {}
+            continue
+        p, v = _nd_unpack(m["present"]), _nd_unpack(m["value"])
+        out[d] = {int(s): int(v[s]) for s in np.flatnonzero(p)}
+    return out
+
+
+def fold_frames(frames, docs) -> dict:
+    """The numpy fold of every doc's words over the frames, in order
+    (SETs only: the last write to a slot wins)."""
+    import numpy as np
+    out = {d: {} for d in docs}
+    for _rid, entries, payload in frames:
+        words = np.frombuffer(payload, np.uint32)
+        off = 0
+        for d, _c, _c0, _r, k in entries:
+            for w in words[off:off + k].tolist():
+                out[d][(w >> 2) & 0x3FF] = w >> 12
+            off += k
+    return out
+
+
+def residency_path_a(device, root: pathlib.Path, churn_ctx=None,
+                     verify: bool = True) -> dict:
+    """Residency A (see RES_*): serve the churn on the card with a pool
+    of RES_POOL, held to a numpy fold of every doc's words and to a twin
+    stack on the card with no residency (every doc resident) serving the
+    same frames. ``churn_ctx`` wraps the churn frames (the trace);
+    ``verify=False`` skips the checks and the twin."""
+    import numpy as np
+    import torch
+
+    from fluidframework_tpu_torch.server.residency import _rss_mb
+    torch.cuda.reset_peak_memory_stats()
+    base_mb = torch.cuda.memory_allocated() / 2**20  # earlier phases' own
+    service, storm, seq_host, merge_host, res = residency_stack(
+        device, root / "res", RES_POOL)
+    ever = RES_POOL + RES_EXTRA_COLD
+    docs = [f"r12-doc-{i}" for i in range(ever)]
+    rng = np.random.default_rng(12)
+    kept: dict = {}
+    launch_counts_reset()
+    with plane_recording(kept):
+        t0 = time.perf_counter()
+        clients = connect_in_chunks(service, docs, RES_JOIN_CHUNK)
+        t_join = time.perf_counter() - t0
+        hot = list(res.resident)
+        cseqs = {d: 1 for d in docs}
+        frames, acks = [], {}
+
+        def sink(p):
+            acks[p["rid"]] = p
+
+        for r in range(2):
+            entries = [[d, clients[d], cseqs[d], 1, RES_K] for d in hot]
+            payload = b"".join(residency_words((12, r, i), RES_K).tobytes()
+                               for i in range(len(hot)))
+            frames.append((r, entries, payload))
+            storm.submit_frame(sink, {"rid": r, "docs": entries},
+                               memoryview(payload))
+            storm.flush()
+            for d in hot:
+                cseqs[d] += RES_K
+        storm.checkpoint()  # Residency R's restore source
+        rss_hot = _rss_mb()
+        ev0, hy0 = res.stats["evictions"], res.stats["hydrations"]
+        reads0 = merge_host.map_row_reads
+        ctx = churn_ctx() if churn_ctx is not None \
+            else contextlib.nullcontext()
+        ctx.__enter__()
+        t1 = time.perf_counter()
+        ops = 0
+        for f in range(RES_CHURN_FRAMES):
+            resident = list(res.resident)
+            cold_pool = [d for d in docs if d not in res.resident]
+            picks = ([resident[i] for i in rng.choice(
+                len(resident), RES_FRAME_DOCS - RES_COLD_PER_FRAME,
+                replace=False)]
+                + [cold_pool[i] for i in rng.choice(
+                    len(cold_pool), RES_COLD_PER_FRAME, replace=False)])
+            entries = [[d, clients[d], cseqs[d], 1, RES_K] for d in picks]
+            payload = b"".join(residency_words((13, f, i), RES_K).tobytes()
+                               for i in range(len(picks)))
+            frames.append((100 + f, entries, payload))
+            storm.submit_frame(sink, {"rid": 100 + f, "docs": entries},
+                               memoryview(payload))
+            storm.flush()
+            for d in picks:
+                cseqs[d] += RES_K
+            ops += len(picks) * RES_K
+        torch.cuda.synchronize()
+        t_churn = time.perf_counter() - t1
+        ctx.__exit__(None, None, None)
+    counts = launch_counts()
+    if not verify:
+        storm._group_wal.close()
+        return {"churn_s": t_churn}
+    rss_churn = _rss_mb()
+    snap = merge_host.metrics.snapshot()
+    hydrations = res.stats["hydrations"] - hy0
+    evictions = res.stats["evictions"] - ev0
+    check(hydrations > 0 and evictions > 0,
+          f"residency A: {hydrations} hydrations, {evictions} evictions "
+          "in the churn")
+    check(len(acks) == len(frames)
+          and not any(a.get("error") for a in acks.values()),
+          "residency A: a frame was not acked")
+    maps = doc_maps(storm, merge_host, res, docs)
+    want = fold_frames(frames, docs)
+    bad = [d for d in docs if maps[d] != want[d]]
+    check(not bad, f"residency A: {len(bad)} docs' maps != the numpy fold "
+          f"(first {bad[:3]})")
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    # The twin: every doc resident, the same frames in the same order.
+    t_svc, t_storm, t_seq, t_mh, _ = residency_stack(device, root / "twin",
+                                                     None)
+    t_acks: dict = {}
+    t_clients = connect_in_chunks(t_svc, docs, RES_JOIN_CHUNK)
+    check(t_clients == clients, "residency twin: client ids differ")
+    for rid, entries, payload in frames:
+        t_storm.submit_frame(lambda p: t_acks.__setitem__(p["rid"], p),
+                             {"rid": rid, "docs": entries},
+                             memoryview(payload))
+        t_storm.flush()
+    for rid, a in acks.items():
+        check(np.array_equal(np.asarray(a.rows),
+                             np.asarray(t_acks[rid].rows)),
+              f"residency A: frame {rid}'s acks != the twin's")
+    t_maps = doc_maps(t_storm, t_mh, None, docs)
+    check(t_maps == maps, "residency A: maps != the no-residency twin's")
+    t_storm._group_wal.close()
+    out = {
+        "registered_docs": RES_REGISTERED, "pool_slots": RES_POOL,
+        "ever_served_docs": ever,
+        "never_served_docs": RES_REGISTERED - ever,
+        "resident_docs": len(res.resident),
+        "seq_row_high_water": seq_host._row_count,
+        "join_s": t_join, "churn_frames": RES_CHURN_FRAMES,
+        "churn_s": t_churn, "churn_ops_per_s": ops / t_churn,
+        "hydrations": hydrations, "evictions": evictions,
+        "hydration_ms_p50": 1e3 * snap.get("residency.hydrate_s.p50", 0.0),
+        "hydration_ms_p99": 1e3 * snap.get("residency.hydrate_s.p99", 0.0),
+        "evict_ms_p50": 1e3 * snap.get("residency.evict_s.p50", 0.0),
+        "evict_ms_p99": 1e3 * snap.get("residency.evict_s.p99", 0.0),
+        "rss_mb_hot": rss_hot, "rss_mb_after_churn": rss_churn,
+        "cuda_max_memory_allocated_mb": peak_mb,
+        "cuda_allocated_before_mb": base_mb,
+        # The recorded kernel inputs (instrumentation) are in the peak.
+        "cuda_recorded_inputs_mb": sum(
+            t.numel() * t.element_size() for by_shape in kept.values()
+            for calls in by_shape.values() for args in calls
+            for t in leaves(args)) / 2**20,
+        "evict_device_reads": merge_host.map_row_reads - reads0,
+        "launches": {k: counts[k] for k in (
+            "map_fold", "sequencer_tick", "mergetree_blocks",
+            "mergetree_flat")}}
+    print("residency_a: " + json.dumps(out), flush=True)
+    deli_picks(device, counts["shapes"]["sequencer_tick"],
+               counts["variants"]["sequencer_tick"], "residency A")
+    check(counts["map_fold"] > 0 and counts["sequencer_tick"] > 0,
+          "residency A launched no map fold or no deli")
+    return {"out": out, "counts": counts, "kept": kept, "docs": docs,
+            "maps": maps, "storm": storm, "clients": clients}
+
+
+def residency_path_r(device, root: pathlib.Path, a: dict) -> dict:
+    """Residency R: a fresh stack with a ResidencyManager recovers
+    Residency A's directories on the card (the checkpoint after the warm
+    ticks, then the churn replayed: cold docs hydrate on first touch) and
+    every doc's map equals the live stack's."""
+    a["storm"]._group_wal.close()
+    service, storm, seq_host, merge_host, res = residency_stack(
+        device, root / "res", RES_POOL)
+    kept: dict = {}
+    launch_counts_reset()
+    with plane_recording(kept):
+        t0 = time.perf_counter()
+        info = storm.recover()
+        import torch
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    check(info["restored_from"] is not None and info["replayed_ticks"] > 0,
+          f"residency R: recover() {info}")
+    maps = doc_maps(storm, merge_host, res, a["docs"])
+    bad = [d for d in a["docs"] if maps[d] != a["maps"][d]]
+    check(not bad, f"residency R: {len(bad)} docs != the live stack's "
+          f"(first {bad[:3]})")
+    check(res.stats["replay_hydrations"] > 0,
+          "residency R: the replay hydrated no cold doc")
+    check(counts["map_fold"] > 0, "residency R launched no map fold")
+    storm._group_wal.close()
+    out = {"recover_s": seconds, **info,
+           "replay_hydrations": res.stats["replay_hydrations"],
+           "resident_docs": len(res.resident),
+           "launches": {k: counts[k] for k in (
+               "map_fold", "sequencer_tick", "mergetree_blocks",
+               "mergetree_flat")}}
+    print("residency_r: " + json.dumps(out), flush=True)
+    return {"out": out, "counts": counts, "kept": kept}
+
+
+def residency_path_s(device, root: pathlib.Path) -> dict:
+    """Residency S (see STORM_*): serve every doc, evict them all, then
+    every client knocks at simulated t = 0 and returns at its hint;
+    hydration starts per simulated second stay within rate + burst and
+    every doc converges to its served map."""
+    import heapq
+
+    clk = [0.0]
+    service, storm, seq_host, merge_host, res = residency_stack(
+        device, root, STORM_POOL, clock=lambda: clk[0],
+        hydration_rate_per_s=STORM_RATE)
+    docs = [f"storm-doc-{i}" for i in range(STORM_COLD_DOCS)]
+    kept: dict = {}
+    frames = []
+    launch_counts_reset()
+    with plane_recording(kept):
+        clients = connect_in_chunks(service, docs, STORM_POOL)
+        for base in range(0, STORM_COLD_DOCS, STORM_POOL):
+            chunk = docs[base:base + STORM_POOL]
+            for d in chunk:
+                res.ensure_resident(d, gate=False)
+            entries = [[d, clients[d], 1, 1, RES_K] for d in chunk]
+            payload = b"".join(residency_words((14, base, i), RES_K)
+                               .tobytes() for i in range(len(chunk)))
+            frames.append((base, entries, payload))
+            storm.submit_frame(None, {"rid": base, "docs": entries},
+                               memoryview(payload))
+            storm.flush()
+        for d in list(res.resident):
+            res.evict(d)
+        check(not res.resident, "residency S: docs still resident")
+        nacks0 = res.stats["hydration_nacks"]
+        events = [(0.0, i, docs[i]) for i in range(STORM_COLD_DOCS)]
+        heapq.heapify(events)
+        hydrated_at: dict = {}
+        attempts = 0
+        t0 = time.perf_counter()
+        while events:
+            t, i, doc = heapq.heappop(events)
+            clk[0] = t
+            attempts += 1
+            retry = res.ensure_resident(doc)
+            if retry is None:
+                hydrated_at[doc] = t
+            else:
+                heapq.heappush(events, (t + retry, i, doc))
+        wall_s = time.perf_counter() - t0
+    counts = launch_counts()
+    per_sec: dict = {}
+    for t in hydrated_at.values():
+        per_sec[int(t)] = per_sec.get(int(t), 0) + 1
+    burst = res.hydrations.burst
+    check(len(hydrated_at) == STORM_COLD_DOCS,
+          f"residency S: {len(hydrated_at)} of {STORM_COLD_DOCS} converged")
+    check(max(per_sec.values()) <= STORM_RATE + burst,
+          f"residency S: {max(per_sec.values())} hydrations in one "
+          f"simulated second > rate + burst {STORM_RATE + burst}")
+    maps = doc_maps(storm, merge_host, res, docs)
+    check(maps == fold_frames(frames, docs),
+          "residency S: a doc's map != the numpy fold of its words")
+    storm._group_wal.close()
+    makespan = max(hydrated_at.values())
+    out = {"cold_docs": STORM_COLD_DOCS, "pool_slots": STORM_POOL,
+           "hydration_rate_per_s": STORM_RATE, "hydration_burst": burst,
+           "sim_makespan_s": makespan,
+           "ideal_drain_s": STORM_COLD_DOCS / STORM_RATE,
+           "peak_hydrations_per_sim_s": max(per_sec.values()),
+           "attempts": attempts,
+           "hydration_nacks": res.stats["hydration_nacks"] - nacks0,
+           "storm_wall_s": wall_s, "evictions": res.stats["evictions"],
+           "launches": {k: counts[k] for k in (
+               "map_fold", "sequencer_tick", "mergetree_blocks",
+               "mergetree_flat")}}
+    print("residency_s: " + json.dumps(out), flush=True)
+    check(counts["map_fold"] > 0 and counts["sequencer_tick"] > 0,
+          "residency S launched no map fold or no deli")
+    return {"out": out, "counts": counts, "kept": kept}
+
+
+def text_messages(service, doc, from_seq: int) -> list:
+    """The doc's sequenced text ops past ``from_seq``."""
+    from fluidframework_tpu_torch.protocol.messages import MessageType
+    return [m for m in service.get_deltas(doc, from_seq)
+            if m.type == MessageType.OPERATION
+            and m.contents["contents"]["address"] == "text"]
+
+
+def mega_arm(device, root: pathlib.Path, promoted: bool,
+             serve_ctx=None) -> dict:
+    """One arm of Mega A: MEGA_WRITERS writers join one doc, text round 0,
+    a checkpoint, (promotion onto MEGA_LANES lanes), the waves of map
+    frames, text round 1, (demotion), text round 2. The single-lane
+    arm attaches no manager. ``serve_ctx`` wraps the waves (the
+    trace)."""
+    import random
+
+    import numpy as np
+    import torch
+
+    from fluidframework_tpu_torch.ops.mergetree_sharded import make_seg_mesh
+    from fluidframework_tpu_torch.protocol.messages import (
+        DocumentMessage,
+        MessageType,
+    )
+    from fluidframework_tpu_torch.server.durable_store import (
+        DurableMessageBus,
+        FileStateStore,
+        GitSnapshotStore,
+    )
+    from fluidframework_tpu_torch.server.kernel_host import \
+        KernelSequencerHost
+    from fluidframework_tpu_torch.server.megadoc import (
+        MegaDocManager,
+        lane_of_writer,
+    )
+    from fluidframework_tpu_torch.server.merge_host import KernelMergeHost
+    from fluidframework_tpu_torch.server.routerlicious import \
+        RouterliciousService
+    from fluidframework_tpu_torch.server.storm import StormController
+
+    seq_host = KernelSequencerHost(num_slots=256, initial_capacity=4,
+                                   device=device)
+    merge_host = KernelMergeHost(
+        flush_threshold=10**9, device=device,
+        seg_mesh=make_seg_mesh([device] * MEGA_SEG_SHARDS))
+    service = RouterliciousService(
+        bus=DurableMessageBus(str(root / "bus")),
+        store=FileStateStore(str(root / "state")),
+        merge_host=merge_host, batched_deli_host=seq_host,
+        auto_pump=False, idle_check_interval=10**9)
+    ticks = iter(range(1000, 1 << 30, 3))
+    service._clock = lambda: next(ticks)
+    storm = StormController(service, seq_host, merge_host,
+                            flush_threshold_docs=10**9,
+                            spill_dir=str(root / "spill"),
+                            durability="group",
+                            snapshots=GitSnapshotStore(str(root / "git")))
+    mgr = MegaDocManager(storm, default_lanes=MEGA_LANES) if promoted \
+        else None
+    doc = "mega"
+    t0 = time.perf_counter()
+    conns = []
+    for i in range(MEGA_WRITERS):
+        conns.append(service.connect(doc, lambda m: None))
+        if (i + 1) % 256 == 0:
+            service.pump()
+    service.pump()
+    t_join = time.perf_counter() - t0
+    clients = [c.client_id for c in conns]
+    rng = random.Random(5)
+    length = [0]
+    text_stages: dict = {}
+    n_text = [0]
+
+    def text_round(r: int) -> None:
+        head = seq_host.checkpoint(doc).sequence_number
+        for c in conns[-MEGA_TEXT_WRITERS:]:
+            if length[0] > 2 and rng.random() < 0.3:
+                a = rng.randrange(length[0] - 1)
+                op = {"type": "remove", "start": a,
+                      "end": min(length[0], a + rng.randint(1, 4))}
+            else:
+                op = {"type": "insert", "pos": rng.randint(0, length[0]),
+                      "text": "".join(rng.choice("abcdefgh") for _ in
+                                      range(rng.randint(1, 6)))}
+            c.submit([DocumentMessage(
+                client_sequence_number=r + 1, reference_sequence_number=head,
+                type=MessageType.OPERATION,
+                contents={"address": "default",
+                          "contents": {"address": "text", "contents": op}})])
+        service.pump()
+        merge_host.flush()
+        length[0] = len(merge_host.text(doc, "default", "text"))
+        msgs = text_messages(service, doc, head)
+        n_text[0] += len(msgs)
+        text_stages[r] = {"ops": n_text[0], "msgs": msgs,
+                          "text": merge_host.text(doc, "default", "text")}
+
+    text_round(0)
+    storm.checkpoint()  # the recovery's restore source
+    n_lanes = MEGA_LANES
+    buckets: list = [[] for _ in range(n_lanes)]
+    for w in range(MEGA_WRITERS):
+        buckets[lane_of_writer(clients[w], n_lanes)].append(w)
+    order = [b[i] for i in range(max(len(b) for b in buckets))
+             for b in buckets if i < len(b)]
+    if promoted:
+        mgr.promote(doc, lanes=MEGA_LANES)
+    gen = np.random.default_rng(0)
+    words_all = (gen.integers(0, 1 << 20, (MEGA_WRITERS, MEGA_K))
+                 .astype(np.uint32) << 12) | (gen.integers(
+                     0, 32, (MEGA_WRITERS, MEGA_K)).astype(np.uint32) << 2)
+    lat: list = []
+    acks: dict = {}
+    t_submit: dict = {}
+
+    def sink(p):
+        rid = p.get("rid")
+        if rid is not None and not p.get("error"):
+            lat.append(time.perf_counter() - t_submit[rid])
+            acks[rid] = np.asarray(p.rows).tolist()
+
+    storm.submit_frame(None, {"rid": None,
+                              "docs": [[doc, clients[0], 1, 1, MEGA_K]]},
+                       memoryview(words_all[0].tobytes()))
+    storm.flush()
+    ticks0 = storm.stats["ticks"]
+    seq0 = storm.stats["sequenced_ops"]
+    # The text writers' cseqs ride their text ops: they send no frames.
+    served = [w for w in order if w < MEGA_WRITERS - MEGA_TEXT_WRITERS]
+    ctx = serve_ctx() if serve_ctx is not None \
+        else contextlib.nullcontext()
+    ctx.__enter__()
+    t1 = time.perf_counter()
+    for base in range(0, len(served), MEGA_WAVE):
+        for w in served[base:base + MEGA_WAVE]:
+            t_submit[w] = time.perf_counter()
+            storm.submit_frame(sink, {
+                "rid": w, "docs": [[doc, clients[w],
+                                    MEGA_K + 1 if w == 0 else 1, 1,
+                                    MEGA_K]]},
+                memoryview(words_all[w].tobytes()))
+        storm.flush()
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t1
+    ctx.__exit__(None, None, None)
+    sequenced = storm.stats["sequenced_ops"] - seq0
+    check(sequenced == len(served) * MEGA_K and len(acks) == len(served),
+          f"mega arm: {sequenced} ops sequenced, {len(acks)} acks")
+    ticks_served = storm.stats["ticks"] - ticks0
+    entries = (mgr.map_entries(doc) if promoted else
+               merge_host.map_entries(doc, storm.datastore, storm.channel))
+    text_round(1)
+    promoted_pool = None
+    key = next(k for k in merge_host._merge_rows if k.doc_id == doc)
+    if promoted:
+        promoted_pool = type(merge_host._merge_rows[key].pool).__name__
+        mgr.demote(doc)
+    text_round(2)
+    row = storm._storm_map_row(doc)
+    planes = [getattr(merge_host._xstate, f)[row].cpu().numpy().tolist()
+              for f in merge_host._xstate._fields]
+    lat_ms = 1e3 * np.asarray(sorted(lat))
+    storm._group_wal.close()
+    return {"service": service, "merge_host": merge_host, "doc": doc,
+            "entries": entries, "acks": acks, "planes": planes,
+            "words": words_all, "served": served, "clients": clients,
+            "text_stages": text_stages, "promoted_pool": promoted_pool,
+            "key": key, "map_final": merge_host.map_entries(
+                doc, storm.datastore, storm.channel),
+            "stats": {"writers": MEGA_WRITERS, "frames": len(served),
+                      "join_s": t_join, "elapsed_s": elapsed,
+                      "merged_ops_per_s": sequenced / elapsed,
+                      "ticks": ticks_served,
+                      "ack_ms_p50": float(np.percentile(lat_ms, 50)),
+                      "ack_ms_p99": float(np.percentile(lat_ms, 99))}}
+
+
+def text_cpu_twin(run: dict, promoted: bool) -> None:
+    """Hold the card's text planes to a CPU merge host fed the same
+    sequenced text ops, round by round, with the promotion and demotion
+    at the same points."""
+    from fluidframework_tpu_torch.ops.mergetree_sharded import make_seg_mesh
+    from fluidframework_tpu_torch.server.merge_host import KernelMergeHost
+    host = KernelMergeHost(flush_threshold=10**9, device="cpu",
+                           seg_mesh=make_seg_mesh(["cpu"] * MEGA_SEG_SHARDS))
+    for r in (0, 1, 2):
+        for m in run["text_stages"][r]["msgs"]:
+            host.ingest(run["doc"], m)
+        host.flush()
+        if promoted and r == 0:
+            host.promote_merge_row(run["key"])
+        if promoted and r == 1:
+            host.demote_merge_row(run["key"])
+        check(host.text(run["doc"], "default", "text")
+              == run["text_stages"][r]["text"],
+              f"mega A text round {r}: card != its CPU twin")
+    card = run["merge_host"]
+    for pools in ("_merge_pools", "_mega_pools"):
+        a, b = getattr(card, pools), getattr(host, pools)
+        check(sorted(a) == sorted(b), f"mega A {pools}: {sorted(a)} != "
+              f"the CPU twin's {sorted(b)}")
+        for slots, pa in a.items():
+            for f in type(pa.state)._fields:
+                x = getattr(pa.state, f)
+                y = getattr(b[slots].state, f)
+                for xt, yt in zip(leaves((x,)), leaves((y,))):
+                    check(bool((xt.cpu() == yt).all()),
+                          f"mega A text plane {pools}[{slots}].{f}: card "
+                          "!= its CPU twin")
+
+
+def mega_path_a(device, root: pathlib.Path) -> dict:
+    """Mega A (see MEGA_*): the promoted arm and the single-lane twin on
+    the card, held to each other (converged map, every ack's doc-space
+    quad, the demoted row's planes) and to a numpy fold in doc-seq order;
+    the text channel held to the twin while promoted and to a CPU twin
+    throughout; then a fresh stack recovers the promoted arm."""
+    import numpy as np
+
+    from fluidframework_tpu_torch.server.megadoc import MegaDocManager
+    # Both arms and the recovery run under the same recording wrappers,
+    # so their clocks carry the same instrumentation.
+    kept: dict = {}
+    launch_counts_reset()
+    with plane_recording(kept):
+        mega = mega_arm(device, root / "mega", promoted=True)
+    counts = launch_counts()
+    twin_kept: dict = {}
+    launch_counts_reset()
+    with plane_recording(twin_kept):
+        twin = mega_arm(device, root / "twin", promoted=False)
+    twin_counts = launch_counts()
+    check(mega["entries"] == twin["entries"],
+          "mega A: the promoted map != the single-lane twin's")
+    check(mega["acks"] == twin["acks"],
+          "mega A: doc-space ack quads != the single-lane twin's")
+    check(mega["planes"] == twin["planes"],
+          "mega A: the demoted row's planes != the twin's row")
+    # The numpy fold in doc-seq order (every word a SET).
+    order = sorted(mega["served"], key=lambda w: mega["acks"][w][0][1])
+    fold: dict = {}
+    for w in [0] + order:  # writer 0's warm-up frame came first
+        for word in mega["words"][w].tolist():
+            fold[f"k{(word >> 2) & 0x3FF}"] = word >> 12
+    check(mega["entries"] == fold,
+          "mega A: the promoted map != the numpy fold in doc-seq order")
+    check(mega["promoted_pool"] == "_ShardedMergePool",
+          f"mega A: the promoted text row sat in {mega['promoted_pool']}")
+    for r in (0, 1):
+        check(mega["text_stages"][r]["text"]
+              == twin["text_stages"][r]["text"],
+              f"mega A: text round {r} != the single-lane twin's")
+    # The reference fault (ROADMAP Queue C): demotion restores the doc's
+    # sequencer row from the combiner mirror, which never saw the text
+    # ops sequenced on the frozen row while promoted, so the round after
+    # demotion nacks as gaps on the promoted arm only.
+    fault = (mega["text_stages"][2]["ops"] == mega["text_stages"][1]["ops"]
+             and twin["text_stages"][2]["ops"]
+             == twin["text_stages"][1]["ops"] + MEGA_TEXT_WRITERS)
+    text_cpu_twin(mega, True)
+    text_cpu_twin(twin, False)
+    # Recovery of the promoted arm's WAL and snapshot on the card.
+    from fluidframework_tpu_torch.ops.mergetree_sharded import make_seg_mesh
+    from fluidframework_tpu_torch.server.durable_store import (
+        DurableMessageBus, FileStateStore, GitSnapshotStore)
+    from fluidframework_tpu_torch.server.kernel_host import \
+        KernelSequencerHost
+    from fluidframework_tpu_torch.server.merge_host import KernelMergeHost
+    from fluidframework_tpu_torch.server.routerlicious import \
+        RouterliciousService
+    from fluidframework_tpu_torch.server.storm import StormController
+    rroot = root / "mega"
+    seq2 = KernelSequencerHost(num_slots=256, initial_capacity=4,
+                               device=device)
+    mh2 = KernelMergeHost(flush_threshold=10**9, device=device,
+                          seg_mesh=make_seg_mesh([device] * MEGA_SEG_SHARDS))
+    svc2 = RouterliciousService(
+        bus=DurableMessageBus(str(rroot / "bus")),
+        store=FileStateStore(str(rroot / "state")), merge_host=mh2,
+        batched_deli_host=seq2, auto_pump=False, idle_check_interval=10**9)
+    storm2 = StormController(svc2, seq2, mh2, flush_threshold_docs=10**9,
+                             spill_dir=str(rroot / "spill"),
+                             durability="group",
+                             snapshots=GitSnapshotStore(str(rroot / "git")))
+    mgr2 = MegaDocManager(storm2, default_lanes=MEGA_LANES)
+    rec_kept: dict = {}
+    launch_counts_reset()
+    with plane_recording(rec_kept):
+        t0 = time.perf_counter()
+        info = storm2.recover()
+        rec_s = time.perf_counter() - t0
+    rec_counts = launch_counts()
+    got = mh2.map_entries("mega", storm2.datastore, storm2.channel)
+    check(got == mega["map_final"] and got == mega["entries"],
+          "mega A: the recovered map != the live promoted run's")
+    check(mgr2.has_history("mega") and not mgr2.is_promoted("mega"),
+          "mega A: recovery did not replay the promoted lifecycle")
+    storm2._group_wal.close()
+    for run, name, c in ((mega, "sharded", counts),
+                         (twin, "single-lane", twin_counts)):
+        deli_picks(device, c["shapes"]["sequencer_tick"],
+                   c["variants"]["sequencer_tick"], f"mega A ({name})")
+    check(counts["mergetree_flat"] > 0,
+          "mega A: the promoted text row ticked no kernel 4")
+    check(counts["mergetree_blocks"] > 0 and counts["map_fold"] > 0
+          and counts["sequencer_tick"] > 0,
+          "mega A: kernel 1, 2 or 3 did not launch on the promoted arm")
+    out = {"sharded": mega["stats"], "single_lane": twin["stats"],
+           "ratio": mega["stats"]["merged_ops_per_s"]
+           / twin["stats"]["merged_ops_per_s"],
+           "lanes": MEGA_LANES, "wave": MEGA_WAVE,
+           "waves": -(-len(mega["served"]) // MEGA_WAVE),
+           "text_after_demotion_fault": fault,
+           "recover_s": rec_s, "recovered": info,
+           "launches": {k: counts[k] for k in (
+               "map_fold", "sequencer_tick", "mergetree_blocks",
+               "mergetree_flat")},
+           "single_lane_launches": {k: twin_counts[k] for k in (
+               "map_fold", "sequencer_tick", "mergetree_blocks",
+               "mergetree_flat")}}
+    print("mega_a: " + json.dumps(out), flush=True)
+    return {"out": out, "counts": counts, "kept": kept,
+            "twin_counts": twin_counts, "twin_kept": twin_kept,
+            "recover_counts": rec_counts, "recover_kept": rec_kept}
+
+
+def mega_lanes_path(device) -> dict:
+    """Mega L (see LANES_*): MegaDocLanes over LANES_ROWS rows of a
+    LANES_DOCS-doc ShardedServing on a virtual mesh of LANES_SHARDS shards
+    of the card, against a narrow single-row twin on the card serving the
+    same batches one after another: every decision's doc-space quad and
+    the converged entries equal."""
+    import numpy as np
+
+    from fluidframework_tpu_torch.parallel.mesh import make_mesh
+    from fluidframework_tpu_torch.parallel.serving import (
+        MegaDocLanes,
+        ShardedServing,
+    )
+    kept: dict = {}
+    launch_counts_reset()
+    with plane_recording(kept):
+        serving = ShardedServing(make_mesh([device] * LANES_SHARDS),
+                                 num_docs=LANES_DOCS, k=MEGA_K,
+                                 num_hosts=LANES_HOSTS,
+                                 num_clients=LANES_SLOTS, map_slots=16)
+        serving.join_all(slots=list(range(LANES_SLOTS)))
+        step = LANES_DOCS // LANES_ROWS
+        rows = [i * step + (i * 7) % step for i in range(LANES_ROWS)]
+        lanes = MegaDocLanes(serving, lane_rows=rows)
+        for w in range(LANES_WRITERS):
+            lanes.join(f"writer-{w}")
+        rng = np.random.default_rng(42)
+        cseqs = {w: 1 for w in range(LANES_WRITERS)}
+        prev: dict = {}
+        batches, mega_acks = [], []
+        t0 = time.perf_counter()
+        for _r in range(LANES_ROUNDS):
+            for w in range(LANES_WRITERS):
+                action = rng.choice(["fresh", "fresh", "dup", "gap"])
+                words = (rng.integers(0, 1 << 20, MEGA_K).astype(np.uint32)
+                         << 12 | (rng.integers(0, 16, MEGA_K)
+                                  .astype(np.uint32) << 2))
+                if action == "dup" and w in prev:
+                    cseq0, words = prev[w]
+                elif action == "gap":
+                    cseq0 = cseqs[w] + 3
+                else:
+                    cseq0 = cseqs[w]
+                    cseqs[w] += MEGA_K
+                    prev[w] = (cseq0, words)
+                dec = lanes.submit(f"writer-{w}", words, cseq0, ref_seq=1)
+                mega_acks.append((dec.n_seq, dec.first, dec.last))
+                batches.append((w, words, cseq0))
+            serving.flush()
+        entries = lanes.entries()
+        seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    # The twin, after the lanes' counts are read: the same batches one
+    # after another on one row.
+    twin = ShardedServing(make_mesh([device]), num_docs=8, k=MEGA_K,
+                          num_hosts=1, num_clients=LANES_WRITERS + 1,
+                          map_slots=16)
+    twin.join_all(slots=list(range(LANES_WRITERS)))
+    twin_acks = []
+    for w, words, cseq0 in batches:
+        twin.submit(0, words, cseq0, ref_seq=1, client_slot=w)
+        n_ok, first, last = twin.tick()[0][0]
+        twin_acks.append((n_ok, first if n_ok else 2**31 - 1, last))
+    twin.flush()
+    check(mega_acks == twin_acks,
+          "mega L: lane decisions != the single-row twin's acks")
+    planes = twin.family_rows("map")
+    want = {s: int(v) for s, v in enumerate(planes.value[0])
+            if planes.present[0][s]}
+    check(entries == want and bool(entries),
+          "mega L: lane entries != the single-row twin's map")
+    seqs = serving.family_rows("seq").seq
+    spread = sum(1 for r in rows if int(seqs[r]) > LANES_SLOTS)
+    check(spread > 1, f"mega L: only {spread} lane rows sequenced")
+    check(len({serving._shard_of(r) for r in rows}) == LANES_SHARDS,
+          "mega L: the lane rows do not span every shard")
+    out = {"docs": LANES_DOCS, "shards": LANES_SHARDS, "rows": rows,
+           "writers": LANES_WRITERS, "rounds": LANES_ROUNDS,
+           "sequenced_batches": sum(1 for a in mega_acks if a[0]),
+           "seconds": seconds, "lanes_sequenced": spread,
+           "launches": {k: counts[k] for k in (
+               "map_fold", "sequencer_tick", "mergetree_blocks",
+               "mergetree_flat")}}
+    print("mega_l: " + json.dumps(out), flush=True)
+    check(counts["map_fold"] > 0 and counts["sequencer_tick"] > 0,
+          "mega L launched no map fold or no deli")
+    return {"out": out, "counts": counts, "kept": kept}
+
+
+PLANE_CHAOS = (
+    ("residency", "residency.mid_evict", 1,
+     dict(seed=0, docs=3, k=8, ticks=5, cp_every=2, residency=2)),
+    ("megadoc", "megadoc.mid_combine", 3,
+     dict(seed=0, docs=1, k=8, ticks=4, cp_every=2, megadoc=2)))
+
+
+def plane_chaos_start(device) -> list:
+    """Start one ``residency.mid_evict`` and one ``megadoc.mid_combine``
+    kill of a chaos-harness serving process on the card (the reference
+    suite's smoke configurations), each in a thread of its own: their
+    child processes run beside mega A's promoted-arm joins, which are
+    set-up and not timed as a rate. ``plane_chaos_finish`` joins them."""
+    import tempfile
+    import threading
+
+    from fluidframework_tpu_torch.tools import chaos
+    runs = []
+    for name, point, hits, cfg in PLANE_CHAOS:
+        run = {"name": name, "cfg": cfg,
+               "tmp": tempfile.mkdtemp(prefix=f"ff-chaos-{name}-")}
+
+        def go(run=run, point=point, hits=hits, cfg=cfg):
+            t0 = time.perf_counter()
+            try:
+                run["report"] = chaos.run_chaos(
+                    run["tmp"], point, kill_hits=hits, device=device.type,
+                    timeout=300, **cfg)
+            except Exception as err:  # reported by plane_chaos_finish
+                run["error"] = f"{type(err).__name__}: {str(err)[:2000]}"
+            run["seconds"] = time.perf_counter() - t0
+        run["thread"] = threading.Thread(target=go, daemon=True)
+        run["thread"].start()
+        runs.append(run)
+    return runs
+
+
+def plane_chaos_finish(runs: list) -> dict:
+    """Wait for the chaos kills; each must have killed, recovered to its
+    twin's digest and acked every round."""
+    import shutil
+    out = {}
+    for run in runs:
+        run["thread"].join()
+        shutil.rmtree(run["tmp"], ignore_errors=True)
+        name = run["name"]
+        check("error" not in run,
+              f"{name} chaos run on the card: {run.get('error')}")
+        report = run["report"]
+        check(report["killed"] and report["lives"] >= 2,
+              f"the {name} chaos run did not kill and recover")
+        check(report["acked_rounds"] == list(range(run["cfg"]["ticks"])),
+              f"the {name} chaos run acked {report['acked_rounds']}")
+        out[name] = {key: report[key] for key in (
+            "kill_point", "kill_hits", "killed", "lives", "acked_rounds")}
+        out[name]["seconds"] = run["seconds"]
+    print("plane_chaos: " + json.dumps(out), flush=True)
+    return out
+
+
+def planes_path(device) -> dict:
+    """Residency A, R and S, Mega A and L, and the two chaos kills
+    (beside mega A's first joins: after every residency clock), in temp
+    dirs of the machine deleted after."""
+    import shutil
+    import tempfile
+    root = pathlib.Path(tempfile.mkdtemp(prefix="ff-planes-"))
+    out = {}
+    chaos_runs = []
+    try:
+        t = time.perf_counter()
+        out["res_a"] = residency_path_a(device, root / "a")
+        out["res_r"] = residency_path_r(device, root / "a", out["res_a"])
+        del out["res_a"]["storm"]
+        out["res_s"] = residency_path_s(device, root / "s")
+        t_res = time.perf_counter()
+        chaos_runs = plane_chaos_start(device)
+        out["mega_a"] = mega_path_a(device, root / "mega")
+        out["mega_l"] = mega_lanes_path(device)
+        t_mega = time.perf_counter()
+        out["chaos"] = plane_chaos_finish(chaos_runs)
+        print(f"phase times: residency {t_res - t:.1f} s, mega-doc "
+              f"{t_mega - t_res:.1f} s, plane chaos (beside mega A) "
+              f"{time.perf_counter() - t_mega:.1f} s more", flush=True)
+    finally:
+        for run in chaos_runs:
+            run["thread"].join()
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def trace_planes(device) -> dict:
+    """Residency A's churn frames and Mega A's promoted waves again, each
+    under ``torch.profiler``: device busy ms against the host's wall ms
+    over the same frames (an upper bound on the idle share)."""
+    import shutil
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+    out = {}
+    root = pathlib.Path(tempfile.mkdtemp(prefix="ff-planes-trace-"))
+    try:
+        for name, drive in (
+                ("residency_churn", lambda ctx: residency_path_a(
+                    device, root / "res", churn_ctx=ctx,
+                    verify=False)["churn_s"]),
+                ("mega_promoted", lambda ctx: mega_arm(
+                    device, root / "mega", True,
+                    serve_ctx=ctx)["stats"]["elapsed_s"])):
+            prof = profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA])
+            wall_ms = drive(lambda: prof) * 1e3
+            busy_ms, top = device_busy(prof)
+            out[name] = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+                         "idle_share": 1 - busy_ms / wall_ms,
+                         "top_device_ms": top}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print("trace_planes: " + json.dumps(out), flush=True)
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -4033,6 +5145,44 @@ def main() -> int:
     seqpar = seqpar_path(device)
     print(f"phase times: mixed {t_seqpar - t_mixed:.1f} s, sequence-parallel "
           f"{time.perf_counter() - t_seqpar:.1f} s", flush=True)
+    planes = planes_path(device)
+    # Kernels 1-4 on every call each plane path made, both variants held
+    # to the plain version, and timed on the last call at each shape.
+    mega = planes["mega_a"]
+    plane_paths = {"res_a": (planes["res_a"]["kept"],
+                             planes["res_a"]["counts"]),
+                   "res_r": (planes["res_r"]["kept"],
+                             planes["res_r"]["counts"]),
+                   "res_s": (planes["res_s"]["kept"],
+                             planes["res_s"]["counts"]),
+                   "mega_a": (mega["kept"], mega["counts"]),
+                   "mega_a_single": (mega["twin_kept"], mega["twin_counts"]),
+                   "mega_a_recover": (mega["recover_kept"],
+                                      mega["recover_counts"]),
+                   "mega_l": (planes["mega_l"]["kept"],
+                              planes["mega_l"]["counts"])}
+    for path_name, (kept, counts) in plane_paths.items():
+        for name, by_shape in kept.items():
+            got = {sh: len(c) for sh, c in by_shape.items()}
+            want = {sh: n for sh, n in counts["shapes"][name].items() if n}
+            check(got == want, f"{name} ({path_name}): launches by shape "
+                  f"{want}, calls kept {got}")
+    # The single-lane arm's first calls (the joins, the text before
+    # promotion) repeat the promoted arm's inputs: checked once.
+    same = drop_leading_repeats(mega["twin_kept"], mega["kept"])
+    print(f"mega A single-lane calls equal to the promoted arm's: {same}",
+          flush=True)
+    t_recheck = time.perf_counter()
+    plane_checks: dict = {}
+    for path_name, (kept, _counts) in plane_paths.items():
+        for name in ("map_fold", "sequencer_tick", "mergetree_blocks",
+                     "mergetree_flat"):
+            got = plane_recheck(device, name, path_name, kept)
+            if got is not None:
+                plane_checks.setdefault(name, {})[path_name] = {
+                    k: v for k, v in got.items() if k != "by_call"}
+        kept.clear()
+    t_recheck_planes = time.perf_counter()
     shapes = path["shapes"]
     from fluidframework_tpu_torch.ops import map_fold_cuda as mfc
     from fluidframework_tpu_torch.ops import map_kernel as mk
@@ -4129,6 +5279,9 @@ def main() -> int:
     steps_split = steps_breakdown(
         steps["inputs"][max(steps["shapes"], key=steps["shapes"].get)])
     del steps["inputs"]
+    print(f"re-check times: plane paths {t_recheck_planes - t_recheck:.1f} "
+          f"s, earlier paths {time.perf_counter() - t_recheck_planes:.1f} s",
+          flush=True)
     if "--trace" in sys.argv[1:]:
         trace_main_path(device)
         trace_durable_path(device)
@@ -4136,6 +5289,7 @@ def main() -> int:
         trace_matrix_paths(device)
         trace_tree_path(device)
         trace_mixed_path(device)
+        trace_planes(device)
     # Each path's own launches, counted from 0 just before it and read
     # just after; a kernel's "launches" is their sum.
     by_path = {
@@ -4151,7 +5305,16 @@ def main() -> int:
                "tree_a": tree["launches"].get(name, 0),
                "mixed_a": mixed_a["counts"].get(name, 0),
                "mixed_b": mixed_b["counts"].get(name, 0),
-               "seqpar_host": seqpar["host"]["launches"].get(name, 0)}
+               "seqpar_host": seqpar["host"]["launches"].get(name, 0),
+               "res_a": planes["res_a"]["counts"].get(name, 0),
+               "res_r": planes["res_r"]["counts"].get(name, 0),
+               "res_s": planes["res_s"]["counts"].get(name, 0),
+               "mega_a": planes["mega_a"]["counts"].get(name, 0),
+               "mega_a_single": planes["mega_a"]["twin_counts"].get(
+                   name, 0),
+               "mega_a_recover": planes["mega_a"]["recover_counts"].get(
+                   name, 0),
+               "mega_l": planes["mega_l"]["counts"].get(name, 0)}
         for name in ("map_fold", "sequencer_tick", "mergetree_blocks",
                      "mergetree_flat", "matrix_tick", "matrix_steps")}
     launches = {name: sum(n.values()) for name, n in by_path.items()}
@@ -4279,6 +5442,16 @@ def main() -> int:
                 mixed_b["counts"]["variants"][name]
         if name == "mergetree_flat":
             entry["seq_parallel_yardstick"] = seqpar["tick"]
+        if name in plane_checks:
+            entry["planes"] = plane_checks[name]
+            entry["max_abs_err"] = max(
+                [entry["max_abs_err"]]
+                + [r["max_abs_err"] for r in plane_checks[name].values()])
+            for path_name, rec in planes.items():
+                variants = rec.get("counts", {}).get("variants") \
+                    if isinstance(rec, dict) else None
+                if variants and variants.get(name):
+                    entry["variant_launches"][path_name] = variants[name]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -25,8 +25,9 @@ u32 words), a merge-tree text channel, a matrix channel or a tree channel.
 Single-process deployments (and a virtual mesh of several shards on one
 device) run the same code with simulated hosts.
 
-Not ported: :class:`MegaDocLanes` needs ``server/megadoc.py`` (ROADMAP
-Queue A 5) and raises.
+:class:`MegaDocLanes` spreads one document over several rows of an
+assembly (the mega-doc tier's lane placement), with the combiner and the
+cross-lane fold of ``server/megadoc.py``.
 """
 
 from __future__ import annotations
@@ -1256,16 +1257,153 @@ class ShardResidency:
 
 
 class MegaDocLanes:
-    """ONE logical document spread over several rows of a
-    :class:`ShardedServing` assembly. Needs ``server/megadoc.py`` (its
-    doc-space combiner and cross-lane fold), which is not ported yet
-    (ROADMAP Queue A 5)."""
+    """ONE logical document spread over several ROWS of a
+    :class:`ShardedServing` assembly — the lane-placement face of the
+    mega-doc write tier (rows shard over the mesh, so L lanes are L
+    device lanes). Writers hash to lanes (``megadoc.lane_of_writer``);
+    the doc-space :class:`~..server.megadoc.DocSequencerMirror` is the
+    combiner (dup/gap/refseq/MSN in doc space, doc seqs stamped in
+    submission order — the single-row interleaving); each lane's cleaned
+    batch sequences on its OWN row through the real device kernel, and
+    the converged doc map is the cross-lane LWW fold
+    (:func:`~..server.megadoc.fold_map_rows`) through each lane's
+    combine log. Lane rows take ref 0 (the doc-space refseq law already
+    ran in the mirror). Map-words family only — the text family's
+    sequence-parallel serving lives in the merge host's
+    ``promote_merge_row`` tier.
+
+    Single-process scope (the verification shape): the lane rows are
+    read from this process's shards, one gather per shard."""
 
     def __init__(self, serving: ShardedServing,
                  lane_rows: list[int]) -> None:
-        raise NotImplementedError(
-            "MegaDocLanes needs server/megadoc.py, which is not ported "
-            "yet (ROADMAP Queue A 5)")
+        from ..server.megadoc import DocSequencerMirror, LaneCombineLog
+        if not lane_rows:
+            raise ValueError("need at least one lane row")
+        self.serving = serving
+        self.rows = list(lane_rows)
+        self.mirror = DocSequencerMirror()
+        self.logs = [LaneCombineLog() for _ in self.rows]
+        # Construct AFTER join_all: each lane row's device seq already
+        # counts its slot joins, and the combine log must number lane
+        # seqs in the DEVICE's space (the map fold's vseq plane carries
+        # them) — anchor the log's high water there.
+        seqs = self._lane_planes("seq", ("seq",))["seq"]
+        for lane in range(len(self.rows)):
+            self.logs[lane].seq = int(seqs[lane])
+        self._slot_of: dict[str, int] = {}
+        self._lane_fill = [0] * len(self.rows)
+
+    def _lane_planes(self, family: str, names: tuple[str, ...]
+                     ) -> dict[str, np.ndarray]:
+        """Host copy of one family's named planes at the lane rows (lane
+        order): per shard holding lanes, ONE gather of the planes packed
+        side by side as int32 and ONE device→host copy."""
+        serving = self.serving
+        shards = serving._family_states()[family]
+        by_shard: dict[int, list[int]] = {}
+        for lane, row in enumerate(self.rows):
+            by_shard.setdefault(serving._shard_of(row), []).append(lane)
+        out: dict[str, np.ndarray] = {}
+        for i, lanes in by_shard.items():
+            lo = serving.shard_rows[i][0]
+            state = shards[i]
+            planes = [getattr(state, n) for n in names]
+            idx = torch.as_tensor([self.rows[j] - lo for j in lanes],
+                                  dtype=torch.long,
+                                  device=planes[0].device)
+            cols = [p[idx].to(torch.int32).reshape(len(lanes), -1)
+                    for p in planes]
+            packed = torch.cat(cols, dim=1).cpu().numpy()
+            at = 0
+            for n, p, c in zip(names, planes, cols):
+                width = c.shape[1]
+                part = packed[:, at:at + width].reshape(
+                    (len(lanes),) + tuple(p.shape[1:]))
+                at += width
+                if n not in out:
+                    out[n] = np.zeros((len(self.rows),) + part.shape[1:],
+                                      np.bool_ if p.dtype == torch.bool
+                                      else np.int32)
+                out[n][lanes] = part
+        return out
+
+    def join(self, client: str) -> tuple[int, int]:
+        """Register a writer: lane by stable hash, client slot within
+        the lane's row in join order (the row's joined lanes are the
+        capacity — join_all(slots=...) them first). A join revs the
+        LOGICAL doc's seq exactly as a sequenced CLIENT_JOIN revs a
+        single row's, so the doc seq stream matches a single-row twin
+        whose writers joined the same way. Returns (lane, slot)."""
+        w = self.mirror.writers.get(client)
+        if w is None:
+            w = self.mirror.adopt(client, len(self.rows), clu=1)
+            self.mirror.seq += 1  # the join's seq rev
+        if client in self._slot_of:
+            return w.lane, self._slot_of[client]
+        slot = self._lane_fill[w.lane]
+        if slot >= self.serving.num_clients:
+            raise ValueError(
+                f"lane {w.lane} writer slots exhausted "
+                f"({self.serving.num_clients}); build the assembly with "
+                "more num_clients")
+        self._lane_fill[w.lane] += 1
+        self._slot_of[client] = slot
+        return w.lane, slot
+
+    def submit(self, client: str, words, first_cseq: int,
+               ref_seq: int = 1):
+        """One writer batch through the combiner: the doc-space ticket
+        decides (dups trimmed, zero-op outcomes never touch a lane),
+        the cleaned batch rides the writer's lane row, and the returned
+        :class:`~..server.megadoc.Decision` carries the doc-space ack
+        quad."""
+        w = self.mirror.writers.get(client)
+        if w is None:
+            self.join(client)
+            w = self.mirror.writers[client]
+        dec = self.mirror.decide(client, first_cseq, ref_seq,
+                                 len(words), ts=1)
+        if dec.n_seq == 0:
+            return dec
+        lane = w.lane
+        row = self.rows[lane]
+        port = self.serving.route(row)
+        if row in self.serving._pending[port.host_id]:
+            # Lane collision (one submission per row per tick): run the
+            # pending tick first. Doc seqs were already stamped at
+            # decide time, so tick boundaries never reorder the doc.
+            self.serving.tick()
+        self.logs[lane].append(dec.n_seq, dec.first, dec.msn)
+        lane_cseq0 = (first_cseq + dec.dups) - w.offset
+        self.serving.submit(self.rows[lane],
+                            np.asarray(words, np.uint32)[dec.dups:],
+                            lane_cseq0, ref_seq=0,
+                            client_slot=self._slot_of[client])
+        return dec
+
+    def entries(self) -> dict[int, int]:
+        """Converged doc map (slot -> value): the cross-lane fold by
+        translated doc seq — byte-comparable to a single-row twin
+        serving the same batches sequentially."""
+        from ..server.megadoc import fold_map_rows
+        if any(self.serving._pending[p.host_id]
+               for p in self.serving.hosts):
+            self.serving.tick()  # lane batches still staged: run them
+        self.serving.flush()
+        ms = self._lane_planes("map", mk.MapState._fields)
+        sources = []
+        for lane in range(len(self.rows)):
+            log = self.logs[lane]
+            cs = int(ms["cleared_seq"][lane])
+            sources.append({
+                "present": ms["present"][lane], "value": ms["value"][lane],
+                "vseq": log.to_doc_array(
+                    ms["vseq"][lane].astype(np.int64)),
+                "cleared_seq": log.to_doc(cs) if cs >= 1 else cs})
+        fold = fold_map_rows(sources)
+        return {int(s): int(fold["value"][s])
+                for s in np.flatnonzero(fold["present"])}
 
 
 __all__ = ["ShardedServing", "ShardResidency", "MegaDocLanes",

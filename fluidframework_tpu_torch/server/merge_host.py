@@ -656,6 +656,9 @@ class KernelMergeHost:
                       "quarantined_channels": 0,
                       "rebalances": 0, "geometry_retunes": 0,
                       "megadoc_promotions": 0, "megadoc_demotions": 0}
+        #: Device reads of whole map rows (read_map_rows calls): the
+        #: residency and mega-doc planes' readbacks, each a pipeline drain.
+        self.map_row_reads = 0
 
     # -- interning -------------------------------------------------------------
 
@@ -841,6 +844,43 @@ class KernelMergeHost:
             plane[row] = _MAP_FILL[f]
         self._free_map_rows.append(row)
         return row
+
+    def read_map_rows(self, rows) -> dict[str, np.ndarray]:
+        """Host copy of the four map planes of ``rows`` (a list of row
+        indices): one gather over the rows and one device→host copy.
+        The copy is stream-ordered after every dispatched tick, so like
+        the reference's ``np.asarray`` it drains the pipeline. Returns
+        ``present`` bool / ``value`` / ``vseq`` int32 ``[n, S]`` and
+        ``cleared_seq`` int32 ``[n]``."""
+        xs = self._xstate
+        s = xs.value.shape[1]
+        idx = torch.as_tensor(list(rows), dtype=torch.long,
+                              device=xs.value.device)
+        packed = torch.cat([xs.present[idx].to(torch.int32),
+                            xs.value[idx], xs.vseq[idx],
+                            xs.cleared_seq[idx].unsqueeze(1)],
+                           dim=1).cpu().numpy()
+        self.map_row_reads += 1
+        return {"present": packed[:, :s].astype(np.bool_),
+                "value": packed[:, s:2 * s], "vseq": packed[:, 2 * s:3 * s],
+                "cleared_seq": packed[:, 3 * s]}
+
+    def write_map_row(self, row: int, present: np.ndarray,
+                      value: np.ndarray, vseq: np.ndarray,
+                      cleared_seq: int) -> None:
+        """Overwrite one map row in place on its device, each plane from
+        one host array (full row width) with a blocking copy on the
+        current stream: the write lands after every dispatched tick and
+        before the next one, and never goes through the storm's pinned
+        staging buffers."""
+        xs = self._xstate
+        dev = xs.value.device
+        for plane, vals, dtype in ((xs.present, present, np.bool_),
+                                   (xs.value, value, np.int32),
+                                   (xs.vseq, vseq, np.int32)):
+            plane[row] = torch.from_numpy(
+                np.ascontiguousarray(vals, dtype)).to(dev)
+        xs.cleared_seq[row] = int(cleared_seq)
 
     def _grow_map_rows(self) -> None:
         old = self._map_capacity

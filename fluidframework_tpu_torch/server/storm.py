@@ -39,12 +39,17 @@ kernels. Pipeline depth is any N >= 0, or ``"auto"`` (re-decided from
 the stage ledger's commit-wait against dispatch time).
 
 Scope of this port: the map-only storm tick with its WAL, snapshot and
-recovery, single- and multi-tenant composition, and the per-doc
-quarantine (freeze, read through the durable records, readmit from the
-snapshot). The mega-doc, residency, history, replication and placement
-planes are not ported: they stay ``None``, and a snapshot or WAL record
-that names one of them raises, as the reference does when no manager is
-attached.
+recovery, single- and multi-tenant composition, the per-doc quarantine
+(freeze, read through the durable records, readmit from the snapshot),
+and two planes that attach themselves: tiered hot/cold residency
+(``server/residency.py``: hydrate at admission and on first replayed
+touch, evict through the cold snapshot tier) and mega-doc write
+scale-out (``server/megadoc.py``: lane rewrite at ingress, the doc-space
+combiner in the round, doc-space acks at harvest, ``mg`` WAL controls
+and the ``megadoc`` snapshot field). The history, replication and
+placement planes are not ported yet (ROADMAP Queue A 5): they stay
+``None``, and a snapshot or WAL record that names the history plane
+raises.
 """
 
 from __future__ import annotations
@@ -129,7 +134,7 @@ class _Frame(NamedTuple):
     meta: np.ndarray    # i32[n_docs, 3] (cseq0, ref, count) columns
     trace: Any = None   # (client tc, session scope) tracer key or None
     staged_ns: tuple = (0, 0)  # (decode, admit) ns refunded on shed
-    mega: Any = None    # mega-doc descriptors (not ported: always None)
+    mega: Any = None    # per-entry mega-doc descriptors (megadoc.py)
     tenant: str = "default"  # session-validated tenant (QoS composition)
     t0: int = 0         # ingress monotonic ns (per-tenant ack latency)
 
@@ -597,10 +602,14 @@ class StormController:
         self.qos_borrow_fraction = qos_borrow_fraction
         #: Frozen docs: doc -> {"reason", "tick"} (see _quarantine_doc).
         self.quarantined: dict[str, dict] = {}
-        # Planes of the reference controller that are not ported; kept as
-        # None so code that probes them (routerlicious) sees them absent.
+        # Tiered hot/cold residency (server/residency.py attaches itself):
+        # _admit hydrates cold docs (or busy-nacks a stampede), WAL replay
+        # hydrates on first touch, eviction trims per-doc bookkeeping.
         self.residency = None
+        # Mega-doc write scale-out (server/megadoc.py attaches itself).
         self.megadoc = None
+        # Planes of the reference controller not ported yet; kept as None
+        # so code that probes them (routerlicious) sees them absent.
         self.history = None
         self.placement = None
         self.replication = None
@@ -728,8 +737,17 @@ class StormController:
                 self._traced_pending += 1
                 self.tracer.mark(trace, "ingress", ingress_ns)
                 self.tracer.mark(trace, "admit", t_admitted)
+        # Mega-doc ingress: promoted-doc entries are rewritten to their
+        # writers' LANE sub-doc ids (stateless hash), so up to L writer
+        # frames of one doc serve in ONE tick. Doc-level sequencing waits
+        # for cohort selection (decide_frame). Admission ran on the
+        # PARENT ids.
+        mega = None
+        if self.megadoc is not None and not self._replay:
+            self.megadoc.observe_writers(docs)
+            mega = self.megadoc.ingress_frame(docs)
         self._frames.append(_Frame(push, header.get("rid"), docs, words,
-                                   counts, meta, trace, staged, None,
+                                   counts, meta, trace, staged, mega,
                                    tenant_id, ingress_ns))
         self._pending_docs += len(docs)
         self.stats["submitted_ops"] += offset
@@ -747,8 +765,8 @@ class StormController:
                tenant_id: str, client_id: str | None) -> float | None:
         """Shed checks for one validated frame, in deterministic order:
         quarantine, degraded (WAL breaker open), bounded queue, token
-        buckets. A refusal pushes ONE busy-nack with ``retry_after_s``
-        and returns the hint; None admits."""
+        buckets, residency. A refusal pushes ONE busy-nack with
+        ``retry_after_s`` and returns the hint; None admits."""
         qdocs = [d for d, *_ in docs if d in self.quarantined]
         if qdocs:
             # The WHOLE frame is refused (acks are positional per frame,
@@ -793,6 +811,26 @@ class StormController:
                                                weight=n_ops)
             if retry is not None:
                 return self._shed(push, header, n_ops, "throttled", retry)
+        if self.residency is not None:
+            cap = self.residency.max_resident
+            if cap is not None and len(docs) > cap:
+                # TERMINAL: a frame naming more distinct docs than the
+                # pool holds can never be admitted (the frame itself
+                # excludes every named doc from eviction).
+                return self._shed(push, header, n_ops, "frame-too-wide",
+                                  self.busy_retry_s,
+                                  docs=[d for d, *_ in docs],
+                                  retryable=False)
+            # Tiered residency LAST — hydration is the one expensive gate
+            # (snapshot read + row restore, and a full pool pays an
+            # eviction's durability barrier). A hydration stampede or a
+            # full pool busy-nacks the WHOLE frame with the bucket's
+            # laddered retry hint.
+            retry, code = self.residency.admit_docs(
+                [d for d, *_ in docs])
+            if retry is not None:
+                return self._shed(push, header, n_ops, code, retry,
+                                  docs=[d for d, *_ in docs])
         return None
 
     def _shed(self, push, header: dict, n_ops: int, code: str,
@@ -848,8 +886,11 @@ class StormController:
                 and self._tick_counter - self._last_checkpoint_tick
                 >= self.snapshot_interval_ticks):
             self.checkpoint()
-        # Maintenance cadence OFF the per-tick path: the adaptive depth
-        # re-decides here (never inside a round), then the arena trim.
+        # Maintenance cadence OFF the per-tick path: mega-doc auto
+        # promotion/demotion and the adaptive depth re-decide here (never
+        # inside a round), then the arena trim.
+        if self.megadoc is not None and not self._replay:
+            self.megadoc.maybe_adapt()
         if self._auto_depth and not self._replay and (
                 self.stats["ticks"] - self._depth_adapted_at
                 >= self.depth_adapt_every):
@@ -924,11 +965,13 @@ class StormController:
                 frame.push(payload)
 
     def _push_synth_acks(self, acks: list, mega_plans: dict) -> None:
-        """Deliver acks for a cohort that resolved to zero descs: nothing
-        sequenced, so each frame's ack carries the rows its plan
-        synthesized (none without the mega-doc plane). The acked-before-
-        durable discipline still applies: barrier the group commit before
-        pushing; a degraded WAL withholds them like tick acks."""
+        """Deliver acks for a cohort that collapsed to zero descs (every
+        entry decided zero-op by the mega combiner): each frame's ack
+        carries the rows its plan synthesized. A refseq outcome journaled
+        a state-bearing mark CONTROL record and the client acts on the
+        nack, so the acked-before-durable discipline applies: barrier the
+        group commit before pushing; a degraded WAL withholds them like
+        tick acks."""
         from ..protocol.codec import StormAck
         if self._group_wal is not None and not self._replay:
             from .durable_store import WalDegradedError
@@ -1029,16 +1072,48 @@ class StormController:
         frame_counts: list[np.ndarray] = []
         metas: list[np.ndarray] = []
         acks: list[tuple[_Frame, int, int]] = []  # frame -> desc [i0, i1)
+        mega_rows: dict[int, tuple] = {}   # desc idx -> doc-space quad
+        mega_plans: dict[int, list] = {}   # ack idx -> per-entry plan
         for frame in selected:
             i0 = len(descs)
-            descs.extend(frame.docs)
-            frame_words.append(frame.words)
-            frame_counts.append(frame.counts)
-            metas.append(frame.meta)
+            if frame.mega is not None and not self._replay:
+                # The combiner: doc-space tickets in cohort admission
+                # order (== the single-lane interleaving), dup prefixes
+                # trimmed out of the words, zero-op entries dropped with
+                # synthesized ack rows.
+                (fdesc, fwords, fcounts, fmeta, plan,
+                 desc_rows) = self.megadoc.decide_frame(frame, now)
+                descs.extend(fdesc)
+                frame_words.append(fwords)
+                frame_counts.append(fcounts)
+                metas.append(fmeta)
+                for rel, row in enumerate(desc_rows):
+                    if row is not None:
+                        mega_rows[i0 + rel] = row
+                if len(fdesc) != len(frame.docs):
+                    # Dropped entries: the ack is rebuilt positionally
+                    # from this plan (synth row or kept-desc index).
+                    mega_plans[len(acks)] = [
+                        ("s", item.synth) if item.synth is not None
+                        else ("l", i0 + item.desc_rel)
+                        for item in plan]
+            else:
+                descs.extend(frame.docs)
+                frame_words.append(frame.words)
+                frame_counts.append(frame.counts)
+                metas.append(frame.meta)
             acks.append((frame, i0, len(descs)))
         if not descs:
-            self._push_synth_acks(acks, {})
+            # Every selected entry resolved to a zero-op outcome: deliver
+            # the synthesized acks now.
+            self._push_synth_acks(acks, mega_plans)
             return True
+        if self._replay and self.megadoc is not None:
+            # Replayed lane entries are already cleaned: rebuild the
+            # combiner's mirrors and combine logs in desc order.
+            self.megadoc.replay_decide(descs, now)
+        if self.megadoc is not None and not self._replay:
+            self.megadoc.finish_cohort(descs)
         if self._replay:
             # Replay rounds record nothing and must not steal ns staged by
             # live frames (readmit replays interleave with serving).
@@ -1061,7 +1136,7 @@ class StormController:
                       tuple((d, c) for d, c, *_ in descs))
         cached = self._cohort_cache.get(cohort_key)
         if cached is not None:
-            seq_rows, slots, map_rows, mrows = cached
+            seq_rows, slots, map_rows, mrows, lane_rows = cached
         else:
             seq_rows = np.empty(len(descs), np.int32)
             slots = np.empty(len(descs), np.int32)
@@ -1075,8 +1150,14 @@ class StormController:
                 mrow = self._storm_mrow(doc)
                 map_rows[i] = mrow.row
                 mrows.append(mrow)
+            # Lane sub-sequencer rows keep their cref planes pinned at 0
+            # (the doc-space refseq/MSN law lives in the mega combiner).
+            lane_rows = (self.megadoc.lane_seq_rows(descs, seq_rows)
+                         if self.megadoc is not None
+                         else np.empty(0, np.int32))
             self._cohort_cache.put(cohort_key,
-                                   (seq_rows, slots, map_rows, mrows))
+                                   (seq_rows, slots, map_rows, mrows,
+                                    lane_rows))
 
         b_seq = seq_host._capacity
         b_map = merge_host._map_capacity
@@ -1094,6 +1175,11 @@ class StormController:
         host["slot"][seq_rows] = slots
         host["cseq0"][seq_rows] = desc_arr[:, 0]
         host["ref"][seq_rows] = desc_arr[:, 1]
+        if lane_rows.size:
+            # Live metas already carry 0 here (megadoc._meta_for); replay
+            # rebuilds metas from WAL entries, whose ref column is the
+            # doc-space ref — force the device feed to the lane contract.
+            host["ref"][lane_rows] = 0
         host["seq_counts"][seq_rows] = desc_arr[:, 2]
         host["map_counts"][map_rows] = desc_arr[:, 2]
         host["gather"][map_rows] = seq_rows
@@ -1136,6 +1222,7 @@ class StormController:
             map_rows=map_rows, mrows=mrows,
             acks=acks, now=now, submitted=int(counts_col.sum()),
             out=readback, start=round_start,
+            mega_rows=mega_rows or None, mega_plans=mega_plans or None,
             start_ns=t_scatter0, depth=self.pipeline_depth,
             stage_ns=stage_ns, queue_depth=queue_depth,
             # Scheduler state AS OF this tick's composition (the tick
@@ -1412,15 +1499,44 @@ class StormController:
         if self._last_harvest is not None:
             self.harvest_intervals.append(done - self._last_harvest)
         self._last_harvest = done
+        # Mega combiner egress: lane descs' device rows carry LANE-space
+        # seqs (what the WAL header above recorded — reads translate);
+        # the CLIENT sees doc-space quads, pre-decided by the combiner.
+        # The device count must agree with the decision — a drift means
+        # the lane contract broke, which must fail loudly, not misack.
+        mega_rows_rec = rec.get("mega_rows")
+        if mega_rows_rec:
+            if not replaying:
+                self.megadoc.note_harvest(rec["descs"])
+            for gi, row in mega_rows_rec.items():
+                if ns_l[gi] != row[0]:
+                    raise AssertionError(
+                        f"mega lane desc {rec['descs'][gi][:2]} sequenced "
+                        f"{ns_l[gi]} ops on device, combiner decided "
+                        f"{row[0]}")
+                ack_rows[gi] = row
+        elif self.megadoc is not None and not replaying:
+            self.megadoc.note_harvest(rec["descs"])
         # Each frame's ack is a contiguous row slice of the tick's ack
         # matrix — a StormAck that session push paths binary-encode.
+        # Frames the mega transform shrank rebuild their rows
+        # positionally from the plan (synthesized zero-op quads
+        # interleaved with harvested rows).
         from ..protocol.codec import StormAck
         t_ack0 = time.monotonic_ns()
+        mega_plans = rec.get("mega_plans") or {}
         acks = []
-        for frame, i0, i1 in rec["acks"]:
+        for ack_i, (frame, i0, i1) in enumerate(rec["acks"]):
             if frame.push is None:
                 continue
-            payload = StormAck(frame.rid, ack_rows[i0:i1])
+            plan = mega_plans.get(ack_i)
+            if plan is None:
+                payload = StormAck(frame.rid, ack_rows[i0:i1])
+            else:
+                rows = np.empty((len(plan), 4), np.int32)
+                for j, (kind, v) in enumerate(plan):
+                    rows[j] = v if kind == "s" else ack_rows[v]
+                payload = StormAck(frame.rid, rows)
             if any_bad and bad_rows[i0:i1].any():
                 # The tick's sequencing is correct (the ticket is exact;
                 # the poison is in the served planes) — the ack stands,
@@ -1524,6 +1640,11 @@ class StormController:
                     for doc, cp in self.seq_host.checkpoint_all().items()},
                 "merge_host": self.merge_host.export_state(),
             }
+            if self.megadoc is not None and self.megadoc.docs:
+                # Lane DEVICE rows already ride checkpoint_all (lane ids
+                # are sequencer docs) and the merge-host export; this is
+                # the combiner's host state (mirrors + combine logs).
+                snap["megadoc"] = self.megadoc.export_state()
             if not self.qos.is_trivial():
                 # Fair-composition state (deficits + rotation), rolled
                 # forward at recover() by the WAL tail's "qos" headers.
@@ -1554,20 +1675,30 @@ class StormController:
                     raise ValueError(
                         f"storm snapshot format v{version} is newer than "
                         f"this reader (max v{STORM_SNAPSHOT_VERSION})")
-                for plane, what in (("megadoc", "mega-doc combiner"),
-                                    ("history", "history-plane branch")):
-                    if snap.get(plane) is not None:
-                        raise RuntimeError(
-                            f"snapshot holds {what} state, a plane this "
-                            "package does not port")
+                if snap.get("history") is not None:
+                    raise RuntimeError(
+                        "snapshot holds history-plane branch state, a "
+                        "plane this package does not port yet (ROADMAP "
+                        "Queue A 5)")
                 from .sequencer import SequencerCheckpoint
                 for doc, cp in sorted(snap["sequencer"].items()):
                     self.seq_host.restore(doc, SequencerCheckpoint(**cp))
                 self.merge_host.import_state(snap["merge_host"])
+                if snap.get("megadoc") is not None:
+                    if self.megadoc is None:
+                        raise RuntimeError(
+                            "snapshot holds mega-doc combiner state but "
+                            "no MegaDocManager is attached")
+                    self.megadoc.import_state(snap["megadoc"])
                 if snap.get("qos") is not None:
                     self.qos.import_state(snap["qos"])
                 start = snap["tick_watermark"]
                 restored_from = head
+                if self.residency is not None:
+                    # Docs the global snapshot restored are resident; the
+                    # WAL-tail replay below hydrates cold docs on first
+                    # touch (prepare_replay).
+                    self.residency.adopt_resident()
             elif self._blob_log is not None and len(self._blob_log) > 0:
                 # Durable ticks but no readable snapshot: serving EMPTY
                 # live state over an acked history would silently diverge
@@ -1599,6 +1730,10 @@ class StormController:
         if restored_from is not None and start < durable:
             replayed = self._replay_wal(start, durable)
         self._last_checkpoint_tick = self._tick_counter
+        if self.residency is not None:
+            # Trim the blob-scan index back to the hot set: cold docs'
+            # indexes live in their cold snapshots (restored on hydrate).
+            self.residency.after_recover()
         return {"restored_from": restored_from, "replayed_ticks": replayed}
 
     def _replay_wal(self, start: int, end: int) -> int:
@@ -1614,10 +1749,18 @@ class StormController:
                     # Roll the scheduler forward to the state this tick
                     # was composed against.
                     self.qos.import_state(header["qos"])
-                if header.get("mg") is not None:
-                    raise RuntimeError(
-                        "WAL holds mega-doc control records, a plane this "
-                        "package does not port")
+                mg = header.get("mg")
+                if mg is not None:
+                    # Mega-doc lifecycle control record: re-apply the event
+                    # at the identical point in the total order.
+                    if self.megadoc is None:
+                        raise RuntimeError(
+                            "WAL holds mega-doc control records but no "
+                            "MegaDocManager is attached — attach one "
+                            "before recover()")
+                    self._tick_counter = tick + 1
+                    self.megadoc.apply_control(mg, header["ts"])
+                    continue
                 hp = header.get("hp")
                 if hp is not None:
                     # History-plane control record: a trimmed-tick filler
@@ -1627,11 +1770,32 @@ class StormController:
                         continue
                     raise RuntimeError(
                         "WAL holds history-plane control records, a plane "
-                        "this package does not port")
+                        "this package does not port yet (ROADMAP Queue A "
+                        "5)")
                 self._tick_counter = tick
                 self._replay_ts = header["ts"]
                 entries = [e[:5] for e in header["docs"]]
                 payload = memoryview(blob)[off:]
+                if self.residency is not None:
+                    # Hydrate cold docs on first touch; drop the entries a
+                    # doc's cold snapshot already reflects (ticks below
+                    # its watermark).
+                    kept = self.residency.prepare_replay(entries, tick)
+                    if not kept:
+                        # Whole tick inside cold snapshots: account for it
+                        # without a device tick.
+                        self._tick_counter = tick + 1
+                        continue
+                    if len(kept) != len(entries):
+                        # The payload is positional, so dropped entries
+                        # splice their word slices out too (each header
+                        # entry records its byte offset, index 9).
+                        w_off = {e[0]: e[9] for e in header["docs"]}
+                        payload = memoryview(b"".join(
+                            bytes(payload[w_off[doc]:
+                                          w_off[doc] + count * 4])
+                            for doc, _c, _c0, _r, count in kept))
+                    entries = kept
                 self._adopt_replay_clients(entries, header)
                 self.submit_frame(None, {"docs": entries, "rid": None},
                                   payload)
@@ -1648,9 +1812,14 @@ class StormController:
         the bus tier, never the storm WAL). Replaying its frame against
         the ghost lane would silently drop ops the live tick acked, so
         adopt the client at its RECORDED dedup prefix: ``cseq`` just
-        below the first sequenced op and ``cref`` at the entry's ref."""
+        below the first sequenced op and ``cref`` at the entry's ref.
+        Mega lane ids are skipped — the combiner mirror syncs lane
+        membership itself (replay_decide)."""
         rec_by_doc = {e[0]: e for e in header["docs"]}
         for doc, client, cseq0, ref, count in entries:
+            if self.megadoc is not None \
+                    and self.megadoc.parent_of(doc) is not None:
+                continue
             row = self.seq_host._rows.get(doc)
             if row is not None and client in self.seq_host._slots[row]:
                 continue
@@ -1678,6 +1847,15 @@ class StormController:
     def _quarantine_doc(self, doc_id: str, reason: str,
                         tick_id: int) -> None:
         self.quarantined[doc_id] = {"reason": reason, "tick": tick_id}
+        if self.megadoc is not None:
+            # A poisoned LANE freezes the whole promoted doc: submits name
+            # the parent, and a partial freeze would let sibling lanes
+            # advance the doc's total order past an unservable range.
+            parent = self.megadoc.parent_of(doc_id)
+            if parent is not None:
+                for other in [parent] + self.megadoc.lane_ids(parent):
+                    if other not in self.quarantined:
+                        self._quarantine_doc(other, reason, tick_id)
         self.stats["quarantined_docs"] += 1
         self.merge_host.metrics.counter("storm.quarantines").inc()
         # Nack every BUFFERED frame touching the doc with a retryable
@@ -1804,9 +1982,9 @@ class StormController:
             for f in ("present", "value", "vseq"):
                 vals[f][:s_snap] = planes[f][snap_row]
             vals["cleared_seq"] = planes["cleared_seq"][snap_row]
-        for f in mk.MapState._fields:
-            getattr(xs, f)[live_row] = torch.as_tensor(vals[f]).to(
-                self.device)
+        self.merge_host.write_map_row(live_row, vals["present"],
+                                      vals["value"], vals["vseq"],
+                                      vals["cleared_seq"])
 
     # -- read path -------------------------------------------------------------
 
@@ -1886,13 +2064,26 @@ class StormController:
         """Columnar scriptorium records of ``doc_id`` whose seq windows
         overlap (from_seq, to_seq] — resolved from the per-tick blobs via
         the compact in-RAM (first, last, tick) index. The shape matches
-        what :func:`materialize_storm_records` consumes."""
+        what :func:`materialize_storm_records` consumes. A doc with
+        mega-lane history merges its lane records translated to doc seq
+        space through the combine logs."""
+        if self.megadoc is not None and self.megadoc.has_history(doc_id):
+            return self.megadoc.records(doc_id, from_seq, to_seq,
+                                        self._records_for)
         return self._records_for(doc_id, from_seq, to_seq)
 
     def _records_for(self, doc_id: str, from_seq: int,
                      to_seq: int | None = None) -> list[dict]:
+        """Untranslated per-id record resolution (lane ids included)."""
         out = []
-        for fs, ls, tick in self._doc_ticks.get(doc_id) or ():
+        ticks = self._doc_ticks.get(doc_id)
+        if ticks is None and self.residency is not None \
+                and not self.residency.is_resident(doc_id):
+            # Cold doc: its catch-up index rode the eviction snapshot. A
+            # gap fetch is a READ — serve it from the cold head without
+            # hydrating (readers must not churn the pool).
+            ticks = self.residency.cold_doc_ticks(doc_id)
+        for fs, ls, tick in ticks or ():
             if ls <= from_seq or (to_seq is not None and fs > to_seq):
                 continue
             header, _off = self._parse_header(self._read_blob(tick))

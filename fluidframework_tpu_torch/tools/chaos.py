@@ -44,9 +44,16 @@ Two fault classes run in-process, proven by direct assertion:
   lose zero ticks, and readmission rebuilds it byte-identical from
   snapshot + WAL replay.
 
-The reference harness's residency, mega-doc, cluster, QoS, history,
-replication, read-replica, netsplit, overload and reconnect scenarios
-need planes this package does not port; asking for one raises
+Two plane scenarios run as child lives like the storm kills:
+``residency=N`` caps the device pool below the doc count so every round
+crosses the hot/cold boundary (``RESIDENCY_KILL_POINTS``), and
+``megadoc=L`` serves one doc co-written by ``MEGADOC_WRITERS`` writers
+through two promote → serve → demote cycles on L lanes
+(``MEGADOC_KILL_POINTS``).
+
+The reference harness's cluster, QoS, history, replication,
+read-replica, netsplit, overload and reconnect scenarios need planes
+this package does not port yet; asking for one raises
 ``NotImplementedError``.
 """
 
@@ -82,6 +89,25 @@ SMOKE_POINTS = ("storm.mid_tick", "wal.pre_fsync", "snapshot.pre_publish")
 OVERLAP_KILL_POINTS = ("storm.overlap_dispatch", "storm.readback_pre_wal",
                        "storm.overlap_fsynced")
 
+#: Residency kill classes: the child runs with a device pool capped BELOW
+#: the doc count (``residency=`` in run_chaos), so every round demotes
+#: the LRU doc and hydrates the cold one — each point fires
+#: mid-transition.
+RESIDENCY_KILL_POINTS = ("residency.mid_hydrate", "residency.mid_evict",
+                         "residency.post_evict")
+
+#: Mega-doc kill classes: the child serves ONE doc co-written by several
+#: writers through the sequence-parallel tier (``megadoc=`` in run_chaos
+#: promotes it onto N lanes after arming, so the promotion itself is
+#: inside the kill window): promotion control journaled but lanes not
+#: yet seeded / combiner advanced but the tick neither dispatched nor
+#: journaled / demotion control journaled but the fold not yet applied.
+MEGADOC_KILL_POINTS = ("megadoc.mid_promotion", "megadoc.mid_combine",
+                       "megadoc.mid_demotion")
+
+#: Writers co-editing the one mega doc in the megadoc child mode.
+MEGADOC_WRITERS = 4
+
 _NOT_PORTED = ("the {} chaos scenario needs a plane this package does not "
                "port yet (ROADMAP Queue A 5)")
 
@@ -114,6 +140,11 @@ def _build_stack(data_dir: str, num_docs: int, device: str, **storm_kw):
         spill_dir=os.path.join(data_dir, "spill"), durability="group",
         snapshots=GitSnapshotStore(os.path.join(data_dir, "git")),
         **storm_kw)
+    # Always attached: recovery of a WAL holding mega-doc control records
+    # requires a manager, and an idle manager costs one None check per
+    # hook.
+    from ..server.megadoc import MegaDocManager
+    MegaDocManager(storm, default_lanes=2)
     return service, storm, seq_host, merge_host
 
 
@@ -127,13 +158,19 @@ def _tick_words(seed: int, round_no: int, doc_i: int, k: int,
     return (kinds | (slots << 2) | (vals << 12)).astype(np.uint32)
 
 
-def _digest(service, storm, seq_host, merge_host, docs: list[str]) -> dict:
+def _digest(service, storm, seq_host, merge_host, docs: list[str],
+            residency=None) -> dict:
     """Canonical serialization of every compared plane (see module doc
-    for the two excluded arrival-clock planes)."""
+    for the two excluded arrival-clock planes). With a residency tier
+    attached, each doc hydrates just before its planes are read — a doc
+    that finished the run cold must digest identically to one that
+    stayed hot."""
     from ..protocol.codec import to_wire
 
     out: dict = {"docs": {}}
     for doc in docs:
+        if residency is not None:
+            residency.ensure_resident(doc, gate=False)
         history = []
         for m in service.get_deltas(doc, 0):
             history.append([
@@ -162,14 +199,37 @@ def child_main(args) -> None:
     mid-stream."""
     from ..utils import faults
 
+    mega_lanes = getattr(args, "megadoc", None)
     docs = [f"chaos-doc-{i}" for i in range(args.docs)]
     service, storm, seq_host, merge_host = _build_stack(
         args.dir, args.docs, args.device)
+
+    residency = None
+    if args.residency:
+        # Device pool capped below the doc count: every round's frame
+        # against the round-robin cold doc forces an LRU eviction and a
+        # hydration — the residency crashpoints fire mid-transition.
+        # Deterministic tiering: idle eviction parked (capacity is the
+        # only eviction trigger), hydration bucket effectively unmetered.
+        from ..server.residency import ResidencyManager
+        residency = ResidencyManager(storm, max_resident=args.residency,
+                                     idle_evict_s=1e9,
+                                     hydration_rate_per_s=1e9)
+
+    writers: list[str] = []
     if args.resume_from is None:
         # Fresh life: joins + the genesis checkpoint (so every recovery
         # has a snapshot to restore — the harness arms kills only after).
-        clients = {d: service.connect(d, lambda m: None).client_id
-                   for d in docs}
+        if mega_lanes:
+            # One doc, several co-writers (the mega shape): every writer
+            # joins the SAME doc; promotion happens after arm() so the
+            # promotion window itself is killable.
+            writers = [service.connect(docs[0], lambda m: None).client_id
+                       for _ in range(MEGADOC_WRITERS)]
+            clients = {}
+        else:
+            clients = {d: service.connect(d, lambda m: None).client_id
+                       for d in docs}
         service.pump()
         storm.checkpoint()
         start = 0
@@ -179,10 +239,20 @@ def child_main(args) -> None:
         assert info["restored_from"] is not None, "no snapshot to recover"
         # Client ids are deterministic: the durable client counter handed
         # them out join-order in the fresh life.
-        clients = {d: f"client-{i + 1}" for i, d in enumerate(docs)}
+        if mega_lanes:
+            writers = [f"client-{i + 1}" for i in range(MEGADOC_WRITERS)]
+            clients = {}
+        else:
+            clients = {d: f"client-{i + 1}" for i, d in enumerate(docs)}
         start = args.resume_from
     print("READY", flush=True)
     faults.arm()
+    if mega_lanes:
+        _megadoc_child_rounds(args, storm, docs[0], writers, start)
+        faults.disarm()
+        digest = _digest(service, storm, seq_host, merge_host, docs)
+        print("DIGEST " + json.dumps(digest, sort_keys=True), flush=True)
+        return
 
     k = args.k
     # Pipelined serving (the overlap windows): rounds go through
@@ -191,6 +261,11 @@ def child_main(args) -> None:
     # a LATER round's watermark pass — ACKED lines lag by up to
     # pipeline_depth rounds and the final settle prints the rest.
     pipelined = bool(args.pipelined)
+    # A residency child serves per-doc frames through barrier flushes, so
+    # "pipelined" would never exercise the overlap windows.
+    assert not (pipelined and residency is not None), \
+        "--pipelined and --residency cannot combine (the residency " \
+        "workload serves through per-frame barriers)"
     pipe_acks: list = []
     printed: set[int] = set()
 
@@ -206,18 +281,38 @@ def child_main(args) -> None:
 
     for r in range(start, args.ticks):
         acks: list = []
-        entries = [[d, clients[d], 1 + r * k, 1, k] for d in docs]
-        payload = b"".join(
-            _tick_words(args.seed, r, i, k).tobytes()
-            for i in range(len(docs)))
         if pipelined:
+            entries = [[d, clients[d], 1 + r * k, 1, k] for d in docs]
+            payload = b"".join(
+                _tick_words(args.seed, r, i, k).tobytes()
+                for i in range(len(docs)))
             # flush_threshold_docs == 1: submit_frame runs the round
             # itself, un-forced — NO durability barrier here.
             storm.submit_frame(pipe_acks.append,
                                {"rid": r, "docs": entries},
                                memoryview(payload))
             drain_ack_prints()
+        elif residency is not None:
+            # Per-doc frames so the residency gate sees each doc alone
+            # (a whole-cohort frame could never fit the capped pool); the
+            # round is ACKED only when EVERY doc's frame acked.
+            for i, d in enumerate(docs):
+                payload = _tick_words(args.seed, r, i, k).tobytes()
+                storm.submit_frame(
+                    acks.append,
+                    {"rid": r * len(docs) + i,
+                     "docs": [[d, clients[d], 1 + r * k, 1, k]]},
+                    memoryview(payload))
+                storm.flush()
+            ok = [a for a in acks
+                  if not (isinstance(a, dict) and a.get("error"))]
+            if len(ok) == len(docs):
+                print(f"ACKED {r}", flush=True)
         else:
+            entries = [[d, clients[d], 1 + r * k, 1, k] for d in docs]
+            payload = b"".join(
+                _tick_words(args.seed, r, i, k).tobytes()
+                for i in range(len(docs)))
             storm.submit_frame(acks.append, {"rid": r, "docs": entries},
                                memoryview(payload))
             storm.flush()
@@ -231,8 +326,53 @@ def child_main(args) -> None:
         storm.flush()  # final settle: harvest + durability barrier
         drain_ack_prints()
     faults.disarm()
-    digest = _digest(service, storm, seq_host, merge_host, docs)
+    digest = _digest(service, storm, seq_host, merge_host, docs,
+                     residency=residency)
     print("DIGEST " + json.dumps(digest, sort_keys=True), flush=True)
+
+
+def _megadoc_child_rounds(args, storm, doc: str, writers: list[str],
+                          start: int) -> None:
+    """The mega-doc workload: TWO promotion cycles (promote → serve →
+    demote → RE-promote into epoch 1 → serve → demote), one frame per
+    writer per round (the lanes combine them into few ticks), with the
+    final demote before the digest so every compared plane lives on the
+    single-lane doc row. Lifecycle steps are keyed off the RECOVERED
+    manager state (epoch + promoted flag), so a resumed life lands at
+    the identical point whatever phase the kill hit. A round is ACKED
+    only when every writer's frame durably acked."""
+    mgr = storm.megadoc
+    half = max(1, args.ticks // 2)
+    k = args.k
+    for r in range(start, args.ticks):
+        st = mgr.docs.get(doc)
+        if r < half:
+            if st is None:
+                mgr.promote(doc, lanes=args.megadoc)
+        else:
+            if st is not None and st.epoch == 0:
+                if st.promoted:
+                    mgr.demote(doc)
+                mgr.promote(doc, lanes=args.megadoc)  # epoch 1
+            elif st is None:
+                mgr.promote(doc, lanes=args.megadoc)
+        acks: list = []
+        for w, client in enumerate(writers):
+            payload = _tick_words(args.seed, r, w, k).tobytes()
+            storm.submit_frame(
+                acks.append,
+                {"rid": r * len(writers) + w,
+                 "docs": [[doc, client, 1 + r * k, 1, k]]},
+                memoryview(payload))
+        storm.flush()
+        ok = [a for a in acks
+              if not (isinstance(a, dict) and a.get("error"))]
+        if len(ok) == len(writers):
+            print(f"ACKED {r}", flush=True)
+        if (r + 1) % args.cp_every == 0:
+            storm.checkpoint()
+    if mgr.is_promoted(doc):
+        mgr.demote(doc)
 
 
 # -- parent (kill / restart / diff) -------------------------------------------
@@ -241,13 +381,18 @@ def child_main(args) -> None:
 def _spawn_life(data_dir: str, seed: int, docs: int, k: int, ticks: int,
                 cp_every: int, resume_from: int | None,
                 kill_env: str | None, timeout: float, device: str,
-                pipelined: bool = False) -> dict:
+                pipelined: bool = False, residency: int | None = None,
+                megadoc: int | None = None) -> dict:
     cmd = [sys.executable, "-m", "fluidframework_tpu_torch.tools.chaos",
            "--child", "--dir", data_dir, "--seed", str(seed),
            "--docs", str(docs), "--k", str(k), "--ticks", str(ticks),
            "--cp-every", str(cp_every), "--device", device]
+    if residency is not None:
+        cmd += ["--residency", str(residency)]
     if pipelined:
         cmd += ["--pipelined"]
+    if megadoc is not None:
+        cmd += ["--megadoc", str(megadoc)]
     if resume_from is not None:
         cmd += ["--resume-from", str(resume_from)]
     env = dict(os.environ)
@@ -276,24 +421,38 @@ def run_chaos(workdir: str, kill_point: str, kill_hits: int = 1,
               seed: int = 0, docs: int = 2, k: int = 8, ticks: int = 5,
               cp_every: int = 2, timeout: float = 300.0,
               twin_digest: dict | None = None,
-              pipelined: bool = False, device: str = "cuda",
+              residency: int | None = None,
+              pipelined: bool = False,
+              megadoc: int | None = None, device: str = "cuda",
               **not_ported) -> dict:
     """One scenario: a twin run, then a killed-and-recovered run, then
     the plane diff. Returns the report; raises AssertionError on any
     divergence or lost acked op. ``twin_digest`` lets callers share one
-    twin across scenarios of the same configuration. ``pipelined``
-    serves the child through the overlapped tick pipeline (the
-    OVERLAP_KILL_POINTS scenarios) — and because the digest planes are
-    pipelining-agnostic, an UNPIPELINED twin_digest may be shared in:
-    equality then also proves pipelined ≡ barrier serving. Every life
-    serves on ``device``."""
+    twin across scenarios of the same configuration. ``residency`` caps
+    the child's device pool BELOW ``docs`` so every round crosses the
+    hot/cold boundary (the RESIDENCY_KILL_POINTS scenarios); ``megadoc``
+    serves one co-written doc through two promotion cycles on that many
+    lanes (the MEGADOC_KILL_POINTS scenarios). ``pipelined`` serves the
+    child through the overlapped tick pipeline (the OVERLAP_KILL_POINTS
+    scenarios) — and because the digest planes are pipelining-agnostic,
+    an UNPIPELINED twin_digest may be shared in: equality then also
+    proves pipelined ≡ barrier serving. Every life serves on
+    ``device``."""
     from ..utils import faults
 
     for name, value in not_ported.items():
         if value not in (None, False, -1):
             raise NotImplementedError(_NOT_PORTED.format(name))
+    if pipelined and residency is not None:
+        raise ValueError(
+            "pipelined=True cannot combine with residency= (the "
+            "residency workload serves through per-frame barriers, so "
+            "the overlap windows would never be exercised)")
+    if megadoc is not None and docs != 1:
+        raise ValueError("megadoc= serves exactly ONE co-written doc")
     cfg = dict(seed=seed, docs=docs, k=k, ticks=ticks, cp_every=cp_every,
-               pipelined=pipelined, device=device)
+               residency=residency, pipelined=pipelined, megadoc=megadoc,
+               device=device)
     if twin_digest is None:
         twin = _spawn_life(os.path.join(workdir, "twin"), resume_from=None,
                            kill_env=None, timeout=timeout, **cfg)
@@ -343,6 +502,22 @@ def run_chaos(workdir: str, kill_point: str, kill_hits: int = 1,
             assert not missing, (
                 f"acked round {r} lost ops {sorted(missing)[:4]}… "
                 f"for {doc}")
+    if megadoc is not None:
+        # Per-WRITER retention (the co-writers share cseq ranges, so the
+        # union check above cannot distinguish them): every acked round
+        # covers every writer's batch — history rows carry client ids.
+        doc0 = next(iter(digest["docs"]))
+        per_client: dict[str, set[int]] = {}
+        for h in digest["docs"][doc0]["history"]:
+            if h[4] == int(MessageType.OPERATION):
+                per_client.setdefault(h[5], set()).add(h[1])
+        for r in acked:
+            want = set(range(1 + r * k, 1 + (r + 1) * k))
+            for w in range(MEGADOC_WRITERS):
+                missing = want - per_client.get(f"client-{w + 1}", set())
+                assert not missing, (
+                    f"acked round {r} lost writer client-{w + 1} ops "
+                    f"{sorted(missing)[:4]}…")
     report["twin_digest"] = twin_digest
     return report
 
@@ -682,7 +857,14 @@ def main(argv=None) -> None:
                         help="serve through the overlapped tick pipeline "
                              "(acks lag the durable watermark; the "
                              "OVERLAP_KILL_POINTS scenarios)")
-    for flag in ("residency", "megadoc", "qos", "history", "replicas"):
+    parser.add_argument("--residency", type=int, default=None,
+                        help="cap the device pool at N docs "
+                             "(tiered hot/cold residency under test)")
+    parser.add_argument("--megadoc", type=int, default=None,
+                        help="serve ONE doc co-written by "
+                             f"{MEGADOC_WRITERS} writers, promoted onto N "
+                             "lanes (the MEGADOC_KILL_POINTS scenarios)")
+    for flag in ("qos", "history", "replicas"):
         parser.add_argument(f"--{flag}", default=None,
                             help="not ported (ROADMAP Queue A 5)")
     for flag in ("cluster", "replication", "netsplit"):
@@ -693,8 +875,8 @@ def main(argv=None) -> None:
     parser.add_argument("--kill-hits", type=int, default=1)
     parser.add_argument("--matrix", action="store_true")
     args = parser.parse_args(argv)
-    for flag in ("residency", "megadoc", "qos", "history", "replicas",
-                 "cluster", "replication", "netsplit"):
+    for flag in ("qos", "history", "replicas", "cluster", "replication",
+                 "netsplit"):
         if getattr(args, flag):
             raise NotImplementedError(_NOT_PORTED.format(flag))
     if args.child:
@@ -702,7 +884,8 @@ def main(argv=None) -> None:
         return
     assert args.workdir, "--workdir required"
     cfg = dict(docs=args.docs, k=args.k, ticks=args.ticks,
-               cp_every=args.cp_every, device=args.device)
+               cp_every=args.cp_every, device=args.device,
+               residency=args.residency, megadoc=args.megadoc)
     if args.matrix:
         for r in run_matrix(args.workdir, **cfg):
             r.pop("twin_digest", None)

@@ -1405,3 +1405,185 @@ def _flat_np(x):
     if isinstance(x, np.ndarray):
         return [x]
     return [t for part in x for t in _flat_np(part)]
+
+
+def _plane_stack(device, root, num_docs, **res_kw):
+    """A durable storm stack of the port on ``device`` over ``root``."""
+    import itertools as it
+
+    from fluidframework_tpu_torch.server.durable_store import (
+        DurableMessageBus, FileStateStore, GitSnapshotStore)
+    from fluidframework_tpu_torch.server.kernel_host import \
+        KernelSequencerHost
+    from fluidframework_tpu_torch.server.merge_host import KernelMergeHost
+    from fluidframework_tpu_torch.server.routerlicious import \
+        RouterliciousService
+    from fluidframework_tpu_torch.server.storm import StormController
+    seq = KernelSequencerHost(num_slots=4, initial_capacity=num_docs,
+                              device=device)
+    mh = KernelMergeHost(flush_threshold=10**9, device=device)
+    svc = RouterliciousService(
+        bus=DurableMessageBus(str(root / "bus")),
+        store=FileStateStore(str(root / "state")),
+        merge_host=mh, batched_deli_host=seq, auto_pump=False,
+        idle_check_interval=10**9)
+    svc._clock = it.count(1000, 7).__next__
+    storm = StormController(svc, seq, mh, flush_threshold_docs=10**9,
+                            spill_dir=str(root / "spill"),
+                            durability="group",
+                            snapshots=GitSnapshotStore(root / "git"))
+    return svc, storm, seq, mh
+
+
+def _plane_words(seed, k, clears=True):
+    rng = np.random.default_rng(seed)
+    kinds = rng.choice([0, 0, 0, 1, 2] if clears else [0, 0, 0, 1],
+                       size=k).astype(np.uint32)
+    slots = rng.integers(0, 16, k).astype(np.uint32)
+    vals = rng.integers(0, 1 << 20, k).astype(np.uint32)
+    return kinds | (slots << 2) | (vals << 12)
+
+
+def test_residency_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """Hydrate and evict on the card (pool of 2 over 5 docs: every frame
+    evicts and hydrates) against the same frames on the CPU: acks, cold
+    snapshot handles, stats and every doc's digest equal; then each
+    side recovers its directories and still agrees."""
+    from fluidframework_tpu_torch.server.residency import ResidencyManager
+    from fluidframework_tpu_torch.tools.chaos import _digest
+    docs = [f"d{i}" for i in range(5)]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        root = tmp_path / dev
+        svc, storm, seq, mh = _plane_stack(dev, root, 2)
+        res = ResidencyManager(storm, max_resident=2, idle_evict_s=1e9,
+                               hydration_rate_per_s=1e9)
+        clients = {d: svc.connect(d, lambda m: None).client_id
+                   for d in docs}
+        svc.pump()
+        storm.checkpoint()
+        acks, handles = [], []
+        for r in range(4):
+            for i, d in enumerate(docs):
+                storm.submit_frame(acks.append, {
+                    "rid": r * 10 + i,
+                    "docs": [[d, clients[d], 1 + r * 8, 1, 8]]},
+                    memoryview(_plane_words((r, i), 8).tobytes()))
+                storm.flush()
+            handles.append(res.cold_handle(docs[0]))
+        rec = {"acks": [(a["rid"], np.asarray(a.rows).tolist())
+                        for a in acks],
+               "handles": handles, "stats": dict(res.stats),
+               "reads": mh.map_row_reads,
+               "digest": _digest(svc, storm, seq, mh, docs, residency=res)}
+        storm._group_wal.close()
+        svc2, storm2, seq2, mh2 = _plane_stack(dev, root, 2)
+        res2 = ResidencyManager(storm2, max_resident=2, idle_evict_s=1e9,
+                                hydration_rate_per_s=1e9)
+        storm2.recover()
+        rec["recovered"] = _digest(svc2, storm2, seq2, mh2, docs,
+                                   residency=res2)
+        storm2._group_wal.close()
+        out[dev] = rec
+    assert out["cuda"] == out["cpu"]
+    assert out["cuda"]["stats"]["evictions"] > 10
+    assert 0 < out["cuda"]["reads"] <= out["cuda"]["stats"]["evictions"]
+    assert out["cuda"]["recovered"] == out["cuda"]["digest"]
+
+
+def test_megadoc_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """Promote → serve → demote → re-promote on the card (4 lanes, 8
+    writers, the text row moved into a virtual 4-shard sequence-parallel
+    pool of the card and back) against the CPU: acks, combiner state,
+    converged map, text, planes and the recovered lifecycle equal."""
+    from fluidframework_tpu_torch.ops.mergetree_sharded import make_seg_mesh
+    from fluidframework_tpu_torch.protocol.messages import (
+        DocumentMessage, MessageType)
+    from fluidframework_tpu_torch.server.megadoc import MegaDocManager
+    out = {}
+    for dev in ("cuda", "cpu"):
+        root = tmp_path / dev
+        svc, storm, seq, mh = _plane_stack(dev, root, 2)
+        mh.seg_mesh = make_seg_mesh([dev] * 4)
+        mgr = MegaDocManager(storm, default_lanes=4)
+        conns = [svc.connect("mega", lambda m: None) for _ in range(8)]
+        svc.pump()
+        conns[0].submit([DocumentMessage(
+            client_sequence_number=1, reference_sequence_number=8,
+            type=MessageType.OPERATION,
+            contents={"address": "default", "contents": {
+                "address": "text",
+                "contents": {"type": "insert", "pos": 0,
+                             "text": "mega-doc"}}})])
+        svc.pump()
+        mh.flush()
+        storm.checkpoint()  # the recovery's restore source
+        acks = []
+        rec = {}
+        for cycle in range(2):
+            mgr.promote("mega")
+            rec[f"text_pool_{cycle}"] = [
+                type(mh._merge_rows[k].pool).__name__
+                for k in sorted(mh._merge_rows)]
+            for r in range(3):
+                for w, c in enumerate(conns):
+                    rr = cycle * 3 + r
+                    storm.submit_frame(acks.append, {
+                        "rid": f"{rr}.{w}",
+                        "docs": [["mega", c.client_id, 1 + rr * 8, -1, 8]]},
+                        memoryview(_plane_words((rr, w), 8,
+                                                clears=False).tobytes()))
+                storm.flush()
+            rec[f"entries_{cycle}"] = mgr.map_entries("mega")
+            mgr.demote("mega")
+        rec.update(
+            acks=[(a["rid"], np.asarray(a.rows).tolist()) for a in acks],
+            state=mgr.export_state(), stats=dict(mh.stats),
+            text=mh.text("mega", "default", "text"),
+            map=mh.map_entries("mega", "default", "root"),
+            planes=[getattr(mh._xstate, f).cpu().numpy().tolist()
+                    for f in mh._xstate._fields],
+            reads=mh.map_row_reads)
+        storm._group_wal.close()
+        svc2, storm2, seq2, mh2 = _plane_stack(dev, root, 2)
+        mh2.seg_mesh = make_seg_mesh([dev] * 4)
+        mgr2 = MegaDocManager(storm2, default_lanes=4)
+        storm2.recover()
+        rec["recovered"] = (mgr2.export_state(),
+                            mh2.map_entries("mega", "default", "root"))
+        storm2._group_wal.close()
+        out[dev] = rec
+    assert out["cuda"] == out["cpu"]
+    assert out["cuda"]["stats"]["megadoc_promotions"] == 2
+    assert out["cuda"]["recovered"] == (out["cuda"]["state"],
+                                        out["cuda"]["map"])
+    assert out["cuda"]["map"] == out["cuda"]["entries_1"]
+    assert out["cuda"]["map"] and out["cuda"]["text"] == "mega-doc"
+    assert out["cuda"]["text_pool_0"] == ["_ShardedMergePool"]
+
+
+def test_megadoc_lanes_on_the_card_match_the_cpu(cuda):
+    """MegaDocLanes over a 4-shard virtual mesh of the card against 4 CPU
+    shards: decisions, entries and the lane rows' planes equal."""
+    from fluidframework_tpu_torch.parallel.mesh import make_mesh
+    from fluidframework_tpu_torch.parallel.serving import (
+        MegaDocLanes, ShardedServing)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        serving = ShardedServing(make_mesh([dev] * 4), num_docs=64, k=8,
+                                 num_hosts=1, num_clients=16, map_slots=16)
+        serving.join_all(slots=list(range(16)))
+        lanes = MegaDocLanes(serving, lane_rows=[1, 18, 35, 52])
+        rng = np.random.default_rng(3)
+        decs = []
+        for r in range(4):
+            for w in range(24):
+                words = _plane_words((r, w), 8)
+                cseq0 = 1 + r * 8 if rng.random() > 0.2 else 1 + r * 8 + 3
+                dec = lanes.submit(f"w{w}", words, cseq0, ref_seq=1)
+                decs.append((dec.n_seq, dec.first, dec.last, dec.msn))
+            serving.flush()
+        out[dev] = (decs, lanes.entries(),
+                    serving.family_rows("map").vseq[[1, 18, 35, 52]]
+                    .tolist())
+    assert out["cuda"] == out["cpu"]

@@ -14,7 +14,8 @@ map-only serving, dedup resends, kill/resume/rebalance, durable trimming
 and retention, a pipelined harvest against a synchronous one,
 ``compact_text`` and ``retune_text_geometry``, and the residency cases
 (oversubscribed churn, pending-evict refusal, victim skipping, live
-migration). ``MegaDocLanes`` is not ported and must raise.
+migration), and ``MegaDocLanes`` (one doc over lane rows spread across
+the shards, against the reference and a single-row twin).
 """
 
 from __future__ import annotations
@@ -470,10 +471,75 @@ def test_shard_residency_migration_matches_jax():
     assert_states_equal(js, ts)
 
 
-def test_megadoc_lanes_are_not_ported():
-    ts = ShardedServing(make_mesh(["cpu"]), num_docs=4, k=4, num_hosts=1)
-    with pytest.raises(NotImplementedError, match="Queue A 5"):
-        MegaDocLanes(ts, [0, 1])
+def _megadoc_lanes_run(serving_cls, lanes_cls, mesh, lane_rows):
+    """``tests/test_sharded_serving.py``'s lane scenario on one package:
+    4 rounds of fresh / dup / gap batches from 6 writers through the
+    lanes, and the same batches one after another on a single-row twin.
+    Returns (lane acks, twin acks, lane entries, twin entries, the lane
+    rows' device seqs)."""
+    k, writers = 6, 6
+    serving = serving_cls(mesh, num_docs=8, k=k, num_hosts=1,
+                          num_clients=4, map_slots=16)
+    serving.join_all(slots=list(range(4)))
+    lanes = lanes_cls(serving, lane_rows=lane_rows)
+    twin = serving_cls(mesh, num_docs=8, k=k, num_hosts=1,
+                       num_clients=writers + 1, map_slots=16)
+    twin.join_all(slots=list(range(writers)))
+    for w in range(writers):
+        lanes.join(f"writer-{w}")
+    rng = np.random.default_rng(42)
+    cseqs = {w: 1 for w in range(writers)}
+    prev = {}
+    mega_acks, twin_acks = [], []
+    for r in range(4):
+        for w in range(writers):
+            action = rng.choice(["fresh", "fresh", "dup", "gap"])
+            words = (rng.integers(0, 1 << 20, k).astype(np.uint32) << 12
+                     | (rng.integers(0, 16, k).astype(np.uint32) << 2))
+            if action == "dup" and w in prev:
+                cseq0, words = prev[w]
+            elif action == "gap":
+                cseq0 = cseqs[w] + 3
+            else:
+                cseq0 = cseqs[w]
+                cseqs[w] += k
+                prev[w] = (cseq0, words)
+            dec = lanes.submit(f"writer-{w}", words, cseq0, ref_seq=1)
+            mega_acks.append((r, w, dec.n_seq, dec.first, dec.last,
+                              dec.msn))
+            twin.submit(0, words, cseq0, ref_seq=1, client_slot=w)
+            n_ok, first, last = twin.tick()[0][0]
+            twin_acks.append((r, w, n_ok,
+                              first if n_ok else 2**31 - 1, last))
+        serving.flush()
+    twin.flush()
+    entries = lanes.entries()
+    planes = twin.family_rows("map") if serving_cls is ShardedServing \
+        else twin.map_state
+    present, value = np.asarray(planes.present), np.asarray(planes.value)
+    twin_vals = {s: int(v) for s, v in enumerate(value[0])
+                 if present[0][s]}
+    seqs = (serving.family_rows("seq").seq
+            if serving_cls is ShardedServing
+            else np.asarray(serving.seq_state.seq))
+    return (mega_acks, twin_acks, entries, twin_vals,
+            [int(seqs[row]) for row in lane_rows])
+
+
+def test_megadoc_lanes_match_single_row_twin_and_jax():
+    from fluidframework_tpu.parallel.serving import \
+        MegaDocLanes as JaxLanes
+    lane_rows = [0, 3, 4, 7]  # spread over the port's 4 shards
+    want = _megadoc_lanes_run(JaxServing, JaxLanes,
+                              jax_make_mesh(jax.devices()[:JAX_SHARDS]),
+                              lane_rows)
+    got = _megadoc_lanes_run(ShardedServing, MegaDocLanes,
+                             make_mesh(["cpu"] * 4), lane_rows)
+    assert got == want
+    mega_acks, twin_acks, entries, twin_vals, seqs = got
+    assert [a[:5] for a in mega_acks] == twin_acks
+    assert entries == twin_vals and entries
+    assert sum(1 for s in seqs if s > 4) > 1  # past the 4 joins: spread
 
 
 def test_cuda_entry_point_raises_without_a_card():
