@@ -64,11 +64,22 @@ equality: every plane is integer), then drives the port's main paths:
   its cold snapshot, held to a numpy fold and to a no-residency twin),
   its recovery, and ``bench_residency_storm``'s hydration stampede; the
   mega-doc tier at ``bench_megadoc_writers``' widest arm (one doc, 10,000
-  writers, promoted onto 8 lanes, against its single-lane twin; its text
-  row moved into a 4-shard sequence-parallel pool and back) and its
-  recovery; ``MegaDocLanes`` on 8,192 docs over 4 virtual shards; one
-  residency and one mega-doc kill of a chaos-harness process, run beside
-  them.
+  writers, promoted onto 8 lanes, against its single-lane twin, over the
+  first 40 of its 157 waves; its text row moved into a 4-shard
+  sequence-parallel pool and back) and its recovery; ``MegaDocLanes`` on
+  8,192 docs over 4 virtual shards; one residency and one mega-doc kill
+  of a chaos-harness process, run beside them;
+* the history plane: the reference history benches at their published
+  defaults (History H: read latency by depth with and without summaries,
+  spill bytes before and after compaction, fork and merge-back with and
+  without a residency tier), every read held to a numpy fold and every
+  head to the device row; and at config 3's width (History P, on the
+  durable path's recovered stack: 64 docs forked past the pool's 10,240
+  rows, served, read, compacted, then recovered by a fresh stack that
+  imports the snapshot's branches and replays the ``hp`` fork controls).
+
+Each phase prints its seconds (``phase <name>: ...``), and a
+``phase_seconds:`` line lists them all before the device lines.
 
 It prints each kernel's launch shapes on the main paths and re-checks
 every kernel == plain at each of them, on the very inputs the paths gave
@@ -97,8 +108,14 @@ result. It imports nothing of JAX and nothing of ``fluidframework_tpu``.
 serves the map path's ticks (WAL-less and durable) and the text,
 matrix, tree and mixed paths once more (matrix path B at two flushes,
 tree path A, mixed A's front door), then residency A's churn frames and
-mega A's promoted waves, under ``torch.profiler``, and prints the card's
-busy time and idle share.
+mega A's promoted waves, History P's forks, ticks, reads and compaction,
+and History H's fork and merge-back, under ``torch.profiler``, and prints
+the card's busy time and idle share.
+
+    python3 chip_smoke.py --trace-history
+
+runs every phase and check as without flags, and traces the two history
+phases only.
 """
 
 from __future__ import annotations
@@ -131,7 +148,7 @@ K_SEQ = 32
 # K=32 ops per doc per tick, 4 ticks), with 64 docs whose head-concentrated
 # burst (BURST_K ops, 2 * BURST_K + 2 > Bk) overflows a block mid-tick.
 TEXT_CLIENTS = 128
-TEXT_ROUNDS = 12
+TEXT_ROUNDS = 8
 TEXT_DOCS = 8_192
 TEXT_K = 32
 TEXT_FLUSHES = 4
@@ -151,7 +168,7 @@ TEXT_NB, TEXT_BK, TEXT_P, TEXT_W = 4, 128, 4, 4
 # that overflows.
 MATRIX_CLIENTS = 256
 MATRIX_GRID = 1024
-MATRIX_ROUNDS = 16
+MATRIX_ROUNDS = 8
 MATRIX_B = 8_192
 MATRIX_K = 32
 MATRIX_START = 32
@@ -236,6 +253,21 @@ def fail(msg: str) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         fail(msg)
+
+
+#: Seconds of each phase of this run, in order (``phase_seconds:`` line),
+#: from T_START, the start of ``main``.
+PHASE_S: dict = {}
+T_START = 0.0
+
+
+@contextlib.contextmanager
+def phase(name: str):
+    """Time one phase; print its seconds when it ends."""
+    t0 = time.perf_counter()
+    yield
+    PHASE_S[name] = time.perf_counter() - t0
+    print(f"phase {name}: {PHASE_S[name]:.1f} s", flush=True)
 
 
 L2_FLUSH_BYTES = 256 << 20  # well past the H100's 50 MB L2
@@ -848,11 +880,14 @@ def map_planes_by_doc(merge_host, names, device):
 
 
 def read_blobs_once(storm) -> None:
-    """Serve each tick blob's read once for the rest of ``storm``'s life:
-    the checks' ``records_overlapping`` parses a whole blob a doc and a
-    tick (as the reference does), 42 MB at this width."""
+    """Serve each tick blob's read and its header's parse once for the
+    rest of ``storm``'s life: the checks' ``records_overlapping`` reads a
+    whole blob (42 MB at this width) and parses its whole header (10,240
+    entries) a doc and a tick, as the reference does."""
     import functools
     storm._read_blob = functools.lru_cache(maxsize=None)(storm._read_blob)
+    storm._parse_header = functools.lru_cache(maxsize=None)(
+        storm._parse_header)
 
 
 def record_key(messages) -> list:
@@ -861,13 +896,16 @@ def record_key(messages) -> list:
              json.dumps(m.contents, sort_keys=True)) for m in messages]
 
 
-def durable_path(device, walless: dict, script) -> dict:
+def durable_path(device, walless: dict, script, then=None) -> dict:
     """BASELINE config 3 served crash-safe (group-commit WAL, acks after
     fsync, checkpoints), held to the WAL-less run of ``main_path`` in this
     call; then a fresh stack on the card recovers it (the tick-4 head,
     the WAL tail replayed through the serving tick) and is held to the
     live durable stack; then a fresh client joins 64 sampled docs of both
-    stacks through the deli."""
+    stacks through the deli. ``then(ctx)``, when given, runs last on the
+    recovered stack and its directories (History P), before they go:
+    ``ctx`` holds the stack (``storm``) and ``make_stack``, which builds
+    another like it over the same directories."""
     import itertools
     import shutil
     import tempfile
@@ -965,20 +1003,24 @@ def durable_path(device, walless: dict, script) -> dict:
         # Recover on a fresh stack on the card. The service resumes the
         # client counter the live one reached (what its durable state
         # store would carry across a restart), so new clients get new ids.
-        store = StateStore()
-        store.put("client_counter", live["counter"])
-        seq2 = KernelSequencerHost(num_slots=CLIENTS, initial_capacity=DOCS,
-                                   device=device)
-        merge2 = KernelMergeHost(flush_threshold=10**9, row_capacity=DOCS,
-                                 device=device)
-        svc2 = RouterliciousService(merge_host=merge2,
-                                    batched_deli_host=seq2, auto_pump=False,
-                                    store=store)
-        storm2 = StormController(
-            svc2, seq2, merge2, flush_threshold_docs=DOCS,
-            max_key_slots=KEY_SLOTS, pipeline_depth=1,
-            spill_dir=str(root / "spill"), durability="group",
-            snapshots=GitSnapshotStore(root / "git"))
+        def make_stack():
+            store = StateStore()
+            store.put("client_counter", live["counter"])
+            seq = KernelSequencerHost(num_slots=CLIENTS,
+                                      initial_capacity=DOCS, device=device)
+            merge = KernelMergeHost(flush_threshold=10**9,
+                                    row_capacity=DOCS, device=device)
+            svc = RouterliciousService(merge_host=merge,
+                                       batched_deli_host=seq,
+                                       auto_pump=False, store=store)
+            return StormController(
+                svc, seq, merge, flush_threshold_docs=DOCS,
+                max_key_slots=KEY_SLOTS, pipeline_depth=1,
+                spill_dir=str(root / "spill"), durability="group",
+                snapshots=GitSnapshotStore(root / "git"))
+        storm2 = make_stack()
+        svc2, seq2, merge2 = (storm2.service, storm2.seq_host,
+                              storm2.merge_host)
         deli_rec: dict = {}
         fold_rec: dict = {}
         mfc.launches = seqc.launches = 0
@@ -1042,7 +1084,10 @@ def durable_path(device, walless: dict, script) -> dict:
               and all(len(cps[n].clients) == CLIENTS + 1 for n in joined),
               "sequencer rows after a join: recovered != live")
         phase_s["recover_checks"] = time.perf_counter() - t_checks
-        storm2._group_wal.close()
+        if then is not None:
+            then_out = then({"storm": storm2, "make_stack": make_stack})
+        else:
+            storm2._group_wal.close()
     finally:
         shutil.rmtree(root, ignore_errors=True)
     out = {"ticks": TICKS, "docs": DOCS, "k": K_MAP, "depth": 1,
@@ -1065,6 +1110,8 @@ def durable_path(device, walless: dict, script) -> dict:
            "check_s": phase_s,
            "launches": run["launches"], "recover_launches": rec_launches}
     print("durable_path: " + json.dumps(out), flush=True)
+    if then is not None:
+        out["then"] = then_out
     out.update(shapes=run["shapes"], deli_variants=run["deli_variants"],
                fold_variants=run["fold_variants"], deli_inputs=deli_in,
                fold_inputs=fold_in, recover_shapes=rec_shapes,
@@ -3996,8 +4043,9 @@ STORM_RATE = 200.0
 #: Mega A (the reference ``bench_megadoc_writers``' widest arm): one doc,
 #: MEGA_WRITERS writers joined through the front door, one frame of K =
 #: MEGA_K ops each, MEGA_LANES lanes, waves of MEGA_WAVE frames in
-#: lane-striped order: every writer's frame, as the reference serves
-#: them (157 waves). MEGA_TEXT_WRITERS of the writers write the doc's
+#: lane-striped order: the first MEGA_WAVES waves of the reference's 157
+#: (one frame from each of 2,560 writers; a depth cut: every writer
+#: still joins). MEGA_TEXT_WRITERS of the writers write the doc's
 #: text channel through the service instead, before, during and after
 #: promotion; the merge host's seg_mesh is MEGA_SEG_SHARDS virtual
 #: shards of the card.
@@ -4005,6 +4053,7 @@ MEGA_WRITERS = 10_000
 MEGA_K = 8
 MEGA_LANES = 8
 MEGA_WAVE = 64
+MEGA_WAVES = 40
 MEGA_TEXT_WRITERS = 8
 MEGA_SEG_SHARDS = 4
 #: Mega L: MegaDocLanes on mixed B's mesh shape (LANES_DOCS docs on
@@ -4643,7 +4692,8 @@ def mega_arm(device, root: pathlib.Path, promoted: bool,
     ticks0 = storm.stats["ticks"]
     seq0 = storm.stats["sequenced_ops"]
     # The text writers' cseqs ride their text ops: they send no frames.
-    served = [w for w in order if w < MEGA_WRITERS - MEGA_TEXT_WRITERS]
+    served = [w for w in order if w < MEGA_WRITERS - MEGA_TEXT_WRITERS][
+        :MEGA_WAVES * MEGA_WAVE]
     ctx = serve_ctx() if serve_ctx is not None \
         else contextlib.nullcontext()
     ctx.__enter__()
@@ -5052,6 +5102,662 @@ def trace_planes(device) -> dict:
     return out
 
 
+# -- the history plane (time travel, branches, compaction) ---------------------
+
+#: History H: the reference bench_history_reads, _compaction_disk and
+#: _fork_merge at their published defaults (one doc each, K = HIST_K
+#: ops a round): HIST_READ_ROUNDS rounds, a summary every
+#: HIST_INTERVAL_OPS ops with compaction checked every flush, reads at
+#: HIST_DEPTHS behind the head (and head - 1) HIST_READ_REPS times each,
+#: with and without summaries; HIST_CHURN_ROUNDS rounds of churn on 8
+#: slots with tail retention 0; HIST_FORK_ROUNDS rounds, a fork at the
+#: middle, HIST_BRANCH_ROUNDS branch rounds, then merge_back.
+HIST_READ_ROUNDS = 192
+HIST_K = 64
+HIST_INTERVAL_OPS = 2048
+HIST_READ_REPS = 15
+HIST_DEPTHS = (1, 64, 512, 4096)
+HIST_CHURN_ROUNDS = 96
+HIST_FORK_ROUNDS = 48
+HIST_BRANCH_ROUNDS = 4
+#: History P, on the durable path's recovered config-3 stack: HIST_P_FORKS
+#: of its docs forked at their tick-DURABLE_HEAD_TICK seq (half before a
+#: checkpoint, half after, so recovery imports the snapshot's ``history``
+#: field and replays ``hp`` fork controls), HIST_P_TICKS ticks of K_MAP
+#: ops to every parent and branch, ``read_at`` at 4 seqs of each, then
+#: the parents compacted (retention 0) and a fresh stack recovered. The
+#: cadence checks every HIST_P_CHECK_EVERY flushes (about twice in the
+#: phase: a pass reads every doc's summary head) with a
+#: HIST_P_INTERVAL_OPS summary interval, which every served doc passes, so
+#: each pass compacts 8 docs from the front of the index.
+HIST_P_FORKS = 64
+HIST_P_TICKS = 2
+HIST_P_INTERVAL_OPS = 4 * K_MAP
+HIST_P_CHECK_EVERY = 32
+
+
+def hist_words(seed, r, k, slots=16, churn=False):
+    """The reference history benches' words (sets and deletes; churn
+    rewrites 8 slots forever)."""
+    import numpy as np
+    rng = np.random.default_rng([seed, r])
+    kinds = rng.choice([0, 0, 0, 1], size=k).astype(np.uint32)
+    s = rng.integers(0, 8 if churn else slots, k).astype(np.uint32)
+    vals = rng.integers(0, 1 << 20, k).astype(np.uint32)
+    return (kinds | (s << 2) | (vals << 12)).astype(np.uint32)
+
+
+def history_stack(device, root: pathlib.Path, residency: bool = False,
+                  spill: bool = False, **hist_kw):
+    """The reference benches' stack (``bench.py`` ``_history_stack``) on
+    the port: a storm at pipeline depth 0, a git snapshot store, a
+    group-commit WAL when ``spill``, a HistoryPlane, and (as
+    ``tests/test_history.py``'s ``_stack``) a ResidencyManager when
+    asked."""
+    from fluidframework_tpu_torch.server.durable_store import \
+        GitSnapshotStore
+    from fluidframework_tpu_torch.server.history import HistoryPlane
+    from fluidframework_tpu_torch.server.kernel_host import \
+        KernelSequencerHost
+    from fluidframework_tpu_torch.server.merge_host import KernelMergeHost
+    from fluidframework_tpu_torch.server.residency import ResidencyManager
+    from fluidframework_tpu_torch.server.routerlicious import \
+        RouterliciousService
+    from fluidframework_tpu_torch.server.storm import StormController
+    seq_host = KernelSequencerHost(num_slots=2, initial_capacity=4,
+                                   device=device)
+    merge_host = KernelMergeHost(flush_threshold=10**9, device=device)
+    service = RouterliciousService(merge_host=merge_host,
+                                   batched_deli_host=seq_host,
+                                   auto_pump=False,
+                                   idle_check_interval=10**9)
+    kw: dict = {}
+    if spill:
+        kw.update(spill_dir=str(root / "spill"), durability="group")
+    storm = StormController(service, seq_host, merge_host,
+                            flush_threshold_docs=10**9, pipeline_depth=0,
+                            snapshots=GitSnapshotStore(str(root / "git")),
+                            **kw)
+    hist = HistoryPlane(storm, **hist_kw)
+    res = ResidencyManager(storm, idle_evict_s=1e9,
+                           hydration_rate_per_s=1e9) if residency else None
+    return service, storm, hist, res
+
+
+def tick_records(storm, docs) -> dict:
+    """{doc: its records} for ``docs`` from the tick headers of their
+    tick indices, each header read once (the checks' own lookup, apart
+    from ``records_overlapping``, which scans a whole header per doc)."""
+    want = set(docs)
+    ticks = sorted({t for d in docs for _fs, _ls, t in storm._doc_ticks[d]})
+    out: dict = {d: [] for d in docs}
+    for tick in ticks:
+        header, _off = storm._parse_header(storm._read_blob(tick))
+        for (doc, _c, _cs, _ref, count, ns, fs, _ls, _msn,
+             w_off) in header["docs"]:
+            if doc in want:
+                out[doc].append({"count": count, "n_seq": ns,
+                                 "first_seq": fs, "tick": tick,
+                                 "w_off": w_off})
+    return out
+
+
+def doc_batches(storm, doc: str, records=None) -> list:
+    """The doc's durable records (``records_overlapping``'s unless given)
+    as (words, seqs) batches in seq order, one a tick: the sequenced
+    suffix of each record's words."""
+    import numpy as np
+    out = []
+    if records is None:
+        records = storm.records_overlapping(doc, 0)
+    for rec in sorted(records, key=lambda r: r["first_seq"]):
+        n = rec["n_seq"]
+        if n <= 0:
+            continue
+        words = np.frombuffer(storm.read_tick_words(rec["tick"]), np.uint32,
+                              rec["count"], rec["w_off"])
+        skip = rec["count"] - n
+        out.append((words[skip:].copy(),
+                    rec["first_seq"] + np.arange(n, dtype=np.int64)))
+    return out
+
+
+def np_fold(batches, to_seq: int, slots: int, base=None):
+    """A numpy fold of (words, seqs) batches through ``to_seq`` onto
+    ``base`` (empty planes by default): each batch is one tick of the LWW
+    map fold — ops before its last clear are dead, and per slot its last
+    op lands. Returns (present, value, vseq, cleared_seq)."""
+    import numpy as np
+    if base is None:
+        present = np.zeros(slots, np.bool_)
+        value = np.zeros(slots, np.int32)
+        vseq = np.full(slots, -1, np.int32)
+        cleared = -1
+    else:
+        present, value, vseq, cleared = (base[0].copy(), base[1].copy(),
+                                         base[2].copy(), int(base[3]))
+    for words, seqs in batches:
+        keep = seqs <= to_seq
+        words, seqs = words[keep], seqs[keep]
+        if not len(words):
+            break
+        kind = words & 3
+        clears = np.flatnonzero(kind == 2)
+        if clears.size:
+            last = clears[-1]
+            present[:] = False
+            vseq[:] = -1
+            cleared = int(seqs[last])
+            words, seqs, kind = (words[last + 1:], seqs[last + 1:],
+                                 kind[last + 1:])
+        slot = ((words >> 2) & 0x3FF).astype(np.int64)
+        _, idx = np.unique(slot[::-1], return_index=True)
+        win = len(slot) - 1 - idx
+        sl, kd = slot[win], kind[win]
+        sets, dels = kd == 0, kd != 0
+        present[sl[sets]] = True
+        value[sl[sets]] = (words[win][sets] >> 12).astype(np.int32)
+        vseq[sl[sets]] = seqs[win][sets]
+        present[sl[dels]] = False
+        vseq[sl[dels]] = seqs[win][dels]
+    return present, value, vseq, cleared
+
+
+def fold_entries(planes) -> dict:
+    import numpy as np
+    present, value = planes[0], planes[1]
+    return {f"k{s}": int(value[s]) for s in np.flatnonzero(present)}
+
+
+def map_row(storm, doc: str) -> list:
+    """The doc's device map row: present, value, vseq (numpy) and
+    cleared_seq."""
+    xs = storm.merge_host._xstate
+    row = storm._storm_mrow(doc).row
+    return [xs.present[row].cpu().numpy(), xs.value[row].cpu().numpy(),
+            xs.vseq[row].cpu().numpy(), int(xs.cleared_seq[row])]
+
+
+def rows_equal(a, b) -> bool:
+    import numpy as np
+    return all(np.array_equal(x, y) for x, y in zip(a[:3], b[:3])) \
+        and int(a[3]) == int(b[3])
+
+
+def hist_serve(storm, doc, client, rounds, seed, churn=False, ref=1,
+               rid=""):
+    """``rounds`` frames of HIST_K words to one doc, a flush each."""
+    k = HIST_K
+    for r in range(rounds):
+        storm.submit_frame(
+            None, {"rid": (rid, r),
+                   "docs": [[doc, client, 1 + r * k, ref, k]]},
+            memoryview(hist_words(seed, r, k, churn=churn).tobytes()))
+        storm.flush()
+
+
+def history_reads(device, root: pathlib.Path) -> dict:
+    """``bench_history_reads``: read p50/p99 at each depth behind the head
+    with and without summaries; every sampled read == the numpy fold,
+    and the head == the device row."""
+    import numpy as np
+    out = {}
+    for name, summarize in (("no_summaries", False), ("summarized", True)):
+        service, storm, hist, _ = history_stack(
+            device, root / name,
+            summary_interval_ops=HIST_INTERVAL_OPS if summarize else None,
+            compact_check_every=1)
+        client = service.connect("h0", lambda m: None).client_id
+        service.pump()
+        t0 = time.perf_counter()
+        hist_serve(storm, "h0", client, HIST_READ_ROUNDS, 3)
+        serve_s = time.perf_counter() - t0
+        head = hist.head_seq("h0")
+        batches = doc_batches(storm, "h0")
+        s_live = storm.merge_host._xstate.present.shape[1]
+        rows = {}
+        for depth in HIST_DEPTHS + (head - 1,):
+            seq = max(1, head - depth)
+            samples = []
+            for _ in range(HIST_READ_REPS):
+                t1 = time.perf_counter()
+                got = hist.read_at("h0", seq)
+                samples.append(1e3 * (time.perf_counter() - t1))
+            check(got["entries"] == fold_entries(
+                np_fold(batches, seq, s_live)),
+                f"history H reads ({name}): read_at(h0, {seq}) != the "
+                "numpy fold")
+            rows[f"depth_{depth}"] = {
+                "seq": seq, "read_ms_p50": float(np.percentile(samples, 50)),
+                "read_ms_p99": float(np.percentile(samples, 99))}
+        entries = storm.merge_host.map_entries("h0", storm.datastore,
+                                               storm.channel)
+        check(hist.read_at("h0", head)["entries"] == entries
+              and entries == fold_entries(np_fold(batches, head, s_live)),
+              f"history H reads ({name}): the head != the device row")
+        check(rows_equal(map_row(storm, "h0"),
+                         np_fold(batches, head, s_live)),
+              f"history H reads ({name}): the device row != the numpy fold")
+        out[name] = {"head_seq": head, "ops": HIST_READ_ROUNDS * HIST_K,
+                     "serve_s": serve_s,
+                     "summaries": hist.stats["compactions"], "rows": rows,
+                     "worst_read_ms_p50": max(
+                         r["read_ms_p50"] for r in rows.values())}
+    check(out["summarized"]["summaries"] > 0,
+          "history H reads: the cadence made no summary")
+    out["worst_p50_summarized_over_unsummarized"] = (
+        out["summarized"]["worst_read_ms_p50"]
+        / out["no_summaries"]["worst_read_ms_p50"])
+    return out
+
+
+def history_compaction(device, root: pathlib.Path) -> dict:
+    """``bench_history_compaction_disk``: spill bytes before and after
+    compact + trim_now on a churn doc; the head read == the device row ==
+    the numpy fold, and a read below the trim floor raises."""
+    from fluidframework_tpu_torch.server.history import HistoryError
+    service, storm, hist, _ = history_stack(
+        device, root, spill=True, tail_retention_summaries=0,
+        trim_batch_ticks=1)
+    client = service.connect("churn", lambda m: None).client_id
+    service.pump()
+    storm.checkpoint()
+    hist_serve(storm, "churn", client, HIST_CHURN_ROUNDS, 5, churn=True)
+    storm.checkpoint()
+    spill = root / "spill" / "storm_tick_words.log"
+    before = spill.stat().st_size
+    entries = storm.merge_host.map_entries("churn", storm.datastore,
+                                           storm.channel)
+    s_live = storm.merge_host._xstate.present.shape[1]
+    head = hist.head_seq("churn")
+    folded = np_fold(doc_batches(storm, "churn"), head, s_live)
+    t0 = time.perf_counter()
+    hist.compact("churn")
+    hist.trim_now()
+    compact_ms = 1e3 * (time.perf_counter() - t0)
+    after = spill.stat().st_size
+    check(hist.read_at("churn", head)["entries"] == entries
+          and entries == fold_entries(folded)
+          and rows_equal(map_row(storm, "churn"), folded),
+          "history H compaction: the head != the device row or the fold")
+    try:
+        hist.read_at("churn", head - 1)
+        below = None
+    except HistoryError:
+        below = "HistoryError"
+    check(below == "HistoryError" and hist.tail_floor("churn") == head,
+          "history H compaction: a read below the trim floor did not raise")
+    check(after < before and hist.stats["trimmed_ticks"] > 0,
+          f"history H compaction: spill {before} -> {after} bytes")
+    storm._group_wal.close()
+    return {"ops": HIST_CHURN_ROUNDS * HIST_K, "live_keys": len(entries),
+            "spill_bytes_before": before, "spill_bytes_after": after,
+            "after_over_before": after / before,
+            "trimmed_ticks": hist.stats["trimmed_ticks"],
+            "compact_ms": compact_ms}
+
+
+def history_fork_merge(device, root: pathlib.Path, residency: bool) -> dict:
+    """``bench_history_fork_merge``: a fork at mid-history (without
+    residency the branch row is written in place; with it the seed is a
+    cold record the branch's first frame hydrates), branch rounds, then
+    merge_back; the forked row == the fold at the fork seq, the branch
+    and the parent after merge_back == the folds of their records."""
+    import numpy as np
+    service, storm, hist, res = history_stack(device, root,
+                                              residency=residency)
+    client = service.connect("f0", lambda m: None).client_id
+    service.pump()
+    hist_serve(storm, "f0", client, HIST_FORK_ROUNDS, 7)
+    fork_seq = 1 + (HIST_FORK_ROUNDS // 2) * HIST_K
+    s_live = storm.merge_host._xstate.present.shape[1]
+    seed = np_fold(doc_batches(storm, "f0"), fork_seq, s_live)
+    t0 = time.perf_counter()
+    branch = hist.fork("f0", fork_seq, name="f0-branch", writer="w")
+    fork_ms = 1e3 * (time.perf_counter() - t0)
+    state = hist._state_at("f0", fork_seq)
+    check(all(np.array_equal(a, b) for a, b in
+              zip(state.planes(s_live), seed[:3]))
+          and state.cleared_seq == seed[3],
+          "history H fork: the fold state at the fork seq != the numpy fold")
+    if residency:
+        check(not res.is_resident(branch),
+              "history H fork: the cold-seeded branch is resident")
+    else:
+        check(rows_equal(map_row(storm, branch), seed),
+              "history H fork: the branch row != the fold at the fork seq")
+    check(hist.read_at(branch, fork_seq)["entries"] == fold_entries(seed),
+          "history H fork: read_at(branch, fork seq) != the fold")
+    hist_serve(storm, branch, "w", HIST_BRANCH_ROUNDS, 11, ref=fork_seq,
+               rid="b")
+    if residency:
+        check(res.is_resident(branch) and res.stats["hydrations"] > 0,
+              "history H fork: the branch's first frame did not hydrate it")
+    b_head = hist.head_seq(branch)
+    b_fold = np_fold(doc_batches(storm, branch), b_head, s_live, base=seed)
+    check(rows_equal(map_row(storm, branch), b_fold)
+          and hist.read_at(branch, b_head)["entries"]
+          == fold_entries(b_fold),
+          "history H fork: the served branch != the fold of its records")
+    branch_row = map_row(storm, branch)
+    t0 = time.perf_counter()
+    report = hist.merge_back(branch)
+    merge_ms = 1e3 * (time.perf_counter() - t0)
+    head = hist.head_seq("f0")
+    p_fold = np_fold(doc_batches(storm, "f0"), head, s_live)
+    check(report["merged_ops"] == HIST_BRANCH_ROUNDS * HIST_K
+          and rows_equal(map_row(storm, "f0"), p_fold)
+          and hist.read_at("f0", head)["entries"] == fold_entries(p_fold),
+          "history H merge_back: the parent != the fold of its records")
+    return {"fork_seq": fork_seq, "fork_ms": fork_ms,
+            "branch_ops": HIST_BRANCH_ROUNDS * HIST_K,
+            "merged_ops": report["merged_ops"], "merge_ms": merge_ms,
+            "parent_seq_after": report["parent_seq"],
+            "hydrations": res.stats["hydrations"] if res else None,
+            "branch_row": branch_row, "parent_row": map_row(storm, "f0")}
+
+
+def history_path_h(device) -> dict:
+    """History H: the three reference history benches on the card, under
+    the plane recording wrappers (every kernel call kept)."""
+    import shutil
+    import tempfile
+    root = pathlib.Path(tempfile.mkdtemp(prefix="ff-history-h-"))
+    kept: dict = {}
+    t0 = time.perf_counter()
+    try:
+        launch_counts_reset()
+        with plane_recording(kept):
+            out = {"reads": history_reads(device, root / "reads"),
+                   "compaction": history_compaction(device, root / "disk"),
+                   "fork_merge": history_fork_merge(device, root / "fork",
+                                                    residency=False),
+                   "fork_merge_residency": history_fork_merge(
+                       device, root / "fork_res", residency=True)}
+        counts = launch_counts()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    plain, cold = out["fork_merge"], out["fork_merge_residency"]
+    check(rows_equal(plain.pop("branch_row"), cold.pop("branch_row"))
+          and rows_equal(plain.pop("parent_row"), cold.pop("parent_row")),
+          "history H: the residency arm's branch or parent != the other's")
+    check(counts["map_fold"] > 0 and counts["sequencer_tick"] > 0,
+          "history H launched no map fold or no deli")
+    out["seconds"] = time.perf_counter() - t0
+    out["launches"] = {k: counts[k] for k in (
+        "map_fold", "sequencer_tick", "mergetree_blocks", "mergetree_flat")}
+    print("history_h: " + json.dumps(out), flush=True)
+    return {"out": out, "counts": counts, "kept": kept}
+
+
+def history_path_p(device, ctx: dict, trace: bool = False) -> dict:
+    """History P (see HIST_P_*) on the durable path's recovered stack
+    (``ctx``), under the plane recording wrappers: forks past the pool's
+    10,240 rows, ticks to parents and branches, reads, compaction, and a
+    fresh stack's ``recover()`` of the same directories, each held to
+    the live stack and to numpy folds. With ``trace`` the live part runs
+    under ``torch.profiler``."""
+    import numpy as np
+    import torch
+
+    from fluidframework_tpu_torch.server.history import (
+        HistoryError,
+        HistoryPlane,
+    )
+    storm = ctx["storm"]  # its blobs and headers are read once
+    hist_kw = dict(summary_interval_ops=HIST_P_INTERVAL_OPS,
+                   tail_retention_summaries=0,
+                   compact_check_every=HIST_P_CHECK_EVERY)
+    hist = HistoryPlane(storm, **hist_kw)
+    cadence = {"passes": 0, "s": 0.0}
+    inner_pass = hist.maybe_compact
+
+    def timed_pass(*args, **kw):
+        t0 = time.perf_counter()
+        done = inner_pass(*args, **kw)
+        if done:
+            cadence["passes"] += 1
+            cadence["s"] += time.perf_counter() - t0
+        return done
+    hist.maybe_compact = timed_pass
+    # Parents from the back half of the index order: the cadence compacts
+    # due docs from the front, a pass at a time.
+    order = list(storm._doc_ticks)
+    parents = [order[i] for i in np.linspace(
+        len(order) // 2, len(order) - 1, HIST_P_FORKS).astype(int)]
+    s_live = storm.merge_host._xstate.present.shape[1]
+    cap0 = storm.merge_host._map_capacity
+    fork_seq, clients = {}, {}
+    for p in parents:
+        fork_seq[p] = max(rec["last_seq"] for rec in
+                          storm.records_overlapping(p, 0)
+                          if rec["tick"] <= DURABLE_HEAD_TICK
+                          and rec["n_seq"] > 0)
+        c = storm.seq_host.checkpoint(p).clients[0]
+        clients[p] = [c["client_id"], c["client_seq"] + 1]
+    gen = np.random.default_rng(11)
+    kept: dict = {}
+    branches: dict = {}
+    branch_ticks: dict = {}
+    secs: dict = {}
+
+    def fork(lo, hi):
+        t0 = time.perf_counter()
+        for i in range(lo, hi):
+            p = parents[i]
+            branches[p] = hist.fork(p, fork_seq[p], name=f"{p}@hist",
+                                    writer=f"hw{i}")
+        secs["fork"] = secs.get("fork", 0.0) + time.perf_counter() - t0
+
+    def tick(t):
+        entries = []
+        for p in parents:
+            c, cseq = clients[p]
+            ref = storm.seq_host.checkpoint(p).sequence_number
+            entries.append([p, c, cseq, ref, K_MAP])
+            clients[p][1] += K_MAP
+        for i, p in enumerate(parents):
+            if p in branches:
+                n = branch_ticks[p] = branch_ticks.get(p, 0) + 1
+                entries.append([branches[p], f"hw{i}", 1 + (n - 1) * K_MAP,
+                                fork_seq[p], K_MAP])
+        kinds = np.where(gen.random((len(entries), K_MAP)) < 0.05, 2,
+                         np.where(gen.random((len(entries), K_MAP)) < 0.3,
+                                  1, 0))
+        words = (kinds
+                 | (gen.integers(0, KEY_SLOTS, (len(entries), K_MAP)) << 2)
+                 | (gen.integers(0, 1 << 20, (len(entries), K_MAP)) << 12))
+        t0 = time.perf_counter()
+        storm.submit_frame(None, {"rid": ("hist-p", t), "docs": entries},
+                           memoryview(words.astype(np.uint32).tobytes()))
+        storm.flush()
+        torch.cuda.synchronize()
+        secs["ticks"] = secs.get("ticks", 0.0) + time.perf_counter() - t0
+
+    def read_all(h):
+        """read_at at each read's seq: entries, or the refusal."""
+        out = {}
+        for doc, s in reads:
+            try:
+                out[(doc, s)] = h.read_at(doc, s)["entries"]
+            except HistoryError:
+                out[(doc, s)] = "HistoryError"
+        return out
+
+    prof = None
+    ctx_trace = contextlib.nullcontext()
+    if trace:
+        from torch.profiler import ProfilerActivity, profile
+        prof = ctx_trace = profile(activities=[ProfilerActivity.CPU,
+                                               ProfilerActivity.CUDA])
+    launch_counts_reset()
+    t_all = time.perf_counter()
+    with plane_recording(kept), ctx_trace:
+        half = HIST_P_FORKS // 2
+        fork(0, half)
+        tick(0)
+        t0 = time.perf_counter()
+        storm.checkpoint()
+        ckpt_tick = storm._tick_counter
+        secs["checkpoint"] = time.perf_counter() - t0
+        fork(half, HIST_P_FORKS)
+        for t in range(1, HIST_P_TICKS):
+            tick(t)
+        # Each parent at 4 seqs, each branch at 4 (below its fork seq a
+        # branch read delegates to its parent).
+        reads = []
+        for p in parents:
+            q, b = fork_seq[p], branches[p]
+            reads += [(p, s) for s in (q - K_MAP // 2, q,
+                                       hist.head_seq(p) - 1,
+                                       hist.head_seq(p))]
+            reads += [(b, s) for s in (q - 1, q, q + 1, hist.head_seq(b))]
+        t0 = time.perf_counter()
+        before = read_all(hist)
+        secs["reads"] = time.perf_counter() - t0
+        # Where a parent's head read goes: its records' lookup (a scan
+        # of each tick's header) against the whole read.
+        t0 = time.perf_counter()
+        storm.records_overlapping(parents[0], 0)
+        secs["one_parent_records"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        hist.read_at(parents[0], hist.head_seq(parents[0]))
+        secs["one_parent_head_read"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        storm.read_tick_words(storm._doc_ticks[parents[0]][0][2])
+        secs["one_tick_words"] = time.perf_counter() - t0
+        live_rows = {d: map_row(storm, d)
+                     for d in parents + list(branches.values())}
+        records = tick_records(storm, list(live_rows))
+        batches = {d: doc_batches(storm, d, records[d]) for d in live_rows}
+        t0 = time.perf_counter()
+        for p in parents:
+            hist.compact(p)
+        trimmed = hist.trim_now()
+        secs["compact"] = time.perf_counter() - t0
+        torch.cuda.synchronize()
+    secs["all"] = time.perf_counter() - t_all
+    counts = launch_counts()
+    check(storm.merge_host._map_capacity > cap0
+          and len(storm.merge_host._map_rows) > DOCS,
+          f"history P: the map pool did not grow past {DOCS} rows "
+          f"({cap0} -> {storm.merge_host._map_capacity})")
+    # Exactness, live: the seeds, the rows and every read == numpy folds.
+    for i, p in enumerate(parents):
+        b, q = branches[p], fork_seq[p]
+        seed = np_fold(batches[p], q, s_live)
+        state = hist._state_at(b, q)
+        check(all(np.array_equal(x, y) for x, y in
+                  zip(state.planes(s_live), seed[:3]))
+              and state.cleared_seq == seed[3],
+              f"history P: the seed of {b} != the numpy fold at {q}")
+        check(rows_equal(live_rows[p], np_fold(batches[p], 1 << 40,
+                                               s_live))
+              and rows_equal(live_rows[b], np_fold(batches[b], 1 << 40,
+                                                   s_live, base=seed)),
+              f"history P: the rows of {p} or {b} != the folds")
+        for doc, s in reads[8 * i:8 * i + 8]:
+            want = (np_fold(batches[p], s, s_live) if doc == p or s < q
+                    else np_fold(batches[b], s, s_live, base=seed))
+            check(before[(doc, s)] == fold_entries(want),
+                  f"history P: read_at({doc}, {s}) != the numpy fold")
+        check(before[(p, hist.head_seq(p))] == fold_entries(live_rows[p])
+              and before[(b, hist.head_seq(b))]
+              == fold_entries(live_rows[b]),
+              f"history P: the head reads of {p} != the device rows")
+    # After compaction with retention 0 a parent serves its head alone:
+    # reads below it raise, on the parent and through its branches.
+    after = read_all(hist)
+    refused = {k for k, v in after.items() if v == "HistoryError"}
+    parent_of = {b: p for p, b in branches.items()}
+    want_refused = {(d, s) for d, s in reads
+                    if s < (fork_seq[parent_of[d]] if d in parent_of
+                            else hist.head_seq(d))}
+    check(refused == want_refused and all(
+        after[k] == before[k] for k in after if k not in refused),
+        f"history P: {len(refused)} reads refused after compaction, want "
+        f"{len(want_refused)}")
+    hp_after = 0
+    for t in range(ckpt_tick, storm._tick_counter):
+        header, _ = storm._parse_header(storm._read_blob(t))
+        hp_after += (header.get("hp") or {}).get("op") == "fork"
+    live_state = hist.export_state()
+    storm._group_wal.close()
+    # A fresh stack with a plane recovers the same directories.
+    rec_kept: dict = {}
+    storm2 = ctx["make_stack"]()
+    hist2 = HistoryPlane(storm2, **hist_kw)
+    launch_counts_reset()
+    with plane_recording(rec_kept):
+        t0 = time.perf_counter()
+        info = storm2.recover()
+        torch.cuda.synchronize()
+        secs["recover"] = time.perf_counter() - t0
+    rec_counts = launch_counts()
+    read_blobs_once(storm2)
+    check(hist2.export_state() == live_state
+          and len(live_state["branches"]) == HIST_P_FORKS,
+          "history P: the recovered branch registry != the live one")
+    check(hp_after == HIST_P_FORKS - half and info["replayed_ticks"] > 0,
+          f"history P: {hp_after} hp fork controls past the checkpoint, "
+          f"recover() {info}")
+    bad = [d for d, row in live_rows.items()
+           if not rows_equal(map_row(storm2, d), row)]
+    check(not bad, f"history P: recovered rows != live ({bad[:3]})")
+    check(read_all(hist2) == after,
+          "history P: the recovered stack's reads != the live stack's")
+    storm2._group_wal.close()
+    out = {"forks": HIST_P_FORKS, "docs": DOCS, "k": K_MAP,
+           "ticks": HIST_P_TICKS,
+           "map_capacity": [cap0, storm.merge_host._map_capacity],
+           "reads": len(reads), "refused_after_compaction": len(refused),
+           "compactions": hist.stats["compactions"],
+           "cadence_passes": cadence["passes"], "cadence_s": cadence["s"],
+           "trimmed_ticks": trimmed, "hp_forks_replayed": hp_after,
+           "snapshot_branches": half, "restored_from": info["restored_from"],
+           "replayed_ticks": info["replayed_ticks"], "seconds": secs,
+           "launches": {k: counts[k] for k in (
+               "map_fold", "sequencer_tick", "mergetree_blocks",
+               "mergetree_flat")},
+           "recover_launches": {k: rec_counts[k] for k in (
+               "map_fold", "sequencer_tick")}}
+    if prof is not None:
+        busy_ms, top = device_busy(prof)
+        wall_ms = 1e3 * secs["all"]
+        out["trace"] = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+                        "idle_share": 1 - busy_ms / wall_ms,
+                        "top_device_ms": top}
+    print("history_p: " + json.dumps(out), flush=True)
+    check(counts["map_fold"] > 0, "history P launched no map fold")
+    return {"out": out, "counts": counts, "kept": kept,
+            "recover_counts": rec_counts, "recover_kept": rec_kept}
+
+
+def trace_history(device) -> dict:
+    """History H's fork/merge arm again under ``torch.profiler``: device
+    busy ms against the host's wall ms (History P traces itself)."""
+    import shutil
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+    root = pathlib.Path(tempfile.mkdtemp(prefix="ff-history-trace-"))
+    try:
+        prof = profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+        t0 = time.perf_counter()
+        with prof:
+            history_fork_merge(device, root, residency=False)
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    busy_ms, top = device_busy(prof)
+    out = {"fork_merge": {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+                          "idle_share": 1 - busy_ms / wall_ms,
+                          "top_device_ms": top}}
+    print("trace_history: " + json.dumps(out), flush=True)
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -5068,6 +5774,8 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     device = torch.device("cuda:0")
+    global T_START
+    T_START = time.perf_counter()
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -5086,6 +5794,9 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.2f} s "
           f"({_build.BUILD_DIR})", flush=True)
 
+    trace_all = "--trace" in sys.argv[1:]
+    trace_hist = trace_all or "--trace-history" in sys.argv[1:]
+    t_kernels = time.perf_counter()
     fold = check_map_fold(device)
     deli = check_deli(device)
     # A C past one block's shared memory runs the one-thread deli alone.
@@ -5128,24 +5839,43 @@ def main() -> int:
     steps_large = check_steps_tick(device, 64, 4096, STEPS_S, 1)
     check(steps_large["variant"] == "global",
           "S = 4,096 did not run the step tick's global variant")
-    path = main_path(device)
-    durable = durable_path(device, path.pop("walless"), path.pop("script"))
-    chaos_smoke(device)
-    text = text_main_path(device)
-    matrix = matrix_main_path(device)
-    steps = matrix_steps_path(device)
-    tree = tree_main_path(device)
-    tree_path_b(device)
-    t_mixed = time.perf_counter()
-    mixed_a = mixed_path_a(device)
-    mixed_b = mixed_path_b(device, mixed_a)
-    mixed_checks = mixed_recheck(device, mixed_a)
-    del mixed_a["record"], mixed_a["serving"], mixed_a["outs"]
-    t_seqpar = time.perf_counter()
-    seqpar = seqpar_path(device)
-    print(f"phase times: mixed {t_seqpar - t_mixed:.1f} s, sequence-parallel "
-          f"{time.perf_counter() - t_seqpar:.1f} s", flush=True)
-    planes = planes_path(device)
+    PHASE_S["kernels at full size"] = time.perf_counter() - t_kernels
+    print(f"phase kernels at full size: {PHASE_S['kernels at full size']:.1f}"
+          " s", flush=True)
+    with phase("map"):
+        path = main_path(device)
+    # History P runs last on the durable path's recovered stack.
+    with phase("durable + history P"):
+        durable = durable_path(
+            device, path.pop("walless"), path.pop("script"),
+            then=lambda ctx: history_path_p(device, ctx, trace=trace_hist))
+    hist_p = durable.pop("then")
+    with phase("chaos"):
+        chaos_smoke(device)
+    with phase("text"):
+        text = text_main_path(device)
+    with phase("matrix"):
+        matrix = matrix_main_path(device)
+    with phase("steps"):
+        steps = matrix_steps_path(device)
+    with phase("tree A"):
+        tree = tree_main_path(device)
+    with phase("tree B"):
+        tree_path_b(device)
+    with phase("mixed"):
+        mixed_a = mixed_path_a(device)
+        mixed_b = mixed_path_b(device, mixed_a)
+        mixed_checks = mixed_recheck(device, mixed_a)
+        del mixed_a["record"], mixed_a["serving"], mixed_a["outs"]
+    with phase("sequence-parallel"):
+        seqpar = seqpar_path(device)
+    with phase("planes"):
+        planes = planes_path(device)
+    with phase("history H"):
+        planes["hist_h"] = history_path_h(device)
+    planes["hist_p"] = {"counts": hist_p["counts"], "kept": hist_p["kept"]}
+    planes["hist_p_recover"] = {"counts": hist_p["recover_counts"],
+                                "kept": hist_p["recover_kept"]}
     # Kernels 1-4 on every call each plane path made, both variants held
     # to the plain version, and timed on the last call at each shape.
     mega = planes["mega_a"]
@@ -5160,7 +5890,13 @@ def main() -> int:
                    "mega_a_recover": (mega["recover_kept"],
                                       mega["recover_counts"]),
                    "mega_l": (planes["mega_l"]["kept"],
-                              planes["mega_l"]["counts"])}
+                              planes["mega_l"]["counts"]),
+                   "hist_h": (planes["hist_h"]["kept"],
+                              planes["hist_h"]["counts"]),
+                   "hist_p": (planes["hist_p"]["kept"],
+                              planes["hist_p"]["counts"]),
+                   "hist_p_recover": (planes["hist_p_recover"]["kept"],
+                                      planes["hist_p_recover"]["counts"])}
     for path_name, (kept, counts) in plane_paths.items():
         for name, by_shape in kept.items():
             got = {sh: len(c) for sh, c in by_shape.items()}
@@ -5172,16 +5908,26 @@ def main() -> int:
     same = drop_leading_repeats(mega["twin_kept"], mega["kept"])
     print(f"mega A single-lane calls equal to the promoted arm's: {same}",
           flush=True)
+    # The recovery replays the promoted arm's ticks: the calls equal to
+    # the promoted arm's stand checked by its re-check too.
+    same = drop_leading_repeats(mega["recover_kept"], mega["kept"])
+    print(f"mega A recovery calls equal to the promoted arm's: {same}",
+          flush=True)
     t_recheck = time.perf_counter()
     plane_checks: dict = {}
+    recheck_s: dict = {}
     for path_name, (kept, _counts) in plane_paths.items():
         for name in ("map_fold", "sequencer_tick", "mergetree_blocks",
                      "mergetree_flat"):
+            t0 = time.perf_counter()
             got = plane_recheck(device, name, path_name, kept)
             if got is not None:
                 plane_checks.setdefault(name, {})[path_name] = {
                     k: v for k, v in got.items() if k != "by_call"}
+                recheck_s[f"{path_name} {name}"] = time.perf_counter() - t0
         kept.clear()
+    print("re-check seconds by plane path: " + json.dumps(recheck_s),
+          flush=True)
     t_recheck_planes = time.perf_counter()
     shapes = path["shapes"]
     from fluidframework_tpu_torch.ops import map_fold_cuda as mfc
@@ -5282,7 +6028,8 @@ def main() -> int:
     print(f"re-check times: plane paths {t_recheck_planes - t_recheck:.1f} "
           f"s, earlier paths {time.perf_counter() - t_recheck_planes:.1f} s",
           flush=True)
-    if "--trace" in sys.argv[1:]:
+    PHASE_S["re-checks"] = time.perf_counter() - t_recheck
+    if trace_all:
         trace_main_path(device)
         trace_durable_path(device)
         trace_text_paths(device)
@@ -5290,6 +6037,8 @@ def main() -> int:
         trace_tree_path(device)
         trace_mixed_path(device)
         trace_planes(device)
+    if trace_hist:
+        trace_history(device)
     # Each path's own launches, counted from 0 just before it and read
     # just after; a kernel's "launches" is their sum.
     by_path = {
@@ -5314,7 +6063,11 @@ def main() -> int:
                    name, 0),
                "mega_a_recover": planes["mega_a"]["recover_counts"].get(
                    name, 0),
-               "mega_l": planes["mega_l"]["counts"].get(name, 0)}
+               "mega_l": planes["mega_l"]["counts"].get(name, 0),
+               "hist_h": planes["hist_h"]["counts"].get(name, 0),
+               "hist_p": planes["hist_p"]["counts"].get(name, 0),
+               "hist_p_recover": planes["hist_p_recover"]["counts"].get(
+                   name, 0)}
         for name in ("map_fold", "sequencer_tick", "mergetree_blocks",
                      "mergetree_flat", "matrix_tick", "matrix_steps")}
     launches = {name: sum(n.values()) for name, n in by_path.items()}
@@ -5453,6 +6206,8 @@ def main() -> int:
                 if variants and variants.get(name):
                     entry["variant_launches"][path_name] = variants[name]
     print(json.dumps({"kernels": kernels}), flush=True)
+    PHASE_S["all"] = time.perf_counter() - T_START
+    print("phase_seconds: " + json.dumps(PHASE_S), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

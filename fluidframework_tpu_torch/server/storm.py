@@ -46,10 +46,12 @@ and two planes that attach themselves: tiered hot/cold residency
 touch, evict through the cold snapshot tier) and mega-doc write
 scale-out (``server/megadoc.py``: lane rewrite at ingress, the doc-space
 combiner in the round, doc-space acks at harvest, ``mg`` WAL controls
-and the ``megadoc`` snapshot field). The history, replication and
+and the ``megadoc`` snapshot field). The history plane
+(``server/history.py``) attaches itself too: compaction on the flush
+maintenance cadence, ``hp`` WAL controls, the ``history`` snapshot field
+and the trim-floor read of a quarantined doc. The replication and
 placement planes are not ported yet (ROADMAP Queue A 5): they stay
-``None``, and a snapshot or WAL record that names the history plane
-raises.
+``None``.
 """
 
 from __future__ import annotations
@@ -608,9 +610,13 @@ class StormController:
         self.residency = None
         # Mega-doc write scale-out (server/megadoc.py attaches itself).
         self.megadoc = None
+        # History plane (server/history.py attaches itself): time-travel
+        # reads off the cold path, named branches journaled as "hp" WAL
+        # controls, and the background summarization compactor driven
+        # from the flush maintenance cadence.
+        self.history = None
         # Planes of the reference controller not ported yet; kept as None
         # so code that probes them (routerlicious) sees them absent.
-        self.history = None
         self.placement = None
         self.replication = None
         self._in_round = False
@@ -891,6 +897,11 @@ class StormController:
         # inside a round), then the arena trim.
         if self.megadoc is not None and not self._replay:
             self.megadoc.maybe_adapt()
+        if self.history is not None and not self._replay \
+                and not self._in_checkpoint:
+            # Summarization compaction cadence (server/history.py): roll
+            # long WAL tails into fresh summaries + trim per retention.
+            self.history.maybe_compact()
         if self._auto_depth and not self._replay and (
                 self.stats["ticks"] - self._depth_adapted_at
                 >= self.depth_adapt_every):
@@ -1649,6 +1660,10 @@ class StormController:
                 # Fair-composition state (deficits + rotation), rolled
                 # forward at recover() by the WAL tail's "qos" headers.
                 snap["qos"] = self.qos.export_state()
+            if self.history is not None and self.history.branches:
+                # Branch registry (summaries and cold seeds are already
+                # store-resident under their own heads).
+                snap["history"] = self.history.export_state()
             handle = self.snapshots.upload(self.SNAPSHOT_DOC, snap)
             faults.crashpoint("snapshot.pre_publish")
             self.snapshots.set_head(self.SNAPSHOT_DOC, handle)
@@ -1675,11 +1690,6 @@ class StormController:
                     raise ValueError(
                         f"storm snapshot format v{version} is newer than "
                         f"this reader (max v{STORM_SNAPSHOT_VERSION})")
-                if snap.get("history") is not None:
-                    raise RuntimeError(
-                        "snapshot holds history-plane branch state, a "
-                        "plane this package does not port yet (ROADMAP "
-                        "Queue A 5)")
                 from .sequencer import SequencerCheckpoint
                 for doc, cp in sorted(snap["sequencer"].items()):
                     self.seq_host.restore(doc, SequencerCheckpoint(**cp))
@@ -1692,6 +1702,12 @@ class StormController:
                     self.megadoc.import_state(snap["megadoc"])
                 if snap.get("qos") is not None:
                     self.qos.import_state(snap["qos"])
+                if snap.get("history") is not None:
+                    if self.history is None:
+                        raise RuntimeError(
+                            "snapshot holds history-plane branch state "
+                            "but no HistoryPlane is attached")
+                    self.history.import_state(snap["history"])
                 start = snap["tick_watermark"]
                 restored_from = head
                 if self.residency is not None:
@@ -1763,15 +1779,20 @@ class StormController:
                     continue
                 hp = header.get("hp")
                 if hp is not None:
-                    # History-plane control record: a trimmed-tick filler
-                    # is stateless; anything else needs the plane.
+                    # History-plane control record: branch forks re-seed
+                    # at the identical point in the total order (the
+                    # seed is a pure function of the records below this
+                    # tick); trimmed-tick fillers are stateless.
                     self._tick_counter = tick + 1
                     if hp.get("op") == "trimmed" or hp.get("trimmed"):
                         continue
-                    raise RuntimeError(
-                        "WAL holds history-plane control records, a plane "
-                        "this package does not port yet (ROADMAP Queue A "
-                        "5)")
+                    if self.history is None:
+                        raise RuntimeError(
+                            "WAL holds history-plane control records "
+                            "but no HistoryPlane is attached — attach "
+                            "one before recover()")
+                    self.history.apply_control(hp, header["ts"])
+                    continue
                 self._tick_counter = tick
                 self._replay_ts = header["ts"]
                 entries = [e[:5] for e in header["docs"]]
@@ -1888,6 +1909,12 @@ class StormController:
         is exact even when the served planes corrupt) into the converged
         map. The doc stays readable at scalar cost while frozen."""
         from ..dds.map_data import MapData
+        if self.history is not None and self.history.tail_floor(doc_id):
+            # A compacted+trimmed doc's record prefix is gone — the
+            # summary chain is the authoritative base; the history fold
+            # serves the same converged entries shape.
+            return self.history.read_at(
+                doc_id, self.history.head_seq(doc_id))["entries"]
         records = self.records_overlapping(doc_id, 0)
         data = MapData()
         for m in materialize_storm_records(records, self.datastore,

@@ -1587,3 +1587,60 @@ def test_megadoc_lanes_on_the_card_match_the_cpu(cuda):
                     serving.family_rows("map").vseq[[1, 18, 35, 52]]
                     .tolist())
     assert out["cuda"] == out["cpu"]
+
+
+def test_history_fork_into_a_growing_pool_on_the_card(cuda, tmp_path):
+    """History forks without residency on a pipelined storm whose map
+    pool is full: each branch row is allocated past the capacity (the
+    pool grows into new tensors on the card) and written in place. The
+    branches' planes equal the fold's seed planes and the CPU run's,
+    ``read_at`` at every seq equals the CPU run's, and at the head it
+    equals the device row."""
+    from fluidframework_tpu_torch.server.history import HistoryPlane
+
+    docs = [f"d{i}" for i in range(4)]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        root = tmp_path / dev
+        svc, storm, seq, mh = _plane_stack(dev, root, 4)
+        storm.set_pipeline_depth(1)
+        hist = HistoryPlane(storm)
+        ids = {d: svc.connect(d, lambda m: None).client_id for d in docs}
+        svc.pump()
+        for r in range(4):
+            for i, d in enumerate(docs):
+                storm.submit_frame(None, {
+                    "rid": (r, d), "docs": [[d, ids[d], 1 + r * 8, 1, 8]]},
+                    memoryview(_plane_words((r, i), 8).tobytes()))
+            storm.flush(force=False)
+        cap0 = mh._map_capacity
+        forks = [(docs[i % 4], 2 + (7 * i) % 31) for i in range(2 * cap0)]
+        branches = [hist.fork(d, q, name=f"b{i}", writer=f"w{i}")
+                    for i, (d, q) in enumerate(forks)]
+        rec = {"grew": (cap0, mh._map_capacity)}
+        for b, (d, q) in zip(branches, forks):
+            state = hist._state_at(d, q)
+            row = storm._storm_mrow(b).row
+            want = state.planes(mh._xstate.present.shape[1])
+            for f, w in zip(("present", "value", "vseq"), want):
+                assert np.array_equal(
+                    getattr(mh._xstate, f)[row].cpu().numpy(), w), (b, f)
+        for r in range(2):
+            for i, (b, (_d, q)) in enumerate(zip(branches, forks)):
+                storm.submit_frame(None, {
+                    "rid": (r, b),
+                    "docs": [[b, f"w{i}", 1 + r * 8, q, 8]]},
+                    memoryview(_plane_words((9, r, i), 8).tobytes()))
+            storm.flush()
+        for d in docs + branches:
+            head = hist.head_seq(d)
+            reads = [hist.read_at(d, q)["entries"] for q in range(head + 1)]
+            assert reads[-1] == mh.map_entries(d, storm.datastore,
+                                               storm.channel), d
+            rec[d] = reads
+        rec["planes"] = [getattr(mh._xstate, f).cpu().numpy().tolist()
+                         for f in mh._xstate._fields]
+        storm._group_wal.close()
+        out[dev] = rec
+    assert out["cuda"] == out["cpu"]
+    assert out["cuda"]["grew"][1] > out["cuda"]["grew"][0]

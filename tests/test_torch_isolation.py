@@ -48,7 +48,8 @@ def test_importing_every_port_module_loads_no_jax_or_reference():
                  "ops.mergetree_cuda", "ops.mergetree_blocks_cuda",
                  "dds.matrix", "ops.matrix_kernel", "ops.matrix_cuda",
                  "parallel.mesh", "parallel.multihost", "parallel.serving",
-                 "ops.mergetree_sharded"):
+                 "ops.mergetree_sharded", "server.history",
+                 "protocol.summary", "drivers.history_driver"):
         assert f"fluidframework_tpu_torch.{name}" in modules
     assert [m for m in modules if _forbidden(m)] == []
 

@@ -521,8 +521,9 @@ def _epochs(side, root, promote):
     if promote:
         s.mgr.demote(doc)
     s.storm.flush()
-    rec = {"digest": _digest(s, doc), "wal": wal(root)}
-    close(s)
+    rec = {"digest": _digest(s, doc)}
+    close(s)  # the group-commit writer has written every record
+    rec["wal"] = wal(root)
     s2 = build_stack(side, root, lanes=2)
     s2.storm.recover()
     rec["recovered"] = _digest(s2, doc)
@@ -571,8 +572,9 @@ def _join_mid(side, root, promote):
     if promote:
         s.mgr.demote(doc)
     s.storm.flush()
-    rec = {"digest": _digest(s, doc, kinds=True), "wal": wal(root)}
-    close(s)
+    rec = {"digest": _digest(s, doc, kinds=True)}
+    close(s)  # the group-commit writer has written every record
+    rec["wal"] = wal(root)
     s2 = build_stack(side, root, lanes=2)
     s2.storm.recover()
     rec["recovered"] = _digest(s2, doc, kinds=True)
