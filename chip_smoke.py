@@ -21,19 +21,19 @@ equality: every plane is integer), then drives the port's main paths:
   before tick 4; held to the WAL-less run (WAL records == tick blobs,
   planes, acks); then a fresh stack on the card recovers it (the tick-4
   head and the WAL tail replayed through the serving tick), held to the
-  live durable stack, and a client joins 64 docs of both; then one kill
-  (``wal.pre_fsync``) of a chaos-harness serving process on the card,
-  recovered to its twin's digest;
+  live durable stack, and a client joins 64 docs of both (one kill,
+  ``wal.pre_fsync``, of a chaos-harness serving process on the card,
+  recovered to its twin's digest, runs later beside the planes);
 * SharedString text serving: BASELINE.json config 2 (1 doc, 128 clients
   joined through the service, rounds of concurrent inserts and removes
   through their connections, the merger lambda feeding
   ``KernelMergeHost``), and the host at batched width (8,192 docs x 128
-  writers, four flushes of K=32 ops, 64 docs bursting past a block),
+  writers, three flushes of K=32 ops, 64 docs bursting past a block),
   checked against a scalar ``MergeEngine`` replay and a plain-version run;
 * SharedMatrix serving: BASELINE.json config 4 (a 1k x 1k grid, 256
   clients joined through the service writing cells concurrently, with
   rows and cols inserted and removed every fourth round), and the host at
-  batched width (8,192 docs x 256 writers, six flushes of K=32 ops),
+  batched width (8,192 docs x 256 writers, five flushes of K=32 ops),
   checked against a scalar PermutationVector + LWW replay and a
   plain-version run; and the matrix step tick at the reference matrix
   benchmark's step layout (16,384 docs, six ticks of 64 ops), checked
@@ -65,18 +65,29 @@ equality: every plane is integer), then drives the port's main paths:
   its recovery, and ``bench_residency_storm``'s hydration stampede; the
   mega-doc tier at ``bench_megadoc_writers``' widest arm (one doc, 10,000
   writers, promoted onto 8 lanes, against its single-lane twin, over the
-  first 40 of its 157 waves; its text row moved into a 4-shard
+  first 16 of its 157 waves; its text row moved into a 4-shard
   sequence-parallel pool and back) and its recovery; ``MegaDocLanes`` on
-  8,192 docs over 4 virtual shards; one residency and one mega-doc kill
-  of a chaos-harness process, run beside them;
+  8,192 docs over 4 virtual shards; one storm, one residency, one
+  mega-doc, one live-migration and one replication kill of a
+  chaos-harness process (the last one's resumed life promotes a
+  follower), run beside them;
 * the history plane: the reference history benches at their published
   defaults (History H: read latency by depth with and without summaries,
   spill bytes before and after compaction, fork and merge-back with and
   without a residency tier), every read held to a numpy fold and every
   head to the device row; and at config 3's width (History P, on the
-  durable path's recovered stack: 64 docs forked past the pool's 10,240
+  durable path's recovered stack: 16 docs forked past the pool's 10,240
   rows, served, read, compacted, then recovered by a fresh stack that
-  imports the snapshot's branches and replays the ``hp`` fork controls).
+  imports the snapshot's branches and replays the ``hp`` fork controls);
+* the fleet tier: the reference fleet benches (Fleet H: live-migration
+  blackouts under writes, a 2 -> 4 host scale-out converged by
+  ``PlacementController`` with each host served from its own thread at
+  three commit latencies, quorum replication's ack latency with no, one
+  and two followers), every doc held to a numpy fold of its acked
+  frames; and config 3 on a ``StormCluster`` of 4 quorum-replicated hosts
+  (Fleet P: a batch migration of 512 docs with its ``migrating`` and
+  ``moved`` sheds, a host failed over to a promoted follower held to the
+  dead leader, every doc's map held to a numpy fold).
 
 Each phase prints its seconds (``phase <name>: ...``), and a
 ``phase_seconds:`` line lists them all before the device lines.
@@ -115,7 +126,8 @@ the card's busy time and idle share.
     python3 chip_smoke.py --trace-history
 
 runs every phase and check as without flags, and traces the two history
-phases only.
+phases only; ``--trace-fleet`` traces Fleet P's first ticks the same way
+(``--trace`` traces them too).
 """
 
 from __future__ import annotations
@@ -125,6 +137,7 @@ import json
 import pathlib
 import subprocess
 import sys
+import threading
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -145,16 +158,16 @@ K_SEQ = 32
 
 # BASELINE.json config 2 at its published width (1 doc, 128 clients), and
 # the host at the batched width bench.py runs that config at (8,192 docs,
-# K=32 ops per doc per tick, 4 ticks), with 64 docs whose head-concentrated
+# K=32 ops per doc per tick, 3 ticks), with 64 docs whose head-concentrated
 # burst (BURST_K ops, 2 * BURST_K + 2 > Bk) overflows a block mid-tick.
 TEXT_CLIENTS = 128
-TEXT_ROUNDS = 8
+TEXT_ROUNDS = 4
 TEXT_DOCS = 8_192
 TEXT_K = 32
-TEXT_FLUSHES = 4
+TEXT_FLUSHES = 3
 BURST_DOCS = 64
 BURST_K = 120
-BURST_FLUSH = 3
+BURST_FLUSH = 2
 SAMPLE_DOCS = 256
 # The kernel checks' table: S = NB x Bk = 4 x 128, 4 props, 4 overlap words.
 TEXT_NB, TEXT_BK, TEXT_P, TEXT_W = 4, 128, 4, 4
@@ -162,17 +175,17 @@ TEXT_NB, TEXT_BK, TEXT_P, TEXT_W = 4, 128, 4, 4
 # BASELINE.json config 4 at its published width (a 1k x 1k SharedMatrix,
 # 256 clients writing cells concurrently) through the service, and the
 # matrix host at batched width (8,192 docs, 256 writer ids, K=32 ops per
-# doc a flush from a 32 x 32 start, 6 flushes; the cell log starts at 128
+# doc a flush from a 32 x 32 start, 5 flushes; the cell log starts at 128
 # entries so it compacts and grows). The op tick's kernel check runs at
 # (B, K, S, C, W) = (8,192, 32, 256, 1,024, 8), plus a 16-entry cell log
 # that overflows.
 MATRIX_CLIENTS = 256
 MATRIX_GRID = 1024
-MATRIX_ROUNDS = 8
+MATRIX_ROUNDS = 6
 MATRIX_B = 8_192
 MATRIX_K = 32
 MATRIX_START = 32
-MATRIX_FLUSHES = 6
+MATRIX_FLUSHES = 5
 MATRIX_B_CELLS = 128
 MATRIX_S, MATRIX_C, MATRIX_W = 256, 1024, 8
 MATRIX_FULL_C = 16
@@ -1119,38 +1132,6 @@ def durable_path(device, walless: dict, script, then=None) -> dict:
     return out
 
 
-def chaos_smoke(device) -> dict:
-    """One kill on the card: the chaos harness's twin and killed lives
-    serve on ``device``; the killed run must recover to the twin's
-    digest with no acked op lost."""
-    import shutil
-    import tempfile
-
-    from fluidframework_tpu_torch.tools import chaos
-    tmp = tempfile.mkdtemp(prefix="ff-chaos-")
-    try:
-        t0 = time.perf_counter()
-        try:
-            report = chaos.run_chaos(tmp, "wal.pre_fsync", kill_hits=2,
-                                     device=device.type, seed=0, docs=64,
-                                     k=256, ticks=5, cp_every=2,
-                                     timeout=300)
-        except AssertionError as err:
-            fail(f"chaos run on the card: {str(err)[:2000]}")
-        seconds = time.perf_counter() - t0
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-    check(report["killed"] and report["lives"] >= 2,
-          f"the chaos run did not kill and recover: {report['lives']} "
-          "lives")
-    out = {key: report[key] for key in (
-        "kill_point", "kill_hits", "killed", "lives", "acked_rounds",
-        "docs", "k", "ticks", "device")}
-    out["seconds"] = seconds
-    print("chaos_smoke: " + json.dumps(out), flush=True)
-    return out
-
-
 # -- the text kernels against their plain versions -----------------------------
 
 
@@ -1356,24 +1337,31 @@ def clone_args(planes):
     return type(planes)(*(clone_args(t) for t in planes))
 
 
+#: Held by every ``recording`` wrapper around its counters' snapshot, the
+#: call and the diff: hosts served from threads of their own launch at
+#: once, and each call must see only its own launch.
+_RECORD_LOCK = threading.RLock()
+
+
 @contextlib.contextmanager
 def recording(mod, attr: str, kept: dict, counts=None):
     """Wrap the kernel wrapper ``mod.<attr>`` for the duration: each call
     appends a copy of its (tensor or tuple) arguments to ``kept[shape]``,
     the launch shape the wrapper counted it by (``counts.shapes``,
     ``counts`` defaulting to ``mod``). Launches are still counted by the
-    wrapper alone."""
+    wrapper alone. Safe to call from several threads at once."""
     import torch
     inner = getattr(mod, attr)
     counts = mod if counts is None else counts
 
     def wrapped(*args):
         inputs = tuple(clone_args(a) for a in args)
-        seen = dict(counts.shapes)
-        out = inner(*args)
-        for shape, n in counts.shapes.items():
-            if n != seen.get(shape, 0):
-                kept.setdefault(shape, []).append(inputs)
+        with _RECORD_LOCK:
+            seen = dict(counts.shapes)
+            out = inner(*args)
+            for shape, n in counts.shapes.items():
+                if n != seen.get(shape, 0):
+                    kept.setdefault(shape, []).append(inputs)
         return out
     setattr(mod, attr, wrapped)
     try:
@@ -4044,7 +4032,7 @@ STORM_RATE = 200.0
 #: MEGA_WRITERS writers joined through the front door, one frame of K =
 #: MEGA_K ops each, MEGA_LANES lanes, waves of MEGA_WAVE frames in
 #: lane-striped order: the first MEGA_WAVES waves of the reference's 157
-#: (one frame from each of 2,560 writers; a depth cut: every writer
+#: (one frame from each of 1,024 writers; a depth cut: every writer
 #: still joins). MEGA_TEXT_WRITERS of the writers write the doc's
 #: text channel through the service instead, before, during and after
 #: promotion; the merge host's seg_mesh is MEGA_SEG_SHARDS virtual
@@ -4053,7 +4041,7 @@ MEGA_WRITERS = 10_000
 MEGA_K = 8
 MEGA_LANES = 8
 MEGA_WAVE = 64
-MEGA_WAVES = 40
+MEGA_WAVES = 16
 MEGA_TEXT_WRITERS = 8
 MEGA_SEG_SHARDS = 4
 #: Mega L: MegaDocLanes on mixed B's mesh shape (LANES_DOCS docs on
@@ -4571,12 +4559,12 @@ def text_messages(service, doc, from_seq: int) -> list:
 
 
 def mega_arm(device, root: pathlib.Path, promoted: bool,
-             serve_ctx=None) -> dict:
+             serve_ctx=None, after_join=None) -> dict:
     """One arm of Mega A: MEGA_WRITERS writers join one doc, text round 0,
     a checkpoint, (promotion onto MEGA_LANES lanes), the waves of map
     frames, text round 1, (demotion), text round 2. The single-lane
     arm attaches no manager. ``serve_ctx`` wraps the waves (the
-    trace)."""
+    trace); ``after_join`` is called once the joins are done."""
     import random
 
     import numpy as np
@@ -4631,6 +4619,8 @@ def mega_arm(device, root: pathlib.Path, promoted: bool,
             service.pump()
     service.pump()
     t_join = time.perf_counter() - t0
+    if after_join is not None:
+        after_join()
     clients = [c.client_id for c in conns]
     rng = random.Random(5)
     length = [0]
@@ -4776,12 +4766,14 @@ def text_cpu_twin(run: dict, promoted: bool) -> None:
                           "!= its CPU twin")
 
 
-def mega_path_a(device, root: pathlib.Path) -> dict:
+def mega_path_a(device, root: pathlib.Path, after_join=None) -> dict:
     """Mega A (see MEGA_*): the promoted arm and the single-lane twin on
     the card, held to each other (converged map, every ack's doc-space
     quad, the demoted row's planes) and to a numpy fold in doc-seq order;
     the text channel held to the twin while promoted and to a CPU twin
-    throughout; then a fresh stack recovers the promoted arm."""
+    throughout; then a fresh stack recovers the promoted arm.
+    ``after_join`` runs after the promoted arm's joins, before anything
+    of it is timed."""
     import numpy as np
 
     from fluidframework_tpu_torch.server.megadoc import MegaDocManager
@@ -4790,7 +4782,8 @@ def mega_path_a(device, root: pathlib.Path) -> dict:
     kept: dict = {}
     launch_counts_reset()
     with plane_recording(kept):
-        mega = mega_arm(device, root / "mega", promoted=True)
+        mega = mega_arm(device, root / "mega", promoted=True,
+                        after_join=after_join)
     counts = launch_counts()
     twin_kept: dict = {}
     launch_counts_reset()
@@ -4981,16 +4974,26 @@ def mega_lanes_path(device) -> dict:
 
 
 PLANE_CHAOS = (
+    ("storm", "wal.pre_fsync", 2,
+     dict(seed=0, docs=64, k=256, ticks=5, cp_every=2)),
     ("residency", "residency.mid_evict", 1,
      dict(seed=0, docs=3, k=8, ticks=5, cp_every=2, residency=2)),
     ("megadoc", "megadoc.mid_combine", 3,
-     dict(seed=0, docs=1, k=8, ticks=4, cp_every=2, megadoc=2)))
+     dict(seed=0, docs=1, k=8, ticks=4, cp_every=2, megadoc=2)),
+    ("cluster", "placement.post_evict", 1,
+     dict(seed=0, docs=2, k=8, ticks=5, cp_every=2, cluster=True,
+          migrate_at=2)),
+    ("replication", "repl.post_ship", 2,
+     dict(seed=0, docs=2, k=8, ticks=6, cp_every=2, replication=True,
+          migrate_at=3)))
 
 
 def plane_chaos_start(device) -> list:
-    """Start one ``residency.mid_evict`` and one ``megadoc.mid_combine``
-    kill of a chaos-harness serving process on the card (the reference
-    suite's smoke configurations), each in a thread of its own: their
+    """Start the ``PLANE_CHAOS`` kills of a chaos-harness serving process
+    on the card (a torn group commit of the storm at 64 docs x K 256, and
+    the reference suite's smoke configurations: residency, mega-doc,
+    cluster migration, replication with a promoted follower), each in a
+    thread of its own: their
     child processes run beside mega A's promoted-arm joins, which are
     set-up and not timed as a rate. ``plane_chaos_finish`` joins them."""
     import tempfile
@@ -5035,20 +5038,32 @@ def plane_chaos_finish(runs: list) -> dict:
               f"the {name} chaos run acked {report['acked_rounds']}")
         out[name] = {key: report[key] for key in (
             "kill_point", "kill_hits", "killed", "lives", "acked_rounds")}
+        if run["cfg"].get("replication"):
+            # Each resumed life promoted a follower (run_chaos holds their
+            # count to the lives).
+            out[name]["failover_blackouts_ms"] = \
+                report["failover_blackouts_ms"]
         out[name]["seconds"] = run["seconds"]
     print("plane_chaos: " + json.dumps(out), flush=True)
     return out
 
 
 def planes_path(device) -> dict:
-    """Residency A, R and S, Mega A and L, and the two chaos kills
-    (beside mega A's first joins: after every residency clock), in temp
-    dirs of the machine deleted after."""
+    """Residency A, R and S, Mega A and L, and the five chaos kills
+    (beside mega A's promoted-arm joins: after every residency clock, and
+    joined before mega A's first timed wave), in temp dirs of the machine
+    deleted after."""
     import shutil
     import tempfile
     root = pathlib.Path(tempfile.mkdtemp(prefix="ff-planes-"))
     out = {}
     chaos_runs = []
+    waited = {}
+
+    def join_chaos():
+        t0 = time.perf_counter()
+        out["chaos"] = plane_chaos_finish(chaos_runs)
+        waited["s"] = time.perf_counter() - t0
     try:
         t = time.perf_counter()
         out["res_a"] = residency_path_a(device, root / "a")
@@ -5057,13 +5072,14 @@ def planes_path(device) -> dict:
         out["res_s"] = residency_path_s(device, root / "s")
         t_res = time.perf_counter()
         chaos_runs = plane_chaos_start(device)
-        out["mega_a"] = mega_path_a(device, root / "mega")
+        out["mega_a"] = mega_path_a(device, root / "mega",
+                                    after_join=join_chaos)
+        check("chaos" in out, "mega A did not join the plane chaos kills")
         out["mega_l"] = mega_lanes_path(device)
-        t_mega = time.perf_counter()
-        out["chaos"] = plane_chaos_finish(chaos_runs)
         print(f"phase times: residency {t_res - t:.1f} s, mega-doc "
-              f"{t_mega - t_res:.1f} s, plane chaos (beside mega A) "
-              f"{time.perf_counter() - t_mega:.1f} s more", flush=True)
+              f"{time.perf_counter() - t_res:.1f} s, of which waiting for "
+              f"the plane chaos after mega A's joins {waited['s']:.1f} s",
+              flush=True)
     finally:
         for run in chaos_runs:
             run["thread"].join()
@@ -5124,13 +5140,13 @@ HIST_BRANCH_ROUNDS = 4
 #: of its docs forked at their tick-DURABLE_HEAD_TICK seq (half before a
 #: checkpoint, half after, so recovery imports the snapshot's ``history``
 #: field and replays ``hp`` fork controls), HIST_P_TICKS ticks of K_MAP
-#: ops to every parent and branch, ``read_at`` at 4 seqs of each, then
+#: ops to every parent and branch, one ``read_at`` of each, then
 #: the parents compacted (retention 0) and a fresh stack recovered. The
 #: cadence checks every HIST_P_CHECK_EVERY flushes (about twice in the
 #: phase: a pass reads every doc's summary head) with a
 #: HIST_P_INTERVAL_OPS summary interval, which every served doc passes, so
 #: each pass compacts 8 docs from the front of the index.
-HIST_P_FORKS = 64
+HIST_P_FORKS = 16
 HIST_P_TICKS = 2
 HIST_P_INTERVAL_OPS = 4 * K_MAP
 HIST_P_CHECK_EVERY = 32
@@ -5603,15 +5619,15 @@ def history_path_p(device, ctx: dict, trace: bool = False) -> dict:
         fork(half, HIST_P_FORKS)
         for t in range(1, HIST_P_TICKS):
             tick(t)
-        # Each parent at 4 seqs, each branch at 4 (below its fork seq a
-        # branch read delegates to its parent).
+        # One read a doc (a depth cut from 4, PERF.md §4), alternating
+        # between the pairs: the parent at its fork seq and the branch at
+        # its head, or the parent at its head and the branch just below
+        # its fork seq (where a branch read delegates to its parent).
         reads = []
-        for p in parents:
+        for i, p in enumerate(parents):
             q, b = fork_seq[p], branches[p]
-            reads += [(p, s) for s in (q - K_MAP // 2, q,
-                                       hist.head_seq(p) - 1,
-                                       hist.head_seq(p))]
-            reads += [(b, s) for s in (q - 1, q, q + 1, hist.head_seq(b))]
+            reads += ([(p, q), (b, hist.head_seq(b))] if i % 2 == 0
+                      else [(p, hist.head_seq(p)), (b, q - 1)])
         t0 = time.perf_counter()
         before = read_all(hist)
         secs["reads"] = time.perf_counter() - t0
@@ -5656,15 +5672,15 @@ def history_path_p(device, ctx: dict, trace: bool = False) -> dict:
               and rows_equal(live_rows[b], np_fold(batches[b], 1 << 40,
                                                    s_live, base=seed)),
               f"history P: the rows of {p} or {b} != the folds")
-        for doc, s in reads[8 * i:8 * i + 8]:
+        for doc, s in reads[2 * i:2 * i + 2]:
             want = (np_fold(batches[p], s, s_live) if doc == p or s < q
                     else np_fold(batches[b], s, s_live, base=seed))
             check(before[(doc, s)] == fold_entries(want),
                   f"history P: read_at({doc}, {s}) != the numpy fold")
-        check(before[(p, hist.head_seq(p))] == fold_entries(live_rows[p])
-              and before[(b, hist.head_seq(b))]
-              == fold_entries(live_rows[b]),
-              f"history P: the head reads of {p} != the device rows")
+            if s == hist.head_seq(doc):
+                check(before[(doc, s)] == fold_entries(live_rows[doc]),
+                      f"history P: the head read of {doc} != its device "
+                      "row")
     # After compaction with retention 0 a parent serves its head alone:
     # reads below it raise, on the parent and through its branches.
     after = read_all(hist)
@@ -5758,6 +5774,733 @@ def trace_history(device) -> dict:
     return out
 
 
+# -- the fleet tier (live placement, migration, quorum replication) ------------
+
+#: Fleet H: the reference fleet benches (``bench.py``) at their published
+#: defaults, but bench_cluster_scaling's serve windows (FLEET_SCALE_S for
+#: 6.0 s, FLEET_SCALE_WARM_S for the 1.0 s warm-ups): bench_cluster_migration
+#: (2 hosts, FLEET_MIGRATE_DOCS docs, K FLEET_K, FLEET_MIGRATIONS live
+#: migrations under round-robin writes), bench_cluster_scaling (4 hosts,
+#: genesis active on 2, FLEET_SCALE_DOCS docs, commit latency arms
+#: FLEET_COMMIT_MS, each host served from its own thread), and
+#: bench_replication_overhead (FLEET_REPL_DOCS docs, FLEET_REPL_ROUNDS
+#: rounds after FLEET_REPL_WARM, pipeline depth FLEET_REPL_DEPTH, arms OFF,
+#: F=1 and F=2).
+FLEET_K = 64
+FLEET_MIGRATE_DOCS = 6
+FLEET_MIGRATIONS = 12
+FLEET_SCALE_DOCS = 16
+FLEET_SCALE_S = 1.0
+FLEET_SCALE_WARM_S = 0.25
+FLEET_COMMIT_MS = (0.0, 10.0, 80.0)
+FLEET_REPL_DOCS = 4
+FLEET_REPL_ROUNDS = 250
+FLEET_REPL_WARM = 25
+FLEET_REPL_DEPTH = 2
+#: Fleet P: config 3 (DOCS x CLIENTS, KEY_SLOTS, K_MAP) on a StormCluster
+#: of FLEET_HOSTS, each a replicated host over FLEET_FOLLOWERS in-process
+#: followers (majority quorum), over one shared snapshot store: the joins
+#: and a checkpoint, FLEET_P_TICKS ticks of one frame per doc, a
+#: migrate_batch of FLEET_P_MOVES of h0's docs over the other hosts (the
+#: first FLEET_P_PROBES of them probed during it), FLEET_P_AFTER ticks
+#: (the first sends the moved docs' frames to h0, which redirects them),
+#: h1 failed over to a promoted follower, FLEET_P_PROMOTED ticks. Every
+#: doc's map is held to a numpy fold; the hosts' catch-up records of
+#: FLEET_P_SPAN moved docs and as many others are held to their acked ops,
+#: and ``cluster.get_deltas`` materialized for FLEET_P_READS of each.
+FLEET_HOSTS = ("h0", "h1", "h2", "h3")
+FLEET_FOLLOWERS = 2
+FLEET_P_TICKS = 4
+FLEET_P_MOVES = 512
+FLEET_P_PROBES = 64
+FLEET_P_AFTER = 2
+FLEET_P_PROMOTED = 1
+FLEET_P_SPAN = 512
+FLEET_P_READS = 16
+
+
+def doc_seed(doc: str) -> int:
+    import zlib
+    return zlib.crc32(doc.encode()) & 0x7FFFFFFF
+
+
+def acked_entries(batches) -> dict:
+    """The numpy fold of one doc's acked frames, in order."""
+    import numpy as np
+    words = np.concatenate(batches) if batches else np.zeros(0, np.uint32)
+    return fold_entries(np_fold([(words, np.arange(len(words)))],
+                                len(words), KEY_SLOTS))
+
+
+def check_deltas(cluster, doc: str, joins: int, ops: int, what: str,
+                 joins_kept: bool = True) -> None:
+    """``cluster.get_deltas(doc, 0)``: seq-contiguous, the ``ops``
+    sequenced ops right after the ``joins`` joins (a promoted host keeps
+    no join rows: they live in the dead leader's bus tier)."""
+    from fluidframework_tpu_torch.protocol.messages import MessageType
+    msgs = cluster.get_deltas(doc, 0)
+    seqs = [m.sequence_number for m in msgs]
+    op_seqs = [m.sequence_number for m in msgs
+               if m.type == MessageType.OPERATION]
+    want = list(range(1 if joins_kept else joins + 1, joins + ops + 1))
+    check(seqs == want and op_seqs == list(range(joins + 1,
+                                                 joins + ops + 1)),
+          f"{what}: get_deltas({doc}, 0) holds {len(seqs)} seqs "
+          f"({seqs[:3]}..{seqs[-3:]}), want {want[0]}..{want[-1]}")
+
+
+def fleet_cluster(device, root: pathlib.Path, labels, active, num_docs,
+                  **storm_kw):
+    """The reference benches' ``_cluster_build`` on the card."""
+    from fluidframework_tpu_torch.parallel.placement import (
+        StormCluster, make_cluster_host)
+    from fluidframework_tpu_torch.server.durable_store import \
+        GitSnapshotStore
+    git = GitSnapshotStore(root / "git")
+    hosts = {label: make_cluster_host(label, str(root / label), git,
+                                      num_docs=num_docs, device=device,
+                                      **storm_kw)
+             for label in labels}
+    return StormCluster(hosts, git, active=active)
+
+
+def fleet_assign(cluster, docs, labels) -> None:
+    """Round-robin ownership (the reference benches' even split)."""
+    for i, d in enumerate(docs):
+        cluster.directory.owners[d] = labels[i % len(labels)]
+    cluster.directory._save()
+
+
+def fleet_connect(cluster, docs) -> dict:
+    clients = {}
+    for d in docs:
+        storm = cluster.storm_for(d)
+        clients[d] = storm.service.connect(d, lambda m: None).client_id
+        storm.service.pump()
+    return clients
+
+
+class FleetDocs:
+    """Acked frames per doc, for the fold and the catch-up checks."""
+
+    def __init__(self, docs):
+        self.cseq = {d: 1 for d in docs}
+        self.acked: dict = {d: [] for d in docs}
+
+    def submit(self, storm, d, client, words, rid) -> bool:
+        acks: list = []
+        storm.submit_frame(
+            acks.append,
+            {"rid": rid, "docs": [[d, client, self.cseq[d], 1,
+                                   len(words)]]},
+            memoryview(words.tobytes()))
+        storm.flush()
+        if acks and not acks[0].get("error"):
+            self.acked[d].append(words)
+            self.cseq[d] += len(words)
+            return True
+        return False
+
+    def check(self, cluster, what: str, deltas=None) -> None:
+        """Every doc's map == the fold of its acked frames; ``deltas``
+        of them hold the join and every acked op, seq-contiguous."""
+        for d, batches in self.acked.items():
+            storm = cluster.storm_for(d)
+            storm.residency.ensure_resident(d, gate=False)
+            got = storm.merge_host.map_entries(d, storm.datastore,
+                                               storm.channel)
+            check(got == acked_entries(batches),
+                  f"{what}: the map of {d} != the fold of its acked frames")
+        for d in (self.acked if deltas is None else deltas):
+            check_deltas(cluster, d, 1,
+                         sum(len(b) for b in self.acked[d]), what)
+
+
+def fleet_migration(device, root: pathlib.Path) -> dict:
+    """bench_cluster_migration on the card: blackout (freeze -> flip) and
+    freeze -> first ack at the new owner, per migration."""
+    import numpy as np
+    labels = ["h0", "h1"]
+    cluster = fleet_cluster(device, root, labels, labels,
+                            FLEET_MIGRATE_DOCS)
+    docs = [f"doc-{i}" for i in range(FLEET_MIGRATE_DOCS)]
+    fleet_assign(cluster, docs, labels)
+    clients = fleet_connect(cluster, docs)
+    book = FleetDocs(docs)
+
+    def serve_round(r):
+        for d in docs:
+            book.submit(cluster.storm_for(d), d, clients[d],
+                        hist_words(doc_seed(d), r, FLEET_K), r)
+
+    for r in range(3):
+        serve_round(r)
+    cluster.migrate(docs[0], "h1" if cluster.owner_of(docs[0]) == "h0"
+                    else "h0")
+    cluster.blackouts_s.clear()
+    resume_ms = []
+    for m in range(FLEET_MIGRATIONS):
+        serve_round(100 + m)
+        doc = docs[m % len(docs)]
+        dst = next(h for h in labels if h != cluster.owner_of(doc))
+        t0 = time.perf_counter()
+        cluster.migrate(doc, dst)
+        ok = book.submit(cluster.hosts[dst], doc, clients[doc],
+                         hist_words(m, 7, FLEET_K), f"resume-{m}")
+        check(ok, f"fleet H migration: the first frame at {dst} after "
+              f"migration {m} did not ack")
+        resume_ms.append(1e3 * (time.perf_counter() - t0))
+    book.check(cluster, "fleet H migration")
+    blk = np.asarray(cluster.blackouts_s) * 1e3
+    for storm in cluster.hosts.values():
+        storm._group_wal.close()
+    return {"migrations": FLEET_MIGRATIONS, "docs": len(docs), "k": FLEET_K,
+            "blackout_ms_p50": float(np.percentile(blk, 50)),
+            "blackout_ms_p99": float(np.percentile(blk, 99)),
+            "blackout_ms_max": float(blk.max()),
+            "freeze_to_first_ack_ms_p50": float(np.percentile(resume_ms,
+                                                              50)),
+            "freeze_to_first_ack_ms_p99": float(np.percentile(resume_ms,
+                                                              99))}
+
+
+def fleet_serve_timed(cluster, clients, book, duration_s, active, r0):
+    """Each active host serves its owned docs from its own thread, one
+    durable frame at a time (the reference ``_cluster_serve_timed``).
+    Returns (acked ops, per-host acked ops, seconds)."""
+    import threading
+    owned = {label: [d for d in clients if cluster.owner_of(d) == label]
+             for label in active}
+    acked = {label: 0 for label in active}
+    errors: list = []
+    start = time.perf_counter()
+
+    def run(label):
+        try:
+            storm = cluster.hosts[label]
+            r = r0
+            while owned[label] and \
+                    time.perf_counter() - start < duration_s:
+                for d in owned[label]:
+                    if book.submit(storm, d, clients[d],
+                                   hist_words(doc_seed(d), r, FLEET_K),
+                                   r):
+                        acked[label] += FLEET_K
+                r += 1
+        except Exception as err:  # reported below, on the main thread
+            errors.append(f"{label}: {type(err).__name__}: {err}")
+    threads = [threading.Thread(target=run, args=(label,))
+               for label in active]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    check(not errors, f"fleet H scaling: a serving thread failed: {errors}")
+    return sum(acked.values()), acked, time.perf_counter() - start
+
+
+def fleet_scaling(device, root: pathlib.Path) -> dict:
+    """bench_cluster_scaling on the card: ops/s on 2 hosts, activation of
+    2 more, convergence through PlacementController, ops/s on 4 hosts, per
+    commit-latency arm."""
+    from fluidframework_tpu_torch.parallel.placement import \
+        PlacementController
+    labels = ["h0", "h1", "h2", "h3"]
+    arms = {}
+    for latency_ms in FLEET_COMMIT_MS:
+        cluster = fleet_cluster(
+            device, root / f"arm{latency_ms:g}", labels, labels[:2],
+            FLEET_SCALE_DOCS, wal_commit_latency_s=latency_ms / 1e3)
+        docs = [f"doc-{i}" for i in range(FLEET_SCALE_DOCS)]
+        fleet_assign(cluster, docs, labels[:2])
+        clients = fleet_connect(cluster, docs)
+        book = FleetDocs(docs)
+        fleet_serve_timed(cluster, clients, book, FLEET_SCALE_WARM_S,
+                          labels[:2], 0)
+        ops2, per2, t2 = fleet_serve_timed(cluster, clients, book,
+                                           FLEET_SCALE_S, labels[:2], 1000)
+        cluster.activate_host("h2")
+        cluster.activate_host("h3")
+        rebalance = PlacementController(cluster,
+                                        max_moves_per_round=8).rebalance()
+        check(rebalance["converged"] and set(
+            rebalance["docs_per_host"]) == set(labels),
+            f"fleet H scaling: the rebalance did not converge {rebalance}")
+        fleet_serve_timed(cluster, clients, book, FLEET_SCALE_WARM_S,
+                          labels, 2000)
+        ops4, per4, t4 = fleet_serve_timed(cluster, clients, book,
+                                           FLEET_SCALE_S, labels, 3000)
+        book.check(cluster, f"fleet H scaling, {latency_ms:g} ms")
+        for storm in cluster.hosts.values():
+            storm._group_wal.close()
+        name = ("local_disk" if latency_ms == 0
+                else f"commit_{latency_ms:g}ms")
+        arms[name] = {
+            "ops_per_s_2_hosts": ops2 / t2, "ops_per_s_4_hosts": ops4 / t4,
+            "scaling_2_to_4": (ops4 / t4) / max(ops2 / t2, 1e-9),
+            "per_host_acked_2": per2, "per_host_acked_4": per4,
+            "convergence_s": rebalance["elapsed_s"],
+            "migrations": rebalance["moves"],
+            "docs_per_host_after": rebalance["docs_per_host"]}
+    return {"docs": FLEET_SCALE_DOCS, "k": FLEET_K,
+            "duration_s": FLEET_SCALE_S, "warmup_s": FLEET_SCALE_WARM_S,
+            "arms": arms}
+
+
+def fleet_replication(device, root: pathlib.Path) -> dict:
+    """bench_replication_overhead on the card: per-frame ack latency
+    (submit -> ack, gated on min(durable, replicated)) and acked ops/s
+    with no replication, F=1 and F=2 followers."""
+    import numpy as np
+
+    from fluidframework_tpu_torch.parallel.placement import \
+        make_cluster_host
+    from fluidframework_tpu_torch.server.durable_store import \
+        GitSnapshotStore
+    from fluidframework_tpu_torch.server.replication import \
+        make_replicated_host
+    arms = {}
+    for followers in (0, 1, 2):
+        base = root / f"f{followers}"
+        git = GitSnapshotStore(base / "git")
+        plane = None
+        kw = dict(num_docs=FLEET_REPL_DOCS, device=device,
+                  pipeline_depth=FLEET_REPL_DEPTH)
+        if followers:
+            storm, plane = make_replicated_host(
+                "hostA", str(base / "hostA"), git,
+                [str(base / f"f{i}") for i in range(followers)], **kw)
+        else:
+            storm = make_cluster_host("hostA", str(base / "hostA"), git,
+                                      **kw)
+        docs = [f"doc-{i}" for i in range(FLEET_REPL_DOCS)]
+        clients = {d: storm.service.connect(d, lambda m: None).client_id
+                   for d in docs}
+        storm.service.pump()
+        cseq = {d: 1 for d in docs}
+        sent: dict = {d: [] for d in docs}
+        lat: list = []
+        errors: list = []
+
+        def serve(n):
+            for r in range(n):
+                for i, d in enumerate(docs):
+                    words = hist_words(r, i, FLEET_K)
+                    t0 = time.perf_counter()
+
+                    def push(p, t0=t0):
+                        lat.append(time.perf_counter() - t0)
+                        if p.get("error"):
+                            errors.append(p)
+                    storm.submit_frame(
+                        push, {"rid": (r, d), "docs": [[
+                            d, clients[d], cseq[d], 1, FLEET_K]]},
+                        memoryview(words.tobytes()))
+                    sent[d].append(words)
+                    cseq[d] += FLEET_K
+            storm.flush()
+
+        serve(FLEET_REPL_WARM)
+        lat.clear()
+        start = time.perf_counter()
+        serve(FLEET_REPL_ROUNDS)
+        elapsed = time.perf_counter() - start
+        check(not errors and len(lat) == FLEET_REPL_ROUNDS * len(docs),
+              f"fleet H replication F={followers}: {len(lat)} acks, "
+              f"{len(errors)} errors")
+        for d in docs:
+            check(storm.merge_host.map_entries(d, storm.datastore,
+                                               storm.channel)
+                  == acked_entries(sent[d]),
+                  f"fleet H replication F={followers}: the map of {d} != "
+                  "the fold of its frames")
+        arm = {"followers": followers,
+               "acks_required": plane.acks_required if plane else None,
+               "ack_ms_p50": 1e3 * float(np.percentile(lat, 50)),
+               "ack_ms_p99": 1e3 * float(np.percentile(lat, 99)),
+               "acked_ops_per_s": len(lat) * FLEET_K / elapsed,
+               "frames": len(lat)}
+        if plane is not None:
+            check(plane.replicated_len == storm._group_wal.durable_len,
+                  f"fleet H replication F={followers}: replicated "
+                  f"{plane.replicated_len} != durable "
+                  f"{storm._group_wal.durable_len}")
+            arm["replicated_len"] = plane.replicated_len
+            arm["batches_shipped"] = plane.stats["batches_shipped"]
+            arm["ship_failures"] = plane.stats["ship_failures"]
+        storm._group_wal.close()
+        arms["off" if not followers else f"f{followers}"] = arm
+    return {"docs": FLEET_REPL_DOCS, "k": FLEET_K,
+            "rounds": FLEET_REPL_ROUNDS, "pipeline_depth": FLEET_REPL_DEPTH,
+            "arms": arms,
+            "ack_p99_f1_over_off": arms["f1"]["ack_ms_p99"]
+            / arms["off"]["ack_ms_p99"],
+            "ack_p99_f2_over_off": arms["f2"]["ack_ms_p99"]
+            / arms["off"]["ack_ms_p99"]}
+
+
+def fleet_path_h(device) -> dict:
+    """Fleet H: the three reference fleet benches on the card, under the
+    thread-safe recording wrappers (every kernel 1 and 2 call kept)."""
+    import shutil
+    import tempfile
+    root = pathlib.Path(tempfile.mkdtemp(prefix="ff-fleet-h-"))
+    kept: dict = {}
+    secs: dict = {}
+    try:
+        launch_counts_reset()
+        with plane_recording(kept):
+            t0 = time.perf_counter()
+            out = {"migration": fleet_migration(device, root / "mig")}
+            secs["migration"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            out["scaling"] = fleet_scaling(device, root / "scale")
+            secs["scaling"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            out["replication"] = fleet_replication(device, root / "repl")
+            secs["replication"] = time.perf_counter() - t0
+        counts = launch_counts()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    check(counts["map_fold"] > 0 and counts["sequencer_tick"] > 0,
+          "fleet H launched no map fold or no deli")
+    out["seconds"] = secs
+    out["launches"] = {k: counts[k] for k in ("map_fold", "sequencer_tick")}
+    print("fleet_h: " + json.dumps(out), flush=True)
+    return {"out": out, "counts": counts, "kept": kept}
+
+
+def fleet_p_words(t: int):
+    """Tick ``t``'s words for every doc, config 3's mix (10% clears, 20%
+    deletes, sets on KEY_SLOTS keys): u32[DOCS, K_MAP]."""
+    import numpy as np
+    rng = np.random.default_rng([11, t])
+    r = rng.random((DOCS, K_MAP))
+    kinds = np.where(r < 0.1, 2, np.where(r < 0.3, 1, 0)).astype(np.uint32)
+    slots = rng.integers(0, KEY_SLOTS, (DOCS, K_MAP)).astype(np.uint32)
+    vals = rng.integers(0, 1 << 20, (DOCS, K_MAP)).astype(np.uint32)
+    return kinds | (slots << 2) | (vals << 12)
+
+
+def fleet_fold(ticks: int):
+    """The numpy LWW fold of every doc's words over ``ticks`` ticks, in
+    seq order: (present bool[DOCS, S], value i32[DOCS, S])."""
+    import numpy as np
+    present = np.zeros((DOCS, KEY_SLOTS), bool)
+    value = np.zeros((DOCS, KEY_SLOTS), np.int32)
+    rows = np.arange(DOCS)
+    for t in range(ticks):
+        words = fleet_p_words(t)
+        kind, slot = words & 3, (words >> 2) & 0x3FF
+        val = (words >> 12).astype(np.int32)
+        for j in range(K_MAP):
+            k, s = kind[:, j], slot[:, j]
+            present[k == 2] = False
+            sets, dels = rows[k == 0], rows[k == 1]
+            present[sets, s[sets]] = True
+            value[sets, s[sets]] = val[sets, j]
+            present[dels, s[dels]] = False
+    return present, value
+
+
+def fleet_path_p(device, trace: bool = False) -> dict:
+    """Fleet P (see FLEET_P_*): config 3 on a 4-host replicated cluster,
+    under the recording wrappers: joins, ticks, a batch migration with
+    its ``migrating`` and ``moved`` sheds, a failover of h1 to a promoted
+    follower, and a tick through it; every doc held to a numpy fold, the
+    promoted host to the dead leader. With ``trace`` the first ticks run
+    under ``torch.profiler``."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from fluidframework_tpu_torch.parallel.placement import StormCluster
+    from fluidframework_tpu_torch.server.durable_store import \
+        GitSnapshotStore
+    from fluidframework_tpu_torch.server.replication import (
+        ReplicatedHeadStore, make_replicated_host, promote)
+    root = pathlib.Path(tempfile.mkdtemp(prefix="ff-fleet-p-"))
+    kept: dict = {}
+    secs: dict = {}
+    out: dict = {}
+    storm_kw = dict(num_docs=DOCS // len(FLEET_HOSTS), device=device,
+                    flush_threshold_docs=10**9, max_key_slots=KEY_SLOTS,
+                    pipeline_depth=1)
+    prof = None
+    ctx_trace = contextlib.nullcontext()
+    if trace:
+        from torch.profiler import ProfilerActivity, profile
+        prof = ctx_trace = profile(activities=[ProfilerActivity.CPU,
+                                               ProfilerActivity.CUDA])
+    total = FLEET_P_TICKS + FLEET_P_AFTER + FLEET_P_PROMOTED
+    try:
+        t_all = time.perf_counter()
+        launch_counts_reset()
+        with plane_recording(kept):
+            git = GitSnapshotStore(root / "git")
+            hosts, planes = {}, {}
+            for label in FLEET_HOSTS:
+                hosts[label], planes[label] = make_replicated_host(
+                    label, str(root / label), git,
+                    [str(root / f"{label}-f{i}")
+                     for i in range(FLEET_FOLLOWERS)], **storm_kw)
+            # The directory's head flips ride h0's quorum (h1 fails over).
+            cluster = StormCluster(hosts,
+                                   ReplicatedHeadStore(git, planes["h0"]))
+            names = [f"doc{d}" for d in range(DOCS)]
+            owner0 = {n: cluster.owner_of(n) for n in names}
+            t0 = time.perf_counter()
+            ids = {n: [hosts[owner0[n]].service.connect(
+                n, lambda m: None).client_id for _ in range(CLIENTS)]
+                for n in names}
+            for storm in hosts.values():
+                storm.service.pump()
+            torch.cuda.synchronize()
+            secs["joins"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            for storm in hosts.values():
+                storm.checkpoint()
+            secs["checkpoint"] = time.perf_counter() - t0
+            acked = np.zeros((DOCS, total), bool)
+            lat: list = []
+            shipped: list = []
+
+            def tick(t, route=None):
+                """One frame per doc, to ``route(name)`` (default: its
+                owner); every frame must ack."""
+                words = fleet_p_words(t)
+                c = t % CLIENTS
+                cseq0, ref = 1 + (t // CLIENTS) * K_MAP, CLIENTS + t * K_MAP
+                wal0 = {lb: len(cluster.hosts[lb]._blob_log)
+                        for lb in FLEET_HOSTS}
+                t_tick = time.perf_counter()
+                for d, n in enumerate(names):
+                    hdr = {"rid": (t, d), "docs": [[n, ids[n][c], cseq0,
+                                                    ref, K_MAP]]}
+                    storm = (route or cluster.storm_for)(n)
+                    t_sub = time.perf_counter()
+
+                    def push(p, d=d, t_sub=t_sub):
+                        if p.get("error") is None:
+                            acked[d, t] = True
+                            lat.append(time.perf_counter() - t_sub)
+                    storm.submit_frame(push, hdr,
+                                       memoryview(words[d].tobytes()))
+                for storm in cluster.hosts.values():
+                    storm.flush()
+                torch.cuda.synchronize()
+                check(acked[:, t].all(), f"fleet P: tick {t} acked "
+                      f"{int(acked[:, t].sum())} of {DOCS} frames")
+                shipped.append(FLEET_FOLLOWERS * sum(
+                    len(cluster.hosts[lb]._blob_log.read(i))
+                    for lb in FLEET_HOSTS
+                    for i in range(wal0[lb],
+                                   len(cluster.hosts[lb]._blob_log))))
+                return time.perf_counter() - t_tick
+
+            with ctx_trace:
+                t0 = time.perf_counter()
+                secs["ticks"] = [tick(t) for t in range(FLEET_P_TICKS)]
+                wall_trace = time.perf_counter() - t0
+            ledger = [r["wal_commit_wait"] / 1e6 for storm in hosts.values()
+                      for r in storm.ledger.records()]
+            out["ack_ms"] = {"p50": 1e3 * float(np.percentile(lat, 50)),
+                             "p99": 1e3 * float(np.percentile(lat, 99))}
+            out["commit_wait_ms_p50"] = float(np.percentile(ledger, 50))
+            # The batch: FLEET_P_MOVES of h0's docs, cheapest first, over
+            # h1-h3; frames to them during it shed "migrating".
+            moving = cluster.owned("h0")[:FLEET_P_MOVES]
+            moves = [(n, FLEET_HOSTS[1 + i % 3])
+                     for i, n in enumerate(moving)]
+            moved_to = dict(moves)
+            t_next = FLEET_P_TICKS
+            probes = fleet_p_words(t_next)
+            probe_nacks: list = []
+
+            def on_phase(phase):
+                if phase != "frozen":
+                    return
+                for n in moving[:FLEET_P_PROBES]:
+                    d = names.index(n)
+                    for label in ("h0", moved_to[n]):
+                        cluster.hosts[label].submit_frame(
+                            probe_nacks.append,
+                            {"rid": ("probe", d), "docs": [[
+                                n, ids[n][t_next % CLIENTS],
+                                1 + (t_next // CLIENTS) * K_MAP,
+                                CLIENTS + t_next * K_MAP, K_MAP]]},
+                            memoryview(probes[d].tobytes()))
+            t0 = time.perf_counter()
+            batch = cluster.migrate_batch(moves, on_phase=on_phase)
+            secs["batch"] = time.perf_counter() - t0
+            check(batch["moved"] == FLEET_P_MOVES and not batch["aborted"]
+                  and batch["directory_writes"] == 2,
+                  f"fleet P: the batch {batch}")
+            check(len(probe_nacks) == 2 * FLEET_P_PROBES and all(
+                p.get("error") == "migrating" and p["retry_after_s"] > 0
+                for p in probe_nacks),
+                "fleet P: frames to migrating docs did not shed "
+                "'migrating'")
+            out["batch"] = {"moved": batch["moved"],
+                            "directory_writes": batch["directory_writes"],
+                            "blackout_ms": 1e3 * batch["blackout_s"]}
+            # The first tick after it: the moved docs' clients still send
+            # to h0, which sheds "moved" naming the owner; they redial.
+            redirects: list = []
+
+            def stale(n):
+                if n not in moved_to:
+                    return cluster.storm_for(n)
+                return Redial(n)
+
+            class Redial:
+                def __init__(self, n):
+                    self.n = n
+
+                def submit_frame(self, push, hdr, payload):
+                    nacks: list = []
+                    cluster.hosts["h0"].submit_frame(nacks.append, hdr,
+                                                     payload)
+                    check(len(nacks) == 1 and nacks[0]["error"] == "moved"
+                          and nacks[0]["moved_to"]
+                          == {self.n: moved_to[self.n]},
+                          f"fleet P: h0's redirect of {self.n}: {nacks}")
+                    redirects.append(self.n)
+                    cluster.hosts[moved_to[self.n]].submit_frame(
+                        push, hdr, payload)
+            secs["ticks_after"] = [tick(FLEET_P_TICKS, stale)]
+            check(len(redirects) == FLEET_P_MOVES,
+                  f"fleet P: {len(redirects)} redirects")
+            for t in range(FLEET_P_TICKS + 1, FLEET_P_TICKS + FLEET_P_AFTER):
+                secs["ticks_after"].append(tick(t))
+            # h1 dies; its most advanced follower is promoted on the card.
+            old = cluster.hosts["h1"]
+            h1_docs = [n for n in names if cluster.owner_of(n) == "h1"]
+            dead = map_planes_by_doc(old.merge_host, h1_docs, device)
+            check(planes["h1"].replicated_len == old._group_wal.durable_len,
+                  "fleet P: h1's replicated length != its durable length")
+            old._group_wal.close()
+            before = launch_counts()
+            storm2, plane2, rep = promote(
+                "h1", [lk.node for lk in planes["h1"].links], git,
+                cluster=cluster, follower_dirs=[str(root / "h1-f2")],
+                **storm_kw)
+            torch.cuda.synchronize()
+            mk1 = launch_counts()
+            out["promotion"] = {
+                k: rep[k] for k in ("blackout_ms", "replayed_ticks",
+                                    "log_len", "heads_rolled_forward")}
+            out["promotion"]["launches"] = {
+                k: mk1[k] - before[k] for k in ("map_fold",
+                                                "sequencer_tick")}
+            check(cluster.hosts["h1"] is storm2 and planes["h1"].fenced,
+                  "fleet P: the failover did not replace and fence h1")
+            nacks: list = []
+            n0 = h1_docs[0]
+            old.submit_frame(nacks.append, {"rid": "zombie", "docs": [[
+                n0, ids[n0][0], 1, 1, K_MAP]]},
+                memoryview(
+                    fleet_p_words(0)[names.index(n0)].tobytes()))
+            check(len(nacks) == 1 and nacks[0]["error"] == "moved"
+                  and nacks[0]["moved_to"] == {n0: "h1"},
+                  f"fleet P: the fenced ex-leader's shed {nacks}")
+            try:
+                old.checkpoint()
+            except RuntimeError:
+                pass
+            else:
+                fail("fleet P: the fenced ex-leader checkpointed")
+            for n in h1_docs:
+                storm2.residency.ensure_resident(n, gate=False)
+            for f, x, y in zip(storm2.merge_host._xstate._fields, dead,
+                               map_planes_by_doc(storm2.merge_host,
+                                                 h1_docs, device)):
+                check(torch.equal(x, y), f"fleet P: the promoted h1's {f} "
+                      "plane != the dead leader's")
+            planes["h1"] = plane2
+            secs["ticks_promoted"] = [
+                tick(t) for t in range(FLEET_P_TICKS + FLEET_P_AFTER,
+                                       total)]
+        counts = launch_counts()
+        secs["all"] = time.perf_counter() - t_all
+        t_checks = time.perf_counter()
+        for label, plane in planes.items():
+            check(plane.replicated_len
+                  == cluster.hosts[label]._group_wal.durable_len,
+                  f"fleet P: {label}'s replicated length != durable")
+        # Every doc's map == the numpy fold of its acked frames.
+        present, value = fleet_fold(total)
+        for label in FLEET_HOSTS:
+            mine = [d for d, n in enumerate(names)
+                    if cluster.owner_of(n) == label]
+            got = map_planes_by_doc(cluster.hosts[label].merge_host,
+                                    [names[d] for d in mine], device)
+            p = got[0].cpu().numpy()
+            v = got[1].cpu().numpy()
+            check(np.array_equal(p, present[mine])
+                  and np.array_equal(np.where(p, v, 0),
+                                     np.where(present[mine],
+                                              value[mine], 0)),
+                  f"fleet P: {label}'s maps != the numpy fold")
+        # The catch-up history, every acked op seq-contiguous: on the moved
+        # docs and as many others, the union of each host's records (what
+        # ``cluster.get_deltas`` reads: its hosts' ``records_overlapping``)
+        # and, on FLEET_P_READS of each, ``cluster.get_deltas`` itself
+        # (one message object a sequenced op: all 1,024 docs' 7.3M
+        # messages would take minutes of host time). Each tick's blob is
+        # read and its header parsed once.
+        secs["fold_check"] = time.perf_counter() - t_checks
+        t0 = time.perf_counter()
+        for storm in cluster.hosts.values():
+            read_blobs_once(storm)
+        others = [n for n in names if n not in moved_to][::max(
+            1, (DOCS - FLEET_P_MOVES) // FLEET_P_SPAN)][:FLEET_P_SPAN]
+        span = moving[:FLEET_P_SPAN] + others
+        for n in span:
+            wins = sorted((r["first_seq"], r["last_seq"])
+                          for label in FLEET_HOSTS
+                          for r in cluster.hosts[label].records_overlapping(
+                              n, 0)
+                          if r["n_seq"] > 0)
+            seqs = [s for a, b in dict.fromkeys(wins) for s in
+                    range(a, b + 1)]
+            check(seqs == list(range(CLIENTS + 1,
+                                     CLIENTS + total * K_MAP + 1)),
+                  f"fleet P: the merged records of {n} are not "
+                  "seq-contiguous over every acked op")
+        secs["records"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for n in moving[:FLEET_P_READS] + others[:FLEET_P_READS]:
+            check_deltas(cluster, n, CLIENTS, total * K_MAP, "fleet P",
+                         joins_kept=owner0[n] != "h1")
+        secs["get_deltas"] = time.perf_counter() - t0
+        secs["checks"] = time.perf_counter() - t_checks
+        for storm in cluster.hosts.values():
+            storm._group_wal.close()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    check(counts["map_fold"] > 0 and counts["sequencer_tick"] > 0,
+          "fleet P launched no map fold or no deli")
+    out.update(
+        docs=DOCS, clients=CLIENTS, k=K_MAP, hosts=len(FLEET_HOSTS),
+        followers=FLEET_FOLLOWERS, ticks=total,
+        shipped_bytes_per_tick=shipped, seconds=secs,
+        ops_per_s=FLEET_P_TICKS * DOCS * K_MAP / sum(secs["ticks"]),
+        launches={k: counts[k] for k in ("map_fold", "sequencer_tick")},
+        shapes={k: {str(sh): n for sh, n in counts["shapes"][k].items()}
+                for k in ("map_fold", "sequencer_tick")})
+    if prof is not None:
+        busy_ms, top = device_busy(prof)
+        out["trace"] = {"wall_ms": 1e3 * wall_trace,
+                        "device_busy_ms": busy_ms,
+                        "idle_share": 1 - busy_ms / (1e3 * wall_trace),
+                        "top_device_ms": top}
+    print("fleet_p: " + json.dumps(out), flush=True)
+    return {"out": out, "counts": counts, "kept": kept}
+
+
 def main() -> int:
     try:
         import torch
@@ -5796,6 +6539,7 @@ def main() -> int:
 
     trace_all = "--trace" in sys.argv[1:]
     trace_hist = trace_all or "--trace-history" in sys.argv[1:]
+    trace_fleet = trace_all or "--trace-fleet" in sys.argv[1:]
     t_kernels = time.perf_counter()
     fold = check_map_fold(device)
     deli = check_deli(device)
@@ -5850,8 +6594,6 @@ def main() -> int:
             device, path.pop("walless"), path.pop("script"),
             then=lambda ctx: history_path_p(device, ctx, trace=trace_hist))
     hist_p = durable.pop("then")
-    with phase("chaos"):
-        chaos_smoke(device)
     with phase("text"):
         text = text_main_path(device)
     with phase("matrix"):
@@ -5873,6 +6615,20 @@ def main() -> int:
         planes = planes_path(device)
     with phase("history H"):
         planes["hist_h"] = history_path_h(device)
+    with phase("fleet H"):
+        planes["fleet_h"] = fleet_path_h(device)
+    with phase("fleet P"):
+        planes["fleet_p"] = fleet_path_p(device, trace=trace_fleet)
+    print("fleet: " + json.dumps({
+        "H": {k: planes["fleet_h"]["out"][k]
+              for k in ("migration", "scaling", "replication")},
+        "P": {k: planes["fleet_p"]["out"][k] for k in (
+            "ack_ms", "commit_wait_ms_p50", "shipped_bytes_per_tick",
+            "batch", "promotion", "ops_per_s", "launches", "shapes")
+            + (("trace",) if trace_fleet else ())},
+        "durable_path": {"ack_ms": durable["ack_latency_ms"],
+                         "commit_wait_ms_p50": durable[
+                             "wal_commit_wait_ms"]}}), flush=True)
     planes["hist_p"] = {"counts": hist_p["counts"], "kept": hist_p["kept"]}
     planes["hist_p_recover"] = {"counts": hist_p["recover_counts"],
                                 "kept": hist_p["recover_kept"]}
@@ -5896,7 +6652,11 @@ def main() -> int:
                    "hist_p": (planes["hist_p"]["kept"],
                               planes["hist_p"]["counts"]),
                    "hist_p_recover": (planes["hist_p_recover"]["kept"],
-                                      planes["hist_p_recover"]["counts"])}
+                                      planes["hist_p_recover"]["counts"]),
+                   "fleet_h": (planes["fleet_h"]["kept"],
+                               planes["fleet_h"]["counts"]),
+                   "fleet_p": (planes["fleet_p"]["kept"],
+                               planes["fleet_p"]["counts"])}
     for path_name, (kept, counts) in plane_paths.items():
         for name, by_shape in kept.items():
             got = {sh: len(c) for sh, c in by_shape.items()}
@@ -6067,7 +6827,9 @@ def main() -> int:
                "hist_h": planes["hist_h"]["counts"].get(name, 0),
                "hist_p": planes["hist_p"]["counts"].get(name, 0),
                "hist_p_recover": planes["hist_p_recover"]["counts"].get(
-                   name, 0)}
+                   name, 0),
+               "fleet_h": planes["fleet_h"]["counts"].get(name, 0),
+               "fleet_p": planes["fleet_p"]["counts"].get(name, 0)}
         for name in ("map_fold", "sequencer_tick", "mergetree_blocks",
                      "mergetree_flat", "matrix_tick", "matrix_steps")}
     launches = {name: sum(n.values()) for name, n in by_path.items()}

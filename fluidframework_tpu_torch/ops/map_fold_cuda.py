@@ -22,6 +22,7 @@ them by (B, K, S) and ``variants`` by variant.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -35,6 +36,8 @@ shapes: dict[tuple[int, int, int], int] = {}
 #: The same launches by variant.
 variants: dict[str, int] = {"warp": 0, "block": 0}
 
+#: Serializes the counters' updates (hosts may launch from threads).
+_count_lock = threading.Lock()
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 #: Each variant's source; both launchers take the same arguments.
@@ -96,9 +99,10 @@ def fold_words(state: mk.MapState, words: torch.Tensor, lo: torch.Tensor,
                 out.cleared_seq.data_ptr(), s,
                 torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, f"{_SOURCES[variant]}_kernel")
-    launches += 1
-    shapes[(b, k, s)] = shapes.get((b, k, s), 0) + 1
-    variants[variant] += 1
+    with _count_lock:
+        launches += 1
+        shapes[(b, k, s)] = shapes.get((b, k, s), 0) + 1
+        variants[variant] += 1
     return out
 
 

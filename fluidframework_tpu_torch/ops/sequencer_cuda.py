@@ -22,6 +22,7 @@ the CPU. ``launches`` counts kernel launches, ``shapes`` counts them by
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -34,6 +35,8 @@ launches = 0
 shapes: dict[tuple[int, int, int], int] = {}
 #: The same launches by variant ("warp", "thread").
 variants: dict[str, int] = {}
+#: Serializes the counters' updates (hosts may launch from threads).
+_count_lock = threading.Lock()
 
 _BOOL_STATE = ("nack_future", "active", "csum", "cnack", "cevict")
 _BOOL_OPS = ("valid", "has_contents", "can_summarize", "can_evict",
@@ -130,7 +133,8 @@ def process_batch_best(state: seqk.SequencerState, ops: seqk.OpBatch,
         arr = (ctypes.c_void_p * len(ptrs))(*ptrs)
         rc = fn(arr, *ints, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, f"{name}_kernel")
-    launches += 1
-    shapes[(b, k, c)] = shapes.get((b, k, c), 0) + 1
-    variants[variant] = variants.get(variant, 0) + 1
+    with _count_lock:
+        launches += 1
+        shapes[(b, k, c)] = shapes.get((b, k, c), 0) + 1
+        variants[variant] = variants.get(variant, 0) + 1
     return new_state, tickets

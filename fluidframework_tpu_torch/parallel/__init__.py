@@ -3,5 +3,5 @@
 The workload's data-parallel axis is *documents*: kernels are per-document
 independent, so docs shard across devices with no collectives on the merge
 path; metrics use one all-reduce. Port of ``fluidframework_tpu/parallel``
-(``mesh``, ``multihost``, ``serving``); ``placement`` is not ported yet.
+(``mesh``, ``multihost``, ``serving``, ``placement``).
 """

@@ -49,9 +49,16 @@ combiner in the round, doc-space acks at harvest, ``mg`` WAL controls
 and the ``megadoc`` snapshot field). The history plane
 (``server/history.py``) attaches itself too: compaction on the flush
 maintenance cadence, ``hp`` WAL controls, the ``history`` snapshot field
-and the trim-floor read of a quarantined doc. The replication and
-placement planes are not ported yet (ROADMAP Queue A 5): they stay
-``None``.
+and the trim-floor read of a quarantined doc. Two fleet planes attach
+themselves too: cluster placement (``parallel/placement.py``: a per-host
+router sheds frames for a doc another host owns with ``moved`` and its
+``moved_to`` owner, and frames for a doc mid-migration with
+``migrating``) and quorum replication (``server/replication.py``: acks
+gate on ``min(durable, replicated)``, a lost quorum parks writes and
+declines rounds, a fenced ex-leader sheds every frame ``moved`` and
+refuses to checkpoint, and each published snapshot ships its tick
+watermark as the followers' retention floor). The viewer plane is not
+ported (ROADMAP Queue A 5).
 """
 
 from __future__ import annotations
@@ -615,9 +622,18 @@ class StormController:
         # controls, and the background summarization compactor driven
         # from the flush maintenance cadence.
         self.history = None
-        # Planes of the reference controller not ported yet; kept as None
-        # so code that probes them (routerlicious) sees them absent.
+        # Cluster placement (parallel/placement.py attaches a per-host
+        # router): when set, frames naming docs another host owns shed
+        # with a "moved" nack carrying the owner as ``moved_to`` (the
+        # client redials through the reconnect/backoff path), and docs
+        # mid-migration shed "migrating" with a retry hint — never
+        # sequenced on the wrong host, never silently dropped.
         self.placement = None
+        # Replication plane (server/replication.py attaches itself):
+        # when set, client acks gate on min(durable, REPLICATED)
+        # watermarks — an acked op survived a follower quorum, not just
+        # this host's disk — and a fenced (demoted) plane sheds every
+        # frame with a "moved" nack naming the promoted incarnation.
         self.replication = None
         self._in_round = False
         # Opt-in retention for the per-doc (first, last, tick) index.
@@ -770,9 +786,49 @@ class StormController:
     def _admit(self, push, header: dict, docs: list, n_ops: int,
                tenant_id: str, client_id: str | None) -> float | None:
         """Shed checks for one validated frame, in deterministic order:
-        quarantine, degraded (WAL breaker open), bounded queue, token
-        buckets, residency. A refusal pushes ONE busy-nack with
-        ``retry_after_s`` and returns the hint; None admits."""
+        fencing, placement, quarantine, degraded (WAL breaker open),
+        lost quorum, bounded queue, token buckets, residency. A refusal
+        pushes ONE busy-nack with ``retry_after_s`` and returns the
+        hint; None admits."""
+        if self.replication is not None and self.replication.fenced:
+            # Demoted ex-leader (a follower promoted over this
+            # incarnation): EVERY frame sheds with the new leader as
+            # ``moved_to`` — sequencing here would fork the history the
+            # promoted incarnation is already extending. Same nack shape
+            # as a placement move, so one client redial path handles
+            # both.
+            target = self.replication.moved_to
+            return self._shed(
+                push, header, n_ops, "moved", self.busy_retry_s,
+                docs=[d for d, *_ in docs],
+                moved_to={d: target for d, *_ in docs})
+        if self.placement is not None:
+            # Ownership first — the cheapest check, and a frame for a
+            # foreign doc must never consume this host's quarantine /
+            # queue / token state. Whole-frame refusal (acks are
+            # positional per frame); ``moved_to`` names each moved doc's
+            # owning host so the client redials it directly.
+            moved: dict[str, str] = {}
+            frozen = False
+            for d, *_ in docs:
+                code, owner = self.placement.route(d)
+                if code == "moved":
+                    moved[d] = owner
+                elif code == "migrating":
+                    frozen = True
+            if frozen:
+                # Mid-migration blackout: the doc is between hosts
+                # (evict-to-cold → hydrate); the retry hint is the
+                # expected blackout window, after which the route
+                # resolves to "moved" (or back to this host).
+                return self._shed(push, header, n_ops, "migrating",
+                                  self.placement.retry_after_s,
+                                  docs=[d for d, *_ in docs])
+            if moved:
+                return self._shed(push, header, n_ops, "moved",
+                                  self.placement.retry_after_s,
+                                  docs=[d for d, *_ in docs],
+                                  moved_to=moved)
         qdocs = [d for d, *_ in docs if d in self.quarantined]
         if qdocs:
             # The WHOLE frame is refused (acks are positional per frame,
@@ -793,6 +849,21 @@ class StormController:
             cooldown = self._group_wal.breaker.cooldown_s
             return self._shed(push, header, n_ops, "degraded",
                               max(cooldown, self.busy_retry_s))
+        if (self.replication is not None
+                and not self.replication.quorum_ok):
+            # Follower quorum lost (lease-based failure detector): writes
+            # PARK — admitted and buffered FIFO, never acked, because
+            # _flush_round declines rounds — while the outage is young.
+            # Past ``park_max_s`` new frames shed with a retry hint
+            # instead of growing the parked queue without bound. Either
+            # way: never ack-without-quorum.
+            deg = self.replication.quorum_degraded_s()
+            if deg is not None and deg >= self.replication.park_max_s:
+                self.stats["quorum_rejects"] += 1
+                return self._shed(
+                    push, header, n_ops, "quorum-lost",
+                    max(self.busy_retry_s,
+                        self.replication.park_max_s / 2))
         if self.max_pending_docs is not None:
             n = len(docs)
             cap = self.qos.pending_cap(tenant_id, self.max_pending_docs)
@@ -843,6 +914,7 @@ class StormController:
               retry_after_s: float, docs: list | None = None,
               quarantined: list | None = None,
               retryable: bool = True,
+              moved_to: dict | None = None,
               tenant: str | None = None) -> float:
         self.stats["shed_frames"] += 1
         self.stats["shed_ops"] += n_ops
@@ -858,6 +930,8 @@ class StormController:
                 nack["docs"] = docs  # EVERY doc whose ops were dropped
             if quarantined:
                 nack["quarantined"] = quarantined
+            if moved_to:
+                nack["moved_to"] = moved_to  # doc -> owning host label
             push(nack)
         return retry_after_s
 
@@ -942,15 +1016,26 @@ class StormController:
 
     @property
     def acked_watermark(self) -> int | None:
-        """The watermark client acks gate on: local durability (the
-        replication plane that would lower it is not ported)."""
-        return self.durable_watermark
+        """The watermark client acks gate on: local durability alone
+        without a replication plane, ``min(durable, replicated)`` with
+        one — an ack then proves the op survives the HOST, not just the
+        process. The plane ships synchronously on the WAL writer thread,
+        so in the healthy case the two watermarks move together; a
+        partitioned quorum freezes the replicated side and acks stay
+        withheld (clients resend)."""
+        dw = self.durable_watermark
+        if dw is not None and self.replication is not None:
+            dw = min(dw, self.replication.replicated_len)
+        return dw
 
     def _drain_durable_acks(self) -> None:
-        """Push withheld acks whose tick the WAL has fsynced — on the
-        serving thread (harvest / forced flush), never the writer thread,
-        so session pushes stay single-threaded."""
+        """Push withheld acks whose tick the WAL has fsynced (and the
+        follower quorum journaled, when replication is attached) — on
+        the serving thread (harvest / forced flush), never the writer
+        thread, so session pushes stay single-threaded."""
         dw = self._group_wal.durable_len
+        if self.replication is not None:
+            dw = min(dw, self.replication.replicated_len)
         if self._inflight and self._unacked and self._unacked[0][0] < dw:
             # Chaos kill class "fsync-complete-before-readback": tick N
             # is durable and about to ack while a later tick's device
@@ -990,6 +1075,12 @@ class StormController:
                 self._group_wal.sync()
             except WalDegradedError:
                 return  # not durable: withhold (clients resend)
+            if self.replication is not None \
+                    and self.replication.replicated_len \
+                    < self._group_wal.durable_len:
+                # Durable locally but not on the follower quorum: the
+                # same withhold discipline, one tier out.
+                return
         dw = self.acked_watermark
         for ack_i, (frame, _i0, _i1) in enumerate(acks):
             if frame.push is None:
@@ -1027,6 +1118,18 @@ class StormController:
             # Breaker open: do NOT advance device state ahead of a WAL
             # that cannot journal it — frames stay queued (new ones are
             # already nacked at _admit).
+            return False
+        if (self.replication is not None and not self._replay
+                and not self.replication.quorum_ok):
+            # Quorum lost: a tick here would advance device state and
+            # journal records no quorum can replicate — the acks would
+            # park anyway, and history past the replicated watermark is
+            # exactly what a promoted incarnation forks away. Frames stay
+            # buffered in arrival order (per-doc FIFO preserved), so the
+            # healed quorum sequences the identical history a
+            # never-partitioned leader would have.
+            self.merge_host.metrics.gauge("repl.parked_docs").set(
+                self._pending_docs)
             return False
         round_start = time.perf_counter()
         queue_depth = self._pending_docs
@@ -1615,6 +1718,14 @@ class StormController:
         one snapshot atomically: upload first, flip the head ref last —
         a crash mid-checkpoint leaves the previous head intact."""
         assert self.snapshots is not None, "no snapshot store attached"
+        if self.replication is not None and self.replication.fenced:
+            # A demoted leader's snapshot would clobber the promoted
+            # incarnation's head — the zombie-writes hazard fencing
+            # exists to stop.
+            raise RuntimeError(
+                "checkpoint() on a fenced (demoted) leader; the "
+                f"promoted incarnation {self.replication.moved_to!r} "
+                "owns the snapshot head")
         from .durable_store import WalDegradedError
         if self.wal_degraded:
             raise WalDegradedError(
@@ -1668,6 +1779,12 @@ class StormController:
             faults.crashpoint("snapshot.pre_publish")
             self.snapshots.set_head(self.SNAPSHOT_DOC, handle)
             self._last_checkpoint_tick = self._tick_counter
+            if self.replication is not None:
+                # Replica-side WAL retention: the snapshot watermark is
+                # the followers' trim floor (recovery never replays below
+                # it); the plane names the sub-floor ticks still live here
+                # so follower reads stay byte-identical.
+                self.replication.ship_retention(self._last_checkpoint_tick)
             return handle
         finally:
             self._in_checkpoint = False

@@ -47,7 +47,7 @@ Two fault classes run in-process, proven by direct assertion:
 and :func:`run_overload` offers twice the bounded tick queue every
 round: the overflow sheds as busy-nacks, every admitted round acks.
 
-Four plane scenarios run as child lives like the storm kills:
+Six plane scenarios run as child lives like the storm kills:
 ``residency=N`` caps the device pool below the doc count so every round
 crosses the hot/cold boundary (``RESIDENCY_KILL_POINTS``),
 ``megadoc=L`` serves one doc co-written by ``MEGADOC_WRITERS`` writers
@@ -56,11 +56,16 @@ through two promote → serve → demote cycles on L lanes
 10x, through the deficit scheduler against a tenant-blind twin
 (``QOS_KILL_POINTS``), and ``history=True`` serves with a compacting
 ``HistoryPlane`` and one mid-run branch fork against a never-compacted
-twin (``HISTORY_KILL_POINTS``).
+twin (``HISTORY_KILL_POINTS``), ``cluster=True`` serves a two-host
+cluster that live-migrates one doc at round ``migrate_at`` against a
+never-migrated twin (``MIGRATION_KILL_POINTS``), and
+``replication=True`` serves the same cluster with a quorum-replicated
+leader whose resumed life promotes a follower
+(``REPLICATION_CHAOS_POINTS``).
 
-The reference harness's cluster, replication, read-replica, netsplit
-and reconnect scenarios need planes this package does not port yet;
-asking for one raises ``NotImplementedError``.
+The reference harness's read-replica, netsplit and reconnect scenarios
+need planes this package does not port yet; asking for one raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -145,6 +150,44 @@ HISTORY_KILL_POINTS = ("history.mid_compaction", "history.mid_fork",
 #: (no bus-ordered join, so branch serving replays self-contained).
 HISTORY_BRANCH_WRITER = "branch-writer"
 HISTORY_BRANCH = "chaos-branch"
+
+#: Live-migration kill classes: the child serves a TWO-HOST in-process
+#: cluster (``cluster=`` in run_chaos — per-host WAL/bus/state over ONE
+#: shared content-addressed store + durable placement directory) and
+#: migrates one doc between hosts mid-workload (``migrate_at=``). Each
+#: point kills one migration phase: intent durable but the source still
+#: resident / doc evicted to the shared cold record with no owner
+#: serving / target hydrated (volatile) but the directory not yet
+#: flipped. Recovery rolls the migration FORWARD from the durable intent
+#: and must reconverge byte-identical to a NEVER-MIGRATED twin with zero
+#: acked-durable ops lost.
+MIGRATION_KILL_POINTS = ("placement.pre_evict", "placement.post_evict",
+                         "placement.post_hydrate")
+
+#: Host labels of the in-process chaos cluster.
+CLUSTER_HOSTS = ("hostA", "hostB")
+
+#: Replication-plane kill classes: the child serves a two-host cluster
+#: whose doc-0 genesis owner is a quorum-REPLICATED leader — every
+#: fsynced WAL batch ships to two follower directories before acks
+#: release, and every shared-store head flip rides the same plane —
+#: while doc 0 live-migrates to the plain host mid-run. The kill lands
+#: either side of the ship or inside the classic WAL/tick windows; a
+#: RESUMED life is the FAILOVER PATH ITSELF — it never reopens the dead
+#: leader's serving directory, it PROMOTES the most advanced follower,
+#: bumps the directory incarnation, prints ``FAILOVER <blackout_ms>``,
+#: and keeps serving under the same label. The twin is the same
+#: replicated stack never killed and never migrated.
+REPLICATION_CHAOS_POINTS = ("repl.pre_ship", "repl.post_ship",
+                            "wal.pre_fsync", "storm.mid_tick")
+
+#: Smoke point: batch shipped and quorum-acked, leader killed before
+#: anything else — promotion must serve every acked op.
+REPLICATION_SMOKE_POINT = "repl.post_ship"
+
+#: Follower count behind the replicated chaos leader (F=2; the default
+#: quorum is (F+1)//2 = 1 follower ack).
+REPLICATION_FOLLOWERS = 2
 
 _NOT_PORTED = ("the {} chaos scenario needs a plane this package does not "
                "port yet (ROADMAP Queue A 5)")
@@ -410,6 +453,252 @@ def _history_child(args) -> None:
     print("DIGEST " + json.dumps(digest, sort_keys=True), flush=True)
 
 
+def _build_cluster(data_dir: str, num_docs: int, device: str):
+    """Two in-process serving hosts over one shared snapshot store +
+    durable placement directory, each on ``device``."""
+    from ..parallel.placement import make_cluster_host
+    from ..server.durable_store import GitSnapshotStore
+    from ..server.megadoc import MegaDocManager
+
+    git = GitSnapshotStore(os.path.join(data_dir, "git"))
+    hosts = {}
+    for label in CLUSTER_HOSTS:
+        storm = make_cluster_host(label, os.path.join(data_dir, label),
+                                  git, num_docs=num_docs, device=device)
+        MegaDocManager(storm, default_lanes=2)
+        hosts[label] = storm
+    return git, hosts
+
+
+def _cluster_clients(cluster, docs: list[str],
+                     connect: bool) -> dict[str, str]:
+    """Deterministic doc->client-id map: docs connect to their GENESIS
+    owner in doc order, so each host's durable client counter hands out
+    the same ids in every life — a later migration moves the sequencer
+    row (client identities ride it), never the id assignment."""
+    per_host_count: dict[str, int] = {}
+    clients: dict[str, str] = {}
+    for d in docs:
+        owner = cluster.directory.genesis_owner(d)
+        per_host_count[owner] = per_host_count.get(owner, 0) + 1
+        if connect:
+            storm = cluster.hosts[owner]
+            clients[d] = storm.service.connect(d, lambda m: None).client_id
+        else:
+            clients[d] = f"client-{per_host_count[owner]}"
+    return clients
+
+
+def _cluster_digest(cluster, docs: list[str]) -> dict:
+    """The cluster twin-diff surface: per doc, the MERGED cross-host
+    history (each host serves its own WAL segment of a migrated doc)
+    plus the owning host's map row + sequencer checkpoint — placement-
+    agnostic by construction, so a migrated run must digest identical
+    to a never-migrated twin."""
+    from ..protocol.codec import to_wire
+
+    out: dict = {"docs": {}}
+    for doc in docs:
+        owner = cluster.owner_of(doc)
+        storm = cluster.hosts[owner]
+        storm.residency.ensure_resident(doc, gate=False)
+        history = []
+        for m in cluster.get_deltas(doc, 0):
+            history.append([
+                m.sequence_number, m.client_sequence_number,
+                m.reference_sequence_number, m.minimum_sequence_number,
+                int(m.type), m.client_id,
+                json.dumps(to_wire(m.contents), sort_keys=True)])
+        cp = dataclasses.asdict(storm.seq_host.checkpoint(doc))
+        cp.pop("log_offset", None)
+        for client in cp["clients"]:
+            client["last_update"] = 0  # arrival clock, not replica state
+        out["docs"][doc] = {
+            "history": history,
+            "map": storm.merge_host.map_entries(doc, storm.datastore,
+                                                storm.channel),
+            "sequencer": cp,
+        }
+    return out
+
+
+def _cluster_rounds(args, cluster, docs, clients, start, migrate) -> None:
+    """The cluster children's workload: per round, one frame per doc to
+    its owner through the live directory, ``migrate()`` first at round
+    ``migrate_at`` (the scripted live migration), a checkpoint of every
+    host every ``cp_every`` rounds."""
+    k = args.k
+    for r in range(start, args.ticks):
+        if r == args.migrate_at:
+            migrate()
+        acks: list = []
+        for i, d in enumerate(docs):
+            payload = _tick_words(args.seed, r, i, k).tobytes()
+            storm = cluster.hosts[cluster.owner_of(d)]
+            storm.submit_frame(
+                acks.append,
+                {"rid": r * len(docs) + i,
+                 "docs": [[d, clients[d], 1 + r * k, 1, k]]},
+                memoryview(payload))
+            storm.flush()
+        ok = [a for a in acks
+              if not (isinstance(a, dict) and a.get("error"))]
+        if len(ok) == len(docs):
+            print(f"ACKED {r}", flush=True)
+        if (r + 1) % args.cp_every == 0:
+            for storm in cluster.hosts.values():
+                storm.checkpoint()
+
+
+def _cluster_child(args) -> None:
+    """One cluster serving life: two hosts, per-doc frames routed by the
+    live directory, ONE scripted migration of doc 0 to the other host at
+    round ``migrate_at`` (-1 = never — the differential twin). Kill plans
+    land inside the migration phases; a resumed life rolls any durable
+    intent forward before serving."""
+    from ..parallel.placement import StormCluster
+    from ..utils import faults
+
+    docs = [f"chaos-doc-{i}" for i in range(args.docs)]
+    git, hosts = _build_cluster(args.dir, args.docs, args.device)
+    if args.resume_from is None:
+        cluster = StormCluster(hosts, git)
+        clients = _cluster_clients(cluster, docs, connect=True)
+        for storm in hosts.values():
+            storm.service.pump()
+            storm.checkpoint()
+        start = 0
+        print("GENESIS", flush=True)
+    else:
+        for storm in hosts.values():
+            storm.recover()
+        cluster = StormCluster(hosts, git)  # directory loads from store
+        cluster.recover()  # roll forward any durable migration intent
+        clients = _cluster_clients(cluster, docs, connect=False)
+        start = args.resume_from
+    print("READY", flush=True)
+    faults.arm()
+    genesis_owner = cluster.directory.genesis_owner(docs[0])
+    target = next(h for h in CLUSTER_HOSTS if h != genesis_owner)
+
+    def migrate() -> None:
+        # The scripted live migration (skipped in resumed lives where
+        # recovery already rolled it forward).
+        if cluster.owner_of(docs[0]) == genesis_owner:
+            cluster.migrate(docs[0], target)
+    _cluster_rounds(args, cluster, docs, clients, start, migrate)
+    faults.disarm()
+    digest = _cluster_digest(cluster, docs)
+    print("DIGEST " + json.dumps(digest, sort_keys=True), flush=True)
+
+
+def _replication_digest(cluster, docs: list[str]) -> dict:
+    """The replication twin-diff surface: the cluster digest with
+    history filtered to OPERATION rows. Join rows live in each host's
+    bus tier, which is NOT on the replicated plane (only WAL batches and
+    head flips ship) — a promoted follower reproduces every sequenced
+    op, map plane and sequencer row from the replica log + journaled
+    heads, but not the dead leader's bus-tier join records."""
+    from ..protocol.messages import MessageType
+
+    digest = _cluster_digest(cluster, docs)
+    op = int(MessageType.OPERATION)
+    for planes in digest["docs"].values():
+        planes["history"] = [h for h in planes["history"] if h[4] == op]
+    return digest
+
+
+def _replication_child(args) -> None:
+    """One replicated-cluster serving life: the doc-0 genesis owner is a
+    quorum-replicated leader over ``REPLICATION_FOLLOWERS`` follower
+    directories, the other host is plain, and doc 0 live-migrates at
+    round ``migrate_at`` (-1 = never — the differential twin). A resumed
+    life IS the failover: it promotes the most advanced follower instead
+    of reopening the dead leader's directory, and prints ``FAILOVER
+    <blackout_ms>``. Every host serves on ``device``."""
+    import zlib
+
+    from ..parallel.placement import StormCluster, make_cluster_host
+    from ..server.durable_store import GitSnapshotStore
+    from ..server.replication import (
+        ReplicaNode,
+        ReplicatedHeadStore,
+        make_replicated_host,
+        promote,
+    )
+    from ..utils import faults
+
+    docs = [f"chaos-doc-{i}" for i in range(args.docs)]
+    labels = sorted(CLUSTER_HOSTS)
+    leader = labels[zlib.crc32(docs[0].encode()) % len(labels)]
+    other = next(h for h in CLUSTER_HOSTS if h != leader)
+    git = GitSnapshotStore(os.path.join(args.dir, "git"))
+    state_path = os.path.join(args.dir, "repl_state.json")
+    if args.resume_from is None:
+        f_dirs = [os.path.join(args.dir, f"f{i + 1}")
+                  for i in range(REPLICATION_FOLLOWERS)]
+        leader_storm, plane = make_replicated_host(
+            leader, os.path.join(args.dir, leader), git, f_dirs,
+            num_docs=args.docs, device=args.device)
+        other_storm = make_cluster_host(
+            other, os.path.join(args.dir, other), git, num_docs=args.docs,
+            device=args.device)
+        cluster = StormCluster({leader: leader_storm, other: other_storm},
+                               ReplicatedHeadStore(git, plane))
+        clients = _cluster_clients(cluster, docs, connect=True)
+        for storm in cluster.hosts.values():
+            storm.service.pump()
+            storm.checkpoint()
+        with open(state_path, "w") as fh:
+            json.dump({"followers": f_dirs,
+                       "next_id": REPLICATION_FOLLOWERS + 1}, fh)
+        start = 0
+        print("GENESIS", flush=True)
+    else:
+        # Failover life: the dead leader's serving directory is NEVER
+        # reopened (its volatile state is the thing the kill lost) — the
+        # most advanced follower promotes under the same label, a fresh
+        # follower directory replaces it in the plane, and the survivor
+        # host recovers normally.
+        with open(state_path) as fh:
+            st = json.load(fh)
+        other_storm = make_cluster_host(
+            other, os.path.join(args.dir, other), git, num_docs=args.docs,
+            device=args.device)
+        other_storm.recover()
+        nodes = [ReplicaNode(d) for d in st["followers"]]
+        fresh = os.path.join(args.dir, f"f{st['next_id']}")
+        leader_storm, plane, rep = promote(
+            leader, nodes, git, follower_dirs=[fresh],
+            num_docs=args.docs, device=args.device)
+        cluster = StormCluster({leader: leader_storm, other: other_storm},
+                               ReplicatedHeadStore(git, plane))
+        cluster.recover()  # roll forward any durable migration intent
+        cluster.fail_over(leader, leader_storm,
+                          blackout_ms=rep["blackout_ms"])
+        remaining = [d for d in st["followers"]
+                     if os.path.basename(d) != rep["promoted_node"]]
+        with open(state_path, "w") as fh:
+            json.dump({"followers": remaining + [fresh],
+                       "next_id": st["next_id"] + 1}, fh)
+        clients = _cluster_clients(cluster, docs, connect=False)
+        start = args.resume_from
+        print(f"FAILOVER {rep['blackout_ms']}", flush=True)
+    print("READY", flush=True)
+    faults.arm()
+
+    def migrate() -> None:
+        # The scripted live migration off the replicated leader (skipped
+        # in resumed lives where recovery already rolled it forward): its
+        # directory head flip rides the quorum.
+        if cluster.owner_of(docs[0]) == leader:
+            cluster.migrate(docs[0], other)
+    _cluster_rounds(args, cluster, docs, clients, start, migrate)
+    faults.disarm()
+    digest = _replication_digest(cluster, docs)
+    print("DIGEST " + json.dumps(digest, sort_keys=True), flush=True)
+
+
 def child_main(args) -> None:
     """One serving-process life. Protocol on stdout (parent parses):
     ``READY`` once serving can start, ``ACKED <round>`` per
@@ -418,6 +707,12 @@ def child_main(args) -> None:
     mid-stream."""
     from ..utils import faults
 
+    if getattr(args, "replication", False):
+        _replication_child(args)
+        return
+    if getattr(args, "cluster", False):
+        _cluster_child(args)
+        return
     if getattr(args, "qos", None):
         _qos_child(args)
         return
@@ -608,7 +903,8 @@ def _spawn_life(data_dir: str, seed: int, docs: int, k: int, ticks: int,
                 kill_env: str | None, timeout: float, device: str,
                 pipelined: bool = False, residency: int | None = None,
                 megadoc: int | None = None, qos: str | None = None,
-                history: str | None = None) -> dict:
+                history: str | None = None, cluster: bool = False,
+                replication: bool = False, migrate_at: int = -1) -> dict:
     cmd = [sys.executable, "-m", "fluidframework_tpu_torch.tools.chaos",
            "--child", "--dir", data_dir, "--seed", str(seed),
            "--docs", str(docs), "--k", str(k), "--ticks", str(ticks),
@@ -623,6 +919,10 @@ def _spawn_life(data_dir: str, seed: int, docs: int, k: int, ticks: int,
         cmd += ["--qos", qos]
     if history is not None:
         cmd += ["--history", history]
+    if cluster:
+        cmd += ["--cluster", "--migrate-at", str(migrate_at)]
+    if replication:
+        cmd += ["--replication", "--migrate-at", str(migrate_at)]
     if resume_from is not None:
         cmd += ["--resume-from", str(resume_from)]
     env = dict(os.environ)
@@ -637,14 +937,17 @@ def _spawn_life(data_dir: str, seed: int, docs: int, k: int, ticks: int,
                   if p])
     proc = subprocess.run(cmd, capture_output=True, text=True,
                           timeout=timeout, env=env)
-    acked, digest = [], None
+    acked, digest, failovers = [], None, []
     for line in proc.stdout.splitlines():
         if line.startswith("ACKED "):
             acked.append(int(line.split()[1]))
+        elif line.startswith("FAILOVER "):
+            failovers.append(float(line.split()[1]))
         elif line.startswith("DIGEST "):
             digest = json.loads(line[len("DIGEST "):])
     return {"returncode": proc.returncode, "acked": acked,
-            "digest": digest, "stderr": proc.stderr}
+            "digest": digest, "failovers": failovers,
+            "stderr": proc.stderr}
 
 
 def run_chaos(workdir: str, kill_point: str, kill_hits: int = 1,
@@ -655,7 +958,8 @@ def run_chaos(workdir: str, kill_point: str, kill_hits: int = 1,
               pipelined: bool = False,
               megadoc: int | None = None, device: str = "cuda",
               qos: bool = False, history: bool = False,
-              **not_ported) -> dict:
+              cluster: bool = False, migrate_at: int | None = None,
+              replication: bool = False, **not_ported) -> dict:
     """One scenario: a twin run, then a killed-and-recovered run, then
     the plane diff. Returns the report; raises AssertionError on any
     divergence or lost acked op. ``twin_digest`` lets callers share one
@@ -667,7 +971,12 @@ def run_chaos(workdir: str, kill_point: str, kill_hits: int = 1,
     tenants through the deficit scheduler against a tenant-blind twin (the
     QOS_KILL_POINTS scenarios); ``history`` serves with a compacting
     history plane and one branch fork against a never-compacted twin (the
-    HISTORY_KILL_POINTS scenarios). ``pipelined`` serves the
+    HISTORY_KILL_POINTS scenarios); ``cluster`` serves a two-host cluster
+    with one scripted live migration (round ``migrate_at``, default
+    mid-run — the MIGRATION_KILL_POINTS scenarios) against a twin that
+    never migrates; ``replication`` serves the same cluster with a
+    quorum-replicated leader whose resumed lives promote a follower (the
+    REPLICATION_CHAOS_POINTS scenarios). ``pipelined`` serves the
     child through the overlapped tick pipeline (the OVERLAP_KILL_POINTS
     scenarios) — and because the digest planes are pipelining-agnostic,
     an UNPIPELINED twin_digest may be shared in: equality then also
@@ -685,21 +994,33 @@ def run_chaos(workdir: str, kill_point: str, kill_hits: int = 1,
             "the overlap windows would never be exercised)")
     if megadoc is not None and docs != 1:
         raise ValueError("megadoc= serves exactly ONE co-written doc")
-    if qos and (residency is not None or pipelined or megadoc):
+    if cluster and (residency is not None or pipelined or megadoc):
+        raise ValueError("cluster=True is its own scenario stack")
+    if qos and (cluster or residency is not None or pipelined or megadoc):
         raise ValueError("qos=True is its own scenario stack")
-    if history and (qos or residency is not None or pipelined or megadoc):
+    if history and (qos or cluster or residency is not None
+                    or pipelined or megadoc):
         raise ValueError("history=True is its own scenario stack")
+    if replication and (history or qos or cluster
+                        or residency is not None or pipelined or megadoc):
+        raise ValueError("replication=True is its own scenario stack")
     cfg = dict(seed=seed, docs=docs, k=k, ticks=ticks, cp_every=cp_every,
                residency=residency, pipelined=pipelined, megadoc=megadoc,
                device=device, qos="fair" if qos else None,
-               history="compact" if history else None)
+               history="compact" if history else None,
+               cluster=cluster, replication=replication,
+               migrate_at=(migrate_at if migrate_at is not None
+                           else ticks // 2)
+               if (cluster or replication) else -1)
     if twin_digest is None:
         # The qos twin is tenant-BLIND (same frames, no fairness); the
-        # history twin is NEVER-compacted (same frames, same fork):
-        # digest equality then ALSO proves fair composition (resp.
-        # summarization compaction) never changes converged state.
-        twin_cfg = dict(cfg, qos="blind") if qos else (
-            dict(cfg, history="plain") if history else cfg)
+        # history twin is NEVER-compacted (same frames, same fork); the
+        # cluster and replication twins NEVER migrate: digest equality
+        # then ALSO proves fair composition (resp. summarization
+        # compaction, live migration) never changes converged state.
+        twin_cfg = dict(cfg, migrate_at=-1) if (cluster or replication) \
+            else dict(cfg, qos="blind") if qos else (
+                dict(cfg, history="plain") if history else cfg)
         twin = _spawn_life(os.path.join(workdir, "twin"), resume_from=None,
                            kill_env=None, timeout=timeout, **twin_cfg)
         assert twin["returncode"] == 0, twin["stderr"]
@@ -708,10 +1029,12 @@ def run_chaos(workdir: str, kill_point: str, kill_hits: int = 1,
     chaos_dir = os.path.join(workdir, f"chaos-{kill_point}-{kill_hits}")
     acked: set[int] = set()
     lives = 0
+    failovers: list[float] = []
     life = _spawn_life(chaos_dir, resume_from=None,
                        kill_env=f"{kill_point}:{kill_hits}",
                        timeout=timeout, **cfg)
     acked.update(life["acked"])
+    failovers.extend(life["failovers"])
     lives += 1
     killed = life["returncode"] == faults.KILL_EXIT_CODE
     # Restart lives (no further kills) until a clean finish. The resend
@@ -722,6 +1045,7 @@ def run_chaos(workdir: str, kill_point: str, kill_hits: int = 1,
         life = _spawn_life(chaos_dir, resume_from=resume,
                            kill_env=None, timeout=timeout, **cfg)
         acked.update(life["acked"])
+        failovers.extend(life["failovers"])
         lives += 1
         assert lives <= 8, "chaos run did not converge to a clean life"
     digest = life["digest"]
@@ -729,6 +1053,12 @@ def run_chaos(workdir: str, kill_point: str, kill_hits: int = 1,
     report = {"kill_point": kill_point, "kill_hits": kill_hits,
               "killed": killed, "lives": lives,
               "acked_rounds": sorted(acked), **cfg}
+    if replication:
+        # The failover path only runs when the kill actually fired: every
+        # killed replication life must promote on restart, and each
+        # promotion's blackout rides the report.
+        assert len(failovers) == lives - 1, (failovers, lives)
+        report["failover_blackouts_ms"] = failovers
     assert json.dumps(digest, sort_keys=True) == json.dumps(
         twin_digest, sort_keys=True), (
         f"recovered state diverged from the twin at {kill_point}:"
@@ -1242,17 +1572,28 @@ def main(argv=None) -> None:
                              "compacts and trims (compact) or never does "
                              "(plain), forking one branch mid-run (the "
                              "HISTORY_KILL_POINTS scenarios)")
+    parser.add_argument("--cluster", action="store_true",
+                        help="child: serve a two-host cluster that "
+                             "live-migrates doc 0 at --migrate-at (the "
+                             "MIGRATION_KILL_POINTS scenarios)")
+    parser.add_argument("--replication", action="store_true",
+                        help="child: serve the two-host cluster with a "
+                             "quorum-replicated leader; a resumed life "
+                             "promotes a follower (the "
+                             "REPLICATION_CHAOS_POINTS scenarios)")
+    parser.add_argument("--migrate-at", type=int, default=None,
+                        help="round of the scripted migration (-1 = "
+                             "never; default mid-run)")
     parser.add_argument("--replicas", default=None,
                         help="not ported (ROADMAP Queue A 5)")
-    for flag in ("cluster", "replication", "netsplit"):
-        parser.add_argument(f"--{flag}", action="store_true",
-                            help="not ported (ROADMAP Queue A 5)")
+    parser.add_argument("--netsplit", action="store_true",
+                        help="not ported (ROADMAP Queue A 5)")
     parser.add_argument("--resume-from", type=int, default=None)
     parser.add_argument("--kill-point", default=None)
     parser.add_argument("--kill-hits", type=int, default=1)
     parser.add_argument("--matrix", action="store_true")
     args = parser.parse_args(argv)
-    for flag in ("replicas", "cluster", "replication", "netsplit"):
+    for flag in ("replicas", "netsplit"):
         if getattr(args, flag):
             raise NotImplementedError(_NOT_PORTED.format(flag))
     if args.child:
@@ -1262,7 +1603,9 @@ def main(argv=None) -> None:
     cfg = dict(docs=args.docs, k=args.k, ticks=args.ticks,
                cp_every=args.cp_every, device=args.device,
                residency=args.residency, megadoc=args.megadoc,
-               qos=args.qos is not None, history=args.history is not None)
+               qos=args.qos is not None, history=args.history is not None,
+               cluster=args.cluster, replication=args.replication,
+               migrate_at=args.migrate_at)
     if args.matrix:
         for r in run_matrix(args.workdir, **cfg):
             r.pop("twin_digest", None)

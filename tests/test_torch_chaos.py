@@ -135,14 +135,12 @@ def test_kill_exit_code_is_the_references():
     assert faults.KILL_EXIT_CODE == jax_faults.KILL_EXIT_CODE == 137
 
 
-@pytest.mark.parametrize("scenario", ["cluster", "netsplit",
-                                      "replication", "replicas"])
+@pytest.mark.parametrize("scenario", ["netsplit", "replicas"])
 def test_scenarios_needing_unported_planes_refuse(tmp_path, scenario):
     with pytest.raises(NotImplementedError, match="Queue A 5"):
         chaos.run_chaos(str(tmp_path), "storm.mid_tick", device="cpu",
                         **{scenario: True})
-    flag = [f"--{scenario}"] + ([] if scenario in (
-        "cluster", "netsplit", "replication") else ["x"])
+    flag = [f"--{scenario}"] + ([] if scenario == "netsplit" else ["x"])
     with pytest.raises(NotImplementedError, match="Queue A 5"):
         chaos.main(["--workdir", str(tmp_path), *flag])
 

@@ -1644,3 +1644,99 @@ def test_history_fork_into_a_growing_pool_on_the_card(cuda, tmp_path):
         out[dev] = rec
     assert out["cuda"] == out["cpu"]
     assert out["cuda"]["grew"][1] > out["cuda"]["grew"][0]
+
+
+def test_fleet_migration_and_promotion_on_the_card(cuda, tmp_path,
+                                                   monkeypatch):
+    """A 2-host cluster whose leader replicates to two followers, on the
+    card: a live migration off the leader, then the leader fails over to
+    a promoted follower that replays its WAL tail on the card. Every
+    kernel-1 and kernel-2 call equals its plain version on the same
+    inputs, and the cluster's digest equals the same run's on the CPU."""
+    from fluidframework_tpu_torch.parallel.placement import (
+        StormCluster, make_cluster_host)
+    from fluidframework_tpu_torch.server.durable_store import \
+        GitSnapshotStore
+    from fluidframework_tpu_torch.server.replication import (
+        ReplicatedHeadStore, make_replicated_host, promote)
+    from fluidframework_tpu_torch.tools.chaos import _replication_digest
+
+    fold, deli = mfc.fold_words, seqc.process_batch_best
+    checked = {"map_fold": 0, "sequencer_tick": 0}
+
+    def checked_fold(state, words, lo, hi, base_seq, variant=None):
+        out = fold(state, words, lo, hi, base_seq, variant=variant)
+        if words.is_cuda:
+            _assert_equal(out, mk.fold_words_plain(state, words, lo, hi,
+                                                   base_seq), "map fold")
+            checked["map_fold"] += 1
+        return out
+
+    def checked_deli(state, ops, variant=None):
+        new_state, tickets = deli(state, ops, variant)
+        if ops.kind.is_cuda:
+            want_state, want_tickets = seqk.process_batch(state, ops)
+            _assert_equal(new_state, want_state, "deli state")
+            _assert_equal(tickets, want_tickets, "deli tickets")
+            checked["sequencer_tick"] += 1
+        return new_state, tickets
+
+    monkeypatch.setattr(mfc, "fold_words", checked_fold)
+    monkeypatch.setattr(seqc, "process_batch_best", checked_deli)
+    docs = [f"d{i}" for i in range(6)]
+
+    def run(dev):
+        root = tmp_path / dev
+        git = GitSnapshotStore(root / "git")
+        leader, plane = make_replicated_host(
+            "hostA", str(root / "hostA"), git,
+            [str(root / "f0"), str(root / "f1")], num_docs=4, device=dev)
+        other = make_cluster_host("hostB", str(root / "hostB"), git,
+                                  num_docs=4, device=dev)
+        for storm in (leader, other):
+            storm.service._clock = itertools.count(1000, 7).__next__
+        cluster = StormCluster({"hostA": leader, "hostB": other},
+                               ReplicatedHeadStore(git, plane))
+        clients = {d: cluster.storm_for(d).service.connect(
+            d, lambda m: None).client_id for d in docs}
+        for storm in cluster.hosts.values():
+            storm.service.pump()
+            storm.checkpoint()
+
+        def serve(r):
+            for i, d in enumerate(docs):
+                storm = cluster.storm_for(d)
+                storm.submit_frame(None, {
+                    "rid": (r, d), "docs": [[d, clients[d], 1 + r * 8, 1,
+                                             8]]},
+                    memoryview(_plane_words((r, i), 8).tobytes()))
+                storm.flush()
+        serve(0)
+        serve(1)
+        mine = [d for d in docs if cluster.owner_of(d) == "hostA"]
+        assert len(mine) >= 2
+        cluster.migrate(mine[0], "hostB")
+        serve(2)
+        leader._group_wal.close()
+        new, new_plane, rep = promote(
+            "hostA", [lk.node for lk in plane.links], git,
+            follower_dirs=[str(root / "f2")], num_docs=4, device=dev)
+        new.service._clock = itertools.count(5000, 7).__next__
+        # The directory rode the dead leader's quorum: the cluster is
+        # rebuilt over the promoted one's (as the chaos harness does).
+        cluster = StormCluster({"hostA": new, "hostB": other},
+                               ReplicatedHeadStore(git, new_plane))
+        cluster.fail_over("hostA", new, blackout_ms=rep["blackout_ms"])
+        serve(3)
+        out = {"digest": _replication_digest(cluster, docs),
+               "replayed": rep["replayed_ticks"],
+               "log_len": rep["log_len"]}
+        for storm in cluster.hosts.values():
+            storm._group_wal.close()
+        return out
+
+    on_card = run("cuda")
+    torch.cuda.synchronize()
+    assert checked["map_fold"] > 0 and checked["sequencer_tick"] > 0
+    assert on_card["replayed"] > 0
+    assert on_card == run("cpu")
