@@ -87,7 +87,21 @@ equality: every plane is integer), then drives the port's main paths:
   frames; and config 3 on a ``StormCluster`` of 4 quorum-replicated hosts
   (Fleet P: a batch migration of 512 docs with its ``migrating`` and
   ``moved`` sheds, a host failed over to a promoted follower held to the
-  dead leader, every doc's map held to a numpy fold).
+  dead leader, every doc's map held to a numpy fold);
+* the read tier and the front door: the reference viewer benches (Viewer
+  V: 1,000, 10,000 and 100,000 viewers on one hot doc through the viewer
+  plane and the native fan-out, one encode a tick and every frame
+  delivered; 64 viewers re-homed by a live migration); a read replica on
+  Fleet P's stack (Read R: 128 of 256 viewer rooms of a host re-homed onto
+  a replica of its follower, whose re-broadcast frames equal the leader's
+  and whose reads equal numpy folds and the leader's deltas; writes and a
+  mega-promoted doc shed to the leader) and the reference replica benches;
+  and the front door on the durable path's recovered stack (Front door F:
+  every doc's frames for two ticks through one socket of an
+  ``AlfredServer``, acked as the WAL-less twin acks them in process, 64
+  viewer sockets, a directory-routed viewer answered ``moved``), then
+  ``python -m fluidframework_tpu_torch.server.alfred`` started as a user
+  starts it and served a writer and a viewer on the card.
 
 Each phase prints its seconds (``phase <name>: ...``), and a
 ``phase_seconds:`` line lists them all before the device lines.
@@ -126,14 +140,16 @@ the card's busy time and idle share.
     python3 chip_smoke.py --trace-history
 
 runs every phase and check as without flags, and traces the two history
-phases only; ``--trace-fleet`` traces Fleet P's first ticks the same way
-(``--trace`` traces them too).
+phases only; ``--trace-fleet`` traces Fleet P's first ticks the same way,
+and ``--trace-read`` Viewer V's ticks at 100,000 viewers, Read R's replica
+poll and Front door F's last socket tick (``--trace`` traces them too).
 """
 
 from __future__ import annotations
 
 import contextlib
 import json
+import os
 import pathlib
 import subprocess
 import sys
@@ -917,8 +933,10 @@ def durable_path(device, walless: dict, script, then=None) -> dict:
     live durable stack; then a fresh client joins 64 sampled docs of both
     stacks through the deli. ``then(ctx)``, when given, runs last on the
     recovered stack and its directories (History P), before they go:
-    ``ctx`` holds the stack (``storm``) and ``make_stack``, which builds
-    another like it over the same directories."""
+    ``ctx`` holds the stack (``storm``), ``make_stack``, which builds
+    another like it over the same directories, the WAL-less run's stack
+    (``twin``: the same state but the 64 joins), the docs (``names``) and
+    the joined ones (``joined``)."""
     import itertools
     import shutil
     import tempfile
@@ -1098,7 +1116,9 @@ def durable_path(device, walless: dict, script, then=None) -> dict:
               "sequencer rows after a join: recovered != live")
         phase_s["recover_checks"] = time.perf_counter() - t_checks
         if then is not None:
-            then_out = then({"storm": storm2, "make_stack": make_stack})
+            then_out = then({"storm": storm2, "make_stack": make_stack,
+                             "twin": base, "names": names,
+                             "joined": joined})
         else:
             storm2._group_wal.close()
     finally:
@@ -3870,14 +3890,9 @@ def trace_mixed_path(device) -> dict:
     """Mixed A's front-door ticks again under ``torch.profiler``: device
     busy ms against the host's wall ms over the same ticks (the profiler
     slows the host, so the idle share is an upper bound)."""
-    from torch.profiler import ProfilerActivity, profile
-    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    prof = new_profile()
     run = serve_mixed(device, mixed_script(), ticks_ctx=lambda: prof)
-    busy_ms, top = device_busy(prof)
-    wall_ms = run["wall_s"] * 1e3
-    out = {"serve_ms": wall_ms, "device_busy_ms": busy_ms,
-           "idle_share": 1 - busy_ms / wall_ms if busy_ms else None,
-           "top_device_ms": top}
+    out = idle_record(prof, run["wall_s"] * 1e3, "serve_ms")
     print("trace_mixed: " + json.dumps(out), flush=True)
     return out
 
@@ -3896,21 +3911,48 @@ def device_busy(prof) -> tuple[float, list]:
     return sum(busy.values()), top
 
 
+def new_profile():
+    """A ``torch.profiler`` session over the host and the card."""
+    from torch.profiler import ProfilerActivity, profile
+    return profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+
+
+def idle_record(prof, wall_ms: float, wall_key: str = "wall_ms") -> dict:
+    """A finished profile over ``wall_ms`` of host time: the device's busy
+    ms, its idle share (an upper bound: the profiler slows the host) and
+    the device events that took the most time."""
+    busy_ms, top = device_busy(prof)
+    return {wall_key: wall_ms, "device_busy_ms": busy_ms,
+            "idle_share": 1 - busy_ms / wall_ms if busy_ms else None,
+            "top_device_ms": top}
+
+
+@contextlib.contextmanager
+def traced(enabled: bool, out: dict, key: str):
+    """Run the block under ``torch.profiler`` when ``enabled``; then
+    ``out[key]`` holds its wall ms, device busy ms and idle share."""
+    if not enabled:
+        yield
+        return
+    import torch
+    prof = new_profile()
+    with prof:
+        t0 = time.perf_counter()
+        yield
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    out[key] = idle_record(prof, wall_ms)
+
+
 def trace_main_path(device) -> dict:
     """The main path's served ticks again under ``torch.profiler``: device
     busy ms against the host's wall ms over the same ticks, and the
     device events that took the most time. The profiler slows the host,
     so the idle share is an upper bound."""
-    from torch.profiler import ProfilerActivity, profile
-
     script = make_script(7, DOCS, TICKS, K_MAP, FRAMES_PER_TICK)
-    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    prof = new_profile()
     run = serve(device, script, DOCS, ticks_ctx=lambda: prof)
-    busy_ms, top = device_busy(prof)
-    serve_ms = run["t_serve"] * 1e3
-    out = {"serve_ms": serve_ms, "device_busy_ms": busy_ms,
-           "idle_share": 1 - busy_ms / serve_ms if busy_ms else None,
-           "top_device_ms": top}
+    out = idle_record(prof, run["t_serve"] * 1e3, "serve_ms")
     print("trace: " + json.dumps(out), flush=True)
     return out
 
@@ -3922,10 +3964,8 @@ def trace_durable_path(device) -> dict:
     import shutil
     import tempfile
 
-    from torch.profiler import ProfilerActivity, profile
-
     script = make_script(7, DOCS, TICKS, K_MAP, FRAMES_PER_TICK)
-    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    prof = new_profile()
     root = pathlib.Path(tempfile.mkdtemp(prefix="ff-durable-trace-"))
     try:
         run = serve_durable(device, script, root, {},
@@ -3933,11 +3973,7 @@ def trace_durable_path(device) -> dict:
         run["storm"]._group_wal.close()
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    busy_ms, top = device_busy(prof)
-    serve_ms = run["t_serve"] * 1e3
-    out = {"serve_ms": serve_ms, "device_busy_ms": busy_ms,
-           "idle_share": 1 - busy_ms / serve_ms if busy_ms else None,
-           "top_device_ms": top}
+    out = idle_record(prof, run["t_serve"] * 1e3, "serve_ms")
     print("trace_durable: " + json.dumps(out), flush=True)
     return out
 
@@ -3946,20 +3982,10 @@ def trace_text_paths(device) -> dict:
     """Both text paths again, each whole under ``torch.profiler``: device
     busy ms against the host's wall ms over the path (an upper bound on
     the idle share, as for the map path)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    out = {}
+    out: dict = {}
     for name, drive in (("a", text_path_a), ("b", text_path_b)):
-        prof = profile(activities=[ProfilerActivity.CPU,
-                                   ProfilerActivity.CUDA])
-        with prof:
-            t0 = time.perf_counter()
+        with traced(True, out, name):
             drive(device)
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        busy_ms, top = device_busy(prof)
-        out[name] = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
-                     "idle_share": 1 - busy_ms / wall_ms,
-                     "top_device_ms": top}
     print("trace_text: " + json.dumps(out), flush=True)
     return out
 
@@ -3968,21 +3994,11 @@ def trace_matrix_paths(device) -> dict:
     """Both matrix paths again, each whole under ``torch.profiler`` (path
     B at two flushes, for the profiler's post-processing time): device
     busy ms against the host's wall ms over the path."""
-    from torch.profiler import ProfilerActivity, profile
-
-    out = {}
+    out: dict = {}
     for name, drive in (("a", matrix_path_a),
                         ("b", lambda dev: matrix_path_b(dev, flushes=2))):
-        prof = profile(activities=[ProfilerActivity.CPU,
-                                   ProfilerActivity.CUDA])
-        with prof:
-            t0 = time.perf_counter()
+        with traced(True, out, name):
             drive(device)
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        busy_ms, top = device_busy(prof)
-        out[name] = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
-                     "idle_share": 1 - busy_ms / wall_ms,
-                     "top_device_ms": top}
     print("trace_matrix: " + json.dumps(out), flush=True)
     return out
 
@@ -3990,16 +4006,10 @@ def trace_matrix_paths(device) -> dict:
 def trace_tree_path(device) -> dict:
     """Tree path A again, whole under ``torch.profiler``: device busy ms
     against the host's wall ms over the path."""
-    from torch.profiler import ProfilerActivity, profile
-
-    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-    with prof:
-        t0 = time.perf_counter()
+    got: dict = {}
+    with traced(True, got, "tree"):
         tree_path_a(device)
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    busy_ms, top = device_busy(prof)
-    out = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
-           "idle_share": 1 - busy_ms / wall_ms, "top_device_ms": top}
+    out = got["tree"]
     print("trace_tree: " + json.dumps(out), flush=True)
     return out
 
@@ -4033,7 +4043,9 @@ STORM_RATE = 200.0
 #: MEGA_K ops each, MEGA_LANES lanes, waves of MEGA_WAVE frames in
 #: lane-striped order: the first MEGA_WAVES waves of the reference's 157
 #: (one frame from each of 1,024 writers; a depth cut: every writer
-#: still joins). MEGA_TEXT_WRITERS of the writers write the doc's
+#: still joins). The two arms share one join: the single-lane arm
+#: recovers the promoted arm's checkpoint after the joins and text round
+#: 0. MEGA_TEXT_WRITERS of the writers write the doc's
 #: text channel through the service instead, before, during and after
 #: promotion; the merge host's seg_mesh is MEGA_SEG_SHARDS virtual
 #: shards of the card.
@@ -4558,23 +4570,23 @@ def text_messages(service, doc, from_seq: int) -> list:
             and m.contents["contents"]["address"] == "text"]
 
 
-def mega_arm(device, root: pathlib.Path, promoted: bool,
-             serve_ctx=None, after_join=None) -> dict:
-    """One arm of Mega A: MEGA_WRITERS writers join one doc, text round 0,
-    a checkpoint, (promotion onto MEGA_LANES lanes), the waves of map
-    frames, text round 1, (demotion), text round 2. The single-lane
-    arm attaches no manager. ``serve_ctx`` wraps the waves (the
-    trace); ``after_join`` is called once the joins are done."""
-    import random
+class MegaClock:
+    """Mega A's pinned service clock (1000, 1003, ...). ``at`` is its next
+    reading, so a stack recovered from a checkpoint resumes it."""
 
-    import numpy as np
-    import torch
+    def __init__(self, at: int = 1000) -> None:
+        self.at = at
 
+    def __call__(self) -> int:
+        self.at += 3
+        return self.at - 3
+
+
+def mega_stack(device, root: pathlib.Path, clock: MegaClock,
+               promoted: bool) -> dict:
+    """A Mega A serving stack on ``root`` (the durable bus, state store,
+    group WAL and snapshots), with a MegaDocManager when ``promoted``."""
     from fluidframework_tpu_torch.ops.mergetree_sharded import make_seg_mesh
-    from fluidframework_tpu_torch.protocol.messages import (
-        DocumentMessage,
-        MessageType,
-    )
     from fluidframework_tpu_torch.server.durable_store import (
         DurableMessageBus,
         FileStateStore,
@@ -4582,10 +4594,7 @@ def mega_arm(device, root: pathlib.Path, promoted: bool,
     )
     from fluidframework_tpu_torch.server.kernel_host import \
         KernelSequencerHost
-    from fluidframework_tpu_torch.server.megadoc import (
-        MegaDocManager,
-        lane_of_writer,
-    )
+    from fluidframework_tpu_torch.server.megadoc import MegaDocManager
     from fluidframework_tpu_torch.server.merge_host import KernelMergeHost
     from fluidframework_tpu_torch.server.routerlicious import \
         RouterliciousService
@@ -4601,8 +4610,7 @@ def mega_arm(device, root: pathlib.Path, promoted: bool,
         store=FileStateStore(str(root / "state")),
         merge_host=merge_host, batched_deli_host=seq_host,
         auto_pump=False, idle_check_interval=10**9)
-    ticks = iter(range(1000, 1 << 30, 3))
-    service._clock = lambda: next(ticks)
+    service._clock = clock
     storm = StormController(service, seq_host, merge_host,
                             flush_threshold_docs=10**9,
                             spill_dir=str(root / "spill"),
@@ -4610,49 +4618,84 @@ def mega_arm(device, root: pathlib.Path, promoted: bool,
                             snapshots=GitSnapshotStore(str(root / "git")))
     mgr = MegaDocManager(storm, default_lanes=MEGA_LANES) if promoted \
         else None
-    doc = "mega"
+    return {"seq_host": seq_host, "merge_host": merge_host,
+            "service": service, "storm": storm, "mgr": mgr,
+            "clock": clock, "doc": "mega"}
+
+
+def mega_text_round(st: dict, text: dict, r: int) -> None:
+    """Text round ``r`` of Mega A: each of the MEGA_TEXT_WRITERS writers
+    submits one insert or remove through the service; the round's
+    sequenced ops and the text after them kept in ``text["stages"]``."""
+    from fluidframework_tpu_torch.protocol.messages import (
+        DocumentMessage,
+        MessageType,
+    )
+    service, merge_host, doc = st["service"], st["merge_host"], st["doc"]
+    rng = text["rng"]
+    head = st["seq_host"].checkpoint(doc).sequence_number
+    for client in text["writers"]:
+        if text["length"] > 2 and rng.random() < 0.3:
+            a = rng.randrange(text["length"] - 1)
+            op = {"type": "remove", "start": a,
+                  "end": min(text["length"], a + rng.randint(1, 4))}
+        else:
+            op = {"type": "insert", "pos": rng.randint(0, text["length"]),
+                  "text": "".join(rng.choice("abcdefgh") for _ in
+                                  range(rng.randint(1, 6)))}
+        service.submit(doc, client, [DocumentMessage(
+            client_sequence_number=r + 1, reference_sequence_number=head,
+            type=MessageType.OPERATION,
+            contents={"address": "default",
+                      "contents": {"address": "text", "contents": op}})])
+    service.pump()
+    merge_host.flush()
+    text["length"] = len(merge_host.text(doc, "default", "text"))
+    msgs = text_messages(service, doc, head)
+    text["n"] += len(msgs)
+    text["stages"][r] = {"ops": text["n"], "msgs": msgs,
+                         "text": merge_host.text(doc, "default", "text")}
+
+
+def mega_join(device, root: pathlib.Path, after_join=None) -> dict:
+    """Mega A's shared prefix on the promoted arm's stack: MEGA_WRITERS
+    writers join one doc, text round 0, a checkpoint (the single-lane
+    arm's and the recovery's restore source). ``after_join`` is called
+    once the joins are done."""
+    import random
+    st = mega_stack(device, root, MegaClock(), promoted=True)
+    service = st["service"]
     t0 = time.perf_counter()
     conns = []
     for i in range(MEGA_WRITERS):
-        conns.append(service.connect(doc, lambda m: None))
+        conns.append(service.connect(st["doc"], lambda m: None))
         if (i + 1) % 256 == 0:
             service.pump()
     service.pump()
-    t_join = time.perf_counter() - t0
+    join_s = time.perf_counter() - t0
     if after_join is not None:
         after_join()
     clients = [c.client_id for c in conns]
-    rng = random.Random(5)
-    length = [0]
-    text_stages: dict = {}
-    n_text = [0]
+    text = {"rng": random.Random(5), "length": 0, "n": 0, "stages": {},
+            "writers": clients[-MEGA_TEXT_WRITERS:]}
+    mega_text_round(st, text, 0)
+    st["storm"].checkpoint()
+    return {"stack": st, "clients": clients, "text": text,
+            "join_s": join_s}
 
-    def text_round(r: int) -> None:
-        head = seq_host.checkpoint(doc).sequence_number
-        for c in conns[-MEGA_TEXT_WRITERS:]:
-            if length[0] > 2 and rng.random() < 0.3:
-                a = rng.randrange(length[0] - 1)
-                op = {"type": "remove", "start": a,
-                      "end": min(length[0], a + rng.randint(1, 4))}
-            else:
-                op = {"type": "insert", "pos": rng.randint(0, length[0]),
-                      "text": "".join(rng.choice("abcdefgh") for _ in
-                                      range(rng.randint(1, 6)))}
-            c.submit([DocumentMessage(
-                client_sequence_number=r + 1, reference_sequence_number=head,
-                type=MessageType.OPERATION,
-                contents={"address": "default",
-                          "contents": {"address": "text", "contents": op}})])
-        service.pump()
-        merge_host.flush()
-        length[0] = len(merge_host.text(doc, "default", "text"))
-        msgs = text_messages(service, doc, head)
-        n_text[0] += len(msgs)
-        text_stages[r] = {"ops": n_text[0], "msgs": msgs,
-                          "text": merge_host.text(doc, "default", "text")}
 
-    text_round(0)
-    storm.checkpoint()  # the recovery's restore source
+def mega_serve(st: dict, clients: list, text: dict, promoted: bool,
+               serve_ctx=None) -> dict:
+    """The rest of a Mega A arm on ``st`` from the shared checkpoint:
+    (promotion onto MEGA_LANES lanes), the waves of map frames, text
+    round 1, (demotion), text round 2. ``serve_ctx`` wraps the timed
+    waves (the trace)."""
+    import numpy as np
+    import torch
+
+    from fluidframework_tpu_torch.server.megadoc import lane_of_writer
+    seq_host, merge_host = st["seq_host"], st["merge_host"]
+    storm, mgr, doc = st["storm"], st["mgr"], st["doc"]
     n_lanes = MEGA_LANES
     buckets: list = [[] for _ in range(n_lanes)]
     for w in range(MEGA_WRITERS):
@@ -4706,31 +4749,38 @@ def mega_arm(device, root: pathlib.Path, promoted: bool,
     ticks_served = storm.stats["ticks"] - ticks0
     entries = (mgr.map_entries(doc) if promoted else
                merge_host.map_entries(doc, storm.datastore, storm.channel))
-    text_round(1)
+    mega_text_round(st, text, 1)
     promoted_pool = None
     key = next(k for k in merge_host._merge_rows if k.doc_id == doc)
     if promoted:
         promoted_pool = type(merge_host._merge_rows[key].pool).__name__
         mgr.demote(doc)
-    text_round(2)
+    mega_text_round(st, text, 2)
     row = storm._storm_map_row(doc)
     planes = [getattr(merge_host._xstate, f)[row].cpu().numpy().tolist()
               for f in merge_host._xstate._fields]
     lat_ms = 1e3 * np.asarray(sorted(lat))
     storm._group_wal.close()
-    return {"service": service, "merge_host": merge_host, "doc": doc,
+    return {"service": st["service"], "merge_host": merge_host, "doc": doc,
             "entries": entries, "acks": acks, "planes": planes,
             "words": words_all, "served": served, "clients": clients,
-            "text_stages": text_stages, "promoted_pool": promoted_pool,
+            "text_stages": text["stages"], "promoted_pool": promoted_pool,
             "key": key, "map_final": merge_host.map_entries(
                 doc, storm.datastore, storm.channel),
             "stats": {"writers": MEGA_WRITERS, "frames": len(served),
-                      "join_s": t_join, "elapsed_s": elapsed,
+                      "elapsed_s": elapsed,
                       "merged_ops_per_s": sequenced / elapsed,
                       "ticks": ticks_served,
                       "ack_ms_p50": float(np.percentile(lat_ms, 50)),
                       "ack_ms_p99": float(np.percentile(lat_ms, 99))}}
 
+
+def mega_arm(device, root: pathlib.Path, serve_ctx=None) -> dict:
+    """Mega A's promoted arm from its joins on: the shared prefix, then
+    ``mega_serve`` (the trace's drive)."""
+    shared = mega_join(device, root)
+    return mega_serve(shared["stack"], shared["clients"], shared["text"],
+                      True, serve_ctx=serve_ctx)
 
 def text_cpu_twin(run: dict, promoted: bool) -> None:
     """Hold the card's text planes to a CPU merge host fed the same
@@ -4771,25 +4821,51 @@ def mega_path_a(device, root: pathlib.Path, after_join=None) -> dict:
     the card, held to each other (converged map, every ack's doc-space
     quad, the demoted row's planes) and to a numpy fold in doc-seq order;
     the text channel held to the twin while promoted and to a CPU twin
-    throughout; then a fresh stack recovers the promoted arm.
-    ``after_join`` runs after the promoted arm's joins, before anything
-    of it is timed."""
-    import numpy as np
+    throughout; then a fresh stack recovers the promoted arm. The two
+    arms share one join: the promoted arm's stack joins the writers,
+    writes text round 0 and checkpoints, and the single-lane arm is a
+    fresh stack recovered from a copy of that checkpoint, served once
+    the promoted arm is done. ``after_join`` runs after the joins,
+    before anything of an arm is timed."""
+    import copy
+    import shutil
 
-    from fluidframework_tpu_torch.server.megadoc import MegaDocManager
+    root.mkdir(parents=True, exist_ok=True)
     # Both arms and the recovery run under the same recording wrappers,
     # so their clocks carry the same instrumentation.
     kept: dict = {}
     launch_counts_reset()
     with plane_recording(kept):
-        mega = mega_arm(device, root / "mega", promoted=True,
-                        after_join=after_join)
+        shared = mega_join(device, root / "mega", after_join=after_join)
+        stack = shared["stack"]
+        at_checkpoint = (stack["seq_host"].checkpoint("mega"),
+                         stack["merge_host"].text("mega", "default", "text"),
+                         stack["clock"].at)
+        single_text = copy.deepcopy(shared["text"])
+        shutil.copytree(root / "mega", root / "single")
+        mega = mega_serve(stack, shared["clients"], shared["text"], True)
     counts = launch_counts()
     twin_kept: dict = {}
     launch_counts_reset()
     with plane_recording(twin_kept):
-        twin = mega_arm(device, root / "twin", promoted=False)
+        st = mega_stack(device, root / "single",
+                        MegaClock(at_checkpoint[2]), promoted=False)
+        t0 = time.perf_counter()
+        st["storm"].recover()
+        # The doc's deli lambda, made now as the live stack made it at
+        # its first join: made lazily at text round 1, it would restore
+        # its round-0 checkpoint over the row the waves advanced.
+        st["service"]._deli._lambda_for("mega")
+        twin_recover_s = time.perf_counter() - t0
+        check((st["seq_host"].checkpoint("mega"),
+               st["merge_host"].text("mega", "default", "text"))
+              == at_checkpoint[:2], "mega A: the single-lane arm's stack, "
+              "recovered from the shared checkpoint, != the promoted "
+              "arm's at that checkpoint")
+        twin = mega_serve(st, shared["clients"], single_text, False)
     twin_counts = launch_counts()
+    for run in (mega, twin):
+        run["stats"]["join_s"] = shared["join_s"]
     check(mega["entries"] == twin["entries"],
           "mega A: the promoted map != the single-lane twin's")
     check(mega["acks"] == twin["acks"],
@@ -4820,29 +4896,8 @@ def mega_path_a(device, root: pathlib.Path, after_join=None) -> dict:
     text_cpu_twin(mega, True)
     text_cpu_twin(twin, False)
     # Recovery of the promoted arm's WAL and snapshot on the card.
-    from fluidframework_tpu_torch.ops.mergetree_sharded import make_seg_mesh
-    from fluidframework_tpu_torch.server.durable_store import (
-        DurableMessageBus, FileStateStore, GitSnapshotStore)
-    from fluidframework_tpu_torch.server.kernel_host import \
-        KernelSequencerHost
-    from fluidframework_tpu_torch.server.merge_host import KernelMergeHost
-    from fluidframework_tpu_torch.server.routerlicious import \
-        RouterliciousService
-    from fluidframework_tpu_torch.server.storm import StormController
-    rroot = root / "mega"
-    seq2 = KernelSequencerHost(num_slots=256, initial_capacity=4,
-                               device=device)
-    mh2 = KernelMergeHost(flush_threshold=10**9, device=device,
-                          seg_mesh=make_seg_mesh([device] * MEGA_SEG_SHARDS))
-    svc2 = RouterliciousService(
-        bus=DurableMessageBus(str(rroot / "bus")),
-        store=FileStateStore(str(rroot / "state")), merge_host=mh2,
-        batched_deli_host=seq2, auto_pump=False, idle_check_interval=10**9)
-    storm2 = StormController(svc2, seq2, mh2, flush_threshold_docs=10**9,
-                             spill_dir=str(rroot / "spill"),
-                             durability="group",
-                             snapshots=GitSnapshotStore(str(rroot / "git")))
-    mgr2 = MegaDocManager(storm2, default_lanes=MEGA_LANES)
+    st2 = mega_stack(device, root / "mega", MegaClock(), promoted=True)
+    storm2, mgr2 = st2["storm"], st2["mgr"]
     rec_kept: dict = {}
     launch_counts_reset()
     with plane_recording(rec_kept):
@@ -4850,7 +4905,8 @@ def mega_path_a(device, root: pathlib.Path, after_join=None) -> dict:
         info = storm2.recover()
         rec_s = time.perf_counter() - t0
     rec_counts = launch_counts()
-    got = mh2.map_entries("mega", storm2.datastore, storm2.channel)
+    got = st2["merge_host"].map_entries("mega", storm2.datastore,
+                                        storm2.channel)
     check(got == mega["map_final"] and got == mega["entries"],
           "mega A: the recovered map != the live promoted run's")
     check(mgr2.has_history("mega") and not mgr2.is_promoted("mega"),
@@ -4871,6 +4927,7 @@ def mega_path_a(device, root: pathlib.Path, after_join=None) -> dict:
            "lanes": MEGA_LANES, "wave": MEGA_WAVE,
            "waves": -(-len(mega["served"]) // MEGA_WAVE),
            "text_after_demotion_fault": fault,
+           "single_lane_recover_s": twin_recover_s,
            "recover_s": rec_s, "recovered": info,
            "launches": {k: counts[k] for k in (
                "map_fold", "sequencer_tick", "mergetree_blocks",
@@ -4882,7 +4939,6 @@ def mega_path_a(device, root: pathlib.Path, after_join=None) -> dict:
     return {"out": out, "counts": counts, "kept": kept,
             "twin_counts": twin_counts, "twin_kept": twin_kept,
             "recover_counts": rec_counts, "recover_kept": rec_kept}
-
 
 def mega_lanes_path(device) -> dict:
     """Mega L (see LANES_*): MegaDocLanes over LANES_ROWS rows of a
@@ -5093,8 +5149,6 @@ def trace_planes(device) -> dict:
     over the same frames (an upper bound on the idle share)."""
     import shutil
     import tempfile
-
-    from torch.profiler import ProfilerActivity, profile
     out = {}
     root = pathlib.Path(tempfile.mkdtemp(prefix="ff-planes-trace-"))
     try:
@@ -5103,15 +5157,10 @@ def trace_planes(device) -> dict:
                     device, root / "res", churn_ctx=ctx,
                     verify=False)["churn_s"]),
                 ("mega_promoted", lambda ctx: mega_arm(
-                    device, root / "mega", True,
+                    device, root / "mega",
                     serve_ctx=ctx)["stats"]["elapsed_s"])):
-            prof = profile(activities=[ProfilerActivity.CPU,
-                                       ProfilerActivity.CUDA])
-            wall_ms = drive(lambda: prof) * 1e3
-            busy_ms, top = device_busy(prof)
-            out[name] = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
-                         "idle_share": 1 - busy_ms / wall_ms,
-                         "top_device_ms": top}
+            prof = new_profile()
+            out[name] = idle_record(prof, drive(lambda: prof) * 1e3)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     print("trace_planes: " + json.dumps(out), flush=True)
@@ -5603,9 +5652,7 @@ def history_path_p(device, ctx: dict, trace: bool = False) -> dict:
     prof = None
     ctx_trace = contextlib.nullcontext()
     if trace:
-        from torch.profiler import ProfilerActivity, profile
-        prof = ctx_trace = profile(activities=[ProfilerActivity.CPU,
-                                               ProfilerActivity.CUDA])
+        prof = ctx_trace = new_profile()
     launch_counts_reset()
     t_all = time.perf_counter()
     with plane_recording(kept), ctx_trace:
@@ -5738,11 +5785,7 @@ def history_path_p(device, ctx: dict, trace: bool = False) -> dict:
            "recover_launches": {k: rec_counts[k] for k in (
                "map_fold", "sequencer_tick")}}
     if prof is not None:
-        busy_ms, top = device_busy(prof)
-        wall_ms = 1e3 * secs["all"]
-        out["trace"] = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
-                        "idle_share": 1 - busy_ms / wall_ms,
-                        "top_device_ms": top}
+        out["trace"] = idle_record(prof, 1e3 * secs["all"])
     print("history_p: " + json.dumps(out), flush=True)
     check(counts["map_fold"] > 0, "history P launched no map fold")
     return {"out": out, "counts": counts, "kept": kept,
@@ -5754,22 +5797,13 @@ def trace_history(device) -> dict:
     busy ms against the host's wall ms (History P traces itself)."""
     import shutil
     import tempfile
-
-    from torch.profiler import ProfilerActivity, profile
+    out: dict = {}
     root = pathlib.Path(tempfile.mkdtemp(prefix="ff-history-trace-"))
     try:
-        prof = profile(activities=[ProfilerActivity.CPU,
-                                   ProfilerActivity.CUDA])
-        t0 = time.perf_counter()
-        with prof:
+        with traced(True, out, "fork_merge"):
             history_fork_merge(device, root, residency=False)
-        wall_ms = 1e3 * (time.perf_counter() - t0)
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    busy_ms, top = device_busy(prof)
-    out = {"fork_merge": {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
-                          "idle_share": 1 - busy_ms / wall_ms,
-                          "top_device_ms": top}}
     print("trace_history: " + json.dumps(out), flush=True)
     return out
 
@@ -5778,7 +5812,9 @@ def trace_history(device) -> dict:
 
 #: Fleet H: the reference fleet benches (``bench.py``) at their published
 #: defaults, but bench_cluster_scaling's serve windows (FLEET_SCALE_S for
-#: 6.0 s, FLEET_SCALE_WARM_S for the 1.0 s warm-ups): bench_cluster_migration
+#: 6.0 s, FLEET_SCALE_WARM_S for the 1.0 s warm-ups) and
+#: bench_replication_overhead's rounds (FLEET_REPL_ROUNDS for 250; depth
+#: cuts, PERF.md §4): bench_cluster_migration
 #: (2 hosts, FLEET_MIGRATE_DOCS docs, K FLEET_K, FLEET_MIGRATIONS live
 #: migrations under round-robin writes), bench_cluster_scaling (4 hosts,
 #: genesis active on 2, FLEET_SCALE_DOCS docs, commit latency arms
@@ -5794,7 +5830,7 @@ FLEET_SCALE_S = 1.0
 FLEET_SCALE_WARM_S = 0.25
 FLEET_COMMIT_MS = (0.0, 10.0, 80.0)
 FLEET_REPL_DOCS = 4
-FLEET_REPL_ROUNDS = 250
+FLEET_REPL_ROUNDS = 125
 FLEET_REPL_WARM = 25
 FLEET_REPL_DEPTH = 2
 #: Fleet P: config 3 (DOCS x CLIENTS, KEY_SLOTS, K_MAP) on a StormCluster
@@ -6203,13 +6239,18 @@ def fleet_fold(ticks: int):
     return present, value
 
 
-def fleet_path_p(device, trace: bool = False) -> dict:
+def fleet_path_p(device, trace: bool = False, read: bool = False,
+                 trace_read: bool = False) -> dict:
     """Fleet P (see FLEET_P_*): config 3 on a 4-host replicated cluster,
     under the recording wrappers: joins, ticks, a batch migration with
     its ``migrating`` and ``moved`` sheds, a failover of h1 to a promoted
     follower, and a tick through it; every doc held to a numpy fold, the
     promoted host to the dead leader. With ``trace`` the first ticks run
-    under ``torch.profiler``."""
+    under ``torch.profiler``. With ``read``, Read R rides it (``ReadR``):
+    a replica of h0's follower with viewer rooms re-homed onto it after
+    the batch, checked after the ticks that follow, and a mega-promoted
+    doc shed to the leader after the last tick (``trace_read`` traces the
+    ticks after the batch and the replica's poll)."""
     import shutil
     import tempfile
 
@@ -6231,9 +6272,7 @@ def fleet_path_p(device, trace: bool = False) -> dict:
     prof = None
     ctx_trace = contextlib.nullcontext()
     if trace:
-        from torch.profiler import ProfilerActivity, profile
-        prof = ctx_trace = profile(activities=[ProfilerActivity.CPU,
-                                               ProfilerActivity.CUDA])
+        prof = ctx_trace = new_profile()
     total = FLEET_P_TICKS + FLEET_P_AFTER + FLEET_P_PROMOTED
     try:
         t_all = time.perf_counter()
@@ -6346,6 +6385,7 @@ def fleet_path_p(device, trace: bool = False) -> dict:
             out["batch"] = {"moved": batch["moved"],
                             "directory_writes": batch["directory_writes"],
                             "blackout_ms": 1e3 * batch["blackout_s"]}
+            read_r = ReadR(cluster, planes, git, names) if read else None
             # The first tick after it: the moved docs' clients still send
             # to h0, which sheds "moved" naming the owner; they redial.
             redirects: list = []
@@ -6370,11 +6410,20 @@ def fleet_path_p(device, trace: bool = False) -> dict:
                     redirects.append(self.n)
                     cluster.hosts[moved_to[self.n]].submit_frame(
                         push, hdr, payload)
-            secs["ticks_after"] = [tick(FLEET_P_TICKS, stale)]
+            # Read R's trace: the ticks its rooms see, and the poll.
+            with traced(read_r is not None and trace_read,
+                        read_r.trace if read_r is not None else {},
+                        "read_r"):
+                secs["ticks_after"] = [tick(FLEET_P_TICKS, stale)]
+                for t in range(FLEET_P_TICKS + 1,
+                               FLEET_P_TICKS + FLEET_P_AFTER):
+                    secs["ticks_after"].append(tick(t))
+                if read_r is not None:
+                    read_r.poll()
             check(len(redirects) == FLEET_P_MOVES,
                   f"fleet P: {len(redirects)} redirects")
-            for t in range(FLEET_P_TICKS + 1, FLEET_P_TICKS + FLEET_P_AFTER):
-                secs["ticks_after"].append(tick(t))
+            if read_r is not None:
+                read_r.check_after(FLEET_P_AFTER)
             # h1 dies; its most advanced follower is promoted on the card.
             old = cluster.hosts["h1"]
             h1_docs = [n for n in names if cluster.owner_of(n) == "h1"]
@@ -6423,6 +6472,8 @@ def fleet_path_p(device, trace: bool = False) -> dict:
             secs["ticks_promoted"] = [
                 tick(t) for t in range(FLEET_P_TICKS + FLEET_P_AFTER,
                                        total)]
+            if read_r is not None:
+                read_r.mega_redirect()
         counts = launch_counts()
         secs["all"] = time.perf_counter() - t_all
         t_checks = time.perf_counter()
@@ -6492,13 +6543,1058 @@ def fleet_path_p(device, trace: bool = False) -> dict:
         shapes={k: {str(sh): n for sh, n in counts["shapes"][k].items()}
                 for k in ("map_fold", "sequencer_tick")})
     if prof is not None:
-        busy_ms, top = device_busy(prof)
-        out["trace"] = {"wall_ms": 1e3 * wall_trace,
-                        "device_busy_ms": busy_ms,
-                        "idle_share": 1 - busy_ms / (1e3 * wall_trace),
-                        "top_device_ms": top}
+        out["trace"] = idle_record(prof, 1e3 * wall_trace)
+    if read_r is not None:
+        out["read_r"] = {**read_r.out, "seconds": read_r.secs,
+                         "trace": read_r.trace.get("read_r")}
     print("fleet_p: " + json.dumps(out), flush=True)
     return {"out": out, "counts": counts, "kept": kept}
+
+
+
+# -- the read tier and the front door (viewers, read replicas, alfred) --------
+
+#: Viewer V: bench_viewers (``bench.py:2384``) at its defaults —
+#: VIEWER_COUNTS viewers on one hot doc, VIEWER_TICKS storm ticks of
+#: VIEWER_K from one writer — then bench_viewer_rehome (``bench.py:3098``):
+#: REHOME_VIEWERS viewers re-homed by a live migration, K REHOME_K.
+VIEWER_COUNTS = (1_000, 10_000, 100_000)
+VIEWER_TICKS = 8
+VIEWER_K = 64
+REHOME_VIEWERS = 64
+REHOME_K = 32
+#: Read R, on Fleet P's replicated config-3 stack after its batch
+#: migration and before its failover: READ_ROOMS of h0's docs get
+#: READ_ROOM_VIEWERS viewers each, READ_REHOMED of those rooms re-home onto
+#: a read replica of h0's first follower (READ_LABEL), and READ_DOCS docs
+#: are read (``read_at`` at 0, mid and head; ``get_deltas``) on the replica.
+#: Then bench_replica_read_throughput (``bench.py:4078``) at its defaults
+#: and bench_replica_writer_tax (``bench.py:3952``) at REPLICA_TAX_ROUNDS
+#: rounds (a depth cut from 250, PERF.md §4).
+READ_ROOMS = 256
+READ_ROOM_VIEWERS = 16
+READ_REHOMED = 128
+READ_DOCS = 16
+READ_LABEL = "replica-h0"
+REPLICA_READ_TICKS = 24
+REPLICA_READ_K = 64
+REPLICA_READS = 400
+REPLICA_TAX_DOCS = 4
+REPLICA_TAX_K = 64
+REPLICA_TAX_ROUNDS = 125
+REPLICA_TAX_WARM = 25
+REPLICA_TAX_DEPTH = 2
+REPLICA_TAX_BLOCKS = 5
+#: Front door F: an AlfredServer over the durable path's recovered config-3
+#: stack, FRONT_TICKS ticks of every doc's frame through one socket,
+#: FRONT_VIEWERS viewer sockets, a directory-routed viewer (FRONT_LABEL);
+#: then the standalone entry point as a user starts it.
+FRONT_TICKS = 2
+FRONT_VIEWERS = 64
+FRONT_LABEL = "replica-f"
+FRONT_STANDALONE_OPS = 8
+
+
+def storm_frames(frames) -> list:
+    """The binary viewer tick frames among a viewer's payloads."""
+    from fluidframework_tpu_torch.protocol.codec import is_storm_body
+    return [bytes(p) for p in frames
+            if isinstance(p, (bytes, bytearray)) and is_storm_body(p)]
+
+
+def viewer_fanout(device, trace: dict | None = None) -> dict:
+    """bench_viewers on the card: for each audience size a fresh storm
+    stack, the viewers join one hot doc's room through the viewer plane,
+    then one writer serves VIEWER_TICKS ticks; the broadcast hop (one
+    encode, one batched native publish, the drain) timed per tick.
+    Checks: one encode a tick, every viewer got every tick's frame, no lag
+    drop, the native fan-out ran, and the first viewer's frames equal
+    ``encode_viewer_tick_body`` of each tick's ack and words."""
+    import numpy as np
+    import torch
+
+    from fluidframework_tpu_torch.protocol.codec import \
+        encode_viewer_tick_body
+    from fluidframework_tpu_torch.server.broadcaster import ViewerPlane
+    from fluidframework_tpu_torch.server.kernel_host import \
+        KernelSequencerHost
+    from fluidframework_tpu_torch.server.merge_host import KernelMergeHost
+    from fluidframework_tpu_torch.server.routerlicious import \
+        RouterliciousService
+    from fluidframework_tpu_torch.server.storm import StormController
+    rows = {}
+    k, doc = VIEWER_K, "live-doc"
+    for n_viewers in VIEWER_COUNTS:
+        seq_host = KernelSequencerHost(num_slots=2, initial_capacity=4,
+                                       device=device)
+        merge_host = KernelMergeHost(flush_threshold=10**9, device=device)
+        service = RouterliciousService(merge_host=merge_host,
+                                       batched_deli_host=seq_host,
+                                       auto_pump=False)
+        storm = StormController(service, seq_host, merge_host,
+                                flush_threshold_docs=10**9)
+        plane = ViewerPlane(service, join_rate_per_s=1e9)
+        writer = service.connect(doc, lambda m: None)
+        service.pump()
+        delivered = [0]
+        first: list = []
+
+        def first_push(p):
+            delivered[0] += 1
+            first.append(p)
+
+        def viewer_push(_p):
+            delivered[0] += 1
+
+        t0 = time.perf_counter()
+        plane.join(doc, first_push)
+        for _ in range(n_viewers - 1):
+            plane.join(doc, viewer_push)
+        join_s = time.perf_counter() - t0
+        plane.drain_all()  # the joins' coalesced presence announces
+        broadcast_s: list = []
+        inner = plane.publish_ticks
+
+        def timed_publish(items, inner=inner):
+            t = time.perf_counter()
+            out = inner(items)
+            broadcast_s.append(time.perf_counter() - t)
+            return out
+        plane.publish_ticks = timed_publish
+        words = residency_words((13, n_viewers), k)
+        acks: dict = {}
+
+        def sink(p):
+            if not p.get("error"):
+                acks[p["rid"]] = np.asarray(p.rows).tolist()
+        storm.submit_frame(sink, {"rid": -1, "docs": [[
+            doc, writer.client_id, 1, 1, k]]}, memoryview(words.tobytes()))
+        storm.flush()  # the untimed warm-up tick
+        broadcast_s.clear()
+        first.clear()
+        encodes0 = plane.stats["tick_encodes"]
+        delivered0 = delivered[0]
+        ctx = traced(trace is not None and n_viewers == VIEWER_COUNTS[-1],
+                     trace if trace is not None else {}, "viewer_v")
+        with ctx:
+            t1 = time.perf_counter()
+            for t in range(1, 1 + VIEWER_TICKS):
+                storm.submit_frame(sink, {"rid": t, "docs": [[
+                    doc, writer.client_id, 1 + t * k, 1, k]]},
+                    memoryview(words.tobytes()))
+                storm.flush()
+            torch.cuda.synchronize()
+            total_s = time.perf_counter() - t1
+        encodes = plane.stats["tick_encodes"] - encodes0
+        frames = delivered[0] - delivered0
+        native = bool(getattr(plane.fanout, "is_native", False))
+        check(encodes == VIEWER_TICKS,
+              f"viewer V at {n_viewers}: {encodes} encodes in "
+              f"{VIEWER_TICKS} ticks (want one a tick)")
+        check(frames == n_viewers * VIEWER_TICKS,
+              f"viewer V at {n_viewers}: {frames} frames delivered, want "
+              f"{n_viewers * VIEWER_TICKS}")
+        check(plane.stats["lag_drops"] == 0,
+              f"viewer V at {n_viewers}: {plane.stats['lag_drops']} lag "
+              "drops")
+        check(native, f"viewer V at {n_viewers}: the fan-out is not the "
+              "native library")
+        want = [bytes(encode_viewer_tick_body(doc, *acks[t][0], k,
+                                              words.tobytes()))
+                for t in range(1, 1 + VIEWER_TICKS)]
+        check(storm_frames(first) == want,
+              f"viewer V at {n_viewers}: the first viewer's frames != "
+              "encode_viewer_tick_body of each tick's ack and words")
+        lat = 1e3 * np.asarray(broadcast_s)
+        rows[f"viewers_{n_viewers}"] = {
+            "viewers": n_viewers, "ticks": VIEWER_TICKS, "ops_per_tick": k,
+            "join_s": join_s, "joins_per_sec": n_viewers / join_s,
+            "e2e_ops_per_sec": VIEWER_TICKS * k / total_s,
+            "broadcast_ms_p50": float(np.percentile(lat, 50)),
+            "broadcast_ms_p99": float(np.percentile(lat, 99)),
+            "broadcast_frames_delivered": frames,
+            "frames_per_sec_fanout": frames / sum(broadcast_s),
+            "broadcast_bytes_total": plane.stats["broadcast_bytes"],
+            "lag_drops": plane.stats["lag_drops"],
+            "encodes_per_tick": encodes / VIEWER_TICKS,
+            "fanout_native": native}
+    return rows
+
+
+def viewer_rehome(device, root: pathlib.Path) -> dict:
+    """bench_viewer_rehome on the card: REHOME_VIEWERS viewers on the
+    source host's room; the migration drops each with a ``moved_to``
+    directive; each runs the re-home dance (the merged ``get_deltas`` gap,
+    then a join on the target's plane). Latency from each directive to
+    live on the target; the target's harvest then broadcasts."""
+    import numpy as np
+
+    from fluidframework_tpu_torch.server.broadcaster import ViewerPlane
+    labels = ["h0", "h1"]
+    cluster = fleet_cluster(device, root, labels, labels, 4)
+    doc = "hot-doc"
+    clients = fleet_connect(cluster, [doc])
+    src = cluster.owner_of(doc)
+    dst = next(h for h in labels if h != src)
+    src_plane = ViewerPlane(cluster.hosts[src].service)
+    dst_plane = ViewerPlane(cluster.hosts[dst].service)
+    directive_at: dict = {}
+    moved_to: list = []
+    for v in range(REHOME_VIEWERS):
+        def push(p, v=v):
+            if isinstance(p, dict) and p.get("event") == "viewer_resync":
+                directive_at[v] = time.perf_counter()
+                moved_to.append(p.get("moved_to"))
+        src_plane.join(doc, push)
+    cseq = 1
+    for r in range(3):
+        cluster.storm_for(doc).submit_frame(
+            None, {"rid": r, "docs": [[doc, clients[doc], cseq, 1,
+                                       REHOME_K]]},
+            memoryview(hist_words(0, r, REHOME_K).tobytes()))
+        cluster.storm_for(doc).flush()
+        cseq += REHOME_K
+    cluster.migrate(doc, dst)
+    check(len(directive_at) == REHOME_VIEWERS
+          and moved_to == [dst] * REHOME_VIEWERS,
+          f"viewer V re-home: {len(directive_at)} directives, moved_to "
+          f"{set(moved_to)} (want {REHOME_VIEWERS} naming {dst})")
+    rehome_ms = []
+    for v in range(REHOME_VIEWERS):
+        gap = cluster.get_deltas(doc, 0)
+        dst_plane.join(doc, lambda p: None)
+        rehome_ms.append(1e3 * (time.perf_counter() - directive_at[v]))
+    check_deltas(cluster, doc, 1, 3 * REHOME_K, "viewer V re-home")
+    encodes0 = dst_plane.stats["tick_encodes"]
+    cluster.storm_for(doc).submit_frame(
+        None, {"rid": 3, "docs": [[doc, clients[doc], cseq, 1, REHOME_K]]},
+        memoryview(hist_words(0, 3, REHOME_K).tobytes()))
+    cluster.storm_for(doc).flush()
+    check(dst_plane.stats["tick_encodes"] == encodes0 + 1
+          and dst_plane.room_size(doc) == REHOME_VIEWERS,
+          "viewer V re-home: the target's plane did not broadcast to the "
+          "re-homed room")
+    for storm in cluster.hosts.values():
+        storm._group_wal.close()
+    arr = np.asarray(rehome_ms)
+    return {"viewers": REHOME_VIEWERS, "k": REHOME_K,
+            "rehomed_viewers": cluster.stats["rehomed_viewers"],
+            "gap_messages": len(gap),
+            "rehome_ms_p50": float(np.percentile(arr, 50)),
+            "rehome_ms_p99": float(np.percentile(arr, 99))}
+
+
+def viewer_path_v(device, trace: bool = False) -> dict:
+    """Viewer V: bench_viewers and bench_viewer_rehome on the card, under
+    the plane recording wrappers (every kernel 1 and 2 call kept)."""
+    import shutil
+    import tempfile
+    root = pathlib.Path(tempfile.mkdtemp(prefix="ff-viewer-v-"))
+    kept: dict = {}
+    secs: dict = {}
+    traces: dict = {}
+    try:
+        launch_counts_reset()
+        with plane_recording(kept):
+            t0 = time.perf_counter()
+            out = {"fanout": viewer_fanout(
+                device, traces if trace else None)}
+            secs["fanout"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            out["rehome"] = viewer_rehome(device, root)
+            secs["rehome"] = time.perf_counter() - t0
+        counts = launch_counts()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    check(counts["map_fold"] > 0 and counts["sequencer_tick"] > 0,
+          "viewer V launched no map fold or no deli")
+    out.update(seconds=secs, trace=traces.get("viewer_v"),
+               launches={k: counts[k] for k in ("map_fold",
+                                                "sequencer_tick")})
+    print("viewer_v: " + json.dumps(out), flush=True)
+    return {"out": out, "counts": counts, "kept": kept}
+
+
+class ReadR:
+    """Read R's part inside Fleet P (see READ_*): attached after the
+    batch migration, checked after the ticks that follow it, and its
+    mega-promoted redirect taken after Fleet P's last tick."""
+
+    def __init__(self, cluster, planes, git, names):
+        from fluidframework_tpu_torch.server.broadcaster import ViewerPlane
+        from fluidframework_tpu_torch.server.read_replica import (
+            ReadReplica, ReplicaDirectory)
+        self.secs: dict = {}
+        self.out: dict = {}
+        self.trace: dict = {}
+        self.cluster = cluster
+        self.leader = cluster.hosts["h0"]
+        t0 = time.perf_counter()
+        self.rep = ReadReplica(planes["h0"].links[0].node, git, READ_LABEL,
+                               leader_label="h0", join_rate_per_s=1e9)
+        self.secs["replica_start"] = time.perf_counter() - t0
+        self.directory = ReplicaDirectory(git)
+        self.directory.register(READ_LABEL)
+        owned = set(cluster.owned("h0"))
+        self.rooms = [n for n in names if n in owned][:READ_ROOMS]
+        check(len(self.rooms) == READ_ROOMS,
+              f"read R: h0 owns {len(self.rooms)} docs, want {READ_ROOMS}")
+        self.plane = ViewerPlane(self.leader.service, join_rate_per_s=1e9)
+        self.first: dict = {}
+        self.got = [0]
+        self.moved: dict = {}
+        t0 = time.perf_counter()
+        for doc in self.rooms:
+            self.first[doc] = []
+            for v in range(READ_ROOM_VIEWERS):
+                def push(p, doc=doc, v=v):
+                    if isinstance(p, dict) \
+                            and p.get("event") == "viewer_resync":
+                        self.moved.setdefault(doc, []).append(
+                            p.get("moved_to"))
+                    elif v == 0:
+                        self.first[doc].append(p)
+                    elif storm_frames([p]):
+                        self.got[0] += 1
+                self.plane.join(doc, push)
+        self.plane.drain_all()
+        self.secs["viewer_joins"] = time.perf_counter() - t0
+        # Re-home the first READ_REHOMED rooms: the directory flips, then
+        # the leader's live room spreads; each member redials the replica
+        # (a viewer there), and a witness stays on the leader's room.
+        self.rehomed = self.rooms[:READ_REHOMED]
+        self.on_replica: dict = {}
+        self.witness: dict = {}
+        t0 = time.perf_counter()
+        spread = {}
+        for doc in self.rehomed:
+            self.directory.assign_room(doc, [READ_LABEL])
+            spread[doc] = self.plane.spread_room(doc, [READ_LABEL])
+        self.secs["rehome"] = time.perf_counter() - t0
+        check(all(c == {READ_LABEL: READ_ROOM_VIEWERS}
+                  for c in spread.values())
+              and all(self.moved.get(d) == [READ_LABEL] * READ_ROOM_VIEWERS
+                      for d in self.rehomed),
+              "read R: a re-homed room's members did not all get a "
+              f"viewer_resync naming {READ_LABEL}")
+        for doc in self.rehomed:
+            self.on_replica[doc] = []
+            for _ in range(READ_ROOM_VIEWERS):
+                self.rep.viewers.join(doc, self.on_replica[doc].append)
+            self.witness[doc] = []
+            self.plane.join(doc, self.witness[doc].append)
+            self.first[doc].clear()
+        self.rep.viewers.drain_all()
+        self.plane.drain_all()
+
+    def poll(self) -> None:
+        """The replica applies what the leader shipped since it started,
+        re-broadcasting each tick to its rooms."""
+        t0 = time.perf_counter()
+        self.applied = self.rep.poll()
+        self.secs["poll"] = time.perf_counter() - t0
+
+    def check_after(self, ticks: int) -> None:
+        """After the post-migration ticks and the poll: the replica's
+        frames == the leader's for the same rooms and ticks; lag 0; reads
+        and ``get_deltas`` on READ_DOCS docs == numpy folds and the
+        leader's OPERATION rows; writes redirect to the leader."""
+        import numpy as np
+
+        from fluidframework_tpu_torch.protocol.messages import MessageType
+        from fluidframework_tpu_torch.server.read_replica import \
+            ReplicaRedirect
+        rep, leader = self.rep, self.leader
+        read_blobs_once(leader)
+        check(rep.lag == 0 and self.applied > 0,
+              f"read R: replica lag {rep.lag} after polling {self.applied}")
+        for doc in self.rehomed:
+            # Each tick is published and drained to the room's viewers
+            # before the next: the replica's frames come tick by tick.
+            want = storm_frames(self.witness[doc])
+            got = storm_frames(self.on_replica[doc])
+            check(len(want) == ticks and got == [
+                f for f in want for _ in range(READ_ROOM_VIEWERS)],
+                f"read R: {doc}'s {len(got)} replica frames != the "
+                f"leader's {len(want)} for each of its viewers")
+        for doc in self.rooms[READ_REHOMED:]:
+            check(len(storm_frames(self.first[doc])) == ticks,
+                  f"read R: {doc}'s leader room got "
+                  f"{len(storm_frames(self.first[doc]))} frames")
+        check(self.got[0] == ticks * (READ_ROOM_VIEWERS - 1)
+              * (READ_ROOMS - READ_REHOMED),
+              f"read R: the leader's rooms delivered {self.got[0]} frames")
+        docs = self.rehomed[:READ_DOCS]
+        reads: list = []
+        t_reads = time.perf_counter()
+        for doc in docs:
+            batches = doc_batches(leader, doc)
+            head = rep.head_seq(doc)
+            check(head == leader._doc_ticks[doc][-1][1],
+                  f"read R: the replica's head of {doc} is {head}")
+            for s in sorted({0, head // 2, head}):
+                t0 = time.perf_counter()
+                got = rep.read_at(doc, s)["entries"]
+                reads.append(time.perf_counter() - t0)
+                check(got == fold_entries(np_fold(batches, s, KEY_SLOTS)),
+                      f"read R: read_at({doc}, {s}) != the numpy fold")
+            check(rep.read_at(doc, head)["entries"]
+                  == fold_entries(map_row(leader, doc)),
+                  f"read R: the head read of {doc} != h0's device row")
+        self.secs["reads"] = time.perf_counter() - t_reads
+        op = int(MessageType.OPERATION)
+        t0 = time.perf_counter()
+        for doc in docs:
+            got = [m for m in rep.get_deltas(doc, 0) if int(m.type) == op]
+            want = [m for m in leader.service.get_deltas(doc, 0)
+                    if int(m.type) == op]
+            check(record_key(got) == record_key(want) and len(want) > 0,
+                  f"read R: get_deltas({doc}) on the replica != the "
+                  "leader's OPERATION rows")
+        self.secs["get_deltas"] = time.perf_counter() - t0
+        for verb in (lambda: rep.connect(docs[0]),
+                     lambda: rep.fork_doc(docs[0], 1),
+                     lambda: rep.merge_back(docs[0])):
+            try:
+                verb()
+            except ReplicaRedirect as err:
+                check(err.moved_to == "h0",
+                      f"read R: a write redirected to {err.moved_to}")
+            else:
+                fail("read R: a write verb on the replica did not redirect")
+        check(rep.read_router.route_read(docs[0], "write") == "h0",
+              "read R: the replica's router kept a write")
+        ms = 1e3 * np.asarray(reads)
+        self.out.update(
+            rooms=READ_ROOMS, viewers=READ_ROOMS * READ_ROOM_VIEWERS,
+            rehomed_rooms=READ_REHOMED, replica_frames=sum(
+                len(storm_frames(v)) for v in self.on_replica.values()),
+            records_applied=rep.stats["records_applied"],
+            broadcast_ticks=rep.stats["broadcast_ticks"],
+            read_ms={"n": len(reads), "p50": float(np.percentile(ms, 50)),
+                     "max": float(ms.max())},
+            staleness_s_p99=rep.metrics.histogram(
+                "replica.staleness_s").quantile(0.99))
+
+    def mega_redirect(self) -> None:
+        """A doc of h0 promoted (no frame while promoted) is shed by the
+        replica to the leader, and stays so after its demotion."""
+        from fluidframework_tpu_torch.server.megadoc import MegaDocManager
+        from fluidframework_tpu_torch.server.read_replica import \
+            ReplicaRedirect
+        leader, rep = self.leader, self.rep
+        doc = self.rooms[-1]
+        check(rep.can_serve(doc), f"read R: {doc} unservable before")
+        mgr = MegaDocManager(leader, default_lanes=2)
+        mgr.promote(doc)
+        leader._group_wal.sync()  # the control record, fsynced and shipped
+        rep.poll()
+        promoted = not rep.can_serve(doc)
+        try:
+            rep.read_at(doc, 1)
+        except ReplicaRedirect as err:
+            shed = err.moved_to
+        else:
+            shed = None
+        mgr.demote(doc)
+        leader._group_wal.sync()
+        rep.poll()
+        check(promoted and shed == "h0" and not rep.can_serve(doc)
+              and rep.read_router.route_read(doc, "read_at") == "h0",
+              f"read R: the mega-promoted {doc} was not shed to h0 "
+              f"(promoted {promoted}, shed to {shed})")
+        self.out["mega_redirect"] = {"doc": doc, "moved_to": shed}
+
+
+def replica_read_throughput(device, root: pathlib.Path) -> dict:
+    """bench_replica_read_throughput on the card: ``read_at`` at
+    REPLICA_READS random seqs, by the leader's HistoryPlane and by a
+    ReadReplica over its follower — the same fold, equal answers."""
+    import numpy as np
+
+    from fluidframework_tpu_torch.server.durable_store import \
+        GitSnapshotStore
+    from fluidframework_tpu_torch.server.history import HistoryPlane
+    from fluidframework_tpu_torch.server.read_replica import ReadReplica
+    from fluidframework_tpu_torch.server.replication import \
+        make_replicated_host
+    git = GitSnapshotStore(root / "git")
+    storm, plane = make_replicated_host(
+        "hostA", str(root / "hostA"), git, [str(root / "f0")],
+        num_docs=4, device=device)
+    hist = HistoryPlane(storm, summary_interval_ops=4 * REPLICA_READ_K)
+    doc = "doc-0"
+    client = storm.service.connect(doc, lambda m: None).client_id
+    storm.service.pump()
+    cseq = 1
+    for t in range(REPLICA_READ_TICKS):
+        storm.submit_frame(None, {"rid": t, "docs": [[
+            doc, client, cseq, 1, REPLICA_READ_K]]},
+            memoryview(hist_words(20, t, REPLICA_READ_K).tobytes()))
+        cseq += REPLICA_READ_K
+        storm.flush()
+    rep = ReadReplica(plane.links[0].node, git, "replica0",
+                      leader_label="hostA", viewer_plane=False)
+    head = hist.head_seq(doc)
+    seqs = np.random.default_rng(20).integers(0, head + 1,
+                                              REPLICA_READS).tolist()
+
+    def measure(read_fn) -> dict:
+        read_fn(doc, head)
+        got = []
+        t0 = time.perf_counter()
+        for s in seqs:
+            got.append(read_fn(doc, int(s)))
+        dt = time.perf_counter() - t0
+        return {"reads_per_s": REPLICA_READS / dt,
+                "read_ms_mean": 1e3 * dt / REPLICA_READS}, got
+    leader, by_leader = measure(hist.read_at)
+    replica, by_replica = measure(rep.read_at)
+    check(by_replica == by_leader,
+          "read R throughput: a replica read != the leader's")
+    check(rep.read_at(doc, head)["entries"] == storm.merge_host.map_entries(
+        doc, storm.datastore, storm.channel),
+        "read R throughput: the head read != the leader's map")
+    storm._group_wal.close()
+    return {"ticks": REPLICA_READ_TICKS, "k": REPLICA_READ_K,
+            "reads": REPLICA_READS, "head_seq": head, "leader": leader,
+            "replica": replica,
+            "replica_over_leader": replica["reads_per_s"]
+            / leader["reads_per_s"]}
+
+
+def replica_writer_tax(device, root: pathlib.Path) -> dict:
+    """bench_replica_writer_tax on the card: writer ack latency on a
+    replicated leader (F = 1) with a ReadReplica attached (tailing the
+    follower, a viewer room, a poll every round) and without, the two
+    stacks served round by round in turn; p99 ratio by block."""
+    import numpy as np
+
+    from fluidframework_tpu_torch.server.durable_store import \
+        GitSnapshotStore
+    from fluidframework_tpu_torch.server.read_replica import ReadReplica
+    from fluidframework_tpu_torch.server.replication import \
+        make_replicated_host
+    docs = [f"doc-{i}" for i in range(REPLICA_TAX_DOCS)]
+    k = REPLICA_TAX_K
+
+    def build(attach: bool, sub: str) -> dict:
+        git = GitSnapshotStore(root / sub / "git")
+        storm, plane = make_replicated_host(
+            "hostA", str(root / sub / "hostA"), git,
+            [str(root / sub / "f0")], num_docs=REPLICA_TAX_DOCS,
+            pipeline_depth=REPLICA_TAX_DEPTH, device=device)
+        clients = {d: storm.service.connect(d, lambda m: None).client_id
+                   for d in docs}
+        storm.service.pump()
+        rep = None
+        if attach:
+            rep = ReadReplica(plane.links[0].node, git, "replica0",
+                              leader_label="hostA", join_rate_per_s=1e9)
+            rep.viewers.join(docs[0], lambda payload: None)
+        return {"storm": storm, "clients": clients, "rep": rep,
+                "cseq": {d: 1 for d in docs}, "lat": [], "elapsed": 0.0,
+                "sent": {d: [] for d in docs}, "errors": []}
+
+    def serve_round(st: dict, r: int) -> None:
+        storm, lat = st["storm"], st["lat"]
+        t_round = time.perf_counter()
+        for i, d in enumerate(docs):
+            words = hist_words(r, i, k)
+            t0 = time.perf_counter()
+
+            def push(p, t0=t0):
+                lat.append(time.perf_counter() - t0)
+                if p.get("error"):
+                    st["errors"].append(p)
+            storm.submit_frame(push, {"rid": (r, d), "docs": [[
+                d, st["clients"][d], st["cseq"][d], 1, k]]},
+                memoryview(words.tobytes()))
+            st["sent"][d].append(words)
+            st["cseq"][d] += k
+        if st["rep"] is not None:
+            st["rep"].poll()
+        st["elapsed"] += time.perf_counter() - t_round
+
+    stacks = {"replica_off": build(False, "off"),
+              "replica_on": build(True, "on")}
+    for r in range(REPLICA_TAX_WARM):
+        for st in stacks.values():
+            serve_round(st, r)
+    for st in stacks.values():
+        st["storm"].flush()
+        st["lat"].clear()
+        st["elapsed"] = 0.0
+    per_block = max(1, REPLICA_TAX_ROUNDS // REPLICA_TAX_BLOCKS)
+    ratios: list = []
+    pooled: dict = {name: [] for name in stacks}
+    for b in range(REPLICA_TAX_BLOCKS):
+        for st in stacks.values():
+            st["lat"].clear()
+        lo = REPLICA_TAX_WARM + b * per_block
+        for r in range(lo, lo + per_block):
+            for st in stacks.values():
+                serve_round(st, r)
+        for st in stacks.values():
+            st["storm"].flush()
+        p99 = {name: float(np.percentile(np.asarray(st["lat"]) * 1e3, 99))
+               for name, st in stacks.items()}
+        ratios.append(p99["replica_on"] / p99["replica_off"])
+        for name, st in stacks.items():
+            pooled[name].extend(st["lat"])
+    arms = {}
+    rounds = REPLICA_TAX_BLOCKS * per_block
+    for name, st in stacks.items():
+        storm = st["storm"]
+        check(not st["errors"] and len(pooled[name])
+              == rounds * len(docs),
+              f"read R writer tax {name}: {len(pooled[name])} acks, "
+              f"{len(st['errors'])} errors")
+        for d in docs:
+            check(storm.merge_host.map_entries(d, storm.datastore,
+                                               storm.channel)
+                  == acked_entries(st["sent"][d]),
+                  f"read R writer tax {name}: the map of {d} != the fold "
+                  "of its frames")
+        arr = np.asarray(pooled[name]) * 1e3
+        arm = {"replica_attached": st["rep"] is not None,
+               "ack_ms_p50": float(np.percentile(arr, 50)),
+               "ack_ms_p99": float(np.percentile(arr, 99)),
+               "acked_ops_per_s": rounds * len(docs) * k / st["elapsed"]}
+        rep = st["rep"]
+        if rep is not None:
+            rep.poll()
+            check(rep.lag == 0, f"read R writer tax: replica lag {rep.lag}")
+            arm["replica_lag_end"] = rep.lag
+            stale = rep.metrics.histogram("replica.staleness_s")
+            arm["staleness_s_p99"] = stale.quantile(0.99) \
+                if stale.count else 0.0
+            check(rep.read_at(docs[0], rep.head_seq(docs[0]))["entries"]
+                  == storm.merge_host.map_entries(
+                      docs[0], storm.datastore, storm.channel),
+                  "read R writer tax: the replica's head read != the map")
+        storm._group_wal.close()
+        arms[name] = arm
+    return {"docs": REPLICA_TAX_DOCS, "k": k, "rounds": rounds,
+            "pipeline_depth": REPLICA_TAX_DEPTH, "blocks": REPLICA_TAX_BLOCKS,
+            "arms": arms, "block_p99_ratios": ratios,
+            "ack_p99_on_over_off": float(np.median(ratios))}
+
+
+def read_path_r(device) -> dict:
+    """Read R's two reference benches on the card, under the plane
+    recording wrappers (Read R's part on Fleet P runs inside Fleet P)."""
+    import shutil
+    import tempfile
+    root = pathlib.Path(tempfile.mkdtemp(prefix="ff-read-r-"))
+    kept: dict = {}
+    secs: dict = {}
+    try:
+        launch_counts_reset()
+        with plane_recording(kept):
+            t0 = time.perf_counter()
+            out = {"read_throughput": replica_read_throughput(
+                device, root / "reads")}
+            secs["read_throughput"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            out["writer_tax"] = replica_writer_tax(device, root / "tax")
+            secs["writer_tax"] = time.perf_counter() - t0
+        counts = launch_counts()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    check(counts["map_fold"] > 0 and counts["sequencer_tick"] > 0,
+          "read R launched no map fold or no deli")
+    out.update(seconds=secs, launches={k: counts[k] for k in (
+        "map_fold", "sequencer_tick")})
+    print("read_r_benches: " + json.dumps(out), flush=True)
+    return {"out": out, "counts": counts, "kept": kept}
+
+
+class DoorThread:
+    """An ``AlfredServer`` over ``service`` on its own event-loop thread,
+    with blocking raw-frame clients; ``close()`` closes the clients, then
+    the server, then the loop."""
+
+    def __init__(self, service):
+        import asyncio
+        import threading
+
+        from fluidframework_tpu_torch.server.alfred import AlfredServer
+        self.loop = asyncio.new_event_loop()
+        self.thread = threading.Thread(target=self.loop.run_forever,
+                                       daemon=True)
+        self.thread.start()
+        self.server = AlfredServer(service, "127.0.0.1", 0)
+        self.port = self.run(self.server.start())
+        self.clients: list = []
+
+    def run(self, coro, timeout: float = 300.0):
+        import asyncio
+        return asyncio.run_coroutine_threadsafe(coro, self.loop).result(
+            timeout)
+
+    def call(self, fn):
+        """``fn()`` on the loop's thread, where the service runs."""
+        async def wrap():
+            return fn()
+        return self.run(wrap())
+
+    def client(self) -> "RawClient":
+        self.clients.append(RawClient(self.port))
+        return self.clients[-1]
+
+    def close(self) -> None:
+        for c in self.clients:
+            c.close()
+        try:
+            self.run(self.server.close(), timeout=60.0)
+        finally:
+            self.loop.call_soon_threadsafe(self.loop.stop)
+            self.thread.join(30)
+            self.loop.close()
+
+
+class RawClient:
+    """A blocking socket speaking the front door's length-prefixed frames
+    (``protocol/codec.py``); every frame read is kept in ``frames``."""
+
+    def __init__(self, port: int):
+        import socket
+        self.sock = socket.create_connection(("127.0.0.1", port),
+                                             timeout=300)
+        self.rid = 0
+        self.frames: list = []
+
+    def send(self, body: bytes) -> None:
+        from fluidframework_tpu_torch.protocol.codec import frame_body
+        self.sock.sendall(frame_body(body))
+
+    def read(self) -> bytes:
+        from fluidframework_tpu_torch.server.alfred import \
+            read_frame_raw_sync
+        body = read_frame_raw_sync(self.sock)
+        self.frames.append(body)
+        return body
+
+    @staticmethod
+    def decode(body):
+        from fluidframework_tpu_torch.protocol.codec import (
+            decode_body, decode_storm_push, is_storm_body)
+        return decode_storm_push(body) if is_storm_body(body) \
+            else decode_body(body)
+
+    def call(self, op: str, **kw) -> dict:
+        """One JSON request; frames pushed before its response stay in
+        ``frames``."""
+        from fluidframework_tpu_torch.protocol.codec import encode_body
+        self.rid += 1
+        rid = self.rid
+        self.send(encode_body({"rid": rid, "op": op, **kw}))
+        while True:
+            msg = self.decode(self.read())
+            if isinstance(msg, dict) and msg.get("rid") == rid \
+                    and not msg.get("storm"):
+                return msg
+
+    def close(self) -> None:
+        try:
+            self.sock.close()
+        except OSError:
+            pass
+
+
+def front_words(t: int):
+    """Front door F's tick ``t``: u32[DOCS, K_MAP] of config 3's mix."""
+    import numpy as np
+    rng = np.random.default_rng([17, t])
+    r = rng.random((DOCS, K_MAP))
+    kinds = np.where(r < 0.1, 2, np.where(r < 0.3, 1, 0)).astype(np.uint32)
+    slots = rng.integers(0, KEY_SLOTS, (DOCS, K_MAP)).astype(np.uint32)
+    vals = rng.integers(0, 1 << 20, (DOCS, K_MAP)).astype(np.uint32)
+    return kinds | (slots << 2) | (vals << 12)
+
+
+def front_standalone() -> dict:
+    """``python -m fluidframework_tpu_torch.server.alfred --port 0
+    --cadence-ms 10 --native-fanout --native-bus`` as a user starts it:
+    READY, its device hosts on the card, its bus and fan-out the native
+    libraries (``NativeMessageBus``, ``NativeFanout``: every op below
+    rides them), a writer and a viewer over raw frames, ops submitted
+    and read back, the process stopped."""
+    from fluidframework_tpu_torch.protocol.messages import (
+        DocumentMessage, MessageType)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT)] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                       if p])
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "fluidframework_tpu_torch.server.alfred",
+         "--port", "0", "--cadence-ms", "10", "--native-fanout",
+         "--native-bus"], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, env=env, cwd=str(ROOT))
+    out: dict = {}
+    try:
+        line = proc.stdout.readline()
+        check(line.startswith("READY "),
+              f"front door F: the standalone door said {line!r}: "
+              f"{proc.stderr.read() if proc.poll() is not None else ''}")
+        out["ready_s"] = time.perf_counter() - t0
+        port = int(line.split()[1])
+        devices = proc.stdout.readline().split()
+        check(len(devices) == 3 and devices[0] == "DEVICE"
+              and all(d.startswith("cuda") for d in devices[1:]),
+              f"front door F: the standalone door's hosts are on "
+              f"{devices[1:]}, not the card")
+        out["devices"] = devices[1:]
+        hops = proc.stdout.readline().split()
+        check(hops == ["HOPS", "NativeMessageBus", "NativeFanout"],
+              f"front door F: the standalone door's bus and fan-out are "
+              f"{hops[1:]}, not the native libraries")
+        out["hops"] = hops[1:]
+        writer, viewer = RawClient(port), RawClient(port)
+        try:
+            hello = writer.call("connect", doc_id="standalone")
+            hello_v = viewer.call("connect", doc_id="standalone",
+                                  mode="viewer")
+            check(hello_v.get("viewer") is True and "client_id" in hello,
+                  f"front door F: standalone hellos {hello} {hello_v}")
+            t1 = time.perf_counter()
+            for i in range(FRONT_STANDALONE_OPS):
+                resp = writer.call("submit", messages=[DocumentMessage(
+                    type=MessageType.OPERATION, contents={"k": i},
+                    client_sequence_number=i + 1,
+                    reference_sequence_number=0)])
+                check(resp.get("ok") is True,
+                      f"front door F: standalone submit {resp}")
+            got: list = []
+            deadline = time.perf_counter() + 60
+            while time.perf_counter() < deadline:
+                got = [m for m in writer.call(
+                    "get_deltas", from_seq=0)["messages"]
+                    if m.type == MessageType.OPERATION]
+                if len(got) == FRONT_STANDALONE_OPS:
+                    break
+                time.sleep(0.02)
+            out["ops_read_back_s"] = time.perf_counter() - t1
+            check([(m.client_sequence_number, m.contents) for m in got]
+                  == [(i + 1, {"k": i})
+                      for i in range(FRONT_STANDALONE_OPS)],
+                  f"front door F: the standalone door read back {len(got)} "
+                  f"ops, want {FRONT_STANDALONE_OPS} in order")
+            seen: list = []
+            while len(seen) < FRONT_STANDALONE_OPS:
+                msg = viewer.decode(viewer.read())
+                if isinstance(msg, dict) and msg.get("event") == "ops":
+                    seen += [m.sequence_number for m in msg["messages"]
+                             if m.type == MessageType.OPERATION]
+            check(seen == [m.sequence_number for m in got],
+                  f"front door F: the standalone viewer saw {seen}")
+        finally:
+            writer.close()
+            viewer.close()
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    out["exit"] = proc.returncode
+    return out
+
+
+def front_path_f(device, ctx: dict, trace: bool = False) -> dict:
+    """Front door F on the durable path's recovered stack (``ctx``), under
+    the plane recording wrappers: an AlfredServer on its own loop thread
+    with a viewer plane and a replica router, one socket submitting every
+    doc's frames for FRONT_TICKS ticks (each doc's acks == the WAL-less
+    twin's, served the same frames in process), viewer sockets on
+    FRONT_VIEWERS docs (each tick's frame == ``encode_viewer_tick_body``),
+    a socket ``get_deltas`` == the in-process call, a directory-routed
+    viewer answered ``moved``, a writer joined through the cadence pump;
+    then the standalone entry point."""
+    import itertools
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from fluidframework_tpu_torch.protocol.codec import (
+        encode_body, encode_storm_body, encode_viewer_tick_body)
+    from fluidframework_tpu_torch.server.broadcaster import ViewerPlane
+    from fluidframework_tpu_torch.server.durable_store import \
+        GitSnapshotStore
+    from fluidframework_tpu_torch.server.read_replica import (
+        ReplicaDirectory, ReplicaRouter)
+    storm, twin = ctx["storm"], ctx["twin"]
+    names, joined = ctx["names"], ctx["joined"]
+    service = storm.service
+    secs: dict = {}
+    out: dict = {}
+    traces: dict = {}
+    kept: dict = {}
+    per = DOCS // FRAMES_PER_TICK
+    twin_kept: dict = {}
+    twin_acks: dict = {}
+    all_words, tick_frames = [], []
+    # The twin first, under a recording of its own: the door's counts
+    # below hold the door's launches alone.
+    launch_counts_reset()
+    with plane_recording(twin_kept):
+        # The twin takes the joins the recovered stack took.
+        clock = itertools.count(1 << 24, 3)
+        twin.service._clock = lambda: next(clock)
+        for n in joined:
+            twin.service.connect(n, lambda m: None)
+        twin.service.pump()
+        cps, twin_cps = (storm.seq_host.checkpoint_all(),
+                         twin.seq_host.checkpoint_all())
+        check(cps == twin_cps, "front door F: the twin's sequencer "
+              "rows != the recovered stack's")
+        cseq = {n: cps[n].clients[0]["client_seq"] + 1 for n in names}
+        cid = {n: cps[n].clients[0]["client_id"] for n in names}
+
+        def sink(p):
+            if not p.get("error"):
+                twin_acks[p["rid"]] = np.asarray(p.rows)
+        for t in range(FRONT_TICKS):
+            words = front_words(t)
+            all_words.append(words)
+            frames = []
+            for f in range(FRAMES_PER_TICK):
+                lo = f * per
+                hdr = {"rid": t * FRAMES_PER_TICK + f, "docs": [
+                    [n, cid[n], cseq[n], cps[n].sequence_number,
+                     K_MAP] for n in names[lo:lo + per]]}
+                frames.append((hdr, words[lo:lo + per].tobytes()))
+            for n in names:
+                cseq[n] += K_MAP
+            tick_frames.append(frames)
+            t0 = time.perf_counter()
+            for hdr, payload in frames:
+                twin.submit_frame(sink, hdr, memoryview(payload))
+            twin.flush()
+            torch.cuda.synchronize()
+            secs.setdefault("twin_ticks", []).append(
+                time.perf_counter() - t0)
+    twin_counts = launch_counts()
+    root = pathlib.Path(tempfile.mkdtemp(prefix="ff-front-f-"))
+    launch_counts_reset()
+    try:
+        with plane_recording(kept):
+            directory = ReplicaDirectory(GitSnapshotStore(root / "git"))
+            directory.register(FRONT_LABEL)
+            routed = names[-1]
+            directory.assign_room(routed, [FRONT_LABEL])
+            service.read_router = ReplicaRouter(directory,
+                                                local_label="leader")
+            plane = ViewerPlane(service, metrics=service.metrics,
+                                join_rate_per_s=1e9)
+            t0 = time.perf_counter()
+            door = DoorThread(service)
+            try:
+                watched = names[::DOCS // FRONT_VIEWERS][:FRONT_VIEWERS]
+                viewers = {n: door.client() for n in watched}
+                for n, v in viewers.items():
+                    hello = v.call("connect", doc_id=n, mode="viewer")
+                    check(hello.get("viewer") is True,
+                          f"front door F: viewer hello {hello}")
+                moved = door.client().call("connect", doc_id=routed,
+                                           mode="viewer")
+                check(moved.get("error") == "moved"
+                      and moved.get("moved_to") == FRONT_LABEL,
+                      f"front door F: the routed viewer got {moved}")
+                secs["connects"] = time.perf_counter() - t0
+                # The viewer plane's fan-out on this stack is the native
+                # library, not its Python twin.
+                out["fanout"] = type(plane.fanout).__name__
+                check(plane.fanout.is_native, "front door F: the viewer "
+                      f"plane fans out through {out['fanout']}")
+                writer = door.client()
+                socket_acks: dict = {}
+                for t, frames in enumerate(tick_frames):
+                    with traced(trace and t == FRONT_TICKS - 1, traces,
+                                "front_f"):
+                        t0 = time.perf_counter()
+                        for hdr, payload in frames:
+                            writer.send(encode_storm_body(hdr, payload))
+                        flushed = writer.call("storm_flush")
+                        secs.setdefault("socket_ticks", []).append(
+                            time.perf_counter() - t0)
+                    check(flushed.get("ok") is True,
+                          f"front door F: storm_flush answered {flushed}")
+                for body in writer.frames:
+                    msg = writer.decode(body)
+                    if isinstance(msg, dict) and msg.get("storm"):
+                        socket_acks[msg["rid"]] = np.asarray(msg["acks"])
+                n_frames = FRONT_TICKS * FRAMES_PER_TICK
+                check(len(socket_acks) == n_frames
+                      and len(twin_acks) == n_frames
+                      and all(np.array_equal(socket_acks[r], twin_acks[r])
+                              for r in twin_acks),
+                      f"front door F: {len(socket_acks)} socket acks, "
+                      f"{len(twin_acks)} in-process; the acks differ")
+                t0 = time.perf_counter()
+                for i, (n, v) in enumerate(viewers.items()):
+                    d = names.index(n)
+                    got = storm_frames(v.frames)
+                    while len(got) < FRONT_TICKS:
+                        body = v.read()
+                        got += storm_frames([body])
+                    want = []
+                    for t in range(FRONT_TICKS):
+                        rid = t * FRAMES_PER_TICK + d // per
+                        quad = [int(x) for x in socket_acks[rid][d % per]]
+                        want.append(bytes(encode_viewer_tick_body(
+                            n, *quad, K_MAP, all_words[t][d].tobytes())))
+                    check(got == want, f"front door F: {n}'s viewer frames "
+                          "!= encode_viewer_tick_body of its ticks")
+                secs["viewer_checks"] = time.perf_counter() - t0
+                probe = watched[1]
+                t0 = time.perf_counter()
+                deltas = writer.call("get_deltas", doc_id=probe, from_seq=0)
+                secs["socket_get_deltas"] = time.perf_counter() - t0
+                local = door.call(lambda: service.get_deltas(probe, 0))
+                check(encode_body(deltas["messages"]) == encode_body(local)
+                      and len(local) > FRONT_TICKS * K_MAP,
+                      "front door F: the socket get_deltas != the "
+                      "in-process call")
+                # A writer joins over the socket; the cadence pump (the
+                # standalone door's tick loop) sequences it on the deli.
+                hello = writer.call("connect", doc_id=watched[0])
+                before = door.call(
+                    lambda: storm.seq_host.checkpoint(watched[0]).clients)
+                door.call(service.pump)
+                after = door.call(
+                    lambda: storm.seq_host.checkpoint(watched[0]).clients)
+                check(len(after) == len(before) + 1 and any(
+                    c["client_id"] == hello["client_id"] for c in after),
+                    f"front door F: the socket writer {hello} did not join")
+                out["viewer_stats"] = dict(service.viewers.stats)
+            finally:
+                door.close()
+            torch.cuda.synchronize()
+        counts = launch_counts()
+        t0 = time.perf_counter()
+        out["standalone"] = front_standalone()
+        secs["standalone"] = time.perf_counter() - t0
+    finally:
+        service.read_router = None
+        shutil.rmtree(root, ignore_errors=True)
+    check(counts["map_fold"] > 0 and counts["sequencer_tick"] > 0,
+          "front door F launched no map fold or no deli")
+    out.update(docs=DOCS, k=K_MAP, ticks=FRONT_TICKS,
+               viewers=FRONT_VIEWERS, seconds=secs,
+               socket_ops_per_s=FRONT_TICKS * DOCS * K_MAP
+               / sum(secs["socket_ticks"]),
+               trace=traces.get("front_f"),
+               launches={k: counts[k] for k in ("map_fold",
+                                                "sequencer_tick")})
+    print("front_f: " + json.dumps(out), flush=True)
+    return {"out": out, "counts": counts, "kept": kept,
+            "twin_counts": twin_counts, "twin_kept": twin_kept}
 
 
 def main() -> int:
@@ -6540,6 +7636,7 @@ def main() -> int:
     trace_all = "--trace" in sys.argv[1:]
     trace_hist = trace_all or "--trace-history" in sys.argv[1:]
     trace_fleet = trace_all or "--trace-fleet" in sys.argv[1:]
+    trace_read = trace_all or "--trace-read" in sys.argv[1:]
     t_kernels = time.perf_counter()
     fold = check_map_fold(device)
     deli = check_deli(device)
@@ -6588,12 +7685,21 @@ def main() -> int:
           " s", flush=True)
     with phase("map"):
         path = main_path(device)
-    # History P runs last on the durable path's recovered stack.
-    with phase("durable + history P"):
-        durable = durable_path(
-            device, path.pop("walless"), path.pop("script"),
-            then=lambda ctx: history_path_p(device, ctx, trace=trace_hist))
-    hist_p = durable.pop("then")
+    # Front door F, then History P, run on the durable path's recovered
+    # stack; F's seconds are its own phase.
+    t0 = time.perf_counter()
+
+    def after_durable(ctx):
+        with phase("front door F"):
+            front = front_path_f(device, ctx, trace=trace_read)
+        return front, history_path_p(device, ctx, trace=trace_hist)
+    durable = durable_path(device, path.pop("walless"), path.pop("script"),
+                           then=after_durable)
+    front_f, hist_p = durable.pop("then")
+    PHASE_S["durable + history P"] = time.perf_counter() - t0 \
+        - PHASE_S["front door F"]
+    print(f"phase durable + history P: "
+          f"{PHASE_S['durable + history P']:.1f} s", flush=True)
     with phase("text"):
         text = text_main_path(device)
     with phase("matrix"):
@@ -6617,8 +7723,32 @@ def main() -> int:
         planes["hist_h"] = history_path_h(device)
     with phase("fleet H"):
         planes["fleet_h"] = fleet_path_h(device)
-    with phase("fleet P"):
-        planes["fleet_p"] = fleet_path_p(device, trace=trace_fleet)
+    with phase("fleet P + read R"):
+        planes["fleet_p"] = fleet_path_p(device, trace=trace_fleet,
+                                         read=True, trace_read=trace_read)
+    with phase("read R benches"):
+        planes["read_r"] = read_path_r(device)
+    with phase("viewer V"):
+        planes["viewer_v"] = viewer_path_v(device, trace=trace_read)
+    planes["front_f"] = front_f
+    read_r = planes["fleet_p"]["out"]["read_r"]
+    print("read: " + json.dumps({
+        "V": {"fanout": {n: {k: r[k] for k in (
+            "broadcast_ms_p50", "broadcast_ms_p99", "joins_per_sec",
+            "e2e_ops_per_sec", "encodes_per_tick", "fanout_native")}
+            for n, r in planes["viewer_v"]["out"]["fanout"].items()},
+            "rehome": planes["viewer_v"]["out"]["rehome"]},
+        "R": {"on_fleet_p": {k: read_r[k] for k in (
+            "read_ms", "replica_frames", "mega_redirect", "seconds")},
+            "read_throughput": planes["read_r"]["out"]["read_throughput"],
+            "writer_tax": {k: planes["read_r"]["out"]["writer_tax"][k]
+                           for k in ("ack_p99_on_over_off",
+                                     "block_p99_ratios")}},
+        "F": {k: front_f["out"][k] for k in (
+            "socket_ops_per_s", "seconds", "fanout", "standalone")},
+        "trace": {"viewer_v": planes["viewer_v"]["out"]["trace"],
+                  "read_r": read_r["trace"],
+                  "front_f": front_f["out"]["trace"]}}), flush=True)
     print("fleet: " + json.dumps({
         "H": {k: planes["fleet_h"]["out"][k]
               for k in ("migration", "scaling", "replication")},
@@ -6656,18 +7786,20 @@ def main() -> int:
                    "fleet_h": (planes["fleet_h"]["kept"],
                                planes["fleet_h"]["counts"]),
                    "fleet_p": (planes["fleet_p"]["kept"],
-                               planes["fleet_p"]["counts"])}
+                               planes["fleet_p"]["counts"]),
+                   "read_r": (planes["read_r"]["kept"],
+                              planes["read_r"]["counts"]),
+                   "viewer_v": (planes["viewer_v"]["kept"],
+                                planes["viewer_v"]["counts"]),
+                   "front_f": (front_f["kept"], front_f["counts"]),
+                   "front_f_twin": (front_f["twin_kept"],
+                                    front_f["twin_counts"])}
     for path_name, (kept, counts) in plane_paths.items():
         for name, by_shape in kept.items():
             got = {sh: len(c) for sh, c in by_shape.items()}
             want = {sh: n for sh, n in counts["shapes"][name].items() if n}
             check(got == want, f"{name} ({path_name}): launches by shape "
                   f"{want}, calls kept {got}")
-    # The single-lane arm's first calls (the joins, the text before
-    # promotion) repeat the promoted arm's inputs: checked once.
-    same = drop_leading_repeats(mega["twin_kept"], mega["kept"])
-    print(f"mega A single-lane calls equal to the promoted arm's: {same}",
-          flush=True)
     # The recovery replays the promoted arm's ticks: the calls equal to
     # the promoted arm's stand checked by its re-check too.
     same = drop_leading_repeats(mega["recover_kept"], mega["kept"])
@@ -6829,7 +7961,10 @@ def main() -> int:
                "hist_p_recover": planes["hist_p_recover"]["counts"].get(
                    name, 0),
                "fleet_h": planes["fleet_h"]["counts"].get(name, 0),
-               "fleet_p": planes["fleet_p"]["counts"].get(name, 0)}
+               "fleet_p": planes["fleet_p"]["counts"].get(name, 0),
+               "read_r": planes["read_r"]["counts"].get(name, 0),
+               "viewer_v": planes["viewer_v"]["counts"].get(name, 0),
+               "front_f": front_f["counts"].get(name, 0)}
         for name in ("map_fold", "sequencer_tick", "mergetree_blocks",
                      "mergetree_flat", "matrix_tick", "matrix_steps")}
     launches = {name: sum(n.values()) for name, n in by_path.items()}

@@ -1,17 +1,28 @@
-"""Native runtime components (C++): the CRC-framed append-only record log.
+"""Native runtime components (C++): the CRC-framed append-only record
+log, the partition-log message bus and the broadcast fan-out service.
 
 Reference parity: SURVEY.md §2.9 — the reference's server leans on native
 code for its transport/storage hot paths (librdkafka for the ordering
-bus, MongoDB for the durable op log, libgit2 for snapshots). Here the
-equivalent is a CRC-framed append-only record log (oplog.cpp) compiled
-with g++ on first use into the package's git-ignored ``_build/native/``
-and bound via ctypes; server/durable_store.py builds the durable bus,
-state store, group-commit WAL and snapshot store on top of it.
+bus, MongoDB for the durable op log, libgit2 for snapshots, Redis
+pub/sub for broadcast). Here each is a C++ file compiled with g++ on
+first use into the package's git-ignored ``_build/native/`` (named by a
+hash of the source) and bound via ctypes:
 
-``OpLog`` picks the C++ implementation when the toolchain is available
-and otherwise the pure-Python writer of the IDENTICAL file format (the
-reference's own twin, not a device fallback), so logs are portable
-between the two — and between this package and ``fluidframework_tpu``.
+* ``oplog.cpp`` (this module's ``OpLog``) — a CRC-framed append-only
+  record log; server/durable_store.py builds the durable bus, state
+  store, group-commit WAL and snapshot store on top of it;
+* ``shuttle.cpp`` (``shuttle.py``) — partition logs with crc32 key
+  partitioning and consumer-group offsets, under
+  server/native_bus.py's ``NativeMessageBus``;
+* ``fanout.cpp`` (``fanout.py``) — rooms, per-subscriber queues with a
+  bound, and batched publishes, under server/broadcaster.py's viewer
+  plane.
+
+Each picks the C++ implementation when the toolchain is available and
+otherwise the reference's own pure-Python twin of the same behaviour
+(not a device fallback): ``OpLog`` writes the IDENTICAL file format, so
+logs are portable between the two — and between this package and
+``fluidframework_tpu``.
 """
 
 from __future__ import annotations

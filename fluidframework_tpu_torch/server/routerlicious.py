@@ -906,12 +906,20 @@ class RouterliciousService:
         scopes: tuple[str, ...] = ScopeType.ALL,
     ) -> _LiveConnection:
         if mode == "viewer":
-            # Viewer-plane connect needs server/broadcaster.py and its
-            # native fan-out, which this package does not port yet.
-            raise NotImplementedError(
-                "viewer connections need the viewer plane "
-                "(server/broadcaster.py), which this package does not "
-                "port yet (ROADMAP Queue A 5)")
+            # Viewer-plane connect: no CLIENT_JOIN, no quorum, no deli
+            # row, no residency hydration (reads must not churn the
+            # pool) — the handler receives broadcast payloads exactly as
+            # the wire carries them (server/broadcaster.py).
+            if self.viewers is None:
+                from .broadcaster import ViewerPlane
+                ViewerPlane(self, metrics=self.metrics)
+            hello = self.viewers.join(doc_id, handler)
+            from .broadcaster import ViewerConnection
+            connection = ViewerConnection(self.viewers,
+                                          hello["viewer_id"], doc_id)
+            self.logger.send_event("ViewerConnect", docId=doc_id,
+                                   clientId=hello["viewer_id"])
+            return connection
         residency = getattr(self.storm, "residency", None)
         if residency is not None:
             # Tiered residency: the first connect against a cold doc

@@ -57,8 +57,11 @@ router sheds frames for a doc another host owns with ``moved`` and its
 gate on ``min(durable, replicated)``, a lost quorum parks writes and
 declines rounds, a fenced ex-leader sheds every frame ``moved`` and
 refuses to checkpoint, and each published snapshot ships its tick
-watermark as the followers' retention floor). The viewer plane is not
-ported (ROADMAP Queue A 5).
+watermark as the followers' retention floor). The broadcast viewer
+plane (``server/broadcaster.py``) rides the harvest: each tick, every
+doc with a viewer room (a mega-lane desc publishes to its parent's room,
+with the combiner's doc-space window) gets one encoded frame, and the
+whole tick's frames go out in one batched native publish.
 """
 
 from __future__ import annotations
@@ -1479,6 +1482,19 @@ class StormController:
                 if frame.trace is not None:
                     self.tracer.mark(frame.trace, "sequenced", t_readback)
         fanout = self.service.fanout
+        viewers = getattr(self.service, "viewers", None)
+        if viewers is not None and (self._replay
+                                    or not viewers.active_rooms):
+            viewers = None
+        # Desc indices whose docs have viewer rooms — collected inside
+        # the one existing per-desc loop (no second O(descs) pass).
+        # Rooms key by the PARENT doc for mega-lane descs (viewer frames
+        # must keep flowing while a doc is promoted), publishing the
+        # combiner's DOC-space quad instead of the lane-space device row.
+        viewer_idx: list[int] = []
+        viewer_rooms: dict[int, str] = {}
+        megadoc = self.megadoc
+        mega_rows_all = rec.get("mega_rows") or {}
         now = rec["now"]
         mrows = rec["mrows"]
         # scriptorium tick record: ONE blob per tick — a json header of
@@ -1525,6 +1541,15 @@ class StormController:
             # broadcaster: compact tick frame into the pub/sub hop.
             if pubs is not None:
                 pubs.append((doc, b"\x00storm%d:%d:%d" % (fs, ls, m)))
+            if viewers is not None and ns > 0:
+                room_doc = doc
+                if megadoc is not None:
+                    parent = megadoc.parent_of(doc)
+                    if parent is not None:
+                        room_doc = parent
+                if viewers.has_viewers(room_doc):
+                    viewer_idx.append(i)
+                    viewer_rooms[i] = room_doc
         t_assembled = time.monotonic_ns()
         stage_ns["ack_pack"] = t_assembled - t_readback
         if pubs:
@@ -1534,6 +1559,44 @@ class StormController:
             else:  # duck-typed fanout without the batch surface
                 for room, body in pubs:
                     fanout.publish(room, body)
+        # Viewer plane: docs with viewer rooms get this tick's broadcast
+        # frame (sequenced window + raw words) serialized ONCE per doc
+        # and fanned out in one batched publish — encodes-per-tick ==
+        # hot docs with viewers, independent of viewer count. Words
+        # resolve straight from each frame's receive-buffer view (the
+        # same positional layout the WAL appends); only frames CONTAINING
+        # a viewer doc pay an offsets walk — a 10k-doc tick with one
+        # viewer room touches one frame, not every desc.
+        if viewer_idx:
+            import bisect
+            items = []
+            for f_idx, (_frame, i0, i1) in enumerate(rec["acks"]):
+                lo = bisect.bisect_left(viewer_idx, i0)
+                hi = bisect.bisect_left(viewer_idx, i1)
+                if lo == hi:
+                    continue  # no viewer docs in this frame
+                fcounts = counts_col[i0:i1].tolist()
+                target = viewer_idx[lo]
+                off = 0
+                for local, count in enumerate(fcounts):
+                    gi = i0 + local
+                    if gi == target:
+                        words = word_parts[f_idx][off:off + count]
+                        # Lane descs broadcast the combiner's doc-space
+                        # quad (the same rewrite the client ack gets);
+                        # viewers of a promoted doc see continuous doc
+                        # seq windows, never lane-space ones.
+                        quad = mega_rows_all.get(gi) or (
+                            ns_l[gi], fs_l[gi], ls_l[gi], m_l[gi])
+                        items.append((viewer_rooms[gi], quad[0],
+                                      quad[1], quad[2], quad[3],
+                                      count, words.tobytes()))
+                        lo += 1
+                        if lo == hi:
+                            break
+                        target = viewer_idx[lo]
+                    off += count
+            viewers.publish_ticks(items)
         t_fanout = time.monotonic_ns()
         stage_ns["fanout_publish"] = t_fanout - t_assembled
         import json as _json

@@ -47,24 +47,26 @@ Two fault classes run in-process, proven by direct assertion:
 and :func:`run_overload` offers twice the bounded tick queue every
 round: the overflow sheds as busy-nacks, every admitted round acks.
 
-Six plane scenarios run as child lives like the storm kills:
+Seven plane scenarios run as child lives like the storm kills:
 ``residency=N`` caps the device pool below the doc count so every round
 crosses the hot/cold boundary (``RESIDENCY_KILL_POINTS``),
 ``megadoc=L`` serves one doc co-written by ``MEGADOC_WRITERS`` writers
 through two promote → serve → demote cycles on L lanes
 (``MEGADOC_KILL_POINTS``), ``qos=True`` serves three tenants, one at
 10x, through the deficit scheduler against a tenant-blind twin
-(``QOS_KILL_POINTS``), and ``history=True`` serves with a compacting
+(``QOS_KILL_POINTS``), ``history=True`` serves with a compacting
 ``HistoryPlane`` and one mid-run branch fork against a never-compacted
 twin (``HISTORY_KILL_POINTS``), ``cluster=True`` serves a two-host
 cluster that live-migrates one doc at round ``migrate_at`` against a
-never-migrated twin (``MIGRATION_KILL_POINTS``), and
+never-migrated twin (``MIGRATION_KILL_POINTS``),
 ``replication=True`` serves the same cluster with a quorum-replicated
 leader whose resumed life promotes a follower
-(``REPLICATION_CHAOS_POINTS``).
+(``REPLICATION_CHAOS_POINTS``), and ``replicas=True`` serves a
+replicated leader with a read replica tailing one follower against a
+replica-less twin (``REPLICAS_CHAOS_POINTS``).
 
-The reference harness's read-replica, netsplit and reconnect scenarios
-need planes this package does not port yet; asking for one raises
+The reference harness's netsplit and reconnect scenarios need planes
+this package does not port yet; asking for one raises
 ``NotImplementedError``.
 """
 
@@ -188,6 +190,30 @@ REPLICATION_SMOKE_POINT = "repl.post_ship"
 #: Follower count behind the replicated chaos leader (F=2; the default
 #: quorum is (F+1)//2 = 1 follower ack).
 REPLICATION_FOLLOWERS = 2
+
+#: Read-replica kill classes: the child is a replicated
+#: leader plus a :class:`~..server.read_replica.ReadReplica` tailing
+#: follower 0's durable WAL in-process and serving the read surface
+#: every round (a viewer room broadcast, a ``read_at`` at the head, the
+#: ``get_deltas`` catch-up the digest reads). ``replica.mid_apply``
+#: kills with records indexed but the tick's viewer broadcast not yet
+#: published; ``replica.mid_read`` kills inside a replica-served read.
+#: A RESUMED life restarts the replica FRESH over the durable follower
+#: directory — the from-zero re-poll is the restart-safety story — and
+#: the leader room's viewers re-home through the ordinary
+#: ``viewer_resync``/``moved_to`` machinery at the spread round. The
+#: twin is REPLICA-LESS (same frames, every digest read served by the
+#: leader), so one digest equality proves kill-recovery AND that
+#: replica-served reads never change bytes.
+REPLICAS_CHAOS_POINTS = ("replica.mid_apply", "replica.mid_read")
+
+#: Tier-1 smoke point: records applied/indexed, viewer broadcast not
+#: yet published — the restarted replica must re-derive the identical
+#: read surface from the follower WAL alone.
+REPLICAS_SMOKE_POINT = "replica.mid_apply"
+
+#: The chaos read replica's directory label (tails follower f0).
+REPLICAS_LABEL = "replica0"
 
 _NOT_PORTED = ("the {} chaos scenario needs a plane this package does not "
                "port yet (ROADMAP Queue A 5)")
@@ -699,6 +725,135 @@ def _replication_child(args) -> None:
     print("DIGEST " + json.dumps(digest, sort_keys=True), flush=True)
 
 
+def _replicas_digest(service, hist, rep, docs: list[str]) -> dict:
+    """The read-replica twin-diff surface: ``read_at`` states at
+    0/mid/head plus the replicated op tier, serialized IDENTICALLY
+    whether the replica (``serve``) or the leader (the replica-less
+    ``off`` twin) answers. The replica serves the storm record tier
+    only (the replicated total order); join rows live in the leader's
+    bus tier, so history filters to OPERATION rows — the same scoping
+    the replication digest applies."""
+    from ..protocol.codec import to_wire
+    from ..protocol.messages import MessageType
+
+    op = int(MessageType.OPERATION)
+    out: dict = {"docs": {}}
+    for doc in docs:
+        head = hist.head_seq(doc)
+        if rep is not None:
+            reads = [rep.read_at(doc, s)
+                     for s in sorted({0, head // 2, head})]
+            deltas = rep.get_deltas(doc, 0)
+        else:
+            reads = [hist.read_at(doc, s)
+                     for s in sorted({0, head // 2, head})]
+            deltas = service.get_deltas(doc, 0)
+        out["docs"][doc] = {
+            "reads": reads,
+            "history": [[m.sequence_number, m.client_sequence_number,
+                         m.reference_sequence_number,
+                         m.minimum_sequence_number, int(m.type),
+                         m.client_id,
+                         json.dumps(to_wire(m.contents),
+                                    sort_keys=True)]
+                        for m in deltas if int(m.type) == op]}
+    return out
+
+
+def _replicas_child(args) -> None:
+    """One read-replica serving life: a
+    replicated leader over ``REPLICATION_FOLLOWERS`` follower dirs
+    with a :class:`ReadReplica` tailing follower 0 in-process
+    (``--replicas serve``) or the replica-less differential twin
+    (``--replicas off``). Every round the replica polls (the viewer
+    broadcast window), serves a head ``read_at`` (the read window),
+    and at round ``migrate_at`` the leader's doc-0 room re-homes onto
+    the replica through the ordinary ``viewer_resync`` machinery. A
+    resumed life reopens the leader normally and restarts the replica
+    FRESH over the durable follower WAL (the from-zero re-poll). The
+    leader serves on ``device``."""
+    from ..server.durable_store import GitSnapshotStore
+    from ..server.history import HistoryPlane
+    from ..server.replication import make_replicated_host
+    from ..utils import faults
+
+    serve = args.replicas == "serve"
+    docs = [f"chaos-doc-{i}" for i in range(args.docs)]
+    git = GitSnapshotStore(os.path.join(args.dir, "git"))
+    f_dirs = [os.path.join(args.dir, f"f{i}")
+              for i in range(REPLICATION_FOLLOWERS)]
+    storm, plane = make_replicated_host(
+        "hostA", os.path.join(args.dir, "hostA"), git, f_dirs,
+        num_docs=args.docs, device=args.device)
+    hist = HistoryPlane(storm)
+    service = storm.service
+    moves: list = []
+
+    def _leader_viewer(payload):
+        if isinstance(payload, dict) \
+                and payload.get("event") == "viewer_resync":
+            moves.append(payload.get("moved_to"))
+
+    if args.resume_from is None:
+        clients = {d: service.connect(d, lambda m: None).client_id
+                   for d in docs}
+        service.connect(docs[0], _leader_viewer, mode="viewer")
+        service.pump()
+        storm.checkpoint()
+        start = 0
+        print("GENESIS", flush=True)
+    else:
+        info = storm.recover()
+        assert info["restored_from"] is not None, "no snapshot to recover"
+        clients = {d: f"client-{i + 1}" for i, d in enumerate(docs)}
+        start = args.resume_from
+    rep = None
+    if serve:
+        from ..server.read_replica import ReadReplica, ReplicaDirectory
+        # A killed life's replica restarts FRESH over the durable
+        # follower WAL — construction re-polls from zero, the
+        # restart-safety half of the acceptance bar.
+        rep = ReadReplica(plane.links[0].node, git, REPLICAS_LABEL,
+                          leader_label="hostA")
+        rep.viewers.join(docs[0], lambda payload: None)
+        directory = ReplicaDirectory(git)
+        directory.register(REPLICAS_LABEL)
+    print("READY", flush=True)
+    faults.arm()
+    k = args.k
+    for r in range(start, args.ticks):
+        if serve and r == args.migrate_at:
+            # Flip the directory FIRST, then re-home the leader's live
+            # room: every member lag-drops with moved_to naming the
+            # replica (the ordinary viewer_resync dance). A resumed
+            # life has no leader viewer (it died with the process and
+            # redials through the directory), so its plane may be
+            # absent — the directory flip alone covers late joiners.
+            directory.assign_room(docs[0], [REPLICAS_LABEL])
+            if service.viewers is not None:
+                rehomed = service.viewers.spread_room(
+                    docs[0], [REPLICAS_LABEL])
+                assert moves == [REPLICAS_LABEL] * sum(rehomed.values())
+        acks: list = []
+        entries = [[d, clients[d], 1 + r * k, 1, k] for d in docs]
+        payload = b"".join(_tick_words(args.seed, r, i, k).tobytes()
+                           for i in range(len(docs)))
+        storm.submit_frame(acks.append, {"rid": r, "docs": entries},
+                           memoryview(payload))
+        storm.flush()
+        if acks:
+            print(f"ACKED {r}", flush=True)
+        if serve:
+            rep.poll()  # replica.mid_apply fires mid-broadcast here
+            rep.read_at(docs[0], rep.head_seq(docs[0]))  # mid_read
+        if (r + 1) % args.cp_every == 0:
+            storm.checkpoint()  # also ships the follower trim floor
+    faults.disarm()
+    digest = _replicas_digest(service, hist, rep, docs)
+    print("DIGEST " + json.dumps(digest, sort_keys=True), flush=True)
+
+
+
 def child_main(args) -> None:
     """One serving-process life. Protocol on stdout (parent parses):
     ``READY`` once serving can start, ``ACKED <round>`` per
@@ -707,6 +862,9 @@ def child_main(args) -> None:
     mid-stream."""
     from ..utils import faults
 
+    if getattr(args, "replicas", None):
+        _replicas_child(args)
+        return
     if getattr(args, "replication", False):
         _replication_child(args)
         return
@@ -904,7 +1062,8 @@ def _spawn_life(data_dir: str, seed: int, docs: int, k: int, ticks: int,
                 pipelined: bool = False, residency: int | None = None,
                 megadoc: int | None = None, qos: str | None = None,
                 history: str | None = None, cluster: bool = False,
-                replication: bool = False, migrate_at: int = -1) -> dict:
+                replication: bool = False, migrate_at: int = -1,
+                replicas: str | None = None) -> dict:
     cmd = [sys.executable, "-m", "fluidframework_tpu_torch.tools.chaos",
            "--child", "--dir", data_dir, "--seed", str(seed),
            "--docs", str(docs), "--k", str(k), "--ticks", str(ticks),
@@ -923,6 +1082,8 @@ def _spawn_life(data_dir: str, seed: int, docs: int, k: int, ticks: int,
         cmd += ["--cluster", "--migrate-at", str(migrate_at)]
     if replication:
         cmd += ["--replication", "--migrate-at", str(migrate_at)]
+    if replicas is not None:
+        cmd += ["--replicas", replicas, "--migrate-at", str(migrate_at)]
     if resume_from is not None:
         cmd += ["--resume-from", str(resume_from)]
     env = dict(os.environ)
@@ -959,7 +1120,8 @@ def run_chaos(workdir: str, kill_point: str, kill_hits: int = 1,
               megadoc: int | None = None, device: str = "cuda",
               qos: bool = False, history: bool = False,
               cluster: bool = False, migrate_at: int | None = None,
-              replication: bool = False, **not_ported) -> dict:
+              replication: bool = False, replicas: bool = False,
+              **not_ported) -> dict:
     """One scenario: a twin run, then a killed-and-recovered run, then
     the plane diff. Returns the report; raises AssertionError on any
     divergence or lost acked op. ``twin_digest`` lets callers share one
@@ -976,7 +1138,11 @@ def run_chaos(workdir: str, kill_point: str, kill_hits: int = 1,
     mid-run — the MIGRATION_KILL_POINTS scenarios) against a twin that
     never migrates; ``replication`` serves the same cluster with a
     quorum-replicated leader whose resumed lives promote a follower (the
-    REPLICATION_CHAOS_POINTS scenarios). ``pipelined`` serves the
+    REPLICATION_CHAOS_POINTS scenarios); ``replicas`` serves a
+    replicated leader with a read replica tailing follower 0 and serving
+    the read surface, re-homing doc 0's viewer room onto it at round
+    ``migrate_at``, against a replica-less twin (the
+    REPLICAS_CHAOS_POINTS scenarios). ``pipelined`` serves the
     child through the overlapped tick pipeline (the OVERLAP_KILL_POINTS
     scenarios) — and because the digest planes are pipelining-agnostic,
     an UNPIPELINED twin_digest may be shared in: equality then also
@@ -1004,21 +1170,29 @@ def run_chaos(workdir: str, kill_point: str, kill_hits: int = 1,
     if replication and (history or qos or cluster
                         or residency is not None or pipelined or megadoc):
         raise ValueError("replication=True is its own scenario stack")
+    if replicas and (replication or history or qos or cluster
+                     or residency is not None or pipelined or megadoc):
+        raise ValueError("replicas=True is its own scenario stack")
     cfg = dict(seed=seed, docs=docs, k=k, ticks=ticks, cp_every=cp_every,
                residency=residency, pipelined=pipelined, megadoc=megadoc,
                device=device, qos="fair" if qos else None,
                history="compact" if history else None,
                cluster=cluster, replication=replication,
+               replicas="serve" if replicas else None,
                migrate_at=(migrate_at if migrate_at is not None
                            else ticks // 2)
-               if (cluster or replication) else -1)
+               if (cluster or replication or replicas) else -1)
     if twin_digest is None:
         # The qos twin is tenant-BLIND (same frames, no fairness); the
         # history twin is NEVER-compacted (same frames, same fork); the
         # cluster and replication twins NEVER migrate: digest equality
         # then ALSO proves fair composition (resp. summarization
-        # compaction, live migration) never changes converged state.
-        twin_cfg = dict(cfg, migrate_at=-1) if (cluster or replication) \
+        # compaction, live migration) never changes converged state. The
+        # replicas twin is REPLICA-LESS (same frames, every digest read
+        # served by the leader): equality then also proves replica-served
+        # reads never change bytes.
+        twin_cfg = dict(cfg, replicas="off", migrate_at=-1) if replicas \
+            else dict(cfg, migrate_at=-1) if (cluster or replication) \
             else dict(cfg, qos="blind") if qos else (
                 dict(cfg, history="plain") if history else cfg)
         twin = _spawn_life(os.path.join(workdir, "twin"), resume_from=None,
@@ -1585,7 +1759,13 @@ def main(argv=None) -> None:
                         help="round of the scripted migration (-1 = "
                              "never; default mid-run)")
     parser.add_argument("--replicas", default=None,
-                        help="not ported (ROADMAP Queue A 5)")
+                        choices=("serve", "off"),
+                        help="child: a replicated leader with a "
+                             "ReadReplica tailing follower 0 and serving "
+                             "the read surface every round ('serve'), or "
+                             "the replica-less differential twin ('off' "
+                             "— every digest read leader-served; the "
+                             "REPLICAS_CHAOS_POINTS scenarios)")
     parser.add_argument("--netsplit", action="store_true",
                         help="not ported (ROADMAP Queue A 5)")
     parser.add_argument("--resume-from", type=int, default=None)
@@ -1593,9 +1773,8 @@ def main(argv=None) -> None:
     parser.add_argument("--kill-hits", type=int, default=1)
     parser.add_argument("--matrix", action="store_true")
     args = parser.parse_args(argv)
-    for flag in ("replicas", "netsplit"):
-        if getattr(args, flag):
-            raise NotImplementedError(_NOT_PORTED.format(flag))
+    if args.netsplit:
+        raise NotImplementedError(_NOT_PORTED.format("netsplit"))
     if args.child:
         child_main(args)
         return
@@ -1605,6 +1784,7 @@ def main(argv=None) -> None:
                residency=args.residency, megadoc=args.megadoc,
                qos=args.qos is not None, history=args.history is not None,
                cluster=args.cluster, replication=args.replication,
+               replicas=args.replicas is not None,
                migrate_at=args.migrate_at)
     if args.matrix:
         for r in run_matrix(args.workdir, **cfg):

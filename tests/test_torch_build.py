@@ -278,3 +278,29 @@ def test_oplog_library_builds_from_the_ports_own_source():
     lib = _loader._BUILD_DIR / f"liboplog.{digest}.so"
     assert lib.is_file()
     assert native._configured._name == str(lib)
+
+
+@pytest.mark.parametrize("name,module", [("fanout", "fanout"),
+                                         ("shuttle", "shuttle")])
+def test_native_bus_and_fanout_build_from_the_ports_own_sources(name,
+                                                                module):
+    """The fan-out's and the shuttle bus's g++ libraries land in the
+    port's build directory too, each named by a hash of the port's copy
+    of its ``.cpp``; nothing is loaded from the reference package's own
+    build directory."""
+    import hashlib
+    import importlib
+
+    from fluidframework_tpu_torch.native import _loader
+
+    mod = importlib.import_module(f"fluidframework_tpu_torch.native.{module}")
+    src = mod._SRC
+    assert src == _build.PKG / "native" / f"{name}.cpp"
+    lib_obj = mod._load_library()
+    assert lib_obj is not None
+    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    lib = _loader._BUILD_DIR / f"lib{name}.{digest}.so"
+    assert lib.is_file()
+    assert lib_obj._name == str(lib)
+    assert "fluidframework_tpu_torch" in lib_obj._name
+    assert "/fluidframework_tpu/" not in lib_obj._name

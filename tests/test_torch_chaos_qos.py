@@ -86,9 +86,3 @@ def test_throttle_under_storm_report_fields_equal_jax(tmp_path):
     assert got["acked_frames"] == got["shed_frames"] == 48
     assert set(got) == set(want)
 
-
-@pytest.mark.parametrize("flag", ["replicas"])
-def test_unported_scenarios_still_refused(tmp_path, flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A 5"):
-        chaos.run_chaos(str(tmp_path), "wal.pre_fsync", device="cpu",
-                        **{flag: True}, **_CFG)

@@ -1,15 +1,16 @@
 """Live placement of the port (``parallel/placement.py`` and the storm's
 placement hook) against the JAX package's, on ``device="cpu"``.
 
-The cases of ``tests/test_cluster.py`` that need neither the network
-driver nor the viewer plane, as differentials: each scenario runs once
+The cases of ``tests/test_cluster.py`` that do not need the network
+driver, as differentials: each scenario runs once
 per package over its own directories with one pinned service clock per
 host, makes the reference test's own assertions on its side, and
 returns what it observed — digests (merged history, map rows, sequencer
 checkpoints), acks and nacks (``moved_to``, ``retry_after_s``), the
 ``__placement__`` directory head and every host's ``__storm__`` head
 (the store is content-addressed, so equal handles are equal bytes),
-migration phases, rebalance and drain reports, and ``get_deltas`` seqs.
+migration phases, rebalance and drain reports, ``get_deltas`` seqs, and
+a re-homed viewer's directives and frame bytes.
 The two records must be equal. The ``PlacementController`` rebalance of
 ``ShardResidency`` (``tests/test_sharded_serving.py``) closes the file.
 """
@@ -24,15 +25,18 @@ import numpy as np
 import pytest
 
 from fluidframework_tpu.parallel import placement as j_pl
+from fluidframework_tpu.server import broadcaster as j_bc
 from fluidframework_tpu.server import durable_store as j_ds
 from fluidframework_tpu.tools import chaos as j_chaos
 from fluidframework_tpu_torch.parallel import placement as t_pl
+from fluidframework_tpu_torch.server import broadcaster as t_bc
 from fluidframework_tpu_torch.server import durable_store as t_ds
 from fluidframework_tpu_torch.tools import chaos as t_chaos
 
 PKG = {
-    "jax": SimpleNamespace(pl=j_pl, ds=j_ds, chaos=j_chaos, dev={}),
-    "torch": SimpleNamespace(pl=t_pl, ds=t_ds, chaos=t_chaos,
+    "jax": SimpleNamespace(pl=j_pl, bc=j_bc, ds=j_ds, chaos=j_chaos,
+                           dev={}),
+    "torch": SimpleNamespace(pl=t_pl, bc=t_bc, ds=t_ds, chaos=t_chaos,
                              dev={"device": "cpu"}),
 }
 SIDES = ("jax", "torch")
@@ -297,6 +301,48 @@ def _rebalance_2_to_4(side, root):
            "digest": digest(side, cluster, docs)}
     close(cluster)
     return out
+
+
+def test_viewer_room_rehomes_with_moved_hint(tmp_path):
+    """Migrating a doc drops its source viewer room with a ``moved_to``
+    directive; the viewer catches the gap through ``get_deltas`` and
+    resumes on the target's plane, whose harvest broadcasts the next
+    tick."""
+    def scenario(side, root):
+        P = PKG[side]
+        docs = ["doc-0"]
+        git, hosts, cluster = _build(side, root)
+        clients = _connect(cluster, docs)
+        cseq = {docs[0]: 1}
+        d = docs[0]
+        src = cluster.owner_of(d)
+        dst = next(h for h in cluster.labels if h != src)
+        src_plane = P.bc.ViewerPlane(cluster.hosts[src].service)
+        dst_plane = P.bc.ViewerPlane(cluster.hosts[dst].service)
+        events = []
+        src_plane.join(d, events.append)
+        _serve_round(cluster, docs, clients, cseq, 0)
+        assert not [e for e in events if isinstance(e, dict)
+                    and e.get("event") == "viewer_resync"]
+        cluster.migrate(d, dst)
+        directives = [e for e in events if isinstance(e, dict)
+                      and e.get("event") == "viewer_resync"]
+        assert directives and directives[-1]["moved_to"] == dst
+        assert directives[-1]["reason"] == "moved"
+        assert cluster.stats["rehomed_viewers"] == 1
+        gap = cluster.get_deltas(d, directives[-1]["seq"])
+        hello = dst_plane.join(d, events.append)
+        assert hello["viewer_id"]
+        encodes0 = dst_plane.stats["tick_encodes"]
+        _serve_round(cluster, docs, clients, cseq, 1)
+        assert dst_plane.stats["tick_encodes"] > encodes0
+        close(cluster)
+        return [[bytes(e) if isinstance(e, (bytes, bytearray)) else e
+                 for e in events],
+                [m.sequence_number for m in gap], hello,
+                src_plane.stats, dst_plane.stats, cluster.stats]
+
+    both(tmp_path, scenario)
 
 
 def test_rebalance_2_to_4_hosts_converges(tmp_path):

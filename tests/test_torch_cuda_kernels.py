@@ -1740,3 +1740,88 @@ def test_fleet_migration_and_promotion_on_the_card(cuda, tmp_path,
     assert checked["map_fold"] > 0 and checked["sequencer_tick"] > 0
     assert on_card["replayed"] > 0
     assert on_card == run("cpu")
+
+
+def test_viewer_room_and_read_replica_on_the_card(cuda, tmp_path,
+                                                  monkeypatch):
+    """A replicated leader on the card with a viewer room and a read
+    replica tailing a follower: every kernel-1 and kernel-2 call equals
+    its plain version on the same inputs, and the leader's viewer frames,
+    the replica's re-broadcast frames and its reads equal the same run's
+    on the CPU."""
+    from fluidframework_tpu_torch.protocol.codec import is_storm_body
+    from fluidframework_tpu_torch.server.durable_store import \
+        GitSnapshotStore
+    from fluidframework_tpu_torch.server.history import HistoryPlane
+    from fluidframework_tpu_torch.server.read_replica import ReadReplica
+    from fluidframework_tpu_torch.server.replication import \
+        make_replicated_host
+
+    fold, deli = mfc.fold_words, seqc.process_batch_best
+    checked = {"map_fold": 0, "sequencer_tick": 0}
+
+    def checked_fold(state, words, lo, hi, base_seq, variant=None):
+        out = fold(state, words, lo, hi, base_seq, variant=variant)
+        if words.is_cuda:
+            _assert_equal(out, mk.fold_words_plain(state, words, lo, hi,
+                                                   base_seq), "map fold")
+            checked["map_fold"] += 1
+        return out
+
+    def checked_deli(state, ops, variant=None):
+        new_state, tickets = deli(state, ops, variant)
+        if ops.kind.is_cuda:
+            want_state, want_tickets = seqk.process_batch(state, ops)
+            _assert_equal(new_state, want_state, "deli state")
+            _assert_equal(tickets, want_tickets, "deli tickets")
+            checked["sequencer_tick"] += 1
+        return new_state, tickets
+
+    monkeypatch.setattr(mfc, "fold_words", checked_fold)
+    monkeypatch.setattr(seqc, "process_batch_best", checked_deli)
+    docs = [f"d{i}" for i in range(4)]
+
+    def run(dev):
+        root = tmp_path / dev
+        git = GitSnapshotStore(root / "git")
+        storm, plane = make_replicated_host(
+            "hostA", str(root / "hostA"), git, [str(root / "f0")],
+            num_docs=4, device=dev)
+        storm.service._clock = itertools.count(1000, 7).__next__
+        HistoryPlane(storm)
+        leader_frames, replica_frames = [], []
+        storm.service.connect(docs[0], leader_frames.append, mode="viewer")
+        clients = {d: storm.service.connect(d, lambda m: None).client_id
+                   for d in docs}
+        storm.service.pump()
+        rep = ReadReplica(plane.links[0].node, git, "replica0",
+                          leader_label="hostA")
+        rep.viewers.join(docs[0], replica_frames.append)
+        for r in range(3):
+            words = [_plane_words((r, i), 8) for i in range(len(docs))]
+            storm.submit_frame(None, {
+                "rid": r, "docs": [[d, clients[d], 1 + r * 8, 1, 8]
+                                   for d in docs]},
+                memoryview(b"".join(w.tobytes() for w in words)))
+            storm.flush()
+        rep.poll()
+        head = rep.head_seq(docs[0])
+        def ticks(frames):
+            return [bytes(f) for f in frames
+                    if isinstance(f, (bytes, bytearray)) and is_storm_body(f)]
+
+        out = {"leader": ticks(leader_frames),
+               "replica": ticks(replica_frames),
+               "reads": [rep.read_at(d, rep.head_seq(d)) for d in docs],
+               "lag": rep.lag}
+        assert out["replica"] == out["leader"]
+        assert rep.read_at(docs[0], head) \
+            == storm.service.read_at(docs[0], head)
+        storm._group_wal.close()
+        return out
+
+    on_card = run("cuda")
+    torch.cuda.synchronize()
+    assert checked["map_fold"] > 0 and checked["sequencer_tick"] > 0
+    assert len(on_card["leader"]) == 3 and on_card["lag"] == 0
+    assert on_card == run("cpu")

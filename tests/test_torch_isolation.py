@@ -49,7 +49,10 @@ def test_importing_every_port_module_loads_no_jax_or_reference():
                  "dds.matrix", "ops.matrix_kernel", "ops.matrix_cuda",
                  "parallel.mesh", "parallel.multihost", "parallel.serving",
                  "ops.mergetree_sharded", "server.history",
-                 "protocol.summary", "drivers.history_driver"):
+                 "protocol.summary", "drivers.history_driver",
+                 "server.broadcaster", "server.read_replica",
+                 "server.alfred", "server.native_bus", "native.fanout",
+                 "native.shuttle"):
         assert f"fluidframework_tpu_torch.{name}" in modules
     assert [m for m in modules if _forbidden(m)] == []
 

@@ -987,12 +987,10 @@ def test_historian_oversized_object_served_not_cached(tmp_path):
 
 def test_historian_service_snapshot_path(tmp_path):
     """The reference suite's service-assembly case: a summary written and
-    read back through a ``RouterliciousService`` whose snapshot store is
-    a historian over a git store (the reference's ``build_default_service``
-    assembly, which the port builds from the same parts)."""
+    read back through each package's ``alfred.build_default_service``,
+    whose snapshot store is a historian over a git store."""
     from fluidframework_tpu.server.alfred import build_default_service
-    from fluidframework_tpu_torch.server.routerlicious import \
-        RouterliciousService
+    from fluidframework_tpu_torch.server import alfred as t_alfred
 
     got = {}
     for side in SIDES:
@@ -1000,11 +998,9 @@ def test_historian_service_snapshot_path(tmp_path):
         if side == "jax":
             service = build_default_service(str(root), merge_host=False)
         else:
-            service = RouterliciousService(
-                bus=t_ds.DurableMessageBus(f"{root}/bus"),
-                store=t_ds.FileStateStore(f"{root}/state"),
-                snapshots=t_hn.Historian(t_ds.GitSnapshotStore(
-                    f"{root}/git")))
+            service = t_alfred.build_default_service(
+                str(root), merge_host=False, device="cpu")
+        assert isinstance(service.snapshots, PKG[side].hn.Historian)
         service.upload_snapshot("doc", {"tree": {"a": 1}})
         assert service.get_latest_snapshot("doc") == {"tree": {"a": 1}}
         assert service.get_latest_snapshot("doc") == {"tree": {"a": 1}}

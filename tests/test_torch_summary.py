@@ -4,9 +4,7 @@ the service routes that use them, against the JAX package's.
 ``resolve_handles`` and ``count_handles`` run on seeded summary trees in
 both packages and must give equal results (or equal refusals); an
 incremental ``upload_snapshot(..., parent=...)`` through each package's
-service must store the same content-addressed tree (equal handles). The
-viewer route, which needs an unported plane, refuses with
-``NotImplementedError`` before importing anything.
+service must store the same content-addressed tree (equal handles).
 """
 
 from __future__ import annotations
@@ -122,12 +120,3 @@ def test_incremental_upload_snapshot_equals_jax(tmp_path, seed):
     if second != "KeyError":
         assert stored == t_sum.resolve_handles(child, parent)
 
-
-def test_viewer_connect_is_refused_naming_the_roadmap(tmp_path):
-    svc = service(t_rl, t_ds, tmp_path)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A 5"):
-        svc.connect("doc", lambda m: None, mode="viewer")
-    assert svc.viewers is None
-    # A write connect still works after the refusal.
-    conn = svc.connect("doc", lambda m: None)
-    assert conn.client_id == "client-1"
