@@ -101,7 +101,22 @@ equality: every plane is integer), then drives the port's main paths:
   ``AlfredServer``, acked as the WAL-less twin acks them in process, 64
   viewer sockets, a directory-routed viewer answered ``moved``), then
   ``python -m fluidframework_tpu_torch.server.alfred`` started as a user
-  starts it and served a writer and a viewer on the card.
+  starts it and served a writer and a viewer on the card;
+* the network tier: the reference ``bench_e2e_storm``'s serving path at
+  its published width (Front door B: 10,240 docs, K 512, 32 slots, 8
+  client processes, group durability, 4 timed ticks) through the C++
+  socket bridge (``BridgeFrontDoor``) over a storm on the card (arm 0)
+  and over ``launch_cluster``'s leader with 2 follower processes over
+  localhost TCP (arm 1), every frame acked over the wire, every doc held
+  to a numpy fold and each follower's WAL to the leader's tick log; then
+  ``python -m fluidframework_tpu_torch.server.bridge_host`` started as a
+  user starts it, served a writer and a viewer and scraped by
+  ``python -m fluidframework_tpu_torch.tools.monitor --once``; and the
+  networked fleet (Net N: the netsplit chaos soak with a ``kill -9`` of
+  a leader on the card and a promotion over the wire, held to its
+  fault-free twin on the card and on the CPU; the reference net benches:
+  ack latency in process and over the wire, failover blackouts, parked
+  writes after a heal).
 
 Each phase prints its seconds (``phase <name>: ...``), and a
 ``phase_seconds:`` line lists them all before the device lines.
@@ -141,8 +156,10 @@ the card's busy time and idle share.
 
 runs every phase and check as without flags, and traces the two history
 phases only; ``--trace-fleet`` traces Fleet P's first ticks the same way,
-and ``--trace-read`` Viewer V's ticks at 100,000 viewers, Read R's replica
-poll and Front door F's last socket tick (``--trace`` traces them too).
+``--trace-read`` Viewer V's ticks at 100,000 viewers, Read R's replica
+poll and Front door F's last socket tick, and ``--trace-net`` Front door
+B's arm 1 timed ticks and Net N's networked F = 1 bench arm (``--trace``
+traces them too).
 """
 
 from __future__ import annotations
@@ -1704,7 +1721,8 @@ def recheck_recorded(name: str, shapes: dict, inputs: dict, kernel, plain,
                      bound_of,
                      ops_of=lambda args: int(args[1].valid.sum()),
                      other=None, other_name: str = "global",
-                     time_all: bool = False, time_last: bool = False) -> dict:
+                     time_all: bool = False, time_last: bool = False,
+                     ends_only: bool = False) -> dict:
     """Hold a kernel against its plain version on the inputs of EVERY call
     the main paths made to it, at every shape, and time it on every call
     (``by_call``: each call's shape and ms, with ``other``'s ms). ms and
@@ -1719,7 +1737,10 @@ def recheck_recorded(name: str, shapes: dict, inputs: dict, kernel, plain,
     only the last call of each shape (every call is still held to the
     plain version). Plain ms is timed on the last timed call of each
     timed shape: timing it on every call would double the re-checks'
-    time, most of which is the plain versions'."""
+    time, most of which is the plain versions'. ``ends_only`` holds only
+    each shape's first and last call to the plain version (where the
+    plain version takes seconds a call), and times the plain version on
+    the shape with the most launches only."""
     import torch
     check(bool(shapes) and {sh: len(c) for sh, c in inputs.items()}
           == shapes, f"{name}: launches by shape {shapes}, inputs kept "
@@ -1727,9 +1748,11 @@ def recheck_recorded(name: str, shapes: dict, inputs: dict, kernel, plain,
     # Every call's error stays on the card until its shape is done: one
     # host wait a shape, not one a call.
     worst = 0
+    held = {sh: (c[:1] + c[1:][-1:]) if ends_only else c
+            for sh, c in inputs.items()}
     for shape in sorted(shapes):
         errs = []
-        for args in inputs[shape]:
+        for args in held[shape]:
             want = plain(*args)
             for run in (kernel, other) if other else (kernel,):
                 errs.append(max_abs_err_t(run(*args), want))
@@ -1754,13 +1777,14 @@ def recheck_recorded(name: str, shapes: dict, inputs: dict, kernel, plain,
     ms_other = [row[n + 1] for row in summed] if other else []
     plain_ms = [cuda_time_ms(lambda: plain(*args), 1)
                 for args in (timed[sh][-1] for sh in sorted(shapes)
-                             if time_all or sh == top)]
+                             if (time_all and not ends_only) or sh == top)]
     bounds = [bound_of(*args) for args in calls]
     by = [b for _, b in bounds]
     key = f"ms_{other_name}"
     out = {"shape": list(top), "max_abs_err": worst,
            "shapes_checked": len(shapes),
-           "calls_checked": sum(shapes.values()),
+           "calls_checked": sum(len(c) for c in held.values()),
+           "calls_recorded": sum(shapes.values()),
            "calls_timed": len(calls),
            "valid_ops_mean": sum(ops_of(args) for args in calls)
            / len(calls),
@@ -4157,7 +4181,9 @@ def plane_recheck(device, name: str, path: str, kept: dict) -> dict | None:
             time_all=True, time_last=True)
     # Both variants where a document's lanes fit the warp variant's
     # shared memory; past it (the mega doc's 10,000 writers) the
-    # one-thread variant alone, the one the shape picks.
+    # one-thread variant alone, the one the shape picks, held to the
+    # plain version on each shape's first and last call (the plain deli
+    # takes about a second a call at 16,385 lanes).
     limit = seqc.smem_limit(device)
     fits = {sh for sh in calls if seqc.warp_smem_bytes(sh[2]) <= limit}
     got = {}
@@ -4180,7 +4206,8 @@ def plane_recheck(device, name: str, path: str, kept: dict) -> dict | None:
             f"{label}, past the warp variant's shared memory",
             {sh: shapes[sh] for sh in wide}, {sh: calls[sh] for sh in wide},
             lambda st, op: seqc.process_batch_best(st, op, "thread"),
-            seqk.process_batch, deli_bound, time_all=True, time_last=True)
+            seqk.process_batch, deli_bound, time_all=True, time_last=True,
+            ends_only=True)
         alone.update(variant="thread", ms_thread=alone["ms"])
         if not got:
             return alone
@@ -4191,11 +4218,12 @@ def plane_recheck(device, name: str, path: str, kept: dict) -> dict | None:
 
 
 def residency_stack(device, root: pathlib.Path, pool, clock=None,
-                    **res_kw):
+                    durable_bus: bool = True, **res_kw):
     """The reference benches' residency stack on the card: a durable bus
-    and state store, a group-commit tick WAL and a git snapshot store
-    under ``root``, a sequencer host sized to the pool, and (``pool`` not
-    None) a ResidencyManager capping it. A pinned service clock."""
+    and state store (in memory with ``durable_bus=False``), a
+    group-commit tick WAL and a git snapshot store under ``root``, a
+    sequencer host sized to the pool, and (``pool`` not None) a
+    ResidencyManager capping it. A pinned service clock."""
     from fluidframework_tpu_torch.server.durable_store import (
         DurableMessageBus,
         FileStateStore,
@@ -4212,11 +4240,12 @@ def residency_stack(device, root: pathlib.Path, pool, clock=None,
                                    initial_capacity=pool or RES_POOL,
                                    device=device)
     merge_host = KernelMergeHost(flush_threshold=10**9, device=device)
+    tiers = (dict(bus=DurableMessageBus(str(root / "bus")),
+                  store=FileStateStore(str(root / "state")))
+             if durable_bus else {})
     service = RouterliciousService(
-        bus=DurableMessageBus(str(root / "bus")),
-        store=FileStateStore(str(root / "state")),
         merge_host=merge_host, batched_deli_host=seq_host,
-        auto_pump=False, idle_check_interval=10**9)
+        auto_pump=False, idle_check_interval=10**9, **tiers)
     ticks = iter(range(1000, 1 << 30, 3))
     service._clock = lambda: next(ticks)
     storm = StormController(
@@ -4304,12 +4333,13 @@ def fold_frames(frames, docs) -> dict:
 
 
 def residency_path_a(device, root: pathlib.Path, churn_ctx=None,
-                     verify: bool = True) -> dict:
+                     verify: bool = True, after_join=None) -> dict:
     """Residency A (see RES_*): serve the churn on the card with a pool
     of RES_POOL, held to a numpy fold of every doc's words and to a twin
     stack on the card with no residency (every doc resident) serving the
     same frames. ``churn_ctx`` wraps the churn frames (the trace);
-    ``verify=False`` skips the checks and the twin."""
+    ``verify=False`` skips the checks and the twin; ``after_join()`` runs
+    after the joins, before the first frame."""
     import numpy as np
     import torch
 
@@ -4327,6 +4357,8 @@ def residency_path_a(device, root: pathlib.Path, churn_ctx=None,
         t0 = time.perf_counter()
         clients = connect_in_chunks(service, docs, RES_JOIN_CHUNK)
         t_join = time.perf_counter() - t0
+        if after_join is not None:
+            after_join()
         hot = list(res.resident)
         cseqs = {d: 1 for d in docs}
         frames, acks = [], {}
@@ -4395,10 +4427,14 @@ def residency_path_a(device, root: pathlib.Path, churn_ctx=None,
           f"(first {bad[:3]})")
     peak_mb = torch.cuda.max_memory_allocated() / 2**20
     # The twin: every doc resident, the same frames in the same order.
-    t_svc, t_storm, t_seq, t_mh, _ = residency_stack(device, root / "twin",
-                                                     None)
+    # Its bus and state store are in memory: the checks read only its
+    # acks and map rows, and in-memory joins are cheaper.
+    t_svc, t_storm, t_seq, t_mh, _ = residency_stack(
+        device, root / "twin", None, durable_bus=False)
     t_acks: dict = {}
+    t0 = time.perf_counter()
     t_clients = connect_in_chunks(t_svc, docs, RES_JOIN_CHUNK)
+    t_twin_join = time.perf_counter() - t0
     check(t_clients == clients, "residency twin: client ids differ")
     for rid, entries, payload in frames:
         t_storm.submit_frame(lambda p: t_acks.__setitem__(p["rid"], p),
@@ -4418,7 +4454,8 @@ def residency_path_a(device, root: pathlib.Path, churn_ctx=None,
         "never_served_docs": RES_REGISTERED - ever,
         "resident_docs": len(res.resident),
         "seq_row_high_water": seq_host._row_count,
-        "join_s": t_join, "churn_frames": RES_CHURN_FRAMES,
+        "join_s": t_join, "twin_join_s": t_twin_join,
+        "churn_frames": RES_CHURN_FRAMES,
         "churn_s": t_churn, "churn_ops_per_s": ops / t_churn,
         "hydrations": hydrations, "evictions": evictions,
         "hydration_ms_p50": 1e3 * snap.get("residency.hydrate_s.p50", 0.0),
@@ -5108,7 +5145,9 @@ def planes_path(device) -> dict:
     """Residency A, R and S, Mega A and L, and the five chaos kills
     (beside mega A's promoted-arm joins: after every residency clock, and
     joined before mega A's first timed wave), in temp dirs of the machine
-    deleted after."""
+    deleted after. Net N's netsplit soak and its CPU twin (child
+    processes) run beside residency A's joins and are joined before its
+    first frame (``out["net_split"]``)."""
     import shutil
     import tempfile
     root = pathlib.Path(tempfile.mkdtemp(prefix="ff-planes-"))
@@ -5120,9 +5159,18 @@ def planes_path(device) -> dict:
         t0 = time.perf_counter()
         out["chaos"] = plane_chaos_finish(chaos_runs)
         waited["s"] = time.perf_counter() - t0
+
+    def join_split():
+        t0 = time.perf_counter()
+        out["net_split"] = net_split_finish(split)
+        waited["split"] = time.perf_counter() - t0
+    split = net_split_start(device)
     try:
         t = time.perf_counter()
-        out["res_a"] = residency_path_a(device, root / "a")
+        out["res_a"] = residency_path_a(device, root / "a",
+                                        after_join=join_split)
+        check("net_split" in out,
+              "residency A did not join Net N's netsplit soak")
         out["res_r"] = residency_path_r(device, root / "a", out["res_a"])
         del out["res_a"]["storm"]
         out["res_s"] = residency_path_s(device, root / "s")
@@ -5132,14 +5180,18 @@ def planes_path(device) -> dict:
                                     after_join=join_chaos)
         check("chaos" in out, "mega A did not join the plane chaos kills")
         out["mega_l"] = mega_lanes_path(device)
-        print(f"phase times: residency {t_res - t:.1f} s, mega-doc "
+        print(f"phase times: residency {t_res - t:.1f} s, of which "
+              f"waiting for Net N's netsplit after residency A's joins "
+              f"{waited['split']:.1f} s; mega-doc "
               f"{time.perf_counter() - t_res:.1f} s, of which waiting for "
               f"the plane chaos after mega A's joins {waited['s']:.1f} s",
               flush=True)
     finally:
         for run in chaos_runs:
             run["thread"].join()
+        split["thread"].join()
         shutil.rmtree(root, ignore_errors=True)
+        shutil.rmtree(split["root"], ignore_errors=True)
     return out
 
 
@@ -6218,18 +6270,17 @@ def fleet_p_words(t: int):
     return kinds | (slots << 2) | (vals << 12)
 
 
-def fleet_fold(ticks: int):
-    """The numpy LWW fold of every doc's words over ``ticks`` ticks, in
-    seq order: (present bool[DOCS, S], value i32[DOCS, S])."""
+def fold_blocks(blocks, docs: int, slots: int):
+    """The numpy LWW fold of u32[docs, K] word blocks, each doc's words in
+    seq order: (present bool[docs, slots], value i32[docs, slots])."""
     import numpy as np
-    present = np.zeros((DOCS, KEY_SLOTS), bool)
-    value = np.zeros((DOCS, KEY_SLOTS), np.int32)
-    rows = np.arange(DOCS)
-    for t in range(ticks):
-        words = fleet_p_words(t)
+    present = np.zeros((docs, slots), bool)
+    value = np.zeros((docs, slots), np.int32)
+    rows = np.arange(docs)
+    for words in blocks:
         kind, slot = words & 3, (words >> 2) & 0x3FF
         val = (words >> 12).astype(np.int32)
-        for j in range(K_MAP):
+        for j in range(words.shape[1]):
             k, s = kind[:, j], slot[:, j]
             present[k == 2] = False
             sets, dels = rows[k == 0], rows[k == 1]
@@ -6482,7 +6533,8 @@ def fleet_path_p(device, trace: bool = False, read: bool = False,
                   == cluster.hosts[label]._group_wal.durable_len,
                   f"fleet P: {label}'s replicated length != durable")
         # Every doc's map == the numpy fold of its acked frames.
-        present, value = fleet_fold(total)
+        present, value = fold_blocks(
+            (fleet_p_words(t) for t in range(total)), DOCS, KEY_SLOTS)
         for label in FLEET_HOSTS:
             mine = [d for d, n in enumerate(names)
                     if cluster.owner_of(n) == label]
@@ -7314,13 +7366,14 @@ def front_words(t: int):
     return kinds | (slots << 2) | (vals << 12)
 
 
-def front_standalone() -> dict:
-    """``python -m fluidframework_tpu_torch.server.alfred --port 0
-    --cadence-ms 10 --native-fanout --native-bus`` as a user starts it:
-    READY, its device hosts on the card, its bus and fan-out the native
-    libraries (``NativeMessageBus``, ``NativeFanout``: every op below
-    rides them), a writer and a viewer over raw frames, ops submitted
-    and read back, the process stopped."""
+def standalone_door(what: str, module: str, args: list, n_devices: int,
+                    hops: list | None = None, scrape: bool = False) -> dict:
+    """``python -m <module> --port 0 <args>`` as a user starts it: READY,
+    its ``n_devices`` device hosts on the card (the ``DEVICE`` line),
+    ``hops`` its bus and fan-out classes (the ``HOPS`` line) where given,
+    a writer and a viewer over raw frames, ops submitted and read back,
+    with ``scrape`` one ``python -m fluidframework_tpu_torch.tools.monitor
+    --once`` scrape of it, then the process stopped."""
     from fluidframework_tpu_torch.protocol.messages import (
         DocumentMessage, MessageType)
     env = dict(os.environ)
@@ -7329,36 +7382,36 @@ def front_standalone() -> dict:
                        if p])
     t0 = time.perf_counter()
     proc = subprocess.Popen(
-        [sys.executable, "-m", "fluidframework_tpu_torch.server.alfred",
-         "--port", "0", "--cadence-ms", "10", "--native-fanout",
-         "--native-bus"], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-        text=True, env=env, cwd=str(ROOT))
+        [sys.executable, "-m", module, "--port", "0", *args],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+        cwd=str(ROOT))
     out: dict = {}
     try:
         line = proc.stdout.readline()
         check(line.startswith("READY "),
-              f"front door F: the standalone door said {line!r}: "
+              f"{what}: the standalone door said {line!r}: "
               f"{proc.stderr.read() if proc.poll() is not None else ''}")
         out["ready_s"] = time.perf_counter() - t0
         port = int(line.split()[1])
         devices = proc.stdout.readline().split()
-        check(len(devices) == 3 and devices[0] == "DEVICE"
+        check(len(devices) == 1 + n_devices and devices[0] == "DEVICE"
               and all(d.startswith("cuda") for d in devices[1:]),
-              f"front door F: the standalone door's hosts are on "
+              f"{what}: the standalone door's hosts are on "
               f"{devices[1:]}, not the card")
         out["devices"] = devices[1:]
-        hops = proc.stdout.readline().split()
-        check(hops == ["HOPS", "NativeMessageBus", "NativeFanout"],
-              f"front door F: the standalone door's bus and fan-out are "
-              f"{hops[1:]}, not the native libraries")
-        out["hops"] = hops[1:]
+        if hops is not None:
+            got = proc.stdout.readline().split()
+            check(got == ["HOPS", *hops],
+                  f"{what}: the standalone door's bus and fan-out are "
+                  f"{got[1:]}, not the native libraries")
+            out["hops"] = got[1:]
         writer, viewer = RawClient(port), RawClient(port)
         try:
             hello = writer.call("connect", doc_id="standalone")
             hello_v = viewer.call("connect", doc_id="standalone",
                                   mode="viewer")
             check(hello_v.get("viewer") is True and "client_id" in hello,
-                  f"front door F: standalone hellos {hello} {hello_v}")
+                  f"{what}: standalone hellos {hello} {hello_v}")
             t1 = time.perf_counter()
             for i in range(FRONT_STANDALONE_OPS):
                 resp = writer.call("submit", messages=[DocumentMessage(
@@ -7366,7 +7419,7 @@ def front_standalone() -> dict:
                     client_sequence_number=i + 1,
                     reference_sequence_number=0)])
                 check(resp.get("ok") is True,
-                      f"front door F: standalone submit {resp}")
+                      f"{what}: standalone submit {resp}")
             got: list = []
             deadline = time.perf_counter() + 60
             while time.perf_counter() < deadline:
@@ -7380,7 +7433,7 @@ def front_standalone() -> dict:
             check([(m.client_sequence_number, m.contents) for m in got]
                   == [(i + 1, {"k": i})
                       for i in range(FRONT_STANDALONE_OPS)],
-                  f"front door F: the standalone door read back {len(got)} "
+                  f"{what}: the standalone door read back {len(got)} "
                   f"ops, want {FRONT_STANDALONE_OPS} in order")
             seen: list = []
             while len(seen) < FRONT_STANDALONE_OPS:
@@ -7389,7 +7442,22 @@ def front_standalone() -> dict:
                     seen += [m.sequence_number for m in msg["messages"]
                              if m.type == MessageType.OPERATION]
             check(seen == [m.sequence_number for m in got],
-                  f"front door F: the standalone viewer saw {seen}")
+                  f"{what}: the standalone viewer saw {seen}")
+            if scrape:
+                mon = subprocess.run(
+                    [sys.executable, "-m",
+                     "fluidframework_tpu_torch.tools.monitor", "--port",
+                     str(port), "--once"], capture_output=True, text=True,
+                    timeout=120, env=env, cwd=str(ROOT))
+                check(mon.returncode == 0,
+                      f"{what}: the monitor's scrape failed: {mon.stderr}")
+                metrics = json.loads(mon.stdout)
+                check(metrics.get("alfred.connects", 0) >= 1
+                      and metrics.get("deli.sequenced_ops", 0)
+                      >= FRONT_STANDALONE_OPS,
+                      f"{what}: the monitor scraped {metrics}")
+                out["scrape"] = {k: metrics[k] for k in (
+                    "alfred.connects", "deli.sequenced_ops")}
         finally:
             writer.close()
             viewer.close()
@@ -7578,7 +7646,10 @@ def front_path_f(device, ctx: dict, trace: bool = False) -> dict:
             torch.cuda.synchronize()
         counts = launch_counts()
         t0 = time.perf_counter()
-        out["standalone"] = front_standalone()
+        out["standalone"] = standalone_door(
+            "front door F", "fluidframework_tpu_torch.server.alfred",
+            ["--cadence-ms", "10", "--native-fanout", "--native-bus"], 2,
+            hops=["NativeMessageBus", "NativeFanout"])
         secs["standalone"] = time.perf_counter() - t0
     finally:
         service.read_router = None
@@ -7595,6 +7666,663 @@ def front_path_f(device, ctx: dict, trace: bool = False) -> dict:
     print("front_f: " + json.dumps(out), flush=True)
     return {"out": out, "counts": counts, "kept": kept,
             "twin_counts": twin_counts, "twin_kept": twin_kept}
+
+
+# -- the network tier (the C++ bridge door, the TCP replication wire) ---------
+
+#: Front door B: bench_e2e_storm (``bench.py:1228``) at its published
+#: width — E2E_DOCS docs of one writer each, K E2E_K over E2E_SLOTS key
+#: slots, E2E_CONNS client processes of E2E_DOCS / E2E_CONNS docs, group
+#: durability — one untimed warm tick, then E2E_TICKS timed ticks (10 in
+#: the reference: a depth cut). Arm 0 serves through a BridgeFrontDoor
+#: over the reference's StormController; arm 1 through the same door over
+#: ``launch_cluster``'s leader, with E2E_FOLLOWERS follower processes
+#: over localhost TCP (the reference's lease defaults).
+E2E_DOCS = 10_240
+E2E_K = 512
+E2E_SLOTS = 32
+E2E_CONNS = 8
+E2E_TICKS = 4
+E2E_FOLLOWERS = 2
+#: Net N: the netsplit soak (``tests/test_chaos.py``: F = 2, seed 0, docs
+#: 2, K 8, 12 ticks, checkpoints every 4, the kill at round 9), then the
+#: reference net benches (``bench.py:4237``, ``:4361``, ``:4446``) at
+#: their defaults but for depth: bench_net_ack_overhead's rounds 150 ->
+#: NET_ACK_ROUNDS, bench_net_failover_blackout's 30 -> NET_FAILOVER_ROUNDS.
+#: The netsplit soak (its CPU twin, then the card's lives) runs in child
+#: processes beside residency A's joins (``net_split_start``).
+NET_SPLIT = dict(followers=2, seed=0, docs=2, k=8, ticks=12, cp_every=4,
+                 kill_at=9)
+NET_DOCS = 4
+NET_K = 64
+NET_ACK_ROUNDS = 75
+NET_ACK_WARM = 20
+NET_ACK_DEPTH = 2
+NET_FAILOVER_ROUNDS = 15
+NET_PARKED_DOCS = 2
+NET_PARKED_WRITES = 6
+
+#: The client process of bench_e2e_storm (``bench.py:1120``, numpy and
+#: sockets only): it builds its frames (and writes their words to
+#: ``cfg["dump"]`` for the parent's fold), prints READY, waits for GO,
+#: sends them, reads one storm ack a frame, and prints its ack times.
+E2E_CLIENT_SRC = r"""
+import json, socket, struct, sys, time
+import numpy as np
+
+cfg = json.loads(sys.stdin.readline())
+sock = socket.create_connection(("127.0.0.1", cfg["port"]))
+rng = np.random.default_rng(cfg["seed"])
+docs = cfg["docs"]
+k = cfg["k"]
+cseqs = {d: c0 for (d, _cl), c0 in zip(docs, cfg["cseq0"])}
+words = np.zeros((cfg["ticks"], len(docs), k), np.uint32)
+
+def frame(rid):
+    hdr_docs = []
+    for i, (doc_id, client_id) in enumerate(docs):
+        kinds = rng.choice([0, 0, 0, 1, 2], size=k).astype(np.uint32)
+        slots = rng.integers(0, cfg["num_slots"], k).astype(np.uint32)
+        vals = rng.integers(0, 1 << 20, k).astype(np.uint32)
+        words[rid, i] = kinds | (slots << 2) | (vals << 12)
+        hdr_docs.append([doc_id, client_id, cseqs[doc_id], 1, k])
+        cseqs[doc_id] += k
+    head = json.dumps({"op": "storm", "rid": rid, "docs": hdr_docs},
+                      separators=(",", ":")).encode()
+    body = (bytes((0, 1)) + struct.pack("<I", len(head)) + head
+            + words[rid].tobytes())
+    return struct.pack(">I", len(body)) + body
+
+def recv_exact(n):
+    raw = b""
+    while len(raw) < n:
+        chunk = sock.recv(n - len(raw))
+        if not chunk:
+            raise SystemExit("server closed the connection")
+        raw += chunk
+    return raw
+
+def read_ack():
+    length = struct.unpack(">I", recv_exact(4))[0]
+    body = recv_exact(length)
+    if body[:1] == b"\x00":
+        hlen = struct.unpack_from("<I", body, 2)[0]
+        hdr = json.loads(body[6:6 + hlen].decode())
+        if hdr.get("op") == "storm_ack":
+            hdr["storm"] = True
+        return hdr
+    return json.loads(body.decode())
+
+frames = [frame(t) for t in range(cfg["ticks"])]
+np.save(cfg["dump"], words)
+print("READY", flush=True)
+assert sys.stdin.readline().strip() == "GO"
+t0 = time.perf_counter()
+ack_times, acked, nacked = [], 0, 0
+to_send = list(range(cfg["ticks"]))
+while acked < cfg["ticks"]:
+    if to_send:
+        sock.sendall(frames[to_send.pop(0)])
+        continue
+    ack = read_ack()
+    if not ack.get("storm"):
+        continue
+    if ack.get("error"):
+        nacked += 1
+        time.sleep(float(ack.get("retry_after_s", 0.01)))
+        to_send.append(int(ack["rid"]))
+        continue
+    acked += 1
+    ack_times.append(time.perf_counter() - t0)
+print(json.dumps({"elapsed": time.perf_counter() - t0,
+                  "ack_times": ack_times, "nacked": nacked}), flush=True)
+"""
+
+
+def pct(values, q: float) -> float:
+    import numpy as np
+    return float(np.percentile(np.asarray(values, float), q)) \
+        if len(values) else 0.0
+
+
+def e2e_stack(device, root: pathlib.Path, arm: int):
+    """Arm 0: ``bench.py:1252-1281``'s stack on the card (a group-commit
+    WAL under ``root``). Arm 1: ``launch_cluster``'s replicated leader on
+    the card with E2E_FOLLOWERS follower processes. Returns (storm,
+    cluster or None)."""
+    if arm == 1:
+        from fluidframework_tpu_torch.tools.launch_cluster import \
+            launch_cluster
+        cluster = launch_cluster(
+            str(root), followers=E2E_FOLLOWERS, num_docs=E2E_DOCS,
+            device=device, flush_threshold_docs=E2E_DOCS, pipeline_depth=1)
+        return cluster.storm, cluster
+    from fluidframework_tpu_torch.native.fanout import make_fanout
+    from fluidframework_tpu_torch.server.kernel_host import \
+        KernelSequencerHost
+    from fluidframework_tpu_torch.server.merge_host import KernelMergeHost
+    from fluidframework_tpu_torch.server.routerlicious import \
+        RouterliciousService
+    from fluidframework_tpu_torch.server.storm import StormController
+    seq_host = KernelSequencerHost(num_slots=2, initial_capacity=E2E_DOCS,
+                                   device=device)
+    merge_host = KernelMergeHost(map_slots=E2E_SLOTS, row_capacity=E2E_DOCS,
+                                 flush_threshold=10**9, device=device)
+    service = RouterliciousService(merge_host=merge_host,
+                                   batched_deli_host=seq_host,
+                                   auto_pump=False, fanout=make_fanout())
+    storm = StormController(service, seq_host, merge_host,
+                            flush_threshold_docs=E2E_DOCS,
+                            spill_dir=str(root / "spill"), pipeline_depth=1,
+                            durability="group")
+    return storm, None
+
+
+def e2e_arm(device, root: pathlib.Path, arm: int, trace: bool) -> dict:
+    """One arm of Front door B under the plane recording wrappers: joins
+    in process (untimed), a warm tick, then E2E_CONNS client processes
+    send E2E_TICKS frames each through a BridgeFrontDoor (the pump thread
+    launches every kernel; this thread only waits on the clients until
+    the door closes). Every frame acked over the wire, every doc's map
+    == the numpy fold of its frames, and (arm 1) each follower's WAL a
+    byte prefix of the leader's tick log."""
+    import numpy as np
+    import torch
+
+    from fluidframework_tpu_torch.server.bridge_host import BridgeFrontDoor
+    from fluidframework_tpu_torch.server.replication import \
+        REPLICA_WAL_RELPATH
+    what = f"front door B arm {arm}"
+    docs = [f"storm-doc-{i}" for i in range(E2E_DOCS)]
+    per = E2E_DOCS // E2E_CONNS
+    kept: dict = {}
+    secs: dict = {}
+    out: dict = {}
+    traces: dict = {}
+    root.mkdir(parents=True, exist_ok=True)
+    launch_counts_reset()
+    with plane_recording(kept):
+        t0 = time.perf_counter()
+        storm, cluster = e2e_stack(device, root, arm)
+        service = storm.service
+        secs["build"] = time.perf_counter() - t0
+        try:
+            t0 = time.perf_counter()
+            clients = {d: service.connect(d, lambda m: None).client_id
+                       for d in docs}
+            service.pump()
+            secs["joins"] = time.perf_counter() - t0
+            warm = (np.random.default_rng(123).integers(
+                0, 1 << 20, (E2E_DOCS, E2E_K)).astype(np.uint32) << 12)
+            t0 = time.perf_counter()
+            storm.submit_frame(None, {"op": "storm", "docs": [
+                [d, clients[d], 1, 1, E2E_K] for d in docs]},
+                memoryview(warm.tobytes()))
+            storm.flush()
+            torch.cuda.synchronize()
+            secs["warm_tick"] = time.perf_counter() - t0
+            check(storm.stats["sequenced_ops"] == E2E_DOCS * E2E_K,
+                  f"{what}: the warm tick sequenced "
+                  f"{storm.stats['sequenced_ops']} ops")
+            storm.tick_seconds.clear()
+            storm.harvest_intervals.clear()
+            storm.ledger.clear()
+            storm._last_harvest = None
+            before = storm.stats["sequenced_ops"]
+            wal_paths = ([pathlib.Path(c.data_dir) / REPLICA_WAL_RELPATH
+                          for c in cluster.children] if cluster else [])
+            wal0 = [p.stat().st_size for p in wal_paths]
+            t0 = time.perf_counter()
+            front = BridgeFrontDoor(service, 0)
+            procs = []
+            try:
+                for c in range(E2E_CONNS):
+                    proc = subprocess.Popen(
+                        [sys.executable, "-c", E2E_CLIENT_SRC],
+                        stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                        text=True)
+                    procs.append(proc)
+                    mine = docs[c * per:(c + 1) * per]
+                    proc.stdin.write(json.dumps({
+                        "port": front.port, "k": E2E_K, "ticks": E2E_TICKS,
+                        "seed": c, "num_slots": E2E_SLOTS,
+                        "docs": [[d, clients[d]] for d in mine],
+                        "cseq0": [E2E_K + 1] * len(mine),
+                        "dump": str(root / f"client{c}.npy")}) + "\n")
+                    proc.stdin.flush()
+                for proc in procs:
+                    line = proc.stdout.readline().strip()
+                    check(line == "READY", f"{what}: a client said {line!r}")
+                secs["clients_ready"] = time.perf_counter() - t0
+                with traced(trace, traces, f"front_b_arm{arm}"):
+                    start = time.perf_counter()
+                    for proc in procs:
+                        proc.stdin.write("GO\n")
+                        proc.stdin.flush()
+                    results = [json.loads(proc.stdout.readline())
+                               for proc in procs]
+                    elapsed = time.perf_counter() - start
+                for proc in procs:
+                    proc.wait(timeout=60)
+            finally:
+                for proc in procs:
+                    if proc.poll() is None:
+                        proc.kill()
+                        proc.wait()
+                front.close()
+            secs["timed"] = elapsed
+            torch.cuda.synchronize()
+            sequenced = storm.stats["sequenced_ops"] - before
+            check(all(len(r["ack_times"]) == E2E_TICKS for r in results)
+                  and sequenced == E2E_DOCS * E2E_K * E2E_TICKS,
+                  f"{what}: {[len(r['ack_times']) for r in results]} "
+                  f"frames acked a client, {sequenced} ops sequenced")
+            gaps = [b - a for r in results
+                    for a, b in zip([0.0] + r["ack_times"], r["ack_times"])]
+            out.update(
+                e2e_ops_per_sec=sequenced / elapsed,
+                ack_interval_ms_p50=1e3 * pct(gaps, 50),
+                ack_interval_ms_p99=1e3 * pct(gaps, 99),
+                tick_ms_p50=1e3 * pct(storm.tick_seconds, 50),
+                tick_ms_p99=1e3 * pct(storm.tick_seconds, 99),
+                tick_cadence_ms_p50=1e3 * pct(storm.harvest_intervals, 50),
+                tick_cadence_ms_p99=1e3 * pct(storm.harvest_intervals, 99),
+                nacked=sum(r["nacked"] for r in results),
+                stage_attribution=storm.ledger.attribution())
+            t0 = time.perf_counter()
+            sent = [np.load(root / f"client{c}.npy")
+                    for c in range(E2E_CONNS)]
+            blocks = [warm] + [np.concatenate([w[t] for w in sent])
+                               for t in range(E2E_TICKS)]
+            present, value = fold_blocks(blocks, E2E_DOCS, E2E_SLOTS)
+            got = map_planes_by_doc(storm.merge_host, docs, device)
+            p_dev = got[0].cpu().numpy()
+            v_dev = got[1].cpu().numpy()
+            check(not p_dev[:, E2E_SLOTS:].any()
+                  and np.array_equal(p_dev[:, :E2E_SLOTS], present)
+                  and np.array_equal(
+                      np.where(present, v_dev[:, :E2E_SLOTS], 0),
+                      np.where(present, value, 0)),
+                  f"{what}: the maps != the numpy fold of the acked frames")
+            secs["fold_check"] = time.perf_counter() - t0
+            if cluster is not None:
+                plane = cluster.plane
+                storm._group_wal.sync()
+                check(plane.replicated_len == storm._group_wal.durable_len,
+                      f"{what}: replicated {plane.replicated_len} != "
+                      f"durable {storm._group_wal.durable_len}")
+                rtts = [r for lk in plane.links
+                        for r in lk.transport_stats()["rtt_s"]]
+                out.update(
+                    shipped_bytes_per_tick=(sum(
+                        p.stat().st_size for p in wal_paths) - sum(wal0))
+                    / E2E_TICKS,
+                    ship_rtt_ms_p50=1e3 * pct(rtts, 50),
+                    ship_rtt_ms_p99=1e3 * pct(rtts, 99),
+                    ship_failures=plane.stats["ship_failures"])
+                leader_log = (pathlib.Path(cluster.workdir) / cluster.label
+                              / "spill" / "storm_tick_words.log").read_bytes()
+                for path in wal_paths:
+                    wal = path.read_bytes()
+                    check(len(wal) > 0 and leader_log.startswith(wal),
+                          f"{what}: {path.parent} is not a byte prefix of "
+                          "the leader's tick log")
+                out["follower_wal_bytes"] = [p.stat().st_size
+                                             for p in wal_paths]
+        finally:
+            if storm._group_wal is not None:
+                storm._group_wal.close()
+            if cluster is not None:
+                cluster.close()
+    counts = launch_counts()
+    check(counts["map_fold"] > 0 and counts["sequencer_tick"] > 0,
+          f"{what} launched no map fold or no deli")
+    out.update(seconds=secs, trace=traces.get(f"front_b_arm{arm}"),
+               launches={k: counts[k] for k in ("map_fold",
+                                                "sequencer_tick")})
+    return {"out": out, "counts": counts, "kept": kept}
+
+
+def front_path_b(device, trace: bool = False) -> dict:
+    """Front door B: bench_e2e_storm's two arms (see E2E_*), then
+    ``python -m fluidframework_tpu_torch.server.bridge_host --device
+    cuda`` as a user starts it, serving a writer and a viewer and
+    scraped once by the monitor."""
+    import shutil
+    import tempfile
+    root = pathlib.Path(tempfile.mkdtemp(prefix="ff-front-b-"))
+    arms = {}
+    try:
+        for arm in (0, 1):
+            arms[arm] = e2e_arm(device, root / f"arm{arm}", arm,
+                                trace and arm == 1)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    standalone = standalone_door(
+        "front door B", "fluidframework_tpu_torch.server.bridge_host",
+        ["--device", "cuda"], 1, scrape=True)
+    standalone["seconds"] = time.perf_counter() - t0
+    out = {"docs": E2E_DOCS, "k": E2E_K, "slots": E2E_SLOTS,
+           "conns": E2E_CONNS, "ticks": E2E_TICKS,
+           "followers": E2E_FOLLOWERS,
+           "arms": {a: r["out"] for a, r in arms.items()},
+           "standalone": standalone}
+    print("front_b: " + json.dumps(out), flush=True)
+    return {"out": out, "arms": arms}
+
+
+def net_serve(storm, docs, clients, cseq, rounds, sink, r0=0) -> None:
+    """``rounds`` rounds of one NET_K frame a doc, a flush a round."""
+    for r in range(r0, r0 + rounds):
+        for i, d in enumerate(docs):
+            words = hist_words(r, i, NET_K)
+            storm.submit_frame(sink(), {"rid": (r, d), "docs": [
+                [d, clients[d], cseq[d], 1, NET_K]]},
+                memoryview(words.tobytes()))
+            cseq[d] += NET_K
+        storm.flush()
+
+
+def net_join(storm, docs) -> tuple[dict, dict]:
+    clients = {d: storm.service.connect(d, lambda m: None).client_id
+               for d in docs}
+    storm.service.pump()
+    return clients, {d: 1 for d in docs}
+
+
+def net_ack_overhead(device, root: pathlib.Path, trace: bool,
+                     traces: dict) -> dict:
+    """bench_net_ack_overhead (``bench.py:4237``) on the card: ack latency
+    with one follower in process, and with one and two follower
+    processes over localhost TCP."""
+    import numpy as np
+
+    from fluidframework_tpu_torch.server.durable_store import \
+        GitSnapshotStore
+    from fluidframework_tpu_torch.server.replication import \
+        make_replicated_host
+    from fluidframework_tpu_torch.tools.launch_cluster import (
+        launch_follower, reap_all)
+    docs = [f"doc-{i}" for i in range(NET_DOCS)]
+
+    def run_arm(name: str, followers: int, net: bool) -> dict:
+        arm_root = root / name
+        children, links = [], []
+        secs: dict = {}
+        t0 = time.perf_counter()
+        try:
+            git = GitSnapshotStore(str(arm_root / "git"))
+            if net:
+                children = [launch_follower(str(arm_root / f"f{i}"),
+                                            label=f"f{i}")
+                            for i in range(followers)]
+                links = [c.link() for c in children]
+            else:
+                links = [str(arm_root / f"f{i}") for i in range(followers)]
+            storm, plane = make_replicated_host(
+                "hostA", str(arm_root / "hostA"), git, links,
+                num_docs=NET_DOCS, pipeline_depth=NET_ACK_DEPTH,
+                device=device)
+            clients, cseq = net_join(storm, docs)
+            t_built = time.perf_counter()
+            secs["build"] = t_built - t0
+            lat: list = []
+
+            def sink():
+                t0 = time.perf_counter()
+                return lambda p: lat.append(time.perf_counter() - t0)
+            net_serve(storm, docs, clients, cseq, NET_ACK_WARM, sink)
+            lat.clear()
+            with traced(trace and name == "net_f1", traces, "net_f1"):
+                start = time.perf_counter()
+                net_serve(storm, docs, clients, cseq, NET_ACK_ROUNDS, sink,
+                          NET_ACK_WARM)
+                elapsed = time.perf_counter() - start
+            check(len(lat) == NET_ACK_ROUNDS * NET_DOCS,
+                  f"net N {name}: {len(lat)} acks of "
+                  f"{NET_ACK_ROUNDS * NET_DOCS}")
+            check(plane.replicated_len == storm._group_wal.durable_len,
+                  f"net N {name}: replicated != durable length")
+            arr = np.asarray(lat) * 1e3
+            out = {"followers": followers, "net": net,
+                   "ack_ms_p50": float(np.percentile(arr, 50)),
+                   "ack_ms_p99": float(np.percentile(arr, 99)),
+                   "acked_ops_per_s": NET_ACK_ROUNDS * NET_DOCS * NET_K
+                   / elapsed,
+                   "ship_failures": plane.stats["ship_failures"]}
+            rtts = [r for lk in plane.links
+                    for r in getattr(lk, "transport_stats",
+                                     lambda: {"rtt_s": []})()["rtt_s"]]
+            if rtts:
+                out["ship_rtt_ms_p50"] = 1e3 * pct(rtts, 50)
+                out["ship_rtt_ms_p99"] = 1e3 * pct(rtts, 99)
+            t0 = time.perf_counter()
+            storm._group_wal.close()
+            secs["serve"] = t0 - t_built
+            out["seconds"] = secs
+            return out
+        finally:
+            for lk in links:
+                close = getattr(lk, "close", None)
+                if close is not None:
+                    close()
+            for child in children:
+                child.shutdown()
+            reap_all()
+            secs["close"] = time.perf_counter() - t0
+
+    arms = {"inproc_f1": run_arm("inproc_f1", 1, False),
+            "net_f1": run_arm("net_f1", 1, True),
+            "net_f2": run_arm("net_f2", 2, True)}
+    return {"rounds": NET_ACK_ROUNDS, "warm": NET_ACK_WARM, "arms": arms,
+            "ack_p99_net_f1_over_inproc_f1": arms["net_f1"]["ack_ms_p99"]
+            / max(arms["inproc_f1"]["ack_ms_p99"], 1e-9)}
+
+
+def net_failover_blackout(device, root: pathlib.Path) -> dict:
+    """bench_net_failover_blackout (``bench.py:4361``) on the card: the
+    leader abandoned twice, each time a follower process promoted over
+    the wire; blackout ms per life."""
+    from fluidframework_tpu_torch.tools.launch_cluster import (
+        launch_cluster, promote_over_wire, reap_all)
+    docs = [f"doc-{i}" for i in range(NET_DOCS)]
+    secs: dict = {}
+    t0 = time.perf_counter()
+    cluster = launch_cluster(str(root), followers=2, detector=False,
+                             num_docs=NET_DOCS, device=device)
+    secs["launch"] = time.perf_counter() - t0
+    try:
+        storm, children = cluster.storm, list(cluster.children)
+        t0 = time.perf_counter()
+        clients, cseq = net_join(storm, docs)
+        net_serve(storm, docs, clients, cseq, NET_FAILOVER_ROUNDS,
+                  lambda: (lambda p: None))
+        storm.checkpoint()
+        secs["serve"] = time.perf_counter() - t0
+        lives = []
+        life = 0
+        while children:
+            for lk in cluster.plane.links:
+                close = getattr(lk, "close", None)
+                if close is not None:
+                    close()
+            storm._group_wal.close()
+            life += 1
+            storm, plane, rep = promote_over_wire(
+                children, cluster.store, num_docs=NET_DOCS, device=device,
+                follower_dirs=[str(root / f"fresh{life}")])
+            cluster.storm, cluster.plane = storm, plane
+            children = [c for c in children if c.alive]
+            lives.append({"promoted": rep["promoted_node"],
+                          "blackout_ms": rep["blackout_ms"],
+                          "surviving_followers": len(children)})
+            t0 = time.perf_counter()
+            clients, cseq = net_join(storm, docs)
+            acked: list = []
+            net_serve(storm, docs, clients, cseq, 4,
+                      lambda: acked.append)
+            lives[-1]["serve_s"] = time.perf_counter() - t0
+            check(len(acked) == 4 * NET_DOCS
+                  and not any(a.get("error") for a in acked),
+                  f"net N failover: life {life} acked {len(acked)} frames")
+        storm._group_wal.close()
+    finally:
+        reap_all()
+    return {"lives": lives, "seconds": secs,
+            "blackout_ms_per_life": [lf["blackout_ms"] for lf in lives]}
+
+
+def net_parked_write_recovery(device, root: pathlib.Path) -> dict:
+    """bench_parked_write_recovery (``bench.py:4446``) on the card: the
+    only follower partitioned, writes park (no ack, no shed), the heal
+    drains them; heal -> last parked ack."""
+    from fluidframework_tpu_torch.tools.launch_cluster import launch_cluster
+    docs = [f"doc-{i}" for i in range(NET_PARKED_DOCS)]
+    cluster = launch_cluster(
+        str(root), followers=1, detector=True, hb_interval_s=0.05,
+        lease_s=0.25, park_max_s=3600.0, fault_plan={"f0": {}},
+        num_docs=NET_PARKED_DOCS, device=device)
+    try:
+        storm, plane = cluster.storm, cluster.plane
+        ft = plane.links[0]
+        clients, cseq = net_join(storm, docs)
+        acked: list = []
+
+        def sink():
+            return lambda p: acked.append(time.perf_counter())
+        net_serve(storm, docs, clients, cseq, 1, sink)
+        check(len(acked) == NET_PARKED_DOCS, "net N parked: warm-up acks")
+        acked.clear()
+        ft.install("partition")
+        deadline = time.monotonic() + 10.0
+        while plane.quorum_ok:
+            check(time.monotonic() < deadline, "net N parked: never "
+                  "degraded")
+            time.sleep(0.02)
+        net_serve(storm, docs, clients, cseq, NET_PARKED_WRITES, sink, 1)
+        check(not acked and storm.stats.get("quorum_rejects", 0) == 0,
+              "net N parked: a write acked or shed without a quorum")
+        t_heal = time.perf_counter()
+        ft.heal()
+        deadline = time.monotonic() + 10.0
+        while len(acked) < NET_PARKED_WRITES * NET_PARKED_DOCS:
+            check(time.monotonic() < deadline,
+                  f"net N parked: {len(acked)} parked writes drained")
+            storm.flush()
+            time.sleep(0.01)
+        recovery_ms = 1e3 * (max(acked) - t_heal)
+        storm._group_wal.close()
+    finally:
+        cluster.close()
+    return {"parked_writes": NET_PARKED_WRITES * NET_PARKED_DOCS,
+            "heal_to_last_parked_ack_ms": recovery_ms}
+
+
+def net_split_start(device) -> dict:
+    """Start Net N's netsplit soak in a thread of its own (all its work is
+    in child processes): the fault-free twin on the CPU first, then
+    ``run_netsplit`` on ``device`` held to that twin's digest (the
+    scenario-wide kernel == plain check: the parent cannot record its
+    children's launches). Its leader lives run on the card: a ``kill -9``
+    of a process holding a CUDA context, then a promotion over the wire
+    on the card. ``net_split_finish`` joins it."""
+    import tempfile
+    import threading
+
+    from fluidframework_tpu_torch.tools import chaos
+    root = pathlib.Path(tempfile.mkdtemp(prefix="ff-net-split-"))
+    runs: dict = {"root": root}
+
+    def split():
+        t0 = time.perf_counter()
+        try:
+            twin = root / "cpu_twin"
+            life = chaos._spawn_net_life(
+                str(twin), [], [str(twin / f"f{i}")
+                                for i in range(NET_SPLIT["followers"])],
+                [], None, NET_SPLIT["seed"], NET_SPLIT["docs"],
+                NET_SPLIT["k"], NET_SPLIT["ticks"], NET_SPLIT["cp_every"],
+                600.0, chaos.NETSPLIT_LEASE_S, device="cpu")
+            runs["cpu_s"] = time.perf_counter() - t0
+            if life["returncode"] != 0 or life["digest"] is None:
+                raise RuntimeError(
+                    f"the CPU twin failed: {life['stderr'][-2000:]}")
+            t1 = time.perf_counter()
+            runs["split"] = chaos.run_netsplit(
+                str(root / "split"), device=device.type, timeout=600.0,
+                twin_digest=life["digest"], **NET_SPLIT)
+            runs["split_s"] = time.perf_counter() - t1
+        except Exception as err:  # reported by net_split_finish
+            runs["split_error"] = f"{type(err).__name__}: {str(err)[:2000]}"
+    runs["thread"] = threading.Thread(target=split, daemon=True)
+    runs["thread"].start()
+    return runs
+
+
+def net_split_finish(runs: dict) -> dict:
+    """Join the netsplit soak: the leader was killed and promoted over the
+    wire, every round acked, round 4 parked, the fence proven, and the
+    killed run's digest == the CPU twin's (``run_netsplit`` raises
+    otherwise)."""
+    runs["thread"].join()
+    check("split_error" not in runs,
+          f"net N: the netsplit soak failed: {runs.get('split_error')}")
+    rep = runs["split"]
+    check(rep["killed"] and rep["lives"] >= 2
+          and len(rep["failover_blackouts_ms"]) == rep["lives"] - 1,
+          f"net N: the leader was not killed and promoted: {rep}")
+    check(rep["acked_rounds"] == list(range(NET_SPLIT["ticks"])),
+          f"net N: rounds acked {rep['acked_rounds']}")
+    check(4 in rep["parked_rounds"],
+          f"net N: round 4 did not park ({rep['parked_rounds']})")
+    check(rep["zombie_fenced"] >= 2,
+          f"net N: the fence was proven {rep['zombie_fenced']} times")
+    return {**{k: rep[k] for k in (
+        "lives", "killed", "acked_rounds", "parked_rounds",
+        "failover_blackouts_ms", "zombie_fenced")},
+        "seconds": {"netsplit": runs["split_s"], "cpu_twin": runs["cpu_s"]}}
+
+
+def net_path_n(device, split: dict, trace: bool = False) -> dict:
+    """Net N: the netsplit soak's report (``split``, run beside residency
+    A's joins, see ``net_split_start``), then the three reference net
+    benches under the plane recording wrappers."""
+    import shutil
+    import tempfile
+
+    from fluidframework_tpu_torch.tools.launch_cluster import reap_all
+    root = pathlib.Path(tempfile.mkdtemp(prefix="ff-net-n-"))
+    out: dict = {"netsplit": split}
+    secs: dict = {}
+    traces: dict = {}
+    kept: dict = {}
+    try:
+        launch_counts_reset()
+        with plane_recording(kept):
+            t0 = time.perf_counter()
+            out["ack_overhead"] = net_ack_overhead(device, root / "ack",
+                                                   trace, traces)
+            secs["ack_overhead"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            out["failover"] = net_failover_blackout(device,
+                                                    root / "failover")
+            secs["failover"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            out["parked"] = net_parked_write_recovery(device,
+                                                      root / "parked")
+            secs["parked"] = time.perf_counter() - t0
+        counts = launch_counts()
+    finally:
+        reap_all()
+        shutil.rmtree(root, ignore_errors=True)
+    check(counts["map_fold"] > 0 and counts["sequencer_tick"] > 0,
+          "net N launched no map fold or no deli")
+    out.update(seconds=secs, trace=traces.get("net_f1"),
+               launches={k: counts[k] for k in ("map_fold",
+                                                "sequencer_tick")})
+    print("net_n: " + json.dumps(out), flush=True)
+    return {"out": out, "counts": counts, "kept": kept}
 
 
 def main() -> int:
@@ -7637,6 +8365,7 @@ def main() -> int:
     trace_hist = trace_all or "--trace-history" in sys.argv[1:]
     trace_fleet = trace_all or "--trace-fleet" in sys.argv[1:]
     trace_read = trace_all or "--trace-read" in sys.argv[1:]
+    trace_net = trace_all or "--trace-net" in sys.argv[1:]
     t_kernels = time.perf_counter()
     fold = check_map_fold(device)
     deli = check_deli(device)
@@ -7730,7 +8459,25 @@ def main() -> int:
         planes["read_r"] = read_path_r(device)
     with phase("viewer V"):
         planes["viewer_v"] = viewer_path_v(device, trace=trace_read)
+    with phase("front door B"):
+        front_b = front_path_b(device, trace=trace_net)
+    with phase("net N"):
+        planes["net_n"] = net_path_n(device, planes.pop("net_split"),
+                                     trace=trace_net)
     planes["front_f"] = front_f
+    arm_b = front_b["arms"]
+    print("net: " + json.dumps({
+        "B": {a: {k: r["out"].get(k) for k in (
+            "e2e_ops_per_sec", "ack_interval_ms_p50", "ack_interval_ms_p99",
+            "tick_cadence_ms_p50", "tick_cadence_ms_p99",
+            "shipped_bytes_per_tick", "ship_rtt_ms_p50", "ship_rtt_ms_p99",
+            "seconds")} for a, r in arm_b.items()},
+        "B_standalone": front_b["out"]["standalone"],
+        "N": {k: planes["net_n"]["out"][k] for k in (
+            "netsplit", "ack_overhead", "failover", "parked", "seconds")},
+        "trace": {"front_b_arm1": arm_b[1]["out"]["trace"],
+                  "net_f1": planes["net_n"]["out"]["trace"]}}),
+        flush=True)
     read_r = planes["fleet_p"]["out"]["read_r"]
     print("read: " + json.dumps({
         "V": {"fanout": {n: {k: r[k] for k in (
@@ -7793,7 +8540,11 @@ def main() -> int:
                                 planes["viewer_v"]["counts"]),
                    "front_f": (front_f["kept"], front_f["counts"]),
                    "front_f_twin": (front_f["twin_kept"],
-                                    front_f["twin_counts"])}
+                                    front_f["twin_counts"]),
+                   "front_b_0": (arm_b[0]["kept"], arm_b[0]["counts"]),
+                   "front_b_1": (arm_b[1]["kept"], arm_b[1]["counts"]),
+                   "net_n": (planes["net_n"]["kept"],
+                             planes["net_n"]["counts"])}
     for path_name, (kept, counts) in plane_paths.items():
         for name, by_shape in kept.items():
             got = {sh: len(c) for sh, c in by_shape.items()}
@@ -7964,7 +8715,10 @@ def main() -> int:
                "fleet_p": planes["fleet_p"]["counts"].get(name, 0),
                "read_r": planes["read_r"]["counts"].get(name, 0),
                "viewer_v": planes["viewer_v"]["counts"].get(name, 0),
-               "front_f": front_f["counts"].get(name, 0)}
+               "front_f": front_f["counts"].get(name, 0),
+               "front_b_0": arm_b[0]["counts"].get(name, 0),
+               "front_b_1": arm_b[1]["counts"].get(name, 0),
+               "net_n": planes["net_n"]["counts"].get(name, 0)}
         for name in ("map_fold", "sequencer_tick", "mergetree_blocks",
                      "mergetree_flat", "matrix_tick", "matrix_steps")}
     launches = {name: sum(n.values()) for name, n in by_path.items()}
@@ -8102,6 +8856,10 @@ def main() -> int:
                     if isinstance(rec, dict) else None
                 if variants and variants.get(name):
                     entry["variant_launches"][path_name] = variants[name]
+            for a, rec in arm_b.items():
+                if rec["counts"]["variants"].get(name):
+                    entry["variant_launches"][f"front_b_{a}"] = \
+                        rec["counts"]["variants"][name]
     print(json.dumps({"kernels": kernels}), flush=True)
     PHASE_S["all"] = time.perf_counter() - T_START
     print("phase_seconds: " + json.dumps(PHASE_S), flush=True)

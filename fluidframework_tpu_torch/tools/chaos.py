@@ -65,9 +65,13 @@ leader whose resumed life promotes a follower
 replicated leader with a read replica tailing one follower against a
 replica-less twin (``REPLICAS_CHAOS_POINTS``).
 
-The reference harness's netsplit and reconnect scenarios need planes
-this package does not port yet; asking for one raises
-``NotImplementedError``.
+:func:`run_netsplit` cuts the cord: the leader replicates over real
+TCP links to follower child processes (``tools/launch_cluster``), with
+scripted link faults, a genuine ``kill -9`` of the leader and a
+promotion over the wire, against an in-process fault-free twin::
+
+    python -m fluidframework_tpu_torch.tools.chaos --workdir /tmp/net \
+        --netsplit
 """
 
 from __future__ import annotations
@@ -215,8 +219,28 @@ REPLICAS_SMOKE_POINT = "replica.mid_apply"
 #: The chaos read replica's directory label (tails follower f0).
 REPLICAS_LABEL = "replica0"
 
-_NOT_PORTED = ("the {} chaos scenario needs a plane this package does not "
-               "port yet (ROADMAP Queue A 5)")
+#: Netsplit fault classes: the leader runs IN THIS PROCESS
+#: but replicates over real TCP links (``server/transport.py``) to
+#: follower CHILD PROCESSES the parent spawned through
+#: ``tools/launch_cluster`` — and every link is wrapped in a
+#: :class:`~..server.transport.FaultyTransport` whose faults a
+#: ``--net-script`` installs and heals at scripted round starts. The
+#: chaos primitive here is not a cooperative crashpoint: the parent
+#: reads the leader's stdout LIVE and lands a genuine ``kill -9`` the
+#: moment a scripted round acks, and partitions are injected on the
+#: wire while writes are in flight. The acceptance bars: a quorum
+#: blackout may only PARK writes (no shed, no false ack — every
+#: submitted round eventually acks), the final state is byte-identical
+#: to an in-process fault-free twin of the same seeded workload, a
+#: killed leader's successor promotes OVER THE WIRE, and the dead
+#: incarnation's frames are provably refused by the followers
+#: (``ZOMBIE-FENCED``).
+NETSPLIT_FOLLOWERS = 2
+
+#: Lease horizon of the netsplit child's failure detector — scripted
+#: partitions must outlive it to flip ``quorum_ok`` (the scripts sleep
+#: ``2.5x`` this after cutting the quorum).
+NETSPLIT_LEASE_S = 0.5
 
 
 def _build_stack(data_dir: str, num_docs: int, device: str, **storm_kw):
@@ -854,6 +878,246 @@ def _replicas_child(args) -> None:
 
 
 
+def _netsplit_digest(storm, docs: list[str]) -> dict:
+    """The netsplit twin-diff surface: the single-host digest with
+    history filtered to OPERATION rows — a promoted follower reproduces
+    every sequenced op, map row and sequencer row from the replica log,
+    but not the dead leader's bus-tier join records (the same scoping
+    the replication digest applies)."""
+    from ..protocol.messages import MessageType
+
+    digest = _digest(storm.service, storm, storm.seq_host,
+                     storm.merge_host, docs)
+    op = int(MessageType.OPERATION)
+    for planes in digest["docs"].values():
+        planes["history"] = [h for h in planes["history"] if h[4] == op]
+    return digest
+
+
+def netsplit_smoke_script(lease_s: float = NETSPLIT_LEASE_S) -> list[dict]:
+    """Tier-1 shape (F=1, no kill): a full leader-from-quorum partition
+    that outlives the lease — writes PARK, never shed, never falsely
+    acked — then a heal (the parked rounds drain and their delayed acks
+    print), then a lossy-but-alive tail round."""
+    return [
+        {"r": 1, "op": "install", "edge": "f0", "fault": "partition"},
+        {"r": 1, "op": "sleep", "s": round(lease_s * 2.5, 3)},
+        {"r": 2, "op": "heal", "edge": "f0"},
+        {"r": 3, "op": "install", "edge": "f0", "fault": "delay",
+         "params": {"s": 0.01, "p": 0.5}},
+        {"r": 4, "op": "heal", "edge": "f0"},
+    ]
+
+
+def netsplit_matrix_script(lease_s: float = NETSPLIT_LEASE_S) -> list[dict]:
+    """The full F=2 scenario walk, one fault class per window: one
+    follower fully partitioned (quorum HOLDS — acks continue over the
+    survivor), the leader cut from the WHOLE quorum (writes park), heal
+    and drain, a one-way ``partition_recv`` (frames delivered but the
+    response lost — the leader's retransmits become REAL duplicate
+    deliveries), then a probabilistic dup + reorder tail. Built for
+    ``ticks=12, cp_every=4`` so every scripted blackout heals before a
+    checkpoint's head flip needs the quorum;
+    ``run_netsplit(kill_at=9)`` lands the SIGKILL after the faults have
+    healed."""
+    return [
+        {"r": 1, "op": "install", "edge": "f1", "fault": "partition"},
+        {"r": 2, "op": "heal", "edge": "f1"},
+        {"r": 4, "op": "install", "edge": "f0", "fault": "partition"},
+        {"r": 4, "op": "install", "edge": "f1", "fault": "partition"},
+        {"r": 4, "op": "sleep", "s": round(lease_s * 2.5, 3)},
+        {"r": 5, "op": "heal", "edge": "f0"},
+        {"r": 5, "op": "heal", "edge": "f1"},
+        {"r": 6, "op": "install", "edge": "f0",
+         "fault": "partition_recv"},
+        {"r": 7, "op": "heal", "edge": "f0"},
+        {"r": 8, "op": "install", "edge": "f1", "fault": "dup",
+         "params": {"p": 0.3}},
+        {"r": 8, "op": "install", "edge": "f0", "fault": "reorder",
+         "params": {"p": 0.25}},
+        {"r": 9, "op": "heal", "edge": "f1"},
+        {"r": 9, "op": "heal", "edge": "f0"},
+    ]
+
+
+def _netsplit_child(args) -> None:
+    """One NETWORKED serving life: the leader
+    replicates over real TCP links to follower child processes the
+    PARENT spawned, each link wrapped in a ``FaultyTransport`` whose
+    faults the ``--net-script`` installs/heals at round starts. The
+    lease failure detector runs hot (interval 50 ms, so scripted
+    partitions flip ``quorum_ok`` within a round) and ``park_max_s``
+    is effectively infinite: a quorum blackout may only PARK writes —
+    ``PARKED <r>`` prints for any round whose ack is withheld, and
+    every submitted round must eventually print ``ACKED``. A resumed
+    life IS the networked failover: it hellos the surviving ports,
+    promotes the most advanced follower OVER THE WIRE (its graceful
+    shutdown releases the WAL; its directory becomes the new serving
+    host), and proves the fence — a frame carrying the dead
+    incarnation's stamp is refused by a surviving follower
+    (``ZOMBIE-FENCED``). With no ``--ports`` the same code path runs
+    over in-process follower dirs: the uninterrupted, fault-free
+    differential twin."""
+    import time as _time
+
+    from ..server.durable_store import GitSnapshotStore
+    from ..server.replication import (
+        ReplicaNode,
+        _frame,
+        make_replicated_host,
+        promote,
+    )
+    from ..server.transport import FaultyTransport, NetworkReplicaLink
+    from ..utils import faults
+
+    docs = [f"chaos-doc-{i}" for i in range(args.docs)]
+    git = GitSnapshotStore(os.path.join(args.dir, "git"))
+    ports = [int(p) for p in args.ports.split(",")] if args.ports else []
+    fdirs = args.net_dirs.split(",") if args.net_dirs else []
+    script = json.loads(args.net_script) if args.net_script else []
+    state_path = os.path.join(args.dir, "net_state.json")
+
+    def _dial(consumed=()):
+        links = []
+        for i, port in enumerate(ports):
+            if i in consumed:
+                continue
+            lk = FaultyTransport(NetworkReplicaLink(port),
+                                 edge=f"f{i}", seed=args.seed)
+            lk.hello()
+            links.append(lk)
+        return links
+
+    if args.resume_from is None:
+        links = _dial() if ports else list(fdirs)
+        storm, plane = make_replicated_host(
+            "leader", os.path.join(args.dir, "leader"), git, links,
+            num_docs=args.docs, device=args.device)
+        clients = {d: storm.service.connect(d, lambda m: None).client_id
+                   for d in docs}
+        storm.service.pump()
+        storm.checkpoint()
+        with open(state_path, "w") as fh:
+            json.dump({"consumed": [], "next_fresh": 0}, fh)
+        start = 0
+        print("GENESIS", flush=True)
+    else:
+        assert ports, "--netsplit resume requires live follower ports"
+        with open(state_path) as fh:
+            st = json.load(fh)
+        links = _dial(consumed=st["consumed"])
+        # The most advanced survivor promotes (the same ordering
+        # choose_promotion_candidate applies — hello() populated each
+        # link's log/head coordinates): shut its child down so the WAL
+        # lock releases, then reopen the directory IN THIS PROCESS.
+        best = max(links, key=lambda lk: (lk.log_len, lk.max_hseq,
+                                          lk.node_id))
+        best_i = int(best.edge[1:])
+        best.control("shutdown")
+        best.close()
+        links.remove(best)
+        candidate = ReplicaNode(fdirs[best_i])
+        fresh = os.path.join(args.dir, f"net-fresh{st['next_fresh']}")
+        storm, plane, rep = promote(
+            "leader", [candidate] + links, git, follower_dirs=[fresh],
+            num_docs=args.docs, device=args.device)
+        assert rep["promoted_node"] == candidate.node_id, rep
+        with open(state_path, "w") as fh:
+            json.dump({"consumed": st["consumed"] + [best_i],
+                       "next_fresh": st["next_fresh"] + 1}, fh)
+        clients = {d: f"client-{i + 1}" for i, d in enumerate(docs)}
+        start = args.resume_from
+        print(f"FAILOVER {rep['blackout_ms']}", flush=True)
+        if links:
+            # The fence, proven ON THE WIRE: promotion bumped the
+            # incarnation and the attach resync carried the stamp, so
+            # a frame with the dead leader's (unstamped) incarnation
+            # must now be refused by a surviving follower.
+            hdr = links[0].call(_frame("probe", {}))
+            assert hdr.get("k") == "nack" \
+                and hdr.get("reason") == "fenced", hdr
+            print("ZOMBIE-FENCED", flush=True)
+    edges = {lk.edge: lk for lk in links} if ports else {}
+    if ports:
+        plane.start_failure_detector(interval_s=0.05,
+                                     lease_s=args.net_lease_s,
+                                     park_max_s=3600.0)
+    print("READY", flush=True)
+    faults.arm()
+    k = args.k
+    pending: list = []
+    printed: set[int] = set()
+
+    def drain() -> None:
+        for a in pending:
+            if isinstance(a, dict) and a.get("error"):
+                continue
+            rid = a.get("rid")
+            if isinstance(rid, int) and rid not in printed:
+                printed.add(rid)
+                print(f"ACKED {rid}", flush=True)
+        pending.clear()
+
+    def settle(budget_s: float = 60.0) -> None:
+        # A parked backlog drains only once the quorum heals: pump the
+        # heartbeat (probe + lease renewal + catch-up resync) until it
+        # reports quorum, then flush the parked rounds through.
+        deadline = _time.monotonic() + budget_s
+        while plane.lease_s is not None and not plane.heartbeat():
+            assert _time.monotonic() < deadline, \
+                "quorum never healed (the script must heal first)"
+            _time.sleep(0.02)
+        storm.flush()
+        drain()
+
+    for r in range(start, args.ticks):
+        for act in script:
+            if act.get("r") != r:
+                continue
+            if act["op"] == "install":
+                edges[act["edge"]].install(act["fault"],
+                                           **act.get("params", {}))
+            elif act["op"] == "heal":
+                edges[act["edge"]].heal(act.get("fault"))
+            elif act["op"] == "sleep":
+                _time.sleep(float(act["s"]))
+        entries = [[d, clients[d], 1 + r * k, 1, k] for d in docs]
+        payload = b"".join(_tick_words(args.seed, r, i, k).tobytes()
+                           for i in range(len(docs)))
+        storm.submit_frame(pending.append, {"rid": r, "docs": entries},
+                           memoryview(payload))
+        storm.flush()
+        drain()
+        if ports and r not in printed:
+            # Degraded mode: the round's frames are parked (still
+            # FIFO, still unacked) — never shed, never falsely acked.
+            print(f"PARKED {r}", flush=True)
+        if (r + 1) % args.cp_every == 0:
+            # The checkpoint's head flip must ride the quorum — wait
+            # out any scripted blackout first.
+            settle()
+            storm.checkpoint()
+    settle()
+    if ports:
+        plane.stop_failure_detector()
+    faults.disarm()
+    assert storm.stats.get("quorum_rejects", 0) == 0, \
+        "a parked write was shed despite park_max_s=infinity"
+    digest = _netsplit_digest(storm, docs)
+    print("DIGEST " + json.dumps(digest, sort_keys=True), flush=True)
+    if ports and links:
+        # End-of-life fence proof for never-killed lives: advance the
+        # follower's floor past this leader, then speak with the now-
+        # stale stamp — the frame must nack ``fenced``.
+        links[0].call(_frame("probe", {"inc": plane.incarnation + 1}))
+        hdr = links[0].call(_frame("probe", {"inc": plane.incarnation}))
+        assert hdr.get("k") == "nack" \
+            and hdr.get("reason") == "fenced", hdr
+        print("ZOMBIE-FENCED", flush=True)
+        for lk in links:
+            lk.close()
+
+
 def child_main(args) -> None:
     """One serving-process life. Protocol on stdout (parent parses):
     ``READY`` once serving can start, ``ACKED <round>`` per
@@ -862,6 +1126,9 @@ def child_main(args) -> None:
     mid-stream."""
     from ..utils import faults
 
+    if getattr(args, "netsplit", False):
+        _netsplit_child(args)
+        return
     if getattr(args, "replicas", None):
         _replicas_child(args)
         return
@@ -1086,16 +1353,11 @@ def _spawn_life(data_dir: str, seed: int, docs: int, k: int, ticks: int,
         cmd += ["--replicas", replicas, "--migrate-at", str(migrate_at)]
     if resume_from is not None:
         cmd += ["--resume-from", str(resume_from)]
-    env = dict(os.environ)
+    from .launch_cluster import checkout_env
+    env = checkout_env(os.environ)
     env.pop("FFTPU_CRASHPOINT", None)
     if kill_env is not None:
         env["FFTPU_CRASHPOINT"] = kill_env
-    # The child imports this package from the checkout it came from.
-    root = os.path.dirname(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))))
-    env["PYTHONPATH"] = os.pathsep.join(
-        [root] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
-                  if p])
     proc = subprocess.run(cmd, capture_output=True, text=True,
                           timeout=timeout, env=env)
     acked, digest, failovers = [], None, []
@@ -1120,8 +1382,7 @@ def run_chaos(workdir: str, kill_point: str, kill_hits: int = 1,
               megadoc: int | None = None, device: str = "cuda",
               qos: bool = False, history: bool = False,
               cluster: bool = False, migrate_at: int | None = None,
-              replication: bool = False, replicas: bool = False,
-              **not_ported) -> dict:
+              replication: bool = False, replicas: bool = False) -> dict:
     """One scenario: a twin run, then a killed-and-recovered run, then
     the plane diff. Returns the report; raises AssertionError on any
     divergence or lost acked op. ``twin_digest`` lets callers share one
@@ -1150,9 +1411,6 @@ def run_chaos(workdir: str, kill_point: str, kill_hits: int = 1,
     ``device``."""
     from ..utils import faults
 
-    for name, value in not_ported.items():
-        if value not in (None, False, -1):
-            raise NotImplementedError(_NOT_PORTED.format(name))
     if pipelined and residency is not None:
         raise ValueError(
             "pipelined=True cannot combine with residency= (the "
@@ -1313,6 +1571,188 @@ def run_matrix(workdir: str, points=KILL_POINTS, seeds=(0, 1),
                 twins[(seed,)] = report["twin_digest"]
                 reports.append(report)
     return reports
+
+
+def _spawn_net_life(data_dir: str, ports: list[int], fdirs: list[str],
+                    script: list[dict], resume_from: int | None,
+                    seed: int, docs: int, k: int, ticks: int,
+                    cp_every: int, timeout: float, lease_s: float,
+                    kill_at: int | None = None,
+                    device: str = "cuda") -> dict:
+    """One netsplit life as a real OS process, with the parent reading
+    stdout LIVE — ``kill_at`` lands a genuine ``kill -9`` on the leader
+    the moment it prints that round's ``ACKED`` line (a host loss in
+    the middle of the serving loop, not a cooperative crashpoint). A
+    watchdog timer kills a hung child at ``timeout``; stderr goes to a
+    file so a chatty child can never deadlock the pipe. The leader
+    serves on ``device``."""
+    import threading
+
+    cmd = [sys.executable, "-m", "fluidframework_tpu_torch.tools.chaos",
+           "--child", "--netsplit", "--dir", data_dir,
+           "--seed", str(seed), "--docs", str(docs), "--k", str(k),
+           "--ticks", str(ticks), "--cp-every", str(cp_every),
+           "--net-lease-s", str(lease_s), "--device", device]
+    if ports:
+        cmd += ["--ports", ",".join(str(p) for p in ports)]
+    if fdirs:
+        cmd += ["--net-dirs", ",".join(fdirs)]
+    if script:
+        cmd += ["--net-script", json.dumps(script)]
+    if resume_from is not None:
+        cmd += ["--resume-from", str(resume_from)]
+    from .launch_cluster import checkout_env
+    env = checkout_env(os.environ)
+    env.pop("FFTPU_CRASHPOINT", None)
+    os.makedirs(data_dir, exist_ok=True)
+    err_path = os.path.join(data_dir, "life_stderr.log")
+    with open(err_path, "ab") as err_fh:
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=err_fh, text=True, env=env)
+        watchdog = threading.Timer(timeout, proc.kill)
+        watchdog.daemon = True
+        watchdog.start()
+        acked: list[int] = []
+        parked: list[int] = []
+        failovers: list[float] = []
+        digest, zombie, killed = None, 0, False
+        try:
+            for line in proc.stdout:
+                line = line.strip()
+                if line.startswith("ACKED "):
+                    rid = int(line.split()[1])
+                    acked.append(rid)
+                    if kill_at is not None and rid >= kill_at \
+                            and not killed:
+                        killed = True
+                        proc.kill()  # SIGKILL: the real host loss
+                elif line.startswith("PARKED "):
+                    parked.append(int(line.split()[1]))
+                elif line.startswith("FAILOVER "):
+                    failovers.append(float(line.split()[1]))
+                elif line == "ZOMBIE-FENCED":
+                    zombie += 1
+                elif line.startswith("DIGEST "):
+                    digest = json.loads(line[len("DIGEST "):])
+            proc.wait()
+        finally:
+            watchdog.cancel()
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    with open(err_path, errors="replace") as fh:
+        stderr = fh.read()
+    return {"returncode": proc.returncode, "acked": acked,
+            "parked": parked, "failovers": failovers,
+            "zombie_fenced": zombie, "digest": digest,
+            "killed": killed, "stderr": stderr}
+
+
+def run_netsplit(workdir: str, followers: int = NETSPLIT_FOLLOWERS,
+                 seed: int = 0, docs: int = 2, k: int = 8,
+                 ticks: int = 12, cp_every: int = 4,
+                 timeout: float = 300.0,
+                 lease_s: float = NETSPLIT_LEASE_S,
+                 script: list[dict] | None = None,
+                 kill_at: int | None = None,
+                 twin_digest: dict | None = None,
+                 device: str = "cuda") -> dict:
+    """One networked-partition scenario: an in-process fault-free twin,
+    then the same seeded workload served over real sockets to follower
+    child processes with the ``script``'s link faults injected at round
+    starts — and, with ``kill_at``, a genuine ``kill -9`` of the leader
+    once that round acks, followed by resumed lives that promote a
+    follower over the wire. The follower children PERSIST across leader
+    lives (they are the surviving quorum). Raises AssertionError on any
+    divergence, lost acked round, or missing fence proof. Every leader
+    life (the twin's too) serves on ``device``; the follower children
+    see no card."""
+    from .launch_cluster import launch_follower, reap_all
+
+    script = list(script if script is not None
+                  else netsplit_matrix_script(lease_s))
+    if twin_digest is None:
+        twin_dir = os.path.join(workdir, "twin")
+        twin = _spawn_net_life(
+            twin_dir, [], [os.path.join(twin_dir, f"f{i}")
+                           for i in range(followers)],
+            [], None, seed, docs, k, ticks, cp_every, timeout, lease_s,
+            device=device)
+        assert twin["returncode"] == 0, twin["stderr"]
+        twin_digest = twin["digest"]
+        assert twin_digest is not None, twin["stderr"]
+    net_dir = os.path.join(workdir, "net")
+    children = []
+    try:
+        fdirs: list[str] = []
+        ports_l: list[int] = []
+        for i in range(followers):
+            d = os.path.join(net_dir, f"f{i}")
+            ch = launch_follower(d, label=f"f{i}")
+            children.append(ch)
+            fdirs.append(d)
+            ports_l.append(ch.port)
+        acked: set[int] = set()
+        parked: set[int] = set()
+        failovers: list[float] = []
+        zombie = 0
+        lives = 1
+        life = _spawn_net_life(net_dir, ports_l, fdirs, script, None,
+                               seed, docs, k, ticks, cp_every, timeout,
+                               lease_s, kill_at=kill_at, device=device)
+        # SIGKILL from the parent surfaces as returncode -9 (unlike the
+        # crashpoint children's os._exit(137)).
+        killed = life["killed"] and life["returncode"] != 0
+        while True:
+            acked.update(life["acked"])
+            parked.update(life["parked"])
+            failovers.extend(life["failovers"])
+            zombie += life["zombie_fenced"]
+            if life["returncode"] == 0:
+                break
+            assert lives <= 8, \
+                f"netsplit run did not converge: {life['stderr']}"
+            resume = max(acked) + 1 if acked else 0
+            life = _spawn_net_life(net_dir, ports_l, fdirs, script,
+                                   resume, seed, docs, k, ticks,
+                                   cp_every, timeout, lease_s,
+                                   device=device)
+            lives += 1
+        digest = life["digest"]
+        assert digest is not None, life["stderr"]
+    finally:
+        for ch in children:
+            try:
+                ch.shutdown(timeout_s=5.0)
+            except Exception:
+                ch.kill()
+        reap_all()
+    assert json.dumps(digest, sort_keys=True) == json.dumps(
+        twin_digest, sort_keys=True), (
+        "netsplit state diverged from the fault-free twin\n"
+        f" twin: {json.dumps(twin_digest, sort_keys=True)}\n"
+        f"  net: {json.dumps(digest, sort_keys=True)}")
+    assert acked == set(range(ticks)), (
+        f"rounds never acked: {sorted(set(range(ticks)) - acked)}")
+    # Zero acked-replicated loss: every acked round's client seqs must
+    # appear in the final (OPERATION-only) history of every doc.
+    for doc, planes in digest["docs"].items():
+        cseqs = {h[1] for h in planes["history"]}
+        for r in acked:
+            want = set(range(1 + r * k, 1 + (r + 1) * k))
+            missing = want - cseqs
+            assert not missing, (
+                f"acked round {r} lost ops {sorted(missing)[:4]}… "
+                f"for {doc}")
+    assert zombie >= 1, "the fence was never proven on the wire"
+    if killed:
+        assert failovers, "leader killed but no promotion observed"
+    return {"followers": followers, "seed": seed, "docs": docs, "k": k,
+            "ticks": ticks, "cp_every": cp_every, "lives": lives,
+            "killed": killed, "acked_rounds": sorted(acked),
+            "parked_rounds": sorted(parked),
+            "failover_blackouts_ms": failovers,
+            "zombie_fenced": zombie, "twin_digest": twin_digest}
 
 
 # -- in-process fault classes ---------------------------------------------------
@@ -1767,18 +2207,45 @@ def main(argv=None) -> None:
                              "— every digest read leader-served; the "
                              "REPLICAS_CHAOS_POINTS scenarios)")
     parser.add_argument("--netsplit", action="store_true",
-                        help="not ported (ROADMAP Queue A 5)")
+                        help="cut the cord: the leader replicates over "
+                             "real TCP links with scripted link faults "
+                             "and a mid-run kill -9 + over-the-wire "
+                             "promotion (child mode serves one life; "
+                             "parent mode runs the full F=2 scenario "
+                             "walk — the NETSPLIT scenarios)")
+    parser.add_argument("--ports", default="",
+                        help="netsplit child: comma-separated follower "
+                             "ports (empty = the in-process twin)")
+    parser.add_argument("--net-dirs", default="",
+                        help="netsplit child: comma-separated follower "
+                             "data dirs (promotion reopens one)")
+    parser.add_argument("--net-script", default="",
+                        help="netsplit child: JSON fault script "
+                             "(install/heal/sleep actions keyed by "
+                             "round)")
+    parser.add_argument("--net-lease-s", type=float,
+                        default=NETSPLIT_LEASE_S)
+    parser.add_argument("--net-kill-at", type=int, default=None,
+                        help="netsplit parent: kill -9 the leader once "
+                             "this round acks (default 9)")
     parser.add_argument("--resume-from", type=int, default=None)
     parser.add_argument("--kill-point", default=None)
     parser.add_argument("--kill-hits", type=int, default=1)
     parser.add_argument("--matrix", action="store_true")
     args = parser.parse_args(argv)
-    if args.netsplit:
-        raise NotImplementedError(_NOT_PORTED.format("netsplit"))
     if args.child:
         child_main(args)
         return
     assert args.workdir, "--workdir required"
+    if args.netsplit:
+        report = run_netsplit(
+            args.workdir, seed=args.seed, docs=args.docs, k=args.k,
+            ticks=max(args.ticks, 12), cp_every=4,
+            kill_at=(args.net_kill_at if args.net_kill_at is not None
+                     else 9), device=args.device)
+        report.pop("twin_digest", None)
+        print(json.dumps(report, indent=1))
+        return
     cfg = dict(docs=args.docs, k=args.k, ticks=args.ticks,
                cp_every=args.cp_every, device=args.device,
                residency=args.residency, megadoc=args.megadoc,

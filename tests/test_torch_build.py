@@ -281,13 +281,14 @@ def test_oplog_library_builds_from_the_ports_own_source():
 
 
 @pytest.mark.parametrize("name,module", [("fanout", "fanout"),
-                                         ("shuttle", "shuttle")])
+                                         ("shuttle", "shuttle"),
+                                         ("bridge", "bridge")])
 def test_native_bus_and_fanout_build_from_the_ports_own_sources(name,
                                                                 module):
-    """The fan-out's and the shuttle bus's g++ libraries land in the
-    port's build directory too, each named by a hash of the port's copy
-    of its ``.cpp``; nothing is loaded from the reference package's own
-    build directory."""
+    """The fan-out's, the shuttle bus's and the socket bridge's g++
+    libraries land in the port's build directory too, each named by a
+    hash of the port's copy of its ``.cpp``; nothing is loaded from the
+    reference package's own build directory."""
     import hashlib
     import importlib
 

@@ -100,10 +100,18 @@ def test_replicas_refuse_other_planes(tmp_path):
                             device="cpu", **other, **_CFG)
 
 
-def test_replicas_cli_reaches_the_scenario(tmp_path):
-    """``--replicas serve|off`` is accepted (the netsplit scenario stays
-    refused, naming the roadmap)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A 5"):
-        chaos.main(["--workdir", str(tmp_path), "--netsplit"])
+def test_replicas_cli_reaches_the_scenario(tmp_path, monkeypatch):
+    """``--replicas serve|off`` is accepted and reaches ``run_chaos``
+    (``--netsplit``, no longer refused, reaches its own scenario)."""
+    seen = {}
+    monkeypatch.setattr(chaos, "run_chaos",
+                        lambda *a, **kw: seen.update(kw) or {})
+    chaos.main(["--workdir", str(tmp_path), "--replicas", "serve",
+                "--kill-point", chaos.REPLICAS_SMOKE_POINT])
+    assert seen["replicas"] is True
+    monkeypatch.setattr(chaos, "run_netsplit",
+                        lambda *a, **kw: seen.update(netsplit=kw) or {})
+    chaos.main(["--workdir", str(tmp_path), "--netsplit"])
+    assert seen["netsplit"]["device"] == "cuda"
     with pytest.raises(SystemExit):
         chaos.main(["--workdir", str(tmp_path), "--replicas", "bogus"])

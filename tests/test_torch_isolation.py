@@ -4,7 +4,10 @@ import neither JAX nor the reference package ``fluidframework_tpu``.
 Checked two ways: every module of the port is imported in a fresh
 interpreter and ``sys.modules`` is inspected afterwards, and every source
 file is parsed for import statements (which also catches lazy imports
-inside functions that a plain import never runs).
+inside functions that a plain import never runs). A child process is
+another way in: no string constant of the port or ``chip_smoke.py`` is a
+dotted module name of the reference package (a ``-m`` target), and every
+child command line the port builds runs a module of the port.
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ import ast
 import json
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import sys
@@ -52,7 +56,9 @@ def test_importing_every_port_module_loads_no_jax_or_reference():
                  "protocol.summary", "drivers.history_driver",
                  "server.broadcaster", "server.read_replica",
                  "server.alfred", "server.native_bus", "native.fanout",
-                 "native.shuttle"):
+                 "native.shuttle", "native.bridge", "server.bridge_host",
+                 "server.transport", "tools.launch_cluster",
+                 "tools.monitor"):
         assert f"fluidframework_tpu_torch.{name}" in modules
     assert [m for m in modules if _forbidden(m)] == []
 
@@ -72,6 +78,68 @@ def _imports(path: pathlib.Path) -> list[str]:
                          ids=[str(p.relative_to(ROOT)) for p in SOURCES])
 def test_source_has_no_jax_or_reference_import(path):
     assert [m for m in _imports(path) if _forbidden(m)] == []
+
+
+#: A whole string that names a module of the reference package, as a
+#: ``python -m`` target does. Prose that mentions one is not matched.
+_REFERENCE_MODULE = re.compile(r"fluidframework_tpu(\.[A-Za-z_]\w*)+")
+
+
+def _reference_module_strings(path: pathlib.Path) -> list[str]:
+    return [node.value
+            for node in ast.walk(ast.parse(path.read_text(), str(path)))
+            if isinstance(node, ast.Constant) and isinstance(node.value, str)
+            and _REFERENCE_MODULE.fullmatch(node.value)]
+
+
+@pytest.mark.parametrize("path", SOURCES,
+                         ids=[str(p.relative_to(ROOT)) for p in SOURCES])
+def test_source_names_no_reference_module(path):
+    assert _reference_module_strings(path) == []
+
+
+def test_reference_module_names_are_caught(tmp_path):
+    """The scan sees a spawn string and leaves prose alone."""
+    src = tmp_path / "spawn.py"
+    src.write_text('"""Ports fluidframework_tpu.server.alfred."""\n'
+                   'CMD = ["python", "-m", "fluidframework_tpu.tools.chaos"]\n'
+                   'OK = "fluidframework_tpu_torch.tools.chaos"\n')
+    assert _reference_module_strings(src) == ["fluidframework_tpu.tools.chaos"]
+
+
+def test_child_command_lines_name_the_port(monkeypatch, tmp_path):
+    """Every child command line the port builds (the launcher's follower
+    and replica children, the chaos harness's serving lives) runs a
+    module of ``fluidframework_tpu_torch``."""
+    from fluidframework_tpu_torch.tools import chaos, launch_cluster
+
+    seen: list = []
+
+    class _Spawned(Exception):
+        pass
+
+    def record(cmd, *args, **kw):
+        seen.append(cmd)
+        raise _Spawned
+
+    monkeypatch.setattr(launch_cluster, "_spawn", record)
+    monkeypatch.setattr(chaos.subprocess, "Popen", record)
+    monkeypatch.setattr(chaos.subprocess, "run", record)
+    for spawn in (
+            lambda: launch_cluster.launch_follower(str(tmp_path / "f0")),
+            lambda: launch_cluster.launch_replica(
+                str(tmp_path / "r0"), str(tmp_path / "git"), "r0"),
+            lambda: chaos._spawn_net_life(
+                str(tmp_path / "n"), [], [], [], None, 0, 2, 8, 4, 2, 10.0,
+                0.5, device="cpu"),
+            lambda: chaos._spawn_life(str(tmp_path / "l"), 0, 2, 8, 4, 2,
+                                      None, None, 10.0, "cpu")):
+        with pytest.raises(_Spawned):
+            spawn()
+    assert len(seen) == 4
+    for cmd in seen:
+        module = cmd[cmd.index("-m") + 1]
+        assert module.startswith("fluidframework_tpu_torch."), cmd
 
 
 def test_chip_smoke_refuses_without_the_repository(tmp_path):
