@@ -48,7 +48,7 @@ equality: every plane is integer), then drives the port's main paths:
   ticks of K=32), checked against a scalar replay and a CPU run;
 * the multi-device tier: the reference ``bench_mixed_serving``'s mixed
   population at full width (8,192 docs, a quarter each of map, text,
-  matrix and tree rows, 12 ticks, 212,992 ops a tick) through
+  matrix and tree rows, 8 of its 12 ticks, 212,992 ops a tick) through
   ``ShardedServing`` — the all-family ``_mixed_tick`` (kernels 1, 3 and
   5; kernel 2 for the joins) — on one shard (mixed A: every row held to
   its family's scalar replay and the whole run to a plain-version run;
@@ -116,7 +116,20 @@ equality: every plane is integer), then drives the port's main paths:
   a leader on the card and a promotion over the wire, held to its
   fault-free twin on the card and on the CPU; the reference net benches:
   ack latency in process and over the wire, failover blackouts, parked
-  writes after a heal).
+  writes after a heal);
+* the client tier (Client C): the port's own Containers, DDSes and
+  drivers served on the card. C1, BASELINE.json config 1 (clicker: two
+  Containers through the tinylicious driver and a localhost socket to an
+  in-process ``AlfredServer`` over the batched-cadence default service,
+  ticked from one thread; a summary, then a late third client loading
+  from it plus the trailing deltas); C2, the service-load-test's full
+  profile (``tools/load_test.run_load("full")``: 32 docs x 8 Containers,
+  102,400 ops, one deli launch a pump); C3, config 2 through 128
+  Containers on a SharedString; C4, config 4 through 256 Containers on a
+  1k x 1k SharedMatrix (a structural op in every round's flush). Every
+  client's state is held to the merge host's device rows and to a scalar
+  replay of ``get_deltas``, and every kernel 2, 3 and 5 call to its plain
+  version.
 
 Each phase prints its seconds (``phase <name>: ...``), and a
 ``phase_seconds:`` line lists them all before the device lines.
@@ -201,6 +214,10 @@ TEXT_FLUSHES = 3
 BURST_DOCS = 64
 BURST_K = 120
 BURST_FLUSH = 2
+#: Text path B's plain-version run serves this many of its flushes (the
+#: ones before the burst) and is held to the kernel run's pools after the
+#: same flush.
+TEXT_B_PLAIN_FLUSHES = 2
 SAMPLE_DOCS = 256
 # The kernel checks' table: S = NB x Bk = 4 x 128, 4 props, 4 overlap words.
 TEXT_NB, TEXT_BK, TEXT_P, TEXT_W = 4, 128, 4, 4
@@ -214,11 +231,14 @@ TEXT_NB, TEXT_BK, TEXT_P, TEXT_W = 4, 128, 4, 4
 # that overflows.
 MATRIX_CLIENTS = 256
 MATRIX_GRID = 1024
-MATRIX_ROUNDS = 6
+MATRIX_ROUNDS = 4
 MATRIX_B = 8_192
 MATRIX_K = 32
 MATRIX_START = 32
 MATRIX_FLUSHES = 5
+#: Matrix path B's plain-version run serves this many of its flushes and
+#: is held to the kernel run's planes after the same flush.
+MATRIX_B_PLAIN_FLUSHES = 2
 MATRIX_B_CELLS = 128
 MATRIX_S, MATRIX_C, MATRIX_W = 256, 1024, 8
 MATRIX_FULL_C = 16
@@ -264,11 +284,12 @@ TREE_SWEEP_OPS_PER_SLOT = 3
 # (4 documents x 16 bytes a client > 232,448 bytes on an H100).
 DELI_LARGE_C = 4096
 # bench_mixed_serving's full width (bench.py:602): 8,192 docs, a quarter
-# each of map, text, matrix and tree rows, 12 ticks at map K 64, text and
-# matrix K 16, tree K 8 (212,992 ops a tick), harvest pipeline depth 4;
-# mixed B serves it again on a virtual mesh of 4 shards of the card.
+# each of map, text, matrix and tree rows, MIXED_TICKS ticks (12 in the
+# bench; a depth cut, PERF.md §4) at map K 64, text and matrix K 16, tree
+# K 8 (212,992 ops a tick), harvest pipeline depth 4; mixed B serves it
+# again on a virtual mesh of 4 shards of the card.
 MIXED_DOCS = 8192
-MIXED_TICKS = 12
+MIXED_TICKS = 8
 MIXED_K = {"map": 64, "text": 16, "matrix": 16, "tree": 8}
 MIXED_DEPTH = 4
 MIXED_SHARDS = 4
@@ -1486,14 +1507,17 @@ def text_path_a(device, plain: bool = False) -> dict:
             "length": length, "serve_s": serve_s}
 
 
-def text_path_b(device, plain: bool = False) -> dict:
+def text_path_b(device, plain: bool = False, flushes: int | None = None,
+                keep_after: int | None = None) -> dict:
     """The host at batched width: TEXT_DOCS docs, one string channel each
     and TEXT_CLIENTS writer ids; TEXT_FLUSHES flushes of TEXT_K ops per
     doc (about 70% inserts, 30% removes of 1-8 chars) from distinct
     writers at the doc's head ref, fed through ``KernelMergeHost.ingest`` then ``flush()``. In flush
     BURST_FLUSH the first BURST_DOCS docs get BURST_K inserts at position
     0 instead, so one block overflows mid-tick. Rows start in the 128-slot
-    bucket. Returns the host and the sampled docs' sequenced ops."""
+    bucket. Returns the host and the sampled docs' sequenced ops, and
+    (``keep_after``) a copy of the host's text pools and stats after that
+    many flushes (``kept``). ``flushes`` serves the first flushes only."""
     import numpy as np
     import random
     import torch
@@ -1519,7 +1543,7 @@ def text_path_b(device, plain: bool = False) -> dict:
                                device=device)
         t0 = time.perf_counter()
         flush_s = 0.0
-        for f in range(TEXT_FLUSHES):
+        for f in range(TEXT_FLUSHES if flushes is None else flushes):
             k = BURST_K if f == BURST_FLUSH else TEXT_K
             burst = np.zeros(d_n, bool)
             if f == BURST_FLUSH:
@@ -1582,11 +1606,22 @@ def text_path_b(device, plain: bool = False) -> dict:
             prev_ref[:] = seq
             seq += n_ops
             length += grown - gone
+            if f + 1 == keep_after:
+                kept = text_pools(host)
         torch.cuda.synchronize()
         serve_s = time.perf_counter() - t0
     return {"merge_host": host, "names": names, "sampled": sampled,
             "length": length, "serve_s": serve_s, "flush_s": flush_s,
-            "ops": int(seq.sum())}
+            "ops": int(seq.sum()),
+            **({"kept": kept} if keep_after is not None else {})}
+
+
+def text_pools(host) -> tuple:
+    """A copy of a merge host's text pools' planes, by bucket, and its
+    stats."""
+    return ({slots: clone_args(pool.state)
+             for slots, pool in host._merge_pools.items()},
+            dict(host.stats))
 
 
 def engine_text(ops) -> str:
@@ -1598,17 +1633,18 @@ def engine_text(ops) -> str:
 
 
 def text_pools_equal(a, b) -> None:
-    """Every text plane of two merge hosts equal (the kernel run against
-    the plain-version run)."""
+    """Every text plane of two merge hosts' pools (``text_pools``) equal
+    (the kernel run against the plain-version run)."""
     import torch
-    check(sorted(a._merge_pools) == sorted(b._merge_pools),
+    (pools_a, stats_a), (pools_b, stats_b) = a, b
+    check(sorted(pools_a) == sorted(pools_b),
           "text runs grew different buckets")
-    for slots, pa in a._merge_pools.items():
-        pb = b._merge_pools[slots]
-        for f, x, y in zip(pa.state._fields, pa.state, pb.state):
+    for slots, sa in pools_a.items():
+        sb = pools_b[slots]
+        for f, x, y in zip(sa._fields, sa, sb):
             check(torch.equal(x, y), f"text pool {slots} plane {f}: kernel "
                   "run != plain run")
-    check(a.stats == b.stats, f"text stats differ: {a.stats} vs {b.stats}")
+    check(stats_a == stats_b, f"text stats differ: {stats_a} vs {stats_b}")
 
 
 def text_main_path(device) -> dict:
@@ -1639,7 +1675,8 @@ def text_main_path(device) -> dict:
                        inputs["mergetree_blocks"]), \
                 recording(mtc, "apply_tick_best", inputs["mergetree_flat"]), \
                 recording(seqc, "process_batch_best", deli[name]["inputs"]):
-            run = drive(device)
+            run = drive(device) if name == "a" else drive(
+                device, keep_after=TEXT_B_PLAIN_FLUSHES)
         torch.cuda.synchronize()
         launches[name] = {"mergetree_blocks": mtbc.launches,
                           "mergetree_flat": mtc.launches,
@@ -1691,8 +1728,16 @@ def text_main_path(device) -> dict:
         check(mtc.variants == picked,
               f"text path {name} launched the flat tick's variants "
               f"{mtc.variants}, its shapes pick {picked}")
-        plain = drive(device, plain=True)
-        text_pools_equal(host, plain["merge_host"])
+        if name == "a":
+            plain = drive(device, plain=True)
+            text_pools_equal(text_pools(host),
+                             text_pools(plain["merge_host"]))
+        else:
+            # The plain-version run at the flushes before the burst, held
+            # to the kernel run's pools after them (every kernel call of
+            # the run is held to the plain version in the re-checks).
+            plain = drive(device, plain=True, flushes=TEXT_B_PLAIN_FLUSHES)
+            text_pools_equal(run["kept"], text_pools(plain["merge_host"]))
         if name == "a":
             for f, x, y in zip(run["seq_host"]._state._fields,
                                run["seq_host"]._state,
@@ -2257,7 +2302,8 @@ def matrix_path_a(device, plain: bool = False) -> dict:
 
 
 def matrix_path_b(device, plain: bool = False,
-                  flushes: int | None = None) -> dict:
+                  flushes: int | None = None,
+                  keep_after: int | None = None) -> dict:
     """The host at batched width: MATRIX_B docs, one matrix channel each,
     MATRIX_CLIENTS writer ids. Each doc is laid out as a MATRIX_START x
     MATRIX_START grid, then takes ``flushes`` (default MATRIX_FLUSHES)
@@ -2265,7 +2311,8 @@ def matrix_path_b(device, plain: bool = False,
     head ref, in the mix of :func:`matrix_ticks`, fed through
     ``KernelMergeHost.ingest`` then ``flush()``. The cell log starts at
     MATRIX_B_CELLS entries. Returns the host and the sampled docs'
-    sequenced ops."""
+    sequenced ops, and (``keep_after``) a copy of the host's matrix
+    planes and stats after that many op flushes (``kept``)."""
     import numpy as np
     import torch
 
@@ -2363,24 +2410,33 @@ def matrix_path_b(device, plain: bool = False,
             flush_s += time.perf_counter() - t_flush
             prev_ref[:] = seq
             seq += k
+            if _f + 1 == keep_after:
+                kept = (clone_args(host._matrix_state), dict(host.stats))
         serve_s = time.perf_counter() - t0
     return {"merge_host": host, "names": names, "sampled": sampled,
             "size": size, "serve_s": serve_s, "flush_s": flush_s,
-            "ops": int(seq.sum())}
+            "ops": int(seq.sum()),
+            **({"kept": kept} if keep_after is not None else {})}
 
 
 def matrix_states_equal(a, b, what: str) -> None:
     """Every matrix plane and counter of two merge hosts equal (the
     kernel run against the plain-version run)."""
+    matrix_planes_equal((a._matrix_state, a.stats),
+                        (b._matrix_state, b.stats), what)
+
+
+def matrix_planes_equal(a, b, what: str) -> None:
+    """Two (matrix state, stats) pairs equal, plane by plane."""
     import torch
-    sa, sb = a._matrix_state, b._matrix_state
+    (sa, stats_a), (sb, stats_b) = a, b
     for (f, x), y in zip(
             [(f"rows.{g}", t) for g, t in zip(sa.rows._fields, sa.rows)]
             + [(f"cols.{g}", t) for g, t in zip(sa.cols._fields, sa.cols)]
             + list(zip(sa._fields[2:], sa[2:])), leaves(sb)):
         check(torch.equal(x, y), f"{what} matrix plane {f}: kernel run != "
               "plain run")
-    check(a.stats == b.stats, f"{what} stats differ: {a.stats} vs {b.stats}")
+    check(stats_a == stats_b, f"{what} stats differ: {stats_a} vs {stats_b}")
 
 
 def matrix_main_path(device) -> dict:
@@ -2409,7 +2465,8 @@ def matrix_main_path(device) -> dict:
         deli[name] = {"inputs": {}}
         with recording(mxc, "apply_tick_best", inputs[name], mxc.tick), \
                 recording(seqc, "process_batch_best", deli[name]["inputs"]):
-            run = drive(device)
+            run = drive(device) if name == "a" else drive(
+                device, keep_after=MATRIX_B_PLAIN_FLUSHES)
         torch.cuda.synchronize()
         launches[name] = {"matrix_tick": mxc.tick.launches,
                           "matrix_steps": mxc.steps.launches,
@@ -2465,8 +2522,19 @@ def matrix_main_path(device) -> dict:
                   f"({host._matrix_vec_slots}, {host._matrix_cell_slots})")
         check(launches[name]["matrix_tick"] > 0,
               f"matrix op tick kernel not launched on matrix path {name}")
-        plain = drive(device, plain=True)
-        matrix_states_equal(host, plain["merge_host"], f"matrix path {name}")
+        if name == "a":
+            plain = drive(device, plain=True)
+            matrix_states_equal(host, plain["merge_host"], "matrix path a")
+        else:
+            # The plain-version run at the first MATRIX_B_PLAIN_FLUSHES
+            # flushes, held to the kernel run's planes after them (every
+            # kernel call of the run is held to the plain version in the
+            # re-checks).
+            plain = drive(device, plain=True,
+                          flushes=MATRIX_B_PLAIN_FLUSHES)
+            pm = plain["merge_host"]
+            matrix_planes_equal(run["kept"], (pm._matrix_state, pm.stats),
+                                "matrix path b")
         if name == "a":
             for f, x, y in zip(run["seq_host"]._state._fields,
                                run["seq_host"]._state,
@@ -4143,12 +4211,16 @@ def drop_leading_repeats(kept: dict, ref: dict) -> dict:
     return dropped
 
 
-def plane_recheck(device, name: str, path: str, kept: dict) -> dict | None:
+def plane_recheck(device, name: str, path: str, kept: dict,
+                  ends_only: bool = False) -> dict | None:
     """One kernel held to its plain version on every call a plane path
     made (both variants), and timed on the last call at each launch
-    shape."""
+    shape. ``ends_only`` holds each shape's first and last call only
+    (where the plain version takes over 100 ms a call)."""
     from fluidframework_tpu_torch.ops import map_fold_cuda as mfc
     from fluidframework_tpu_torch.ops import map_kernel as mk
+    from fluidframework_tpu_torch.ops import matrix_cuda as mxc
+    from fluidframework_tpu_torch.ops import matrix_kernel as mxk
     from fluidframework_tpu_torch.ops import mergetree_blocks as mtb
     from fluidframework_tpu_torch.ops import mergetree_blocks_cuda as mtbc
     from fluidframework_tpu_torch.ops import mergetree_cuda as mtc
@@ -4172,13 +4244,20 @@ def plane_recheck(device, name: str, path: str, kept: dict) -> dict | None:
             blocks_planes(mtbc.apply_tick_blocks_best),
             blocks_planes(mtb.apply_tick_blocks), blocks_bound,
             other=blocks_planes(lambda st, op: mtbc.apply_tick_blocks_best(
-                st, op, "global")), time_all=True, time_last=True)
+                st, op, "global")), time_all=True, time_last=True,
+            ends_only=ends_only)
     if name == "mergetree_flat":
         return recheck_recorded(
             label, shapes, calls, mtc.apply_tick_best, mtk.apply_tick,
             flat_bound,
             other=lambda st, op: mtc.apply_tick_best(st, op, "global"),
-            time_all=True, time_last=True)
+            time_all=True, time_last=True, ends_only=ends_only)
+    if name == "matrix_tick":
+        return recheck_recorded(
+            label, shapes, calls, mxc.apply_tick_best, mxk.apply_tick,
+            matrix_bound,
+            other=lambda st, op: mxc.apply_tick_best(st, op, "global"),
+            time_all=True, time_last=True, ends_only=ends_only)
     # Both variants where a document's lanes fit the warp variant's
     # shared memory; past it (the mega doc's 10,000 writers) the
     # one-thread variant alone, the one the shape picks, held to the
@@ -4194,7 +4273,8 @@ def plane_recheck(device, name: str, path: str, kept: dict) -> dict | None:
             lambda st, op: seqc.process_batch_best(st, op, "warp"),
             seqk.process_batch, deli_bound,
             other=lambda st, op: seqc.process_batch_best(st, op, "thread"),
-            other_name="thread", time_all=True, time_last=True)
+            other_name="thread", time_all=True, time_last=True,
+            ends_only=ends_only)
         got["ms_warp"] = got.pop("ms")
         for end in ("min", "max"):
             got[f"ms_warp_{end}"] = got.pop(f"ms_{end}")
@@ -5864,8 +5944,9 @@ def trace_history(device) -> dict:
 
 #: Fleet H: the reference fleet benches (``bench.py``) at their published
 #: defaults, but bench_cluster_scaling's serve windows (FLEET_SCALE_S for
-#: 6.0 s, FLEET_SCALE_WARM_S for the 1.0 s warm-ups) and
-#: bench_replication_overhead's rounds (FLEET_REPL_ROUNDS for 250; depth
+#: 6.0 s, FLEET_SCALE_WARM_S for the 1.0 s warm-ups),
+#: bench_replication_overhead's rounds (FLEET_REPL_ROUNDS for 250) and
+#: bench_cluster_migration's migrations (FLEET_MIGRATIONS for 12; depth
 #: cuts, PERF.md §4): bench_cluster_migration
 #: (2 hosts, FLEET_MIGRATE_DOCS docs, K FLEET_K, FLEET_MIGRATIONS live
 #: migrations under round-robin writes), bench_cluster_scaling (4 hosts,
@@ -5876,13 +5957,13 @@ def trace_history(device) -> dict:
 #: F=1 and F=2).
 FLEET_K = 64
 FLEET_MIGRATE_DOCS = 6
-FLEET_MIGRATIONS = 12
+FLEET_MIGRATIONS = 8
 FLEET_SCALE_DOCS = 16
 FLEET_SCALE_S = 1.0
 FLEET_SCALE_WARM_S = 0.25
 FLEET_COMMIT_MS = (0.0, 10.0, 80.0)
 FLEET_REPL_DOCS = 4
-FLEET_REPL_ROUNDS = 125
+FLEET_REPL_ROUNDS = 64
 FLEET_REPL_WARM = 25
 FLEET_REPL_DEPTH = 2
 #: Fleet P: config 3 (DOCS x CLIENTS, KEY_SLOTS, K_MAP) on a StormCluster
@@ -5898,7 +5979,7 @@ FLEET_REPL_DEPTH = 2
 #: and ``cluster.get_deltas`` materialized for FLEET_P_READS of each.
 FLEET_HOSTS = ("h0", "h1", "h2", "h3")
 FLEET_FOLLOWERS = 2
-FLEET_P_TICKS = 4
+FLEET_P_TICKS = 2
 FLEET_P_MOVES = 512
 FLEET_P_PROBES = 64
 FLEET_P_AFTER = 2
@@ -6606,12 +6687,13 @@ def fleet_path_p(device, trace: bool = False, read: bool = False,
 
 # -- the read tier and the front door (viewers, read replicas, alfred) --------
 
-#: Viewer V: bench_viewers (``bench.py:2384``) at its defaults —
-#: VIEWER_COUNTS viewers on one hot doc, VIEWER_TICKS storm ticks of
+#: Viewer V: bench_viewers (``bench.py:2384``) at its defaults but for
+#: depth — VIEWER_COUNTS viewers on one hot doc, VIEWER_TICKS (for 8; PERF.md
+#: §4) storm ticks of
 #: VIEWER_K from one writer — then bench_viewer_rehome (``bench.py:3098``):
 #: REHOME_VIEWERS viewers re-homed by a live migration, K REHOME_K.
 VIEWER_COUNTS = (1_000, 10_000, 100_000)
-VIEWER_TICKS = 8
+VIEWER_TICKS = 4
 VIEWER_K = 64
 REHOME_VIEWERS = 64
 REHOME_K = 32
@@ -6633,7 +6715,7 @@ REPLICA_READ_K = 64
 REPLICA_READS = 400
 REPLICA_TAX_DOCS = 4
 REPLICA_TAX_K = 64
-REPLICA_TAX_ROUNDS = 125
+REPLICA_TAX_ROUNDS = 64
 REPLICA_TAX_WARM = 25
 REPLICA_TAX_DEPTH = 2
 REPLICA_TAX_BLOCKS = 5
@@ -7695,7 +7777,7 @@ NET_SPLIT = dict(followers=2, seed=0, docs=2, k=8, ticks=12, cp_every=4,
                  kill_at=9)
 NET_DOCS = 4
 NET_K = 64
-NET_ACK_ROUNDS = 75
+NET_ACK_ROUNDS = 40
 NET_ACK_WARM = 20
 NET_ACK_DEPTH = 2
 NET_FAILOVER_ROUNDS = 15
@@ -8325,6 +8407,428 @@ def net_path_n(device, split: dict, trace: bool = False) -> dict:
     return {"out": out, "counts": counts, "kept": kept}
 
 
+# -- the client tier: the port's own Containers on the card ---------------------
+
+#: Client C1: BASELINE config 1 (clicker on tinylicious, 2 clients): rounds
+#: of increments and sets, the cadence of the service's tick loop, and the
+#: rounds after the summary that a late third client loads past.
+CLIENT_C1_ROUNDS = 8
+CLIENT_C1_AFTER = 4
+CLIENT_CADENCE_S = 0.01
+#: Client C3: BASELINE config 2 through Containers (1 doc, 128 clients, a
+#: SharedString); C4: config 4 (a 1k x 1k SharedMatrix, 256 clients).
+CLIENT_C3_CLIENTS = 128
+CLIENT_C3_ROUNDS = 4
+CLIENT_C4_CLIENTS = 256
+CLIENT_C4_GRID = 1024
+CLIENT_C4_ROUNDS = 2
+#: C4's clients that insert or remove a row or column each round (kernel
+#: 5 runs on a flush with a structural op in flight).
+CLIENT_C4_MOVERS = 4
+CLIENT_PROFILE = "full"
+
+
+@contextlib.contextmanager
+def client_recording(kept: dict):
+    """``plane_recording`` plus kernel 5 (the matrix op tick): every call's
+    arguments kept in ``kept[kernel][shape]``."""
+    from fluidframework_tpu_torch.ops import matrix_cuda as mxc
+    with plane_recording(kept):
+        kept["matrix_tick"] = {}
+        with recording(mxc, "apply_tick_best", kept["matrix_tick"],
+                       counts=mxc.tick):
+            yield
+
+
+def client_arm(name: str, drive, device) -> dict:
+    """One arm of the client phase with kernels 1-5 counted from 0 just
+    before it and read just after, every call's inputs kept."""
+    import torch
+    kept: dict = {}
+    launch_counts_reset()
+    t0 = time.perf_counter()
+    with client_recording(kept):
+        out = drive(device)
+    torch.cuda.synchronize()
+    out["seconds"] = time.perf_counter() - t0
+    counts = launch_counts()
+    deli_picks(device, counts["shapes"]["sequencer_tick"],
+               counts["variants"]["sequencer_tick"], f"client {name}")
+    out["launches"] = {k: counts[k] for k in (
+        "map_fold", "sequencer_tick", "mergetree_blocks", "mergetree_flat",
+        "matrix_tick")}
+    print(f"client_{name}: " + json.dumps(out), flush=True)
+    return {"out": out, "counts": counts, "kept": kept}
+
+
+def chan(container, channel: str):
+    return container.runtime.get_datastore("default").get_channel(channel)
+
+
+def wait_for(cond, what: str, timeout: float = 120.0) -> None:
+    deadline = time.perf_counter() + timeout
+    while not cond():
+        check(time.perf_counter() < deadline, f"timed out: {what}")
+        time.sleep(0.001)
+
+
+def client_c1(device) -> dict:
+    """BASELINE config 1: two port Containers (a root SharedMap and a
+    ``clicks`` SharedCounter, the clicker shape) reach an in-process
+    ``AlfredServer`` over a localhost socket through the tinylicious
+    driver; the service is ``build_default_service(batched_cadence=True)``
+    on the card, ticked every CLIENT_CADENCE_S by a task on the door's
+    event loop (every launch comes from that thread). Rounds of increments
+    and sets, a summary uploaded and acked, more rounds, then a third
+    client loads late from the summary plus the trailing deltas."""
+    import asyncio
+    import socket
+
+    from fluidframework_tpu_torch.dds.counter import SharedCounter
+    from fluidframework_tpu_torch.dds.map import SharedMap
+    from fluidframework_tpu_torch.drivers.tinylicious_driver import \
+        TinyliciousDocumentServiceFactory
+    from fluidframework_tpu_torch.runtime.container import Container
+    from fluidframework_tpu_torch.runtime.summarizer import (
+        SummaryConfig, SummaryManager)
+    from fluidframework_tpu_torch.server.alfred import build_default_service
+    service = build_default_service(batched_cadence=True, device=device)
+    door = DoorThread(service)
+    errors: list = []
+    ticking = {"on": True, "ticks": 0}
+
+    async def tick_loop() -> None:
+        while ticking["on"]:
+            await asyncio.sleep(CLIENT_CADENCE_S)
+            try:
+                service.pump()
+                ticking["ticks"] += 1
+            except Exception as err:  # fails the phase below
+                errors.append(repr(err))
+                return
+    ticker = asyncio.run_coroutine_threadsafe(tick_loop(), door.loop)
+    factory = TinyliciousDocumentServiceFactory(port=door.port)
+    services: list = []
+    doc = "clicker"
+    try:
+        t0 = time.perf_counter()
+        svc1 = factory(doc)
+        services.append(svc1)
+        with svc1.dispatch_lock:
+            c1 = Container.create_detached(svc1)
+            ds = c1.runtime.create_datastore("default")
+            ds.create_channel("root", SharedMap.channel_type)
+            ds.create_channel("clicks", SharedCounter.channel_type)
+            c1.attach()
+        svc2 = factory(doc)
+        services.append(svc2)
+        with svc2.dispatch_lock:
+            c2 = Container.load(svc2)
+        clients = [(svc1, c1), (svc2, c2)]
+        join_s = time.perf_counter() - t0
+        acks: list = []
+        sent = {"clicks": 0, "ops": 0}
+
+        def rounds(r0: int, n: int) -> None:
+            for r in range(r0, r0 + n):
+                starts = []
+                for i, (svc, c) in enumerate(clients):
+                    with svc.dispatch_lock:
+                        chan(c, "clicks").increment(i + 1)
+                        chan(c, "root").set(f"k{(r + i) % 5}", [r, i])
+                    sent["clicks"] += i + 1
+                    sent["ops"] += 2
+                    starts.append(time.perf_counter())
+                for (svc, c), t_sent in zip(clients, starts):
+                    wait_for(lambda: not c.runtime.pending.has_pending,
+                             "client C1: an op was not acked")
+                    acks.append(time.perf_counter() - t_sent)
+
+        t1 = time.perf_counter()
+        rounds(0, CLIENT_C1_ROUNDS)
+        with svc1.dispatch_lock:
+            manager = SummaryManager(c1, SummaryConfig(max_ops=10**6))
+            handle = manager.summarize_now(reason="client C1")
+        check(handle is not None, "client C1: no summary was uploaded")
+        wait_for(lambda: [e.kind for e in manager.events]
+                 == ["generated", "acked"], "client C1: no summary ack")
+        rounds(CLIENT_C1_ROUNDS, CLIENT_C1_AFTER)
+        serve_s = time.perf_counter() - t1
+        t2 = time.perf_counter()
+        svc3 = factory(doc)
+        services.append(svc3)
+        with svc3.dispatch_lock:
+            c3 = Container.load(svc3)
+        late_s = time.perf_counter() - t2
+        clients.append((svc3, c3))
+        head = door.call(lambda: service.get_deltas(doc, 0)[-1]
+                         .sequence_number)
+        wait_for(lambda: all(c.last_processed_seq >= head
+                             for _s, c in clients),
+                 "client C1: a client did not catch up")
+        check(not errors, f"client C1: the tick loop failed: {errors}")
+        summaries = []
+        for svc, c in clients:
+            with svc.dispatch_lock:
+                summaries.append(c.summarize())
+        check(all(s == summaries[0] for s in summaries),
+              "client C1: the three clients' summaries differ")
+        with svc3.dispatch_lock:
+            clicks = chan(c3, "clicks").value
+            root = dict(chan(c3, "root").items())
+        check(clicks == sent["clicks"], f"client C1: counter {clicks} != "
+              f"{sent['clicks']} increments sent")
+        device_map = door.call(lambda: service.merge_host.map_entries(
+            doc, "default", "root"))
+        check(device_map == root, "client C1: the merge host's root map row "
+              "!= the clients' SharedMap")
+    finally:
+        ticking["on"] = False
+        try:
+            ticker.result(10)
+        except Exception as err:
+            errors.append(repr(err))
+        # A reader thread blocked in recv keeps a closed socket open:
+        # shut each one down, or the closing server waits for it.
+        for svc in services:
+            svc._sock.shutdown(socket.SHUT_RDWR)
+            svc.close()
+        door.close()
+    check(not errors, f"client C1: the tick loop failed: {errors}")
+    return {"clients": 3, "rounds": CLIENT_C1_ROUNDS + CLIENT_C1_AFTER,
+            "ops": sent["ops"], "join_s": join_s, "serve_s": serve_s,
+            "merged_ops_per_s": sent["ops"] / serve_s,
+            "ack_ms_p50": 1e3 * pct(acks, 50), "ack_ms_p99": 1e3 * pct(acks, 99),
+            "late_load_s": late_s, "ticks": ticking["ticks"],
+            "counter": clicks, "summary_handle": handle}
+
+
+def client_c2(device) -> dict:
+    """The service-load-test's full profile through the port's load
+    harness: ``run_load(CLIENT_PROFILE, device=...)`` (32 docs x 8
+    Containers, 50 rounds x 8 ops), one kernel-2 launch a pump across
+    every document."""
+    from fluidframework_tpu_torch.tools.load_test import PROFILES, run_load
+    report = run_load(CLIENT_PROFILE, device=device)
+    check(report["converged"], "client C2: the load profile diverged")
+    cfg = PROFILES[CLIENT_PROFILE]
+    want = cfg["docs"] * cfg["clients_per_doc"] * cfg["rounds"] \
+        * cfg["ops_per_round"]
+    check(report["ops_sent"] == want, f"client C2: {report['ops_sent']} "
+          f"ops sent, the profile has {want}")
+    return report
+
+
+def client_service(device, slots: int):
+    from fluidframework_tpu_torch.server.kernel_host import \
+        KernelSequencerHost
+    from fluidframework_tpu_torch.server.merge_host import KernelMergeHost
+    from fluidframework_tpu_torch.server.routerlicious import \
+        RouterliciousService
+    merge_host = KernelMergeHost(device=device)
+    service = RouterliciousService(
+        auto_pump=False, merge_host=merge_host,
+        batched_deli_host=KernelSequencerHost(num_slots=slots,
+                                              initial_capacity=1,
+                                              device=device))
+    return service, merge_host
+
+
+def client_doc(service, doc: str, channel: str, channel_type: str,
+               n: int) -> tuple[list, float]:
+    """``n`` port Containers on one doc of ``service``: the first creates
+    and attaches it with one channel (one pump), the rest load it (one
+    pump sequences their joins, as the load harness joins)."""
+    from fluidframework_tpu_torch.drivers.local_driver import \
+        LocalDocumentService
+    from fluidframework_tpu_torch.runtime.container import Container
+    t0 = time.perf_counter()
+    first = Container.create_detached(LocalDocumentService(service, doc))
+    first.runtime.create_datastore("default").create_channel(
+        channel, channel_type)
+    first.attach()
+    service.pump()
+    clients = [first] + [Container.load(LocalDocumentService(service, doc))
+                         for _ in range(n - 1)]
+    service.pump()
+    return clients, time.perf_counter() - t0
+
+
+def channel_ops(service, doc: str, channel: str) -> list:
+    """(channel op, seq, ref, client) of every sequenced op of ``channel``."""
+    from fluidframework_tpu_torch.protocol.messages import MessageType
+    out = []
+    for m in service.get_deltas(doc, 0):
+        if m.type != MessageType.OPERATION:
+            continue
+        inner = (m.contents or {}).get("contents") or {}
+        if inner.get("address") == channel:
+            out.append((inner["contents"], m.sequence_number,
+                        m.reference_sequence_number, m.client_id))
+    return out
+
+
+def client_rounds(service, clients, rounds: int, edit) -> dict:
+    """``rounds`` rounds: every client makes ``edit(r, i, client)`` (one
+    op), then one pump; op-to-ack is the pump's end less the op's
+    submit."""
+    acks = []
+    t0 = time.perf_counter()
+    for r in range(rounds):
+        sent = []
+        for i, c in enumerate(clients):
+            edit(r, i, c)
+            sent.append(time.perf_counter())
+        service.pump()
+        done = time.perf_counter()
+        check(not any(c.runtime.pending.has_pending for c in clients),
+              "a client's op was not acked by its round's pump")
+        acks += [done - t for t in sent]
+    serve_s = time.perf_counter() - t0
+    ops = rounds * len(clients)
+    return {"rounds": rounds, "ops": ops, "serve_s": serve_s,
+            "merged_ops_per_s": ops / serve_s,
+            "ack_ms_p50": 1e3 * pct(acks, 50),
+            "ack_ms_p99": 1e3 * pct(acks, 99)}
+
+
+def client_c3(device) -> dict:
+    """BASELINE config 2 through Containers: CLIENT_C3_CLIENTS port
+    Containers on one SharedString over ``RouterliciousService`` with the
+    batched deli host and the merge host on the card. Each round every
+    client makes one seeded insert or remove; then one pump (one flush:
+    kernel 3). Every client's text == the merge host's device text ==
+    a ``MergeEngine`` replay of ``get_deltas``."""
+    import numpy as np
+
+    from fluidframework_tpu_torch.dds.sequence import SharedString
+    service, merge_host = client_service(device, CLIENT_C3_CLIENTS)
+    doc = "config2-clients"
+    clients, join_s = client_doc(service, doc, "text",
+                                 SharedString.channel_type,
+                                 CLIENT_C3_CLIENTS)
+    rng = np.random.default_rng(15)
+    letters = "abcdefghijklmnopqrstuvwxyz"
+
+    def edit(r, i, c):
+        text = chan(c, "text")
+        length = len(text.get_text())
+        if length > 8 and rng.random() < 0.3:
+            start = int(rng.integers(0, length - 1))
+            text.remove_text(start, min(length, start + int(
+                rng.integers(1, 5))))
+        else:
+            n = int(rng.integers(1, 9))
+            at = int(rng.integers(0, 26 - n))
+            text.insert_text(int(rng.integers(0, length + 1)),
+                             letters[at:at + n])
+    out = client_rounds(service, clients, CLIENT_C3_ROUNDS, edit)
+    texts = {chan(c, "text").get_text() for c in clients}
+    check(len(texts) == 1, f"client C3: {len(texts)} different texts")
+    text = texts.pop()
+    check(merge_host.text(doc, "default", "text") == text,
+          "client C3: the merge host's device text != the clients'")
+    check(engine_text(channel_ops(service, doc, "text")) == text,
+          "client C3: the clients' text != a MergeEngine replay of "
+          "get_deltas")
+    check(merge_host.stats["scalar_ops"] == 0,
+          "client C3: text ops left the device rows")
+    return {"clients": CLIENT_C3_CLIENTS, "join_s": join_s, **out,
+            "length": len(text), "stats": merge_host.stats}
+
+
+def sparse_grid(matrix) -> tuple:
+    """A client SharedMatrix as (rows, cols, {(row, col): value}) over its
+    live handles (every cell that holds a value)."""
+    def live(vec):
+        return [h for seg in vec.engine.segments if seg.removed_seq is None
+                for h in seg.content]
+    rows, cols = live(matrix.rows), live(matrix.cols)
+    rpos = {h: i for i, h in enumerate(rows)}
+    cpos = {h: i for i, h in enumerate(cols)}
+    return (len(rows), len(cols),
+            {(rpos[rh], cpos[ch]): v for (rh, ch), v in matrix.cells.items()
+             if v is not None and rh in rpos and ch in cpos})
+
+
+def dense_to_sparse(grid) -> tuple:
+    return (len(grid), len(grid[0]) if grid else 0,
+            {(r, c): v for r, row in enumerate(grid)
+             for c, v in enumerate(row) if v is not None})
+
+
+def client_c4(device) -> dict:
+    """BASELINE config 4 through Containers: CLIENT_C4_CLIENTS port
+    Containers on one SharedMatrix, laid out CLIENT_C4_GRID x
+    CLIENT_C4_GRID by the first client, over the same service shape as
+    C3. Each round every client writes one cell, and CLIENT_C4_MOVERS of
+    them insert or remove a row or column instead (a structural op in
+    every flush: kernel 5, not the cell-run append); then one pump. Every
+    client's grid == the merge host's device grid == a PermutationVector
+    + LWW replay of ``get_deltas``."""
+    import numpy as np
+
+    from fluidframework_tpu_torch.dds.matrix import SharedMatrix
+    service, merge_host = client_service(device, CLIENT_C4_CLIENTS)
+    doc = "config4-clients"
+    clients, join_s = client_doc(service, doc, "grid",
+                                 SharedMatrix.channel_type,
+                                 CLIENT_C4_CLIENTS)
+    grid0 = chan(clients[0], "grid")
+    grid0.insert_rows(0, CLIENT_C4_GRID)
+    grid0.insert_cols(0, CLIENT_C4_GRID)
+    service.pump()
+    rng = np.random.default_rng(16)
+
+    def edit(r, i, c):
+        grid = chan(c, "grid")
+        if i % (CLIENT_C4_CLIENTS // CLIENT_C4_MOVERS) == r % 4:
+            axis = ("rows", "cols")[int(rng.integers(0, 2))]
+            size = grid.row_count if axis == "rows" else grid.col_count
+            at = int(rng.integers(0, 16))
+            if rng.random() < 0.5 and size > 32:
+                getattr(grid, f"remove_{axis}")(at, int(rng.integers(1, 3)))
+            else:
+                getattr(grid, f"insert_{axis}")(at, int(rng.integers(1, 4)))
+        else:
+            grid.set_cell(int(rng.integers(0, grid.row_count)),
+                          int(rng.integers(0, grid.col_count)),
+                          int(rng.integers(0, 1 << 20)))
+    out = client_rounds(service, clients, CLIENT_C4_ROUNDS, edit)
+    grids = [sparse_grid(chan(c, "grid")) for c in clients]
+    check(all(g == grids[0] for g in grids),
+          "client C4: the clients' grids differ")
+    check(dense_to_sparse(merge_host.matrix_grid(doc, "default", "grid"))
+          == grids[0], "client C4: the merge host's device grid != the "
+          "clients'")
+    check(dense_to_sparse(replay_grid(channel_ops(service, doc, "grid")))
+          == grids[0], "client C4: the clients' grid != a PermutationVector"
+          " + LWW replay of get_deltas")
+    check(merge_host.stats["scalar_ops"] == 0,
+          "client C4: matrix ops left the device rows")
+    return {"clients": CLIENT_C4_CLIENTS, "join_s": join_s, **out,
+            "rows": grids[0][0], "cols": grids[0][1],
+            "cells": len(grids[0][2]), "stats": merge_host.stats}
+
+
+def client_path_c(device) -> dict:
+    """Client C: the port's own Containers served on the card, four arms
+    (C1-C4), each with its kernels' launches counted and every call's
+    inputs kept for the re-checks."""
+    arms = {}
+    for name, drive, need in (
+            ("c1", client_c1, ("sequencer_tick",)),
+            ("c2", client_c2, ("sequencer_tick",)),
+            ("c3", client_c3, ("sequencer_tick", "mergetree_blocks")),
+            ("c4", client_c4, ("sequencer_tick", "matrix_tick"))):
+        with phase(f"client {name.upper()}"):
+            arms[name] = client_arm(name, drive, device)
+        for kernel in need:
+            check(arms[name]["counts"][kernel] > 0,
+                  f"client {name.upper()} launched no {kernel}")
+    return arms
+
+
 def main() -> int:
     try:
         import torch
@@ -8464,6 +8968,18 @@ def main() -> int:
     with phase("net N"):
         planes["net_n"] = net_path_n(device, planes.pop("net_split"),
                                      trace=trace_net)
+    with phase("client C"):
+        client = client_path_c(device)
+    print("client: " + json.dumps({
+        "device": smi,
+        **{name: {k: arm["out"].get(k) for k in (
+            "merged_ops_per_sec", "merged_ops_per_s", "ack_ms_p50",
+            "ack_ms_p99", "join_s", "late_load_s", "ops_sent",
+            "ops_seen_total", "ops", "clients", "rounds", "seconds",
+            "launches") if k in arm["out"]}
+           for name, arm in client.items()}}), flush=True)
+    for name, arm in client.items():
+        planes[f"client_{name}"] = arm
     planes["front_f"] = front_f
     arm_b = front_b["arms"]
     print("net: " + json.dumps({
@@ -8544,7 +9060,9 @@ def main() -> int:
                    "front_b_0": (arm_b[0]["kept"], arm_b[0]["counts"]),
                    "front_b_1": (arm_b[1]["kept"], arm_b[1]["counts"]),
                    "net_n": (planes["net_n"]["kept"],
-                             planes["net_n"]["counts"])}
+                             planes["net_n"]["counts"]),
+                   **{f"client_{name}": (arm["kept"], arm["counts"])
+                      for name, arm in client.items()}}
     for path_name, (kept, counts) in plane_paths.items():
         for name, by_shape in kept.items():
             got = {sh: len(c) for sh, c in by_shape.items()}
@@ -8559,11 +9077,15 @@ def main() -> int:
     t_recheck = time.perf_counter()
     plane_checks: dict = {}
     recheck_s: dict = {}
+    # Mega A's deli calls at thousands of lanes run a plain version of
+    # about a second: each shape's first and last call held to it.
+    slow_plain = {"mega_a"}
     for path_name, (kept, _counts) in plane_paths.items():
         for name in ("map_fold", "sequencer_tick", "mergetree_blocks",
-                     "mergetree_flat"):
+                     "mergetree_flat", "matrix_tick"):
             t0 = time.perf_counter()
-            got = plane_recheck(device, name, path_name, kept)
+            got = plane_recheck(device, name, path_name, kept,
+                                ends_only=path_name in slow_plain)
             if got is not None:
                 plane_checks.setdefault(name, {})[path_name] = {
                     k: v for k, v in got.items() if k != "by_call"}
@@ -8616,7 +9138,8 @@ def main() -> int:
             lambda st, op: seqc.process_batch_best(st, op, "warp"),
             seqk.process_batch, deli_bound,
             other=lambda st, op: seqc.process_batch_best(st, op, "thread"),
-            other_name="thread", time_all=True)
+            other_name="thread", time_all=True,
+            ends_only=key in ("text_a", "matrix_a"))
         got["ms_warp"] = got.pop("ms")
         for end in ("min", "max"):
             got[f"ms_warp_{end}"] = got.pop(f"ms_{end}")
@@ -8639,7 +9162,7 @@ def main() -> int:
         blocks_planes(mtbc.apply_tick_blocks_best),
         blocks_planes(mtb.apply_tick_blocks), blocks_bound,
         other=blocks_planes(lambda st, op: mtbc.apply_tick_blocks_best(
-            st, op, "global")))
+            st, op, "global")), ends_only=True)
     flat_main = recheck_recorded(
         "mergetree_flat", text["shapes"]["mergetree_flat"],
         text["inputs"]["mergetree_flat"], mtc.apply_tick_best,
@@ -8656,7 +9179,7 @@ def main() -> int:
             matrix["inputs"][name], mxc.apply_tick_best, mxk.apply_tick,
             matrix_bound,
             other=lambda st, op: mxc.apply_tick_best(st, op, "global"),
-            time_all=name == "a")
+            time_all=name == "a", ends_only=True)
         for key, name in (("matrix_b", "b"), ("matrix_a", "a"))}
     del matrix["inputs"]
     steps_main = recheck_recorded(
@@ -8664,7 +9187,8 @@ def main() -> int:
         mxc.apply_tick_steps_best, mxk.apply_tick_steps, steps_bound,
         ops_of=lambda args: int(args[1].vec_valid.sum()
                                 + args[1].r_valid.sum()),
-        other=lambda st, b: mxc.apply_tick_steps_best(st, b, "global"))
+        other=lambda st, b: mxc.apply_tick_steps_best(st, b, "global"),
+        ends_only=True)
     steps_split = steps_breakdown(
         steps["inputs"][max(steps["shapes"], key=steps["shapes"].get)])
     del steps["inputs"]
@@ -8718,7 +9242,9 @@ def main() -> int:
                "front_f": front_f["counts"].get(name, 0),
                "front_b_0": arm_b[0]["counts"].get(name, 0),
                "front_b_1": arm_b[1]["counts"].get(name, 0),
-               "net_n": planes["net_n"]["counts"].get(name, 0)}
+               "net_n": planes["net_n"]["counts"].get(name, 0),
+               **{f"client_{arm}": client[arm]["counts"].get(name, 0)
+                  for arm in client}}
         for name in ("map_fold", "sequencer_tick", "mergetree_blocks",
                      "mergetree_flat", "matrix_tick", "matrix_steps")}
     launches = {name: sum(n.values()) for name, n in by_path.items()}

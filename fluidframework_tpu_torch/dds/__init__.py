@@ -1,4 +1,8 @@
-"""Distributed data structures the server side needs: the scalar merge-tree
-engine (``mergetree.py``), the matrix permutation vector (``matrix.py``)
-and the SharedTree snapshot and transaction core (``tree_core.py``),
-copies of the reference package's."""
+"""Distributed data structures — the client-side merge engines.
+
+Reference parity: packages/dds/* (merge-tree, sequence, map, directory,
+matrix, cell, counter, ordered-collection, register-collection, tree).
+The server side reuses the scalar merge-tree engine (``mergetree.py``),
+the matrix permutation vector (``matrix.py``) and the SharedTree core
+(``tree_core.py``).
+"""

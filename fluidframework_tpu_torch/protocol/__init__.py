@@ -1,7 +1,9 @@
-"""Layer 0/1: wire messages and the storm codec.
+"""Layer 0/1: protocol definitions, the storm codec and the deterministic
+quorum state machine.
 
 Reference parity: server/routerlicious/packages/protocol-definitions/src/
-protocol.ts (wire messages).
+protocol.ts (wire messages) and protocol-base/src/{quorum.ts,protocol.ts}
+(quorum + protocol op handler).
 """
 
 from .messages import (
@@ -15,13 +17,20 @@ from .messages import (
     SignalMessage,
     Trace,
 )
+from .quorum import CommittedProposal, PendingProposal, Quorum, QuorumClient
+from .handler import ProtocolOpHandler
 
 __all__ = [
     "ClientDetail",
+    "CommittedProposal",
     "DocumentMessage",
     "MessageType",
     "NackErrorType",
     "NackMessage",
+    "PendingProposal",
+    "ProtocolOpHandler",
+    "Quorum",
+    "QuorumClient",
     "ScopeType",
     "SequencedDocumentMessage",
     "SignalMessage",

@@ -1,0 +1,6 @@
+"""The reference's ``tests/test_tree.py`` run against the port: the SharedTree client DDS,
+each case with the reference's own assertions (``torch_reference``)."""
+
+from torch_reference import port_reference
+
+port_reference("test_tree", globals())

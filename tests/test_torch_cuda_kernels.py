@@ -1825,3 +1825,124 @@ def test_viewer_room_and_read_replica_on_the_card(cuda, tmp_path,
     assert checked["map_fold"] > 0 and checked["sequencer_tick"] > 0
     assert len(on_card["leader"]) == 3 and on_card["lag"] == 0
     assert on_card == run("cpu")
+
+
+def _client_session(dev, rounds: int = 4, writers: int = 6) -> dict:
+    """Port Containers editing one SharedString and one SharedMatrix over
+    ``RouterliciousService`` with the batched deli host and the merge host
+    on ``dev``: each round every writer inserts or removes text and writes
+    a cell, one of them inserts a row (a structural op: kernel 5); then one
+    pump."""
+    from fluidframework_tpu_torch.dds.matrix import SharedMatrix
+    from fluidframework_tpu_torch.dds.sequence import SharedString
+    from fluidframework_tpu_torch.drivers.local_driver import \
+        LocalDocumentService
+    from fluidframework_tpu_torch.runtime.container import Container
+    from fluidframework_tpu_torch.server.kernel_host import \
+        KernelSequencerHost
+    from fluidframework_tpu_torch.server.merge_host import KernelMergeHost
+    from fluidframework_tpu_torch.server.routerlicious import \
+        RouterliciousService
+
+    merge_host = KernelMergeHost(device=dev)
+    service = RouterliciousService(
+        auto_pump=False, merge_host=merge_host,
+        batched_deli_host=KernelSequencerHost(num_slots=8, device=dev))
+    service._clock = itertools.count(1000, 7).__next__
+    first = Container.create_detached(LocalDocumentService(service, "s"))
+    ds = first.runtime.create_datastore("default")
+    ds.create_channel("text", SharedString.channel_type)
+    ds.create_channel("grid", SharedMatrix.channel_type)
+    first.attach()
+    service.pump()
+    clients = [first]
+    for _ in range(writers - 1):
+        clients.append(Container.load(LocalDocumentService(service, "s")))
+        service.pump()
+
+    def chan(c, name):
+        return c.runtime.get_datastore("default").get_channel(name)
+    chan(first, "grid").insert_rows(0, 16)
+    chan(first, "grid").insert_cols(0, 16)
+    service.pump()
+    rng = np.random.default_rng(21)
+    for r in range(rounds):
+        for i, c in enumerate(clients):
+            text, grid = chan(c, "text"), chan(c, "grid")
+            n = len(text.get_text())
+            if n > 6 and rng.random() < 0.3:
+                at = int(rng.integers(0, n - 2))
+                text.remove_text(at, at + 2)
+            else:
+                text.insert_text(int(rng.integers(0, n + 1)), f"<{i}.{r}>")
+            if i == r % writers:
+                grid.insert_rows(int(rng.integers(0, grid.row_count)), 1)
+            grid.set_cell(int(rng.integers(0, grid.row_count)),
+                          int(rng.integers(0, grid.col_count)), i * 100 + r)
+        service.pump()
+    grids = []
+    for c in clients:
+        g = chan(c, "grid")
+        grids.append([[g.get_cell(r, col) for col in range(g.col_count)]
+                      for r in range(g.row_count)])
+    return {"texts": [chan(c, "text").get_text() for c in clients],
+            "grids": grids,
+            "device_text": merge_host.text("s", "default", "text"),
+            "device_grid": merge_host.matrix_grid("s", "default", "grid"),
+            "summaries": [c.summarize() for c in clients]}
+
+
+def test_client_session_on_the_card_matches_plain(cuda, monkeypatch):
+    """The client tier on the card: port Containers served by both device
+    hosts on the card. Every kernel-2, -3 and -5 call equals its plain
+    version on the same inputs; every client's text and grid equal the
+    device rows; the whole session equals the same session on the CPU."""
+    deli = seqc.process_batch_best
+    blocks = mtbc.apply_tick_blocks_best
+    tick = mxc.apply_tick_best
+    checked = {"sequencer_tick": 0, "mergetree_blocks": 0, "matrix_tick": 0}
+
+    def checked_deli(state, ops, variant=None):
+        out = deli(state, ops, variant)
+        if ops.kind.is_cuda:
+            want = seqk.process_batch(state, ops)
+            _assert_equal(out[0], want[0], "deli state")
+            _assert_equal(out[1], want[1], "deli tickets")
+            checked["sequencer_tick"] += 1
+        return out
+
+    def checked_blocks(state, ops, variant=None):
+        out = blocks(state, ops, variant)
+        if ops.kind.is_cuda:
+            want = mtb.apply_tick_blocks(state, ops)
+            _assert_equal(out[0], want[0], "block tick state")
+            assert torch.equal(out[1].cpu(), want[1].cpu())
+            checked["mergetree_blocks"] += 1
+        return out
+
+    def checked_tick(state, ops, variant=None):
+        out = tick(state, ops, variant)
+        if ops.kind.is_cuda:
+            want = mxk.apply_tick(state, ops)
+            for a, b in zip(_matrix_leaves(out), _matrix_leaves(want)):
+                assert torch.equal(a.cpu(), b.cpu())
+            checked["matrix_tick"] += 1
+        return out
+
+    monkeypatch.setattr(seqc, "process_batch_best", checked_deli)
+    monkeypatch.setattr(mtbc, "apply_tick_blocks_best", checked_blocks)
+    monkeypatch.setattr(mxc, "apply_tick_best", checked_tick)
+    on_card = _client_session(cuda)
+    torch.cuda.synchronize()
+    assert all(n > 0 for n in checked.values()), checked
+    assert len(set(on_card["texts"])) == 1
+    assert on_card["device_text"] == on_card["texts"][0]
+    assert all(g == on_card["device_grid"] for g in on_card["grids"])
+    assert on_card == _client_session("cpu")
+
+
+def _matrix_leaves(state):
+    out = []
+    for t in state:
+        out += _matrix_leaves(t) if isinstance(t, tuple) else [t]
+    return out

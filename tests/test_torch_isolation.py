@@ -13,6 +13,7 @@ child command line the port builds runs a module of the port.
 from __future__ import annotations
 
 import ast
+import importlib.util
 import json
 import os
 import pathlib
@@ -58,7 +59,13 @@ def test_importing_every_port_module_loads_no_jax_or_reference():
                  "server.alfred", "server.native_bus", "native.fanout",
                  "native.shuttle", "native.bridge", "server.bridge_host",
                  "server.transport", "tools.launch_cluster",
-                 "tools.monitor"):
+                 "tools.monitor", "runtime.container",
+                 "runtime.container_runtime", "runtime.datastore",
+                 "runtime.delta_manager", "runtime.summarizer",
+                 "dds.shared_object", "dds.sequence", "dds.intervals",
+                 "dds.tree", "protocol.quorum", "protocol.handler",
+                 "drivers.network_driver", "drivers.virtualized_driver",
+                 "server.local_server", "tools.load_test"):
         assert f"fluidframework_tpu_torch.{name}" in modules
     assert [m for m in modules if _forbidden(m)] == []
 
@@ -110,7 +117,8 @@ def test_reference_module_names_are_caught(tmp_path):
 def test_child_command_lines_name_the_port(monkeypatch, tmp_path):
     """Every child command line the port builds (the launcher's follower
     and replica children, the chaos harness's serving lives) runs a
-    module of ``fluidframework_tpu_torch``."""
+    module of ``fluidframework_tpu_torch``, and so does the ``python -m``
+    line the load harness documents."""
     from fluidframework_tpu_torch.tools import chaos, launch_cluster
 
     seen: list = []
@@ -136,10 +144,16 @@ def test_child_command_lines_name_the_port(monkeypatch, tmp_path):
                                       None, None, 10.0, "cpu")):
         with pytest.raises(_Spawned):
             spawn()
-    assert len(seen) == 4
+    from fluidframework_tpu_torch.tools import load_test
+    run_lines = re.findall(r"python -m (\S+) (.*)", load_test.__doc__)
+    assert run_lines
+    for module, args in run_lines:
+        seen.append(["python", "-m", module, *args.split()])
+    assert len(seen) == 4 + len(run_lines)
     for cmd in seen:
         module = cmd[cmd.index("-m") + 1]
         assert module.startswith("fluidframework_tpu_torch."), cmd
+        assert importlib.util.find_spec(module) is not None, cmd
 
 
 def test_chip_smoke_refuses_without_the_repository(tmp_path):
