@@ -129,7 +129,13 @@ equality: every plane is integer), then drives the port's main paths:
   1k x 1k SharedMatrix (a structural op in every round's flush). Every
   client's state is held to the merge host's device rows and to a scalar
   replay of ``get_deltas``, and every kernel 2, 3 and 5 call to its plain
-  version.
+  version. C5, on C1's stack, the application tier: the seven example
+  apps' own ``main`` over the socket, a port Container on each doc held
+  to the example clients and the merge host's rows, the gateway over
+  HTTP, the headless agents under the agent scheduler, every doc's
+  recording (C3's and C4's too) replayed and stepped through the debug
+  tool, and ``apply_tick_runs`` on the card held to kernel 4 and to its
+  CPU run (its device ms against kernel 4's).
 
 Each phase prints its seconds (``phase <name>: ...``), and a
 ``phase_seconds:`` line lists them all before the device lines.
@@ -8472,18 +8478,79 @@ def wait_for(cond, what: str, timeout: float = 120.0) -> None:
         time.sleep(0.001)
 
 
-def client_c1(device) -> dict:
-    """BASELINE config 1: two port Containers (a root SharedMap and a
-    ``clicks`` SharedCounter, the clicker shape) reach an in-process
-    ``AlfredServer`` over a localhost socket through the tinylicious
-    driver; the service is ``build_default_service(batched_cadence=True)``
-    on the card, ticked every CLIENT_CADENCE_S by a task on the door's
-    event loop (every launch comes from that thread). Rounds of increments
-    and sets, a summary uploaded and acked, more rounds, then a third
-    client loads late from the summary plus the trailing deltas."""
+@contextlib.contextmanager
+def client_door(device):
+    """C1's stack, shared by C1 and C5: ``build_default_service(
+    batched_cadence=True)`` on the card behind an in-process
+    ``AlfredServer`` (a ``DoorThread``), ticked every CLIENT_CADENCE_S by
+    a task on the door's event loop (every launch comes from that
+    thread). Yields it as ``service``, ``door``, ``ticking`` and
+    ``errors`` (the tick loop's); fails if the tick loop failed."""
     import asyncio
+    from types import SimpleNamespace
+
+    from fluidframework_tpu_torch.server.alfred import build_default_service
+    service = build_default_service(batched_cadence=True, device=device)
+    with sockets_shut_on_close():
+        door = DoorThread(service)
+        stack = SimpleNamespace(service=service, door=door, errors=[],
+                                ticking={"on": True, "ticks": 0})
+
+        async def tick_loop() -> None:
+            while stack.ticking["on"]:
+                await asyncio.sleep(CLIENT_CADENCE_S)
+                try:
+                    service.pump()
+                    stack.ticking["ticks"] += 1
+                except Exception as err:  # fails the phase below
+                    stack.errors.append(repr(err))
+                    return
+        ticker = asyncio.run_coroutine_threadsafe(tick_loop(), door.loop)
+        try:
+            yield stack
+        finally:
+            stack.ticking["on"] = False
+            try:
+                ticker.result(10)
+            except Exception as err:
+                stack.errors.append(repr(err))
+            door.close()
+    check(not stack.errors, f"client door: the tick loop failed: "
+          f"{stack.errors}")
+
+
+@contextlib.contextmanager
+def sockets_shut_on_close():
+    """Every port network document service closed in the block shuts its
+    socket down first: a reader thread blocked in recv keeps a closed
+    socket open, and a closing door waits for it. (The examples, the
+    gateway and the agent runner close theirs with ``close()``.)"""
     import socket
 
+    from fluidframework_tpu_torch.drivers import network_driver
+    cls = network_driver.NetworkDocumentService
+    close = cls.close
+
+    def shut_then_close(self) -> None:
+        try:
+            self._sock.shutdown(socket.SHUT_RDWR)
+        except OSError:
+            pass  # already closed or never connected
+        close(self)
+    cls.close = shut_then_close
+    try:
+        yield
+    finally:
+        cls.close = close
+
+
+def client_c1(stack) -> dict:
+    """BASELINE config 1: two port Containers (a root SharedMap and a
+    ``clicks`` SharedCounter, the clicker shape) reach ``client_door``'s
+    ``AlfredServer`` over a localhost socket through the tinylicious
+    driver. Rounds of increments and sets, a summary uploaded and acked,
+    more rounds, then a third client loads late from the summary plus the
+    trailing deltas."""
     from fluidframework_tpu_torch.dds.counter import SharedCounter
     from fluidframework_tpu_torch.dds.map import SharedMap
     from fluidframework_tpu_torch.drivers.tinylicious_driver import \
@@ -8491,22 +8558,8 @@ def client_c1(device) -> dict:
     from fluidframework_tpu_torch.runtime.container import Container
     from fluidframework_tpu_torch.runtime.summarizer import (
         SummaryConfig, SummaryManager)
-    from fluidframework_tpu_torch.server.alfred import build_default_service
-    service = build_default_service(batched_cadence=True, device=device)
-    door = DoorThread(service)
-    errors: list = []
-    ticking = {"on": True, "ticks": 0}
-
-    async def tick_loop() -> None:
-        while ticking["on"]:
-            await asyncio.sleep(CLIENT_CADENCE_S)
-            try:
-                service.pump()
-                ticking["ticks"] += 1
-            except Exception as err:  # fails the phase below
-                errors.append(repr(err))
-                return
-    ticker = asyncio.run_coroutine_threadsafe(tick_loop(), door.loop)
+    service, door, errors = stack.service, stack.door, stack.errors
+    ticks0 = stack.ticking["ticks"]
     factory = TinyliciousDocumentServiceFactory(port=door.port)
     services: list = []
     doc = "clicker"
@@ -8583,23 +8636,14 @@ def client_c1(device) -> dict:
         check(device_map == root, "client C1: the merge host's root map row "
               "!= the clients' SharedMap")
     finally:
-        ticking["on"] = False
-        try:
-            ticker.result(10)
-        except Exception as err:
-            errors.append(repr(err))
-        # A reader thread blocked in recv keeps a closed socket open:
-        # shut each one down, or the closing server waits for it.
         for svc in services:
-            svc._sock.shutdown(socket.SHUT_RDWR)
             svc.close()
-        door.close()
-    check(not errors, f"client C1: the tick loop failed: {errors}")
+        quiesce(stack)
     return {"clients": 3, "rounds": CLIENT_C1_ROUNDS + CLIENT_C1_AFTER,
             "ops": sent["ops"], "join_s": join_s, "serve_s": serve_s,
             "merged_ops_per_s": sent["ops"] / serve_s,
             "ack_ms_p50": 1e3 * pct(acks, 50), "ack_ms_p99": 1e3 * pct(acks, 99),
-            "late_load_s": late_s, "ticks": ticking["ticks"],
+            "late_load_s": late_s, "ticks": stack.ticking["ticks"] - ticks0,
             "counter": clicks, "summary_handle": handle}
 
 
@@ -8692,13 +8736,26 @@ def client_rounds(service, clients, rounds: int, edit) -> dict:
             "ack_ms_p99": 1e3 * pct(acks, 99)}
 
 
-def client_c3(device) -> dict:
+def record_live(service, doc: str, live: dict, root: pathlib.Path) -> None:
+    """Record ``doc`` of ``service`` (its base snapshot and whole sequenced
+    log) under ``root`` for C5's replay and debug checks, beside ``live``,
+    its live clients' summary."""
+    from fluidframework_tpu_torch.drivers.replay_driver import \
+        record_document
+    from fluidframework_tpu_torch.tools.replay import canonical
+    record_document(service, doc, root / doc,
+                    snapshot=service.get_latest_snapshot(doc))
+    (root / f"{doc}.live.json").write_text(canonical(live))
+
+
+def client_c3(device, record: pathlib.Path) -> dict:
     """BASELINE config 2 through Containers: CLIENT_C3_CLIENTS port
     Containers on one SharedString over ``RouterliciousService`` with the
     batched deli host and the merge host on the card. Each round every
     client makes one seeded insert or remove; then one pump (one flush:
     kernel 3). Every client's text == the merge host's device text ==
-    a ``MergeEngine`` replay of ``get_deltas``."""
+    a ``MergeEngine`` replay of ``get_deltas``. The doc is recorded under
+    ``record`` for C5 (no rounds added)."""
     import numpy as np
 
     from fluidframework_tpu_torch.dds.sequence import SharedString
@@ -8733,6 +8790,7 @@ def client_c3(device) -> dict:
           "get_deltas")
     check(merge_host.stats["scalar_ops"] == 0,
           "client C3: text ops left the device rows")
+    record_live(service, doc, clients[0].summarize(), record)
     return {"clients": CLIENT_C3_CLIENTS, "join_s": join_s, **out,
             "length": len(text), "stats": merge_host.stats}
 
@@ -8757,7 +8815,7 @@ def dense_to_sparse(grid) -> tuple:
              for c, v in enumerate(row) if v is not None})
 
 
-def client_c4(device) -> dict:
+def client_c4(device, record: pathlib.Path) -> dict:
     """BASELINE config 4 through Containers: CLIENT_C4_CLIENTS port
     Containers on one SharedMatrix, laid out CLIENT_C4_GRID x
     CLIENT_C4_GRID by the first client, over the same service shape as
@@ -8765,7 +8823,8 @@ def client_c4(device) -> dict:
     them insert or remove a row or column instead (a structural op in
     every flush: kernel 5, not the cell-run append); then one pump. Every
     client's grid == the merge host's device grid == a PermutationVector
-    + LWW replay of ``get_deltas``."""
+    + LWW replay of ``get_deltas``. The doc is recorded under ``record``
+    for C5 (no rounds added)."""
     import numpy as np
 
     from fluidframework_tpu_torch.dds.matrix import SharedMatrix
@@ -8806,26 +8865,586 @@ def client_c4(device) -> dict:
           " + LWW replay of get_deltas")
     check(merge_host.stats["scalar_ops"] == 0,
           "client C4: matrix ops left the device rows")
+    record_live(service, doc, clients[0].summarize(), record)
     return {"clients": CLIENT_C4_CLIENTS, "join_s": join_s, **out,
             "rows": grids[0][0], "cols": grids[0][1],
             "cells": len(grids[0][2]), "stats": merge_host.stats}
 
 
-def client_path_c(device) -> dict:
-    """Client C: the port's own Containers served on the card, four arms
-    (C1-C4), each with its kernels' launches counted and every call's
-    inputs kept for the re-checks."""
-    arms = {}
-    for name, drive, need in (
-            ("c1", client_c1, ("sequencer_tick",)),
-            ("c2", client_c2, ("sequencer_tick",)),
-            ("c3", client_c3, ("sequencer_tick", "mergetree_blocks")),
-            ("c4", client_c4, ("sequencer_tick", "matrix_tick"))):
+#: C5: the seven example apps, each run by its own ``main`` over C1's
+#: door on a fixed doc id.
+CLIENT_C5_EXAMPLES = ("clicker", "collab_text", "dice_roller",
+                      "task_board", "whiteboard", "table_document",
+                      "rich_text_editor")
+#: Op-to-ack samples per example doc: single sets on the doc's root
+#: directory by the arm's own Container, each waited for before the next.
+CLIENT_C5_ACKS = 8
+#: Seeded top-up edits the arm may add to make kernel 3 or 5 launch.
+CLIENT_C5_TOPUP = 8
+#: Timed calls of ``apply_tick_runs`` and of kernel 4 on its tick.
+CLIENT_C5_REPS = 5
+#: Cut points per recording at which the debug tool's session is held to
+#: a truncated replay.
+CLIENT_C5_CUTS = 3
+#: ``apply_tick_runs`` on the card at tests/test_mergetree_runs.py's
+#: largest shape: 4 docs x 32 ops, 4 x 32 + 8 slots, runs of up to 8.
+RUNS_DOCS, RUNS_OPS, RUNS_R = 4, 32, 8
+
+
+def c5_doc(example: str) -> str:
+    return f"c5-{example.replace('_', '-')}"
+
+
+def http_get(url: str) -> tuple[bytes, float]:
+    """(body, ms) of one GET; a status other than 2xx raises."""
+    import urllib.request
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(url, timeout=120) as resp:
+        body = resp.read()
+    return body, 1e3 * (time.perf_counter() - t0)
+
+
+def runs_stream(rng, n_ops: int) -> list[dict]:
+    """A seeded sequenced merge stream of inserts, removes and annotates
+    (the shape of tests/test_mergetree_runs.py's streams)."""
+    from fluidframework_tpu_torch.ops import mergetree_kernel as mtk
+    ops, length, pool = [], 0, 0
+    for seq in range(1, n_ops + 1):
+        client, r = rng.randrange(4), rng.random()
+        if length > 24 and r < 0.25:
+            start = rng.randrange(length - 8)
+            end = start + rng.randint(1, 6)
+            ops.append(dict(kind=mtk.MT_REMOVE, pos=start, end=end,
+                            seq=seq, ref_seq=seq - 1, client=client))
+            length -= end - start
+        elif length > 24 and r < 0.40:
+            start = rng.randrange(length - 8)
+            ops.append(dict(kind=mtk.MT_ANNOTATE, pos=start,
+                            end=start + rng.randint(1, 6), seq=seq,
+                            ref_seq=seq - 1, client=client,
+                            prop_key=rng.randrange(2),
+                            prop_val=rng.randrange(1, 50)))
+        else:
+            tlen = rng.randint(1, 6)
+            ops.append(dict(kind=mtk.MT_INSERT, pos=rng.randint(0, length),
+                            seq=seq, ref_seq=seq - 1, client=client,
+                            pool_start=pool, text_len=tlen))
+            pool += tlen
+            length += tlen
+    return ops
+
+
+def runs_inputs(device) -> dict:
+    """One seeded tick for ``apply_tick_runs`` and for kernel 4: the
+    streams, their packed run batch and fresh states, on ``device``."""
+    import random
+
+    from fluidframework_tpu_torch.ops import mergetree_kernel as mtk
+    from fluidframework_tpu_torch.ops import mergetree_runs as mtr
+    rng = random.Random(116)
+    streams = [runs_stream(rng, RUNS_OPS) for _ in range(RUNS_DOCS)]
+    runs = [mtr.pack_runs(s, r_max=RUNS_R) for s in streams]
+    steps = max(len(r) for r in runs)
+    slots = 4 * RUNS_OPS + 8
+    return {"streams": streams, "steps": steps,
+            "state": lambda dev: mtk.init_state(RUNS_DOCS, slots,
+                                                device=dev),
+            "runs": lambda dev: mtr.make_run_batch(runs, RUNS_DOCS, steps,
+                                                   RUNS_R, device=dev),
+            "ops": mtk.make_merge_op_batch(streams, RUNS_DOCS, RUNS_OPS,
+                                           device=device)}
+
+
+def replay_and_debug(directory: pathlib.Path, live: str) -> dict:
+    """A recording's replay == its live clients' summary ``live`` (the
+    canonical form), and the debug tool's session, stepped to
+    CLIENT_C5_CUTS cut points, == the truncated replay at each."""
+    from fluidframework_tpu_torch.drivers.replay_driver import load_recorded
+    from fluidframework_tpu_torch.tools.debug_tool import load_session
+    from fluidframework_tpu_torch.tools.replay import (canonical,
+                                                       replay_summary)
+    messages, snapshot = load_recorded(directory)
+    t0 = time.perf_counter()
+    replayed = canonical(replay_summary(directory))
+    replay_s = time.perf_counter() - t0
+    check(replayed == live, f"client C5: the replay of {directory.name} != "
+          "its live clients' summary")
+    base = (snapshot or {}).get("sequence_number", 0)
+    seqs = [m.sequence_number for m in messages if m.sequence_number > base]
+    check(len(seqs) > CLIENT_C5_CUTS, f"client C5: {directory.name} holds "
+          f"{len(seqs)} ops past its base")
+    cuts = [seqs[len(seqs) * (i + 1) // (CLIENT_C5_CUTS + 1)]
+            for i in range(CLIENT_C5_CUTS)]
+    service, container = load_session(directory)
+    for cut in cuts:
+        service.play_to(cut)
+        check(canonical(container.summarize())
+              == canonical(replay_summary(directory, up_to_seq=cut)),
+              f"client C5: the debug session of {directory.name} at seq "
+              f"{cut} != the truncated replay")
+    return {"ops": len(messages), "replay_s": replay_s, "cuts": cuts}
+
+
+def fold_key_ops(ops) -> dict:
+    """The last-writer-wins fold of a map or directory channel's sequenced
+    key ops (set, delete, clear) by key name: a merge host map row."""
+    out: dict = {}
+    for op, _seq, _ref, _client in ops:
+        if op["type"] == "set":
+            out[op["key"]] = op["value"]
+        elif op["type"] == "delete":
+            out.pop(op["key"], None)
+        elif op["type"] == "clear":
+            out.clear()
+    return out
+
+
+def row_views(channel, merge_host):
+    """For a client channel the merge host keeps a row of: how to view the
+    channel, and how to read its row (by channel key) in the same form."""
+    from fluidframework_tpu_torch.dds.directory import SharedDirectory
+    from fluidframework_tpu_torch.dds.map import SharedMap
+    from fluidframework_tpu_torch.dds.matrix import SharedMatrix
+    from fluidframework_tpu_torch.dds.sequence import SharedString
+    if isinstance(channel, SharedString):
+        return (lambda c: c.get_text()), merge_host.text
+    if isinstance(channel, SharedMatrix):
+        return sparse_grid, \
+            lambda *key: dense_to_sparse(merge_host.matrix_grid(*key))
+    if isinstance(channel, (SharedMap, SharedDirectory)):
+        return (lambda c: dict(c.items())), merge_host.map_entries
+    fail(f"client C5: the merge host keeps a row of a "
+         f"{type(channel).__name__}")
+
+
+class DoorClients:
+    """Port Containers on ``client_door``'s documents through the
+    tinylicious driver, each with the service it runs over; ``close()``
+    closes every service opened."""
+
+    def __init__(self, stack) -> None:
+        from fluidframework_tpu_torch.drivers.tinylicious_driver import \
+            TinyliciousDocumentServiceFactory
+        self.service, self.door = stack.service, stack.door
+        self.factory = TinyliciousDocumentServiceFactory(port=self.door.port)
+        self.services: list = []
+
+    def track(self, svc):
+        self.services.append(svc)
+        return svc
+
+    def connect(self, doc: str) -> tuple:
+        from fluidframework_tpu_torch.runtime.container import Container
+        svc = self.track(self.factory(doc))
+        with svc.dispatch_lock:
+            container = Container.load(svc)
+        self.settled(svc, container, doc)
+        return svc, container
+
+    def head(self, doc: str) -> int:
+        return self.door.call(lambda: self.service.get_deltas(doc, 0)[-1]
+                              .sequence_number)
+
+    def settled(self, svc, container, doc: str) -> None:
+        at = self.head(doc)
+        wait_for(lambda: container.last_processed_seq >= at
+                 and not container.runtime.pending.has_pending,
+                 f"client C5: a Container on {doc} did not catch up")
+
+    def summary(self, svc, container, doc: str) -> dict:
+        self.settled(svc, container, doc)
+        with svc.dispatch_lock:
+            return container.summarize()
+
+    def close(self) -> None:
+        for svc in self.services:
+            svc.close()
+
+
+def c5_examples(dc: DoorClients, out: dict) -> dict:
+    """Every example's ``main`` over the door, then a port Container on
+    each doc: its runtime state == the example clients' (captured as each
+    session ends), CLIENT_C5_ACKS timed single ops, seeded top-up edits
+    where kernel 3 or 5 has not launched, and the merge host's device
+    rows held to each channel. Returns the Containers by doc."""
+    import importlib
+    import random
+
+    from fluidframework_tpu_torch.examples import host as example_host
+    from fluidframework_tpu_torch.tools.replay import canonical
+    real_open = example_host.open_document
+    seen: dict = {}
+
+    @contextlib.contextmanager
+    def capture(example, args, props=None):
+        with real_open(example, args, props) as session:
+            yield session
+            session.settle()
+            seen[args.doc] = [canonical(o.runtime.parent.container
+                                        .summarize()["runtime"])
+                              for o in (session.creator, session.joiner)]
+    example_host.open_document = capture
+    try:
+        for name in CLIENT_C5_EXAMPLES:
+            module = importlib.import_module(
+                f"fluidframework_tpu_torch.examples.{name}")
+            t0 = time.perf_counter()
+            module.main(["--port", str(dc.door.port), "--doc", c5_doc(name)])
+            out["examples"][name] = {"s": time.perf_counter() - t0}
+    finally:
+        example_host.open_document = real_open
+    clients: dict = {}
+    for name in CLIENT_C5_EXAMPLES:
+        doc = c5_doc(name)
+        check(len(seen.get(doc, ())) == 2 and seen[doc][0] == seen[doc][1],
+              f"client C5: {name}'s two example clients differ")
+        svc, container = clients[doc] = dc.connect(doc)
+        check(canonical(dc.summary(svc, container, doc)["runtime"])
+              == seen[doc][0], f"client C5: a Container loading {name}'s "
+              "doc != the example clients' state")
+        acks = []
+        for i in range(CLIENT_C5_ACKS):
+            with svc.dispatch_lock:
+                container.runtime.get_datastore("default").get_channel(
+                    "root").set("c5-acks", i)
+            t_sent = time.perf_counter()
+            wait_for(lambda: not container.runtime.pending.has_pending,
+                     f"client C5: an op on {doc} was not acked")
+            acks.append(time.perf_counter() - t_sent)
+        out["examples"][name]["ack_ms_p50"] = 1e3 * pct(acks, 50)
+    # Seeded top-up edits where the examples' own traffic left kernel 3
+    # (text flushes) or kernel 5 (matrix flushes with a structural op in
+    # flight) unlaunched.
+    rng = random.Random(1605)
+    topups = {"mergetree_blocks": 0, "matrix_tick": 0}
+    for kernel, example, edit in (
+            ("mergetree_blocks", "collab_text",
+             lambda ds: ds.get_channel("body").insert_text(
+                 0, "abcdefgh"[:rng.randint(1, 8)])),
+            ("matrix_tick", "table_document",
+             lambda ds: (ds.get_channel("grid").insert_rows(0, 1),
+                         ds.get_channel("grid").set_cell(
+                             0, 0, rng.randrange(1 << 20))))):
+        doc = c5_doc(example)
+        svc, container = clients[doc]
+        while (launch_counts()[kernel] == 0
+               and topups[kernel] < CLIENT_C5_TOPUP):
+            with svc.dispatch_lock:
+                edit(container.runtime.get_datastore("default"))
+            topups[kernel] += 1
+            dc.settled(svc, container, doc)
+    out["topup_edits"] = topups
+    out["device_rows"] = c5_device_rows(dc, clients)
+    return clients
+
+
+def c5_device_rows(dc: DoorClients, clients: dict) -> dict:
+    """The merge host's device rows of the example docs, held to the
+    Container's channel where the channel held nothing at attach and (a
+    directory) has no subdirectory; a map or directory row otherwise to
+    the last-writer-wins fold of its sequenced key ops by name. The merge
+    host builds a row from sequenced ops alone, so content written before
+    attach is not in it, and folds a directory's keys by name whatever
+    their path: both packages do (ROADMAP Queue C). A text or grid row
+    with content from before attach is counted, not held."""
+    from fluidframework_tpu_torch.dds.directory import SharedDirectory
+    from fluidframework_tpu_torch.dds.map import SharedMap
+    from fluidframework_tpu_torch.drivers.replay_driver import \
+        ReplayDocumentService
+    from fluidframework_tpu_torch.runtime.container import Container
+    service, door = dc.service, dc.door
+    merge_host = service.merge_host
+    rows = {"rows": 0, "equal_container": 0, "equal_key_fold": 0,
+            "written_before_attach": 0}
+    for doc, (svc, container) in clients.items():
+        dc.settled(svc, container, doc)
+        attach = door.call(lambda: service.get_latest_snapshot(doc))
+        at_attach = Container.load(ReplayDocumentService([], snapshot=attach),
+                                   mode="read")
+        for key in door.call(lambda: merge_host.channels(doc)):
+            with svc.dispatch_lock:
+                channel = container.runtime.get_datastore(
+                    key.datastore).get_channel(key.channel)
+                view, read = row_views(channel, merge_host)
+                now = view(channel)
+                keyed = isinstance(channel, (SharedMap, SharedDirectory))
+                flat = not isinstance(channel, SharedDirectory) \
+                    or not channel.root.subdirectories()
+            empty = view(at_attach.runtime.get_datastore(key.datastore)
+                         .get_channel(key.channel)) in ("", {}, (0, 0, {}))
+            got = door.call(lambda: read(*key))
+            rows["rows"] += 1
+            if empty and flat:
+                check(got == now, f"client C5: the merge host's {key} row "
+                      "!= the Container's channel")
+                rows["equal_container"] += 1
+            elif keyed:
+                ops = door.call(lambda: channel_ops(service, doc,
+                                                    key.channel))
+                check(got == fold_key_ops(ops), f"client C5: the merge "
+                      f"host's {key} row != the fold of its key ops")
+                rows["equal_key_fold"] += 1
+            else:
+                rows["written_before_attach"] += 1
+    check(rows["equal_container"] > 0, "client C5: no device row was held "
+          "to a Container")
+    return rows
+
+
+def c5_gateway(dc: DoorClients, live: dict, out: dict) -> None:
+    """The gateway over HTTP on localhost in front of the door: /healthz,
+    a token minted for each doc and verified by the riddler, and each
+    doc's /doc and /doc/view renders == the Container's summary."""
+    import html
+    import re
+
+    from fluidframework_tpu_torch.server.gateway import Gateway, serve
+    from fluidframework_tpu_torch.server.riddler import TenantManager
+    from fluidframework_tpu_torch.tools.replay import canonical
+    tenants = TenantManager()
+    tenant = tenants.create_tenant("c5")
+    server, thread = serve(Gateway("127.0.0.1", dc.door.port, "c5",
+                                   tenant.secret))
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    render_ms = []
+    try:
+        body, _ms = http_get(f"{url}/healthz")
+        check(json.loads(body) == {"ok": True},
+              f"client C5: gateway /healthz answered {body!r}")
+        for doc, summary in live.items():
+            body, _ms = http_get(f"{url}/token?doc={doc}")
+            claims = tenants.validate_token(json.loads(body)["token"],
+                                            document_id=doc)
+            check(claims["tenantId"] == "c5", f"client C5: token {claims}")
+            body, ms = http_get(f"{url}/doc/{doc}")
+            render_ms.append(ms)
+            check(canonical(json.loads(body)) == summary, f"client C5: "
+                  f"gateway /doc/{doc} != the Container's summary")
+            body, _ms = http_get(f"{url}/doc/{doc}/view")
+            state = re.search(r'<pre id="fluid-state">(.*)</pre>',
+                              body.decode(), re.S)
+            check(state is not None
+                  and canonical(json.loads(html.unescape(state.group(1))))
+                  == summary, f"client C5: gateway /doc/{doc}/view != the "
+                  "Container's summary")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(30)
+    out["gateway"] = {"docs": len(live), "render_ms_p50": pct(render_ms, 50),
+                      "render_ms_p99": pct(render_ms, 99)}
+
+
+def c5_agents(dc: DoorClients, clients: dict, root: pathlib.Path,
+              out: dict) -> None:
+    """The headless agents on the collab_text doc over the socket: its
+    author asks for help, two agent hosts pick both tasks under the agent
+    scheduler (each task claimed once), each winner's
+    ``HeadlessAgentRunner`` runs its agent, and the insights map == the
+    same agents run on a replay of the doc's recorded log."""
+    from fluidframework_tpu_torch.agents import (
+        INSIGHTS_CHANNEL, HeadlessAgentRunner, SpellCheckerAgent,
+        TextAnalyticsAgent)
+    from fluidframework_tpu_torch.drivers.network_driver import \
+        NetworkDocumentService
+    from fluidframework_tpu_torch.drivers.replay_driver import (
+        FileDocumentService, record_document)
+    from fluidframework_tpu_torch.protocol.messages import MessageType
+    from fluidframework_tpu_torch.runtime.agent_scheduler import \
+        AgentScheduler
+    from fluidframework_tpu_torch.runtime.container import Container
+    from fluidframework_tpu_torch.tools.replay import canonical
+    service, port = dc.service, dc.door.port
+    doc = c5_doc("collab_text")
+    author_svc, author = clients[doc]
+    agents = {"intelligence": TextAnalyticsAgent(),
+              "spell": SpellCheckerAgent()}
+    with author_svc.dispatch_lock:
+        author.delta_manager.submit(MessageType.REMOTE_HELP,
+                                    {"tasks": sorted(agents)},
+                                    author.allocate_client_seq())
+    control = dc.track(NetworkDocumentService("127.0.0.1", port, "_agent"))
+    wait_for(lambda: len(control.help_tasks(doc)) == len(agents),
+             "client C5: the foreman recorded no help tasks")
+    # The first host creates the scheduler's data store; the second loads
+    # it; then both pick every task at once and the sequencing decides.
+    hosts, claims = [], []
+    for h in range(2):
+        svc, container = dc.connect(doc)
+        with svc.dispatch_lock:
+            hosts.append((svc, container, AgentScheduler.get(container)))
+        dc.settled(svc, container, doc)
+    for h, (svc, container, scheduler) in enumerate(hosts):
+        with svc.dispatch_lock:
+            for task in sorted(agents):
+                scheduler.pick(task, lambda t=task, h=h: claims.append(
+                    (t, h)))
+    wait_for(lambda: len(claims) >= len(agents),
+             "client C5: the agent tasks were not claimed")
+    for svc, container, _s in hosts:
+        dc.settled(svc, container, doc)
+    check(sorted(t for t, _h in claims) == sorted(agents),
+          f"client C5: agent task claims {claims}, want each once")
+    for task, h in sorted(claims):
+        for svc, container, scheduler in hosts:
+            with svc.dispatch_lock:
+                check(scheduler.claimant(task) == hosts[h][1].client_id,
+                      f"client C5: the agent hosts disagree on {task}")
+        runner = HeadlessAgentRunner(
+            control, lambda d: NetworkDocumentService("127.0.0.1", port, d),
+            [agents[task]])
+        check(runner.run_once(doc) == 1, f"client C5: the {task} agent ran "
+              "no task")
+        dc.settled(author_svc, author, doc)
+    check(control.help_tasks(doc) == [], "client C5: help tasks left over")
+
+    def insights() -> dict:
+        with author_svc.dispatch_lock:
+            for ds in author.runtime.datastores.values():
+                if INSIGHTS_CHANNEL in ds.channel_ids():
+                    return dict(ds.get_channel(INSIGHTS_CHANNEL).items())
+        return {}
+    wait_for(lambda: sorted(insights()) == sorted(agents),
+             "client C5: the author never saw both insights")
+    directory = root / "agents-replay"
+    dc.door.call(lambda: record_document(
+        service, doc, directory, snapshot=service.get_latest_snapshot(doc)))
+    replayed = Container.load(FileDocumentService(directory), mode="read")
+    want = {task: agent.run(replayed) for task, agent in agents.items()}
+    check(canonical(insights()) == canonical(want), "client C5: the agents' "
+          "insights != the same agents on a replay of the recorded log")
+    out["agents"] = {"claims": sorted(claims), "insights": want}
+
+
+def c5_replays(dc: DoorClients, clients: dict, root: pathlib.Path,
+               out: dict) -> None:
+    """Each example doc recorded beside its live summary, then every
+    recording under ``root`` (C3's and C4's too) replayed and stepped
+    through the debug tool (``replay_and_debug``)."""
+    for doc, (svc, container) in clients.items():
+        live = dc.summary(svc, container, doc)
+        dc.door.call(lambda: record_live(dc.service, doc, live, root))
+    replays = {}
+    for live_file in sorted(root.glob("*.live.json")):
+        doc = live_file.name.removesuffix(".live.json")
+        replays[doc] = replay_and_debug(root / doc, live_file.read_text())
+    ops = sum(r["ops"] for r in replays.values())
+    replay_s = sum(r["replay_s"] for r in replays.values())
+    out["replay"] = {"docs": len(replays), "ops": ops, "seconds": replay_s,
+                     "replay_ops_per_s": ops / replay_s,
+                     "cuts": {d: r["cuts"] for d, r in replays.items()}}
+
+
+def c5_runs(device, keep: dict, out: dict) -> None:
+    """``apply_tick_runs`` on ``device`` at tests/test_mergetree_runs.py's
+    largest shape == kernel 4 on the same stream and == its own CPU run,
+    plane for plane; ``keep`` receives the inputs for their timing."""
+    import torch
+
+    from fluidframework_tpu_torch.ops import mergetree_cuda as mtc
+    from fluidframework_tpu_torch.ops import mergetree_kernel as mtk
+    from fluidframework_tpu_torch.ops import mergetree_runs as mtr
+    inputs = runs_inputs(device)
+    got = mtr.apply_tick_runs(inputs["state"](device), inputs["runs"](device))
+    flat = mtc.apply_tick_best(inputs["state"](device), inputs["ops"])
+    cpu = mtr.apply_tick_runs(inputs["state"]("cpu"), inputs["runs"]("cpu"))
+    for field in mtk.MergeState._fields:
+        check(torch.equal(getattr(got, field), getattr(flat, field)),
+              f"client C5: apply_tick_runs' {field} != kernel 4's")
+        check(torch.equal(getattr(got, field).cpu(), getattr(cpu, field)),
+              f"client C5: apply_tick_runs' {field} on the card != its "
+              "CPU run")
+    out["runs"] = {"docs": RUNS_DOCS, "ops": RUNS_OPS, "r": RUNS_R,
+                   "steps": inputs["steps"], "slots": 4 * RUNS_OPS + 8}
+    keep.update(inputs, device=device)
+
+
+def client_c5(stack, root: pathlib.Path, smi: str, keep: dict,
+              device) -> dict:
+    """The application tier on C1's stack (``client_door``): the example
+    apps over the socket (``c5_examples``), the gateway (``c5_gateway``),
+    the agents (``c5_agents``), the replay and debug path
+    (``c5_replays``), then ``apply_tick_runs`` (``c5_runs``)."""
+    from fluidframework_tpu_torch.tools.replay import canonical
+    out: dict = {"device": smi, "examples": {}}
+    dc = DoorClients(stack)
+    try:
+        clients = c5_examples(dc, out)
+        c5_gateway(dc, {doc: canonical(dc.summary(svc, c, doc))
+                        for doc, (svc, c) in clients.items()}, out)
+        c5_agents(dc, clients, root, out)
+        c5_replays(dc, clients, root, out)
+    finally:
+        dc.close()
+    quiesce(stack)
+    c5_runs(device, keep, out)
+    return out
+
+
+def quiesce(stack) -> None:
+    """Wait until ``client_door``'s tick loop has run 3 ticks in a row
+    with no kernel launch (the leaves of closed clients sequenced), so
+    that an arm's launches all fall inside it."""
+    def total() -> int:
+        counts = launch_counts()
+        return sum(counts[k] for k in ("map_fold", "sequencer_tick",
+                                       "mergetree_blocks", "mergetree_flat",
+                                       "matrix_tick"))
+    while True:
+        before, tick = total(), stack.ticking["ticks"]
+        wait_for(lambda: stack.ticking["ticks"] >= tick + 3
+                 or stack.errors, "client door: the tick loop stopped")
+        check(not stack.errors, f"client door: {stack.errors}")
+        if total() == before:
+            return
+
+
+def runs_timing(keep: dict) -> dict:
+    """``apply_tick_runs`` and kernel 4 timed on the same tick (device ms,
+    CUDA events): outside any arm, so these launches count nowhere."""
+    from fluidframework_tpu_torch.ops import mergetree_cuda as mtc
+    from fluidframework_tpu_torch.ops import mergetree_runs as mtr
+    dev = keep["device"]
+    state, runs, ops = keep["state"](dev), keep["runs"](dev), keep["ops"]
+    return {"runs_ms": cuda_time_ms(
+                lambda: mtr.apply_tick_runs(state, runs), CLIENT_C5_REPS),
+            "kernel4_ms": cuda_time_ms(
+                lambda: mtc.apply_tick_best(state, ops), CLIENT_C5_REPS)}
+
+
+def client_path_c(device, smi: str) -> dict:
+    """Client C: the port's own Containers served on the card, five arms,
+    each with its kernels' launches counted and every call's inputs kept
+    for the re-checks. C2-C4 run first (C3 and C4 record their documents
+    for C5), then C1 and C5 on one ``client_door`` stack."""
+    import shutil
+    import tempfile
+    arms: dict = {}
+    root = pathlib.Path(tempfile.mkdtemp(prefix="client_c5_"))
+    runs: dict = {}
+
+    def arm(name: str, drive, need) -> None:
         with phase(f"client {name.upper()}"):
             arms[name] = client_arm(name, drive, device)
         for kernel in need:
             check(arms[name]["counts"][kernel] > 0,
                   f"client {name.upper()} launched no {kernel}")
+    try:
+        arm("c2", client_c2, ("sequencer_tick",))
+        arm("c3", lambda d: client_c3(d, root),
+            ("sequencer_tick", "mergetree_blocks"))
+        arm("c4", lambda d: client_c4(d, root),
+            ("sequencer_tick", "matrix_tick"))
+        with client_door(device) as stack:
+            arm("c1", lambda d: client_c1(stack), ("sequencer_tick",))
+            arm("c5", lambda d: client_c5(stack, root, smi, runs, d),
+                ("sequencer_tick", "mergetree_blocks", "matrix_tick"))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    timing = runs_timing(runs)
+    arms["c5"]["out"]["runs"].update(timing)
+    print("client_c5_runs: " + json.dumps({
+        "device": smi, **arms["c5"]["out"]["runs"]}), flush=True)
     return arms
 
 
@@ -8969,14 +9588,15 @@ def main() -> int:
         planes["net_n"] = net_path_n(device, planes.pop("net_split"),
                                      trace=trace_net)
     with phase("client C"):
-        client = client_path_c(device)
+        client = client_path_c(device, smi)
     print("client: " + json.dumps({
         "device": smi,
         **{name: {k: arm["out"].get(k) for k in (
             "merged_ops_per_sec", "merged_ops_per_s", "ack_ms_p50",
             "ack_ms_p99", "join_s", "late_load_s", "ops_sent",
             "ops_seen_total", "ops", "clients", "rounds", "seconds",
-            "launches") if k in arm["out"]}
+            "launches", "examples", "gateway", "replay", "runs")
+            if k in arm["out"]}
            for name, arm in client.items()}}), flush=True)
     for name, arm in client.items():
         planes[f"client_{name}"] = arm
@@ -9078,8 +9698,10 @@ def main() -> int:
     plane_checks: dict = {}
     recheck_s: dict = {}
     # Mega A's deli calls at thousands of lanes run a plain version of
-    # about a second: each shape's first and last call held to it.
-    slow_plain = {"mega_a"}
+    # about a second: each shape's first and last call held to it. Client
+    # C2's (the load profile's ~1,000 pumps at a few shapes) likewise: the
+    # plain deli's host time on every call was 22-29 s of the re-checks.
+    slow_plain = {"mega_a", "client_c2"}
     for path_name, (kept, _counts) in plane_paths.items():
         for name in ("map_fold", "sequencer_tick", "mergetree_blocks",
                      "mergetree_flat", "matrix_tick"):

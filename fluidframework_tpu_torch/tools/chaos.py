@@ -2149,6 +2149,76 @@ def run_poison_quarantine(workdir: str, num_docs: int = 4, k: int = 16,
     return {"scenario": "poison_quarantine", **report}
 
 
+def run_reconnect_storm(n_clients: int = 1000,
+                        connect_rate_per_s: float = 100.0,
+                        connect_burst: float = 50.0,
+                        seed: int = 0,
+                        max_sim_s: float = 300.0) -> dict:
+    """Reconnect-storm class, acceptance bar (c): ``n_clients`` killed at
+    the same instant all redial at t=0 against a token-bucket front door.
+    Backoff + full jitter (honoring the bucket's retry_after_s hints)
+    must (1) converge every client, (2) in bounded time, (3) with the
+    post-wave connect-attempt peak rate under the admission limit.
+    Simulated clock — deterministic per seed, no sockets, no sleeping."""
+    import heapq
+
+    from ..drivers.utils import ReconnectPolicy
+    from ..server.riddler import AdmissionController
+
+    sim = {"now": 0.0}
+    admission = AdmissionController(
+        connect_rate_per_s=connect_rate_per_s,
+        connect_burst=connect_burst,
+        clock=lambda: sim["now"])
+    policies = [ReconnectPolicy(base_s=0.5, max_s=30.0, jitter=0.9,
+                                seed=seed * 1_000_003 + c)
+                for c in range(n_clients)]
+    # Everyone attempts at the same instant — the worst case the
+    # admission limit exists for.
+    events = [(0.0, c, 0) for c in range(n_clients)]
+    heapq.heapify(events)
+    attempt_times: list[float] = []
+    connected_at: dict[int, float] = {}
+    while events:
+        t, c, attempt = heapq.heappop(events)
+        if t > max_sim_s:
+            raise AssertionError(
+                f"storm did not converge within {max_sim_s}s: "
+                f"{len(connected_at)}/{n_clients} connected")
+        sim["now"] = t
+        attempt_times.append(t)
+        retry = admission.admit_connect("tenant", f"client-{c}")
+        if retry is None:
+            connected_at[c] = t
+        else:
+            heapq.heappush(
+                events, (t + policies[c].next_delay(attempt, retry),
+                         c, attempt + 1))
+    makespan = max(connected_at.values())
+    # Per-second attempt histogram AFTER the t=0 thundering herd: jitter
+    # must hold every later wave under the front door's admission limit
+    # (burst + 1s of refill — the most the bucket can take in a window).
+    window_limit = connect_burst + connect_rate_per_s
+    buckets: dict[int, int] = {}
+    for t in attempt_times:
+        if t >= 1.0:
+            buckets[int(t)] = buckets.get(int(t), 0) + 1
+    peak_after_wave = max(buckets.values(), default=0)
+    assert len(connected_at) == n_clients
+    assert peak_after_wave <= window_limit, (peak_after_wave,
+                                             window_limit)
+    # Bounded recovery: within a small factor of the ideal drain time
+    # (n/rate) plus one max backoff of jitter spread.
+    ideal = n_clients / connect_rate_per_s
+    assert makespan <= 3.0 * ideal + 30.0, (makespan, ideal)
+    return {"scenario": "reconnect_storm", "n_clients": n_clients,
+            "makespan_s": round(makespan, 2),
+            "ideal_drain_s": round(ideal, 2),
+            "attempts_total": len(attempt_times),
+            "peak_attempts_per_s_after_wave": peak_after_wave,
+            "window_limit": window_limit}
+
+
 def main(argv=None) -> None:
     import argparse
 

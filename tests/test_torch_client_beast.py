@@ -1,0 +1,10 @@
+"""The reference's ``tests/test_beast.py`` run against the port: the
+corpus-driven many-client farm through the merge host, each case with
+the reference's own assertions and marks (``torch_reference``)."""
+
+from torch_reference import port_reference
+
+#: The port builds its device host on the card unless asked.
+ADAPT = [("KernelMergeHost(", 'KernelMergeHost(device="cpu", ')]
+
+port_reference("test_beast", globals(), adapt=ADAPT)

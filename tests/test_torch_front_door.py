@@ -10,9 +10,11 @@ localhost sockets: each package's ``AlfredServer`` serves an assembly
 with a pinned service clock on an event-loop thread, one scripted raw
 client drives it, and every frame the client reads must be byte-equal
 (storm acks are compared by rid and rows: their ``dw`` is thread-timed).
-Where a case drives a client stack, it is the reference's JAX-free
-client (``drivers/local_driver``, ``drivers/network_driver``,
-``runtime/container``, ``dds/map``) against each package's server.
+Where a case drives a client stack, it runs twice: once with the
+reference's JAX-free client (``drivers/local_driver``,
+``drivers/network_driver``, ``runtime/container``, ``dds/map``) against
+each package's server, and once (``*_own_client``) with each package's
+own client against its own server.
 """
 
 from __future__ import annotations
@@ -47,6 +49,10 @@ from fluidframework_tpu.server import read_replica as j_rr
 from fluidframework_tpu.server import routerlicious as j_rl
 from fluidframework_tpu.server import sequencer as j_seq
 from fluidframework_tpu.server import storm as j_storm
+from fluidframework_tpu_torch.dds.map import SharedMap as t_SharedMap
+from fluidframework_tpu_torch.drivers import network_driver as t_network
+from fluidframework_tpu_torch.drivers.local_driver import (
+    LocalDocumentService as t_LocalDocumentService)
 from fluidframework_tpu_torch.native import fanout as t_fanout
 from fluidframework_tpu_torch.protocol import codec as t_codec
 from fluidframework_tpu_torch.protocol import messages as t_messages
@@ -59,6 +65,8 @@ from fluidframework_tpu_torch.server import native_bus as t_nbus
 from fluidframework_tpu_torch.server import read_replica as t_rr
 from fluidframework_tpu_torch.server import routerlicious as t_rl
 from fluidframework_tpu_torch.server import sequencer as t_seq
+from fluidframework_tpu_torch.runtime.container import (
+    Container as t_Container)
 from fluidframework_tpu_torch.server import storm as t_storm
 
 PKG = {
@@ -76,6 +84,19 @@ PKG = {
         module="fluidframework_tpu_torch.server.alfred"),
 }
 SIDES = ("jax", "torch")
+
+
+def client_stack(side: str, own: bool) -> SimpleNamespace:
+    """The client a case drives against ``side``'s server: the
+    reference's, or (``own``) the package's own."""
+    if own and side == "torch":
+        return SimpleNamespace(
+            Container=t_Container, LocalDocumentService=t_LocalDocumentService,
+            SharedMap=t_SharedMap, network=t_network)
+    from fluidframework_tpu.drivers import network_driver
+    return SimpleNamespace(
+        Container=Container, LocalDocumentService=LocalDocumentService,
+        SharedMap=SharedMap, network=network_driver)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -284,24 +305,23 @@ def test_native_fanout_builds_here():
     assert t_fanout.MAX_QUEUE == j_fanout.MAX_QUEUE
 
 
-def _make_doc(service, doc_id):
-    container = Container.create_detached(
-        LocalDocumentService(service, doc_id))
+def _make_doc(service, doc_id, C):
+    container = C.Container.create_detached(
+        C.LocalDocumentService(service, doc_id))
     ds = container.runtime.create_datastore("default")
-    ds.create_channel("root", SharedMap.channel_type)
+    ds.create_channel("root", C.SharedMap.channel_type)
     container.attach()
     return container
 
 
-@pytest.mark.parametrize("force_python", [True, False])
-def test_service_broadcast_through_fanout(force_python):
+def _broadcast_through_fanout(force_python, own):
     def scenario(side):
-        P = PKG[side]
+        P, C = PKG[side], client_stack(side, own)
         service = pin(P.rl.RouterliciousService(
             fanout=P.fanout.make_fanout(force_python)))
         assert service.fanout.is_native is (not force_python)
-        c1 = _make_doc(service, "doc")
-        c2 = Container.load(LocalDocumentService(service, "doc"))
+        c1 = _make_doc(service, "doc", C)
+        c2 = C.Container.load(C.LocalDocumentService(service, "doc"))
         m1 = c1.runtime.get_datastore("default").get_channel("root")
         m2 = c2.runtime.get_datastore("default").get_channel("root")
         m1.set("x", 1)
@@ -316,6 +336,16 @@ def test_service_broadcast_through_fanout(force_python):
                 sorted(m1.items()), c1.summarize()]
 
     both(scenario)
+
+
+@pytest.mark.parametrize("force_python", [True, False])
+def test_service_broadcast_through_fanout(force_python):
+    _broadcast_through_fanout(force_python, own=False)
+
+
+@pytest.mark.parametrize("force_python", [True, False])
+def test_service_broadcast_through_fanout_own_client(force_python):
+    _broadcast_through_fanout(force_python, own=True)
 
 
 # -- the shuttle bus (tests/test_native_bus.py) -------------------------------
@@ -398,17 +428,15 @@ def test_shuttle_wire_codec_roundtrips_protocol_objects():
     both(scenario)
 
 
-def test_service_end_to_end_on_native_bus():
+def _end_to_end_on_native_bus(own):
     def scenario(side):
-        P = PKG[side]
+        P, C = PKG[side], client_stack(side, own)
         bus = P.nbus.make_message_bus()
         assert isinstance(bus, P.nbus.NativeMessageBus)
         service = pin(P.rl.RouterliciousService(bus=bus))
-        c1 = Container.create_detached(LocalDocumentService(service, "doc"))
-        ds = c1.runtime.create_datastore("default")
-        ds.create_channel("root", SharedMap.channel_type)
-        c1.attach()
-        c2 = Container.load(LocalDocumentService(service, "doc"))
+        c1 = _make_doc(service, "doc", C)
+        ds = c1.runtime.get_datastore("default")
+        c2 = C.Container.load(C.LocalDocumentService(service, "doc"))
         ds.get_channel("root").set("a", 1)
         c2.runtime.get_datastore("default").get_channel("root").set("b", 2)
         root1 = ds.get_channel("root")
@@ -420,6 +448,14 @@ def test_service_end_to_end_on_native_bus():
                                  service.get_deltas("doc", 0)]]
 
     both(scenario)
+
+
+def test_service_end_to_end_on_native_bus():
+    _end_to_end_on_native_bus(own=False)
+
+
+def test_service_end_to_end_on_native_bus_own_client():
+    _end_to_end_on_native_bus(own=True)
 
 
 # -- alfred over a real localhost socket --------------------------------------
@@ -656,19 +692,13 @@ def _spawn_alfred(module, *args):
     return proc, int(line.split()[1])
 
 
-def test_viewer_stream_over_the_wire():
-    """tests/test_broadcaster.py's wire case against each package's
-    standalone front door: a ``mode="viewer"`` hello, the live ``ops``
-    stream, and the ``get_deltas`` + ``viewer_resume`` resync dance,
-    through the reference's network driver."""
+def _viewer_stream_over_the_wire(own):
     import time
 
-    from fluidframework_tpu.drivers.network_driver import (
-        NetworkDocumentService,
-        ViewerStream,
-    )
-
     def scenario(side):
+        net = client_stack(side, own).network
+        NetworkDocumentService, ViewerStream = (net.NetworkDocumentService,
+                                                net.ViewerStream)
         proc, port = _spawn_alfred(PKG[side].module, "--no-merge-host")
         try:
             svc = NetworkDocumentService("127.0.0.1", port, "live-doc")
@@ -679,7 +709,8 @@ def test_viewer_stream_over_the_wire():
             writer_svc = NetworkDocumentService("127.0.0.1", port,
                                                 "live-doc")
             writer = writer_svc.connect(lambda m: None)
-            writer.submit([_doc_message(1, {"k": 1})])
+            writer.submit([_doc_message(1, {"k": 1},
+                                        PKG[side] if own else None)])
             deadline = time.monotonic() + 30
             while stream.stats["ops"] == 0 \
                     and time.monotonic() < deadline:
@@ -700,6 +731,19 @@ def test_viewer_stream_over_the_wire():
             proc.wait(timeout=10)
 
     both(scenario)
+
+
+def test_viewer_stream_over_the_wire():
+    """tests/test_broadcaster.py's wire case against each package's
+    standalone front door: a ``mode="viewer"`` hello, the live ``ops``
+    stream, and the ``get_deltas`` + ``viewer_resume`` resync dance,
+    through the reference's network driver."""
+    _viewer_stream_over_the_wire(own=False)
+
+
+def test_viewer_stream_over_the_wire_own_client():
+    """The same through each package's own network driver."""
+    _viewer_stream_over_the_wire(own=True)
 
 
 def test_standalone_alfred_with_native_hops_on_cpu():

@@ -65,7 +65,15 @@ def test_importing_every_port_module_loads_no_jax_or_reference():
                  "dds.shared_object", "dds.sequence", "dds.intervals",
                  "dds.tree", "protocol.quorum", "protocol.handler",
                  "drivers.network_driver", "drivers.virtualized_driver",
-                 "server.local_server", "tools.load_test"):
+                 "server.local_server", "tools.load_test",
+                 "framework.data_object", "framework.undo_redo",
+                 "runtime.agent_scheduler", "agents.headless",
+                 "agents.intelligence", "examples.host",
+                 "examples.rich_text_editor", "examples.table_document",
+                 "drivers.replay_driver", "drivers.debug_driver",
+                 "tools.replay", "tools.debug_tool",
+                 "tools.record_goldens", "server.gateway",
+                 "ops.mergetree_runs"):
         assert f"fluidframework_tpu_torch.{name}" in modules
     assert [m for m in modules if _forbidden(m)] == []
 
@@ -117,8 +125,9 @@ def test_reference_module_names_are_caught(tmp_path):
 def test_child_command_lines_name_the_port(monkeypatch, tmp_path):
     """Every child command line the port builds (the launcher's follower
     and replica children, the chaos harness's serving lives) runs a
-    module of ``fluidframework_tpu_torch``, and so does the ``python -m``
-    line the load harness documents."""
+    module of ``fluidframework_tpu_torch``, and so does every ``python
+    -m`` line that the load harness, the examples, the gateway and the
+    replay tools document."""
     from fluidframework_tpu_torch.tools import chaos, launch_cluster
 
     seen: list = []
@@ -144,9 +153,18 @@ def test_child_command_lines_name_the_port(monkeypatch, tmp_path):
                                       None, None, 10.0, "cpu")):
         with pytest.raises(_Spawned):
             spawn()
-    from fluidframework_tpu_torch.tools import load_test
-    run_lines = re.findall(r"python -m (\S+) (.*)", load_test.__doc__)
-    assert run_lines
+    documented = ["tools.load_test", "server.gateway", "tools.debug_tool",
+                  "tools.record_goldens"] + [
+        f"examples.{name}" for name in (
+            "__init__", "clicker", "collab_text", "dice_roller",
+            "task_board", "whiteboard", "table_document",
+            "rich_text_editor")]
+    run_lines = []
+    for name in documented:
+        module = importlib.import_module(
+            "fluidframework_tpu_torch." + name.removesuffix(".__init__"))
+        run_lines += re.findall(r"python -m (\S+) ?(.*)", module.__doc__)
+    assert len(run_lines) >= 12
     for module, args in run_lines:
         seen.append(["python", "-m", module, *args.split()])
     assert len(seen) == 4 + len(run_lines)

@@ -22,6 +22,7 @@ from __future__ import annotations
 import ast
 import re
 import sys
+import textwrap
 import types
 from pathlib import Path
 
@@ -54,22 +55,30 @@ def ported_source(name: str, adapt=()) -> str:
 
 def ported_functions(name: str, functions: list[str]) -> types.ModuleType:
     """The named functions of ``tests/<name>.py`` and its imports of
-    the reference package, run against the port."""
+    the reference package, run against the port. ``Class.method`` names
+    a method, which the module holds as a function of its own name."""
     src = (TESTS / f"{name}.py").read_text()
     tree = ast.parse(src)
     parts = [ast.get_source_segment(src, node) for node in tree.body
              if isinstance(node, ast.ImportFrom) and node.module
              and _REFERENCE.match(node.module)]
-    parts += [ast.get_source_segment(src, node) for node in tree.body
-              if isinstance(node, ast.FunctionDef)
-              and node.name in functions]
+    scopes = {"": tree.body} | {node.name: node.body for node in tree.body
+                                if isinstance(node, ast.ClassDef)}
+    for qualname in functions:
+        scope, _, function = qualname.rpartition(".")
+        parts += [textwrap.dedent(" " * node.col_offset
+                                  + ast.get_source_segment(src, node))
+                  for node in scopes[scope]
+                  if isinstance(node, ast.FunctionDef)
+                  and node.name == function]
     key = f"_torch_reference_{name}_" + "_".join(sorted(functions))
     module = types.ModuleType(key)
     exec(compile(_REFERENCE.sub("fluidframework_tpu_torch",
                                 "\n\n".join(parts)),
                  f"{TESTS / name}.py: {', '.join(functions)}", "exec",
                  dont_inherit=True), module.__dict__)
-    assert all(hasattr(module, f) for f in functions), (name, functions)
+    assert all(hasattr(module, f.rpartition(".")[2])
+               for f in functions), (name, functions)
     sys.modules[key] = module
     return module
 
