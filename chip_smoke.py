@@ -58,6 +58,13 @@ equality: every plane is integer), then drives the port's main paths:
   mesh of 4 shards (one 65,536-slot document, held to kernel 4 and the
   flat plain tick) and a merge host whose growing config-2 document
   migrates into its sharded pool;
+* the entry point (entry E, ``fluidframework_tpu_torch/entry.py``):
+  ``entry()``'s fused tick (kernel 2, kernel 4, the plain map tick) at
+  64 docs and at config 3's 10,240, each against its CPU run and each
+  leg timed; and ``dryrun_multichip`` on 4 and 8 virtual shards of the
+  card (the docs-sharded tick, one document's segment axis sharded, the
+  sharded mixed serving loop: kernels 1-5), report for report equal to
+  the same dry run on the CPU;
 * the device-pool planes: tiered residency at the reference
   ``bench_residency_churn``'s width (a 10,000-slot pool, 10,800 docs
   ever served, 30 churn frames; every doc's map, from its device row or
@@ -9448,6 +9455,158 @@ def client_path_c(device, smi: str) -> dict:
     return arms
 
 
+# -- entry E: the entry point ---------------------------------------------------
+
+#: BASELINE.json config 3's document count: the entry tick's full width.
+ENTRY_DOCS = 10_240
+#: Virtual shards of the card in the dry runs (the reference's main: 8).
+ENTRY_SHARDS = (4, 8)
+ENTRY_REPS = 20
+#: Kernels 1-5: the dry run launches 2 and 4 (its tick, the segment
+#: axis's yardstick) and 1, 2, 3 and 5 (the serving loop's joins and
+#: mixed tick); the entry tick launches 2 and 4.
+ENTRY_KERNELS = ("map_fold", "sequencer_tick", "mergetree_blocks",
+                 "mergetree_flat", "matrix_tick")
+
+
+def report_err(want, got, what: str) -> int:
+    """Largest |err| between two reports (nested dicts, lists, tuples,
+    numpy arrays and host values), failing on any difference: the same
+    keys and lengths, every array of the same dtype and shape, every
+    other value equal."""
+    import numpy as np
+    if isinstance(want, dict):
+        check(isinstance(got, dict) and sorted(want) == sorted(got),
+              f"{what}: keys {sorted(want)} != {sorted(got)}")
+        return max([report_err(want[k], got[k], f"{what}.{k}")
+                    for k in want], default=0)
+    if isinstance(want, (tuple, list)):
+        check(type(got) is type(want) and len(got) == len(want),
+              f"{what}: {type(want).__name__}[{len(want)}] != "
+              f"{type(got).__name__}")
+        return max([report_err(x, y, f"{what}[{i}]")
+                    for i, (x, y) in enumerate(zip(want, got))], default=0)
+    if isinstance(want, np.ndarray):
+        check(isinstance(got, np.ndarray) and got.dtype == want.dtype
+              and got.shape == want.shape, f"{what}: dtype or shape")
+        err = int(np.abs(want.astype(np.int64)
+                         - got.astype(np.int64)).max()) if want.size else 0
+        check(err == 0, f"{what}: max |err| {err}")
+        return err
+    check(got == want, f"{what}: {got!r} != {want!r}")
+    return 0
+
+
+def entry_run(name: str, drive, runs: dict):
+    """``drive()`` with every launch counter at 0 just before it and read
+    just after, and every call of kernels 1-5 kept (``runs[name]``)."""
+    import torch
+
+    from fluidframework_tpu_torch.ops import matrix_cuda as mxc
+    kept: dict = {"matrix_tick": {}}
+    launch_counts_reset()
+    with plane_recording(kept), \
+            recording(mxc, "apply_tick_best", kept["matrix_tick"], mxc.tick):
+        out = drive()
+        torch.cuda.synchronize()
+    runs[name] = {"counts": launch_counts(), "kept": kept}
+    return out
+
+
+def entry_path(device) -> dict:
+    """Entry E: the port's entry point (``fluidframework_tpu_torch/
+    entry.py``) as a user calls it, on the card by default.
+
+    * ``entry()``'s 64-doc tick against ``entry("cpu")``, every plane;
+    * the tick at ENTRY_DOCS docs (the entry's other widths), against its
+      CPU run; each leg timed (kernel 2, kernel 4, the plain map tick)
+      and the whole tick;
+    * ``dryrun_multichip(n)`` on ENTRY_SHARDS virtual shards of the card
+      against the same dry run on the CPU, report for report.
+
+    Each run's launches are counted from 0; then every call of kernels
+    1-5 it made is held to the plain version in both variants and timed
+    (``plane_recheck``)."""
+    import torch
+
+    from fluidframework_tpu_torch import entry as te
+    from fluidframework_tpu_torch.ops import map_kernel as mk
+    from fluidframework_tpu_torch.parallel.mesh import gather_rows
+    t0 = time.perf_counter()
+    runs: dict = {}
+    fn, args = te.entry()
+    check(args[0].seq.device.type == "cuda", "entry() did not default to "
+          "the card")
+    got = entry_run("entry_64", lambda: fn(*args), runs)
+    cpu_fn, cpu_args = te.entry("cpu")
+    err = report_err(gather_rows([cpu_fn(*cpu_args)]), gather_rows([got]),
+                     "entry tick (64 docs)")
+    big = te._example_tick(ENTRY_DOCS, device=device)
+    got = entry_run(f"entry_{ENTRY_DOCS}", lambda: fn(*big), runs)
+    err = max(err, report_err(
+        gather_rows([fn(*te._example_tick(ENTRY_DOCS, device="cpu"))]),
+        gather_rows([got]), f"entry tick ({ENTRY_DOCS} docs)"))
+    for name in (f"entry_{ENTRY_DOCS}", "entry_64"):
+        counts = runs[name]["counts"]
+        check(counts["sequencer_tick"] == 1 and counts["mergetree_flat"] == 1
+              and counts["map_fold"] == counts["mergetree_blocks"]
+              == counts["matrix_tick"] == 0,
+              f"{name} launched {counts}")
+    map_state, map_ops = big[4], big[5]
+    legs = {"map_tick": {"shape": [*map_ops.kind.shape,
+                                   map_state.value.shape[1]],
+                         "ms": cuda_time_ms(
+                             lambda: mk.apply_tick(map_state, map_ops),
+                             ENTRY_REPS)},
+            "tick_ms": cuda_time_ms(lambda: fn(*big), ENTRY_REPS)}
+    del big, got
+    t_tick = time.perf_counter() - t0
+    dry_s = {}
+    for n in ENTRY_SHARDS:
+        t1 = time.perf_counter()
+        name = f"entry_dryrun_{n}"
+        card = entry_run(name, lambda n=n: te.dryrun_multichip(n), runs)
+        err = max(err, report_err(te.dryrun_multichip(n, "cpu"), card,
+                                  f"dry run on {n} shards"))
+        counts = runs[name]["counts"]
+        for kernel in ENTRY_KERNELS:
+            check(counts[kernel] > 0, f"{name} launched no {kernel}")
+        dry_s[n] = time.perf_counter() - t1
+    t_recheck = time.perf_counter()
+    checks: dict = {}
+    for name, run in runs.items():
+        for kernel, by_shape in run["kept"].items():
+            got = {sh: len(c) for sh, c in by_shape.items()}
+            want = {sh: n for sh, n in run["counts"]["shapes"][kernel].items()
+                    if n}
+            check(got == want, f"{kernel} ({name}): launches by shape "
+                  f"{want}, calls kept {got}")
+            rec = plane_recheck(device, kernel, name, run["kept"])
+            if rec is not None:
+                checks.setdefault(kernel, {})[name] = {
+                    k: v for k, v in rec.items() if k != "by_call"}
+                err = max(err, rec["max_abs_err"])
+        run["kept"].clear()
+    out = {"docs": ENTRY_DOCS, "shards": list(ENTRY_SHARDS),
+           "max_abs_err": err,
+           "launches": {name: {k: run["counts"][k] for k in ENTRY_KERNELS}
+                        for name, run in runs.items()},
+           "legs": {**legs, **{
+               kernel: {k: checks[kernel][f"entry_{ENTRY_DOCS}"][k]
+                        for k in checks[kernel][f"entry_{ENTRY_DOCS}"]
+                        if k in ("shape", "variant", "ms", "ms_global",
+                                 "ms_warp", "ms_thread", "plain_ms",
+                                 "bound_ms", "bound_by")}
+               for kernel in ("sequencer_tick", "mergetree_flat")}},
+           "seconds": {"ticks": t_tick, **{f"dryrun_{n}": s
+                                           for n, s in dry_s.items()},
+                       "re-checks": time.perf_counter() - t_recheck}}
+    print("entry: " + json.dumps(out), flush=True)
+    torch.cuda.synchronize()
+    return {"counts": {name: run["counts"] for name, run in runs.items()},
+            "checks": checks, "out": out}
+
+
 def main() -> int:
     try:
         import torch
@@ -9569,6 +9728,8 @@ def main() -> int:
         del mixed_a["record"], mixed_a["serving"], mixed_a["outs"]
     with phase("sequence-parallel"):
         seqpar = seqpar_path(device)
+    with phase("entry E"):
+        entry_e = entry_path(device)
     with phase("planes"):
         planes = planes_path(device)
     with phase("history H"):
@@ -9844,6 +10005,8 @@ def main() -> int:
                "mixed_a": mixed_a["counts"].get(name, 0),
                "mixed_b": mixed_b["counts"].get(name, 0),
                "seqpar_host": seqpar["host"]["launches"].get(name, 0),
+               **{run: counts.get(name, 0)
+                  for run, counts in entry_e["counts"].items()},
                "res_a": planes["res_a"]["counts"].get(name, 0),
                "res_r": planes["res_r"]["counts"].get(name, 0),
                "res_s": planes["res_s"]["counts"].get(name, 0),
@@ -9994,6 +10157,14 @@ def main() -> int:
                 mixed_b["counts"]["variants"][name]
         if name == "mergetree_flat":
             entry["seq_parallel_yardstick"] = seqpar["tick"]
+        if name in entry_e["checks"]:
+            entry["entry_e"] = entry_e["checks"][name]
+            entry["max_abs_err"] = max(
+                [entry["max_abs_err"]]
+                + [r["max_abs_err"] for r in entry_e["checks"][name].values()])
+            for run, counts in entry_e["counts"].items():
+                if counts["variants"][name]:
+                    entry["variant_launches"][run] = counts["variants"][name]
         if name in plane_checks:
             entry["planes"] = plane_checks[name]
             entry["max_abs_err"] = max(
