@@ -1,0 +1,8 @@
+"""leg_ms.text: device ms of the tick's text leg: the mean, over the
+marked ticks of a ``--trace 1`` run, of the interval between the CUDA
+events the tick's ``mark`` hook records before and after it."""
+
+
+def read(run: dict):
+    ms = run["legs"].get("text")
+    return sum(ms) / len(ms) if ms else None

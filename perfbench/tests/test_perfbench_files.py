@@ -1,0 +1,90 @@
+"""``BENCHMARK.json`` and the files it names: names and units in the
+allowed characters, every metric's layer and end-to-end metric present,
+and every file a cell or metric needs found by name."""
+
+from __future__ import annotations
+
+import json
+import pathlib
+import re
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parents[2]
+
+NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.\-]{0,63}$")
+UNIT = re.compile(r"^[A-Za-z0-9_/%.\-]{1,16}$")
+BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
+PB = ROOT / "perfbench"
+
+
+def test_top_level_keys():
+    assert set(BENCH) == {"command", "paths", "run_seconds", "configs",
+                          "workloads", "end_to_end", "per_layer"}
+    assert BENCH["paths"] == ["perfbench"]
+    assert 1 <= BENCH["run_seconds"] <= 51
+    assert len((ROOT / "BENCHMARK.json").read_bytes()) <= 64 * 1024
+
+
+@pytest.mark.parametrize("group", ["configs", "workloads", "end_to_end",
+                                   "per_layer"])
+def test_names_and_units(group):
+    names = [e["name"] for e in BENCH[group]]
+    assert len(names) == len(set(names))
+    for e in BENCH[group]:
+        assert NAME.match(e["name"]), e["name"]
+        if "unit" in e:
+            assert UNIT.match(e["unit"]), e["unit"]
+            assert e["better"] in ("lower", "higher")
+        for key in ("why", "layer", "source"):
+            if key in e:
+                assert 1 <= len(e[key]) <= 200 and "\n" not in e[key]
+
+
+def test_end_to_end_bounds():
+    names = {m["name"]: m for m in BENCH["end_to_end"]}
+    assert "setup_s" in names
+    for m in BENCH["end_to_end"]:
+        assert 0.01 <= m["bound"] <= 0.25
+        assert m["source"] in ("host_clock", "device_trace")
+
+
+def test_per_layer_metrics_move_reported_metrics():
+    e2e = {m["name"]: m for m in BENCH["end_to_end"]}
+    cells = {w["name"] for w in BENCH["workloads"]}
+    for m in BENCH["per_layer"]:
+        assert m["moves"] in e2e
+        assert m["source"] in ("device_trace", "program_span",
+                               "program_counter", "host_clock")
+        for cell in m.get("workloads", cells):
+            assert cell in cells
+            assert cell in e2e[m["moves"]].get("workloads", cells)
+        assert (PB / "metrics" / f"{m['name']}.py").is_file()
+
+
+@pytest.mark.parametrize("cell", [w["name"] for w in BENCH["workloads"]])
+def test_cell_files(cell):
+    entry = next(w for w in BENCH["workloads"] if w["name"] == cell)
+    assert entry["chips"] == 1
+    work = json.loads((PB / "workloads" / f"{cell}.json").read_text())
+    assert work["config"] == entry["config"]
+    config = json.loads((PB / "configs" / f"{entry['config']}.json")
+                        .read_text())
+    for fam in config["families"]:
+        assert fam in work["traffic"]
+        for kind in ("traffic", "reference", "readout"):
+            assert (PB / kind / f"{fam}.py").is_file()
+    reported = [m for m in BENCH["per_layer"]
+                if cell in m.get("workloads", [cell])]
+    assert reported
+
+
+@pytest.mark.parametrize("config", [c["name"] for c in BENCH["configs"]])
+def test_config_files(config):
+    entry = next(c for c in BENCH["configs"] if c["name"] == config)
+    data = json.loads((ROOT / entry["file"]).read_text())
+    assert data["name"] == config
+    assert data["source"] == entry["source"]
+    assert data["reduced"] == entry["reduced"]
+    for key in ("assumed", "guarantees", "deployment"):
+        assert data[key]
