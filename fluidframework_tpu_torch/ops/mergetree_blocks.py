@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..utils.tick_spans import host_read
 from . import mergetree_kernel as mtk
 from .mergetree_runs import _spread_right
 
@@ -578,11 +579,11 @@ def _incremental_spill(state: BlockMergeState, tick_k: int
     names = _SLOT_PLANES + ("prop_val", "rem_overlap")
     planes = {n: getattr(state, n) for n in names}
     planes, counts, touched = _spill(planes, state.blk_count, cap, True)
-    if bool((counts > cap).any()):
+    if host_read((counts > cap).any().item):
         planes, counts, t_l = _spill(planes, counts, cap, False)
         touched = touched | t_l
     new = state._replace(blk_count=counts, **planes)
-    return _refresh_summaries(new, touched), int(touched.sum())
+    return _refresh_summaries(new, touched), host_read(touched.sum().item)
 
 
 def rebalance_flags(state: BlockMergeState, tick_k: int) -> torch.Tensor:
@@ -641,7 +642,8 @@ def maybe_rebalance_stats(state: BlockMergeState, min_seq: torch.Tensor,
 
     Returns (state', rstats i32[2] = [rebalance_fired, blocks_touched]).
     The decision reads one i32[3] back to the host."""
-    branch = rebalance_branch(rebalance_flags(state, tick_k).tolist())
+    flags = host_read(rebalance_flags(state, tick_k).tolist)
+    branch = rebalance_branch(flags)
     state, touched = apply_rebalance(state, min_seq, tick_k, branch)
     rstats = torch.tensor([int(branch > 0), touched], dtype=I32,
                           device=state.count.device)

@@ -50,6 +50,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..utils.tick_spans import host_read
 from . import mergetree_kernel as mtk
 
 I32 = torch.int32
@@ -314,12 +315,13 @@ def _spread_right(planes: list[torch.Tensor], shift: torch.Tensor
     (``shift`` i32[B, S], monotone non-decreasing per row, so no two
     elements collide). Content pushed past the end is dropped; vacated
     and never-filled slots hold unspecified values — callers mask them."""
-    b, s = shift.shape
+    s = shift.shape[1]
     iota = torch.arange(s, device=shift.device)[None, :]
     dst = iota + shift.long()
     inside = (dst < s) & (shift > 0)
-    rows = torch.arange(b, device=shift.device)[:, None].expand(b, s)
-    rows, src_j, dst_j = rows[inside], iota.expand(b, s)[inside], dst[inside]
+    # The one host read: how many elements move, as their coordinates.
+    rows, src_j = host_read(inside.nonzero).unbind(1)
+    dst_j = dst[rows, src_j]
     out = []
     for p in planes:
         moved = p.clone()

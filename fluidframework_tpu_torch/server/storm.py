@@ -86,6 +86,7 @@ from ..ops import tree_kernel as tk
 from ..protocol.codec import TRACE_KEY, trace_context
 from ..protocol.messages import MessageType, SequencedDocumentMessage
 from ..utils import faults
+from ..utils.tick_spans import host_read, tick_spans
 from .kernel_host import KernelSequencerHost, _next_pow2
 from .merge_host import ChannelKey, KernelMergeHost
 
@@ -273,12 +274,15 @@ def _mixed_tick(seq_state: seqk.SequencerState, map_state, merge_state,
     ``tree_kernel.subtree_steps``) lets the tree tick skip the subtree
     sweep where no op can detach or move; None sweeps every step.
     ``mark(leg)`` is called after each leg (deli, map, text, rebalance,
-    matrix, tree) — a timing hook.
+    matrix, tree) — a timing hook; passing it also traces the tick
+    (``utils/tick_spans.py``: a root span, one span a leg, the host reads
+    counted and their wait timed, one record a tick in its ledger).
 
-    The legs are one sequence of launches; the only host read is the
-    block table's ladder decision (three flags). Returns the reference's
-    12-tuple: (seq', map', merge', matrix', tree', n_seq, first, last,
-    msn, tree_overflow, text_overflow, kstats)."""
+    The legs are one sequence of launches; the only host reads are the
+    block table's ladder's (its three flags, and the spill's or the full
+    rebalance's own when it fires), each through ``host_read``. Returns
+    the reference's 12-tuple: (seq', map', merge', matrix', tree', n_seq,
+    first, last, msn, tree_overflow, text_overflow, kstats)."""
     return _mixed_tick_shards(
         [(seq_state, map_state, merge_state, matrix_state, tree_state,
           scalars, map_words, text_pack, matrix_pack, tree_pack)],
@@ -295,84 +299,86 @@ def _mixed_tick_shards(shards: list, tree_steps=None, mark=None,
     shards and, for a process-spanning ``mesh``, across its processes — so
     a sharded run lays text rows out exactly as an unsharded one. Returns
     one 12-tuple per shard."""
-    mark = mark or (lambda _leg: None)
-    st = []
-    for (seq_state, map_state, merge_state, matrix_state, tree_state,
-         scalars, map_words, text_pack, matrix_pack, tree_pack) in shards:
-        slot, cseq0, ref, ts, seq_counts, map_counts = (
-            scalars[:, i] for i in range(6))
-        seq_before = seq_state.seq
-        seq_state, dups, n_seq_doc, msn_doc = seqk.storm_tickets(
-            seq_state, slot, cseq0, ref, ts, seq_counts)
-        st.append(dict(
-            seq=seq_state, map=map_state, text=merge_state,
-            matrix=matrix_state, tree=tree_state, map_words=map_words,
-            text_pack=text_pack, matrix_pack=matrix_pack,
-            tree_pack=tree_pack, seq_counts=seq_counts,
-            map_counts=map_counts, seq_before=seq_before, dups=dups,
-            n_seq=n_seq_doc, msn=msn_doc, text_overflow=None,
-            tree_overflow=None))
-    mark("deli")
+    spans = tick_spans(mark)
+    with spans:
+        st = []
+        with spans.leg("deli"):
+            for (seq_state, map_state, merge_state, matrix_state, tree_state,
+                 scalars, map_words, text_pack, matrix_pack,
+                 tree_pack) in shards:
+                slot, cseq0, ref, ts, seq_counts, map_counts = (
+                    scalars[:, i] for i in range(6))
+                seq_before = seq_state.seq
+                seq_state, dups, n_seq_doc, msn_doc = seqk.storm_tickets(
+                    seq_state, slot, cseq0, ref, ts, seq_counts)
+                st.append(dict(
+                    seq=seq_state, map=map_state, text=merge_state,
+                    matrix=matrix_state, tree=tree_state, map_words=map_words,
+                    text_pack=text_pack, matrix_pack=matrix_pack,
+                    tree_pack=tree_pack, seq_counts=seq_counts,
+                    map_counts=map_counts, seq_before=seq_before, dups=dups,
+                    n_seq=n_seq_doc, msn=msn_doc, text_overflow=None,
+                    tree_overflow=None))
 
-    for s in st:
-        if s["map_words"] is not None:
-            lo = s["dups"]
-            hi = torch.minimum(s["dups"] + s["n_seq"], s["map_counts"])
-            s["map"] = _map_leg(s["map"], s["map_words"], lo, hi,
-                                s["seq_before"])
-    mark("map")
+        with spans.leg("map"):
+            for s in st:
+                if s["map_words"] is not None:
+                    lo = s["dups"]
+                    hi = torch.minimum(s["dups"] + s["n_seq"], s["map_counts"])
+                    s["map"] = _map_leg(s["map"], s["map_words"], lo, hi,
+                                        s["seq_before"])
 
-    rstats = (0, 0)
-    if st[0]["text_pack"] is not None:
+        rstats = (0, 0)
+        if st[0]["text_pack"] is not None:
+            with spans.leg("text"):
+                for s in st:
+                    fields, valid, seqs = _unpack(s["text_pack"], TEXT_PACK,
+                                                  s["dups"], s["n_seq"],
+                                                  s["seq_before"])
+                    ops = mtk.MergeOpBatch(valid=valid, seq=seqs, **fields)
+                    s["text"], s["text_overflow"] = \
+                        mtbc.apply_tick_blocks_best(s["text"], ops)
+            with spans.leg("rebalance"):
+                rstats = _rebalance_shards(st, mesh)
+
+        if st[0]["matrix_pack"] is not None:
+            with spans.leg("matrix"):
+                for s in st:
+                    fields, valid, seqs = _unpack(
+                        s["matrix_pack"], MATRIX_PACK, s["dups"], s["n_seq"],
+                        s["seq_before"])
+                    ops = mxk.MatrixOpBatch(valid=valid, seq=seqs, **fields)
+                    s["matrix"] = mxc.apply_tick_best(s["matrix"], ops)
+
+        if st[0]["tree_pack"] is not None:
+            with spans.leg("tree"):
+                for s in st:
+                    fields, valid, _seqs = _unpack(s["tree_pack"], TREE_PACK,
+                                                   s["dups"], s["n_seq"],
+                                                   s["seq_before"])
+                    ops = tk.TreeOpBatch(valid=valid, **fields)
+                    s["tree"], out = tk.apply_tick(s["tree"], ops, tree_steps)
+                    s["tree_overflow"] = out.overflow.sum(dim=1, dtype=I32)
+
+        outs = []
         for s in st:
-            fields, valid, seqs = _unpack(s["text_pack"], TEXT_PACK,
-                                          s["dups"], s["n_seq"],
-                                          s["seq_before"])
-            ops = mtk.MergeOpBatch(valid=valid, seq=seqs, **fields)
-            s["text"], s["text_overflow"] = mtbc.apply_tick_blocks_best(
-                s["text"], ops)
-        mark("text")
-        rstats = _rebalance_shards(st, mesh)
-        mark("rebalance")
-
-    if st[0]["matrix_pack"] is not None:
-        for s in st:
-            fields, valid, seqs = _unpack(s["matrix_pack"], MATRIX_PACK,
-                                          s["dups"], s["n_seq"],
-                                          s["seq_before"])
-            ops = mxk.MatrixOpBatch(valid=valid, seq=seqs, **fields)
-            s["matrix"] = mxc.apply_tick_best(s["matrix"], ops)
-        mark("matrix")
-
-    if st[0]["tree_pack"] is not None:
-        for s in st:
-            fields, valid, _seqs = _unpack(s["tree_pack"], TREE_PACK,
-                                           s["dups"], s["n_seq"],
-                                           s["seq_before"])
-            ops = tk.TreeOpBatch(valid=valid, **fields)
-            s["tree"], out = tk.apply_tick(s["tree"], ops, tree_steps)
-            s["tree_overflow"] = out.overflow.sum(dim=1, dtype=I32)
-        mark("tree")
-
-    outs = []
-    for s in st:
-        n_seq, seq_before = s["n_seq"], s["seq_before"]
-        first = torch.where(n_seq > 0, seq_before + 1, int(oc.INT32_MAX))
-        last = torch.where(n_seq > 0, seq_before + n_seq, 0)
-        # kstats (the reference's indices): sequenced / dup-dropped totals
-        # over this shard's rows that submitted a batch, no sentinel leg,
-        # and the batch-wide rebalance counters.
-        live = s["seq_counts"] > 0
-        zero = torch.zeros((), dtype=I32, device=n_seq.device)
-        kstats = torch.stack((
-            torch.where(live, n_seq, 0).sum(dtype=I32),
-            torch.where(live, torch.minimum(s["dups"], s["seq_counts"]),
-                        0).sum(dtype=I32),
-            zero, zero + rstats[0], zero + rstats[1]))
-        outs.append((s["seq"], s["map"], s["text"], s["matrix"], s["tree"],
-                     n_seq, first, last, s["msn"], s["tree_overflow"],
-                     s["text_overflow"], kstats))
-    return outs
+            n_seq, seq_before = s["n_seq"], s["seq_before"]
+            first = torch.where(n_seq > 0, seq_before + 1, int(oc.INT32_MAX))
+            last = torch.where(n_seq > 0, seq_before + n_seq, 0)
+            # kstats (the reference's indices): sequenced / dup-dropped totals
+            # over this shard's rows that submitted a batch, no sentinel leg,
+            # and the batch-wide rebalance counters.
+            live = s["seq_counts"] > 0
+            zero = torch.zeros((), dtype=I32, device=n_seq.device)
+            kstats = torch.stack((
+                torch.where(live, n_seq, 0).sum(dtype=I32),
+                torch.where(live, torch.minimum(s["dups"], s["seq_counts"]),
+                            0).sum(dtype=I32),
+                zero, zero + rstats[0], zero + rstats[1]))
+            outs.append((s["seq"], s["map"], s["text"], s["matrix"], s["tree"],
+                         n_seq, first, last, s["msn"], s["tree_overflow"],
+                         s["text_overflow"], kstats))
+        return outs
 
 
 def _rebalance_shards(st: list, mesh) -> tuple[int, int]:
@@ -382,7 +388,7 @@ def _rebalance_shards(st: list, mesh) -> tuple[int, int]:
     the batch."""
     from ..parallel.mesh import all_reduce
     tick_k = st[0]["text_pack"].shape[2]
-    flags = torch.stack([mtb.rebalance_flags(s["text"], tick_k).cpu()
+    flags = torch.stack([host_read(mtb.rebalance_flags(s["text"], tick_k).cpu)
                          for s in st]).amax(dim=0)
     rows = sum(s["text"].count.shape[0] for s in st)
     if mesh is not None:

@@ -163,12 +163,19 @@ class StageLedger:
     the serving pipeline depth; :meth:`attribution` reports wall time
     and an explicit ``overlap_ms`` instead of pretending the concurrent
     spans were sequential.
+
+    ``fields`` names further integers a record carries (0 where a
+    :meth:`record` call leaves one out); the storm tick's spans
+    (``utils/tick_spans.py``) keep their tick's start, root span and host
+    reads there. A ledger made without them records the shape above.
     """
 
     def __init__(self, stages: Iterable[str] = STORM_STAGES,
                  registry: "MetricsRegistry | None" = None,
-                 prefix: str = "storm.stage", capacity: int = 1024) -> None:
+                 prefix: str = "storm.stage", capacity: int = 1024,
+                 fields: Iterable[str] = ()) -> None:
         self.stages = tuple(stages)
+        self.fields = tuple(fields)
         self.prefix = prefix
         self._ring: deque = deque(maxlen=max(1, capacity))
         self._lock = threading.Lock()
@@ -181,19 +188,24 @@ class StageLedger:
 
     def record(self, tick_id: int, queue_depth: int, batch_docs: int,
                batch_ops: int, splits_ns: dict, wall_ns: int = 0,
-               depth: int = 0) -> dict:
+               depth: int = 0, fields: dict | None = None) -> dict:
         """Commit one tick's record; unknown split keys are rejected
         (a typo'd stage would silently vanish from the attribution —
         and must fail under ``python -O`` too, hence no assert).
         ``wall_ns`` is the tick's exclusive wall-clock slice (0 =
         unknown, the pre-pipelining shape); ``depth`` the serving
-        pipeline depth that produced it."""
-        unknown = set(splits_ns) - set(self.stages)
+        pipeline depth that produced it; ``fields`` the ledger's further
+        integers (unknown names are rejected the same way)."""
+        fields = fields or {}
+        unknown = (set(splits_ns) - set(self.stages)) \
+            | (set(fields) - set(self.fields))
         if unknown:
             raise ValueError(f"unknown ledger stages: {sorted(unknown)}")
         rec = {"tick": int(tick_id), "queue_depth": int(queue_depth),
                "batch_docs": int(batch_docs), "batch_ops": int(batch_ops),
                "wall": int(wall_ns), "depth": int(depth)}
+        for f in self.fields:
+            rec[f] = int(fields.get(f, 0))
         for s in self.stages:
             rec[s] = int(splits_ns.get(s, 0))
         with self._lock:
