@@ -1401,8 +1401,12 @@ def plain_host_versions():
 
 
 def clone_args(planes):
-    """A copy of a kernel wrapper's argument: a tensor or a (nested)
-    tuple of tensors."""
+    """A copy of a kernel wrapper's argument: a tensor, a (nested) tuple
+    of tensors, or host flags (a list, or None)."""
+    if planes is None:
+        return None
+    if isinstance(planes, list):
+        return list(planes)
     if not isinstance(planes, tuple):
         return planes.clone()
     return type(planes)(*(clone_args(t) for t in planes))
@@ -1970,6 +1974,21 @@ def matrix_bound(state, ops) -> tuple[float, str]:
     cells = int((ops.valid & (ops.target == mxk.MX_CELL)).sum())
     vec = int(ops.valid.sum()) - cells
     return bound(nbytes, 12 * vec * s + cells * (2 * 8 * s + 4 * c))
+
+
+def tree_bound(state, ops, steps=None, passes: float = 0
+               ) -> tuple[float, str]:
+    """The tree tick's bound on these inputs: every plane read once and
+    written once, the op batch read and the two flag planes written;
+    TREE_OPS_PER_SLOT operations per (valid op, slot), and
+    TREE_SWEEP_OPS_PER_SLOT per slot for each of ``passes`` sweep passes
+    a document (0 where the caller does not count them: a floor)."""
+    b, n = state.exists.shape
+    k = ops.valid.shape[1]
+    nbytes = 2 * b * n * (1 + 4 * 4) + b * k * (1 + 4 * 5) + 2 * b * k
+    nops = n * (TREE_OPS_PER_SLOT * int(ops.valid.sum())
+                + TREE_SWEEP_OPS_PER_SLOT * passes * b)
+    return bound(nbytes, nops)
 
 
 def steps_bound(state, steps) -> tuple[float, str]:
@@ -2643,12 +2662,13 @@ def tree_wire_edit(rng, view, counter, client: str, keep=()) -> dict:
 
 @contextlib.contextmanager
 def timed_tree_ticks(device, ticks: list):
-    """Wrap the tree tick for the duration: each call appends its CUDA
-    event pair (start, end) to ``ticks`` (None off the card)."""
+    """Wrap the tree tick (``tree_cuda.apply_tick_best``, which the merge
+    host calls) for the duration: each call appends its CUDA event pair
+    (start, end) to ``ticks`` (None off the card)."""
     import torch
 
-    from fluidframework_tpu_torch.ops import tree_kernel as tk
-    inner = tk.apply_tick
+    from fluidframework_tpu_torch.ops import tree_cuda as tcc
+    inner = tcc.apply_tick_best
 
     def wrapped(*args):
         if device.type != "cuda":
@@ -2661,11 +2681,11 @@ def timed_tree_ticks(device, ticks: list):
         end.record()
         ticks.append((start, end))
         return out
-    tk.apply_tick = wrapped
+    tcc.apply_tick_best = wrapped
     try:
         yield
     finally:
-        tk.apply_tick = inner
+        tcc.apply_tick_best = inner
 
 
 def tree_path_a(device) -> dict:
@@ -2826,8 +2846,10 @@ def tree_main_path(device) -> dict:
     from fluidframework_tpu_torch.ops import mergetree_blocks_cuda as mtbc
     from fluidframework_tpu_torch.ops import mergetree_cuda as mtc
     from fluidframework_tpu_torch.ops import sequencer_cuda as seqc
+    from fluidframework_tpu_torch.ops import tree_cuda as tcc
     for mod in (mfc, mtbc, mtc, mxc.tick, mxc.steps):
         mod.launches = 0
+    tcc.tick.reset()
     seqc.launches = 0
     seqc.shapes.clear()
     seqc.variants.clear()
@@ -2839,10 +2861,15 @@ def tree_main_path(device) -> dict:
                 "mergetree_flat": mtc.launches,
                 "matrix_tick": mxc.tick.launches,
                 "matrix_steps": mxc.steps.launches,
+                "tree_tick": tcc.tick.launches,
                 "sequencer_tick_variants": dict(seqc.variants)}
     deli["shapes"] = dict(seqc.shapes)
     check(launches["sequencer_tick"] > 0,
           "the deli kernel did not run on tree path A")
+    if device.type == "cuda":
+        check(launches["tree_tick"] == run["tree_ticks"] > 0,
+              f"tree path A: {launches['tree_tick']} tree kernel launches "
+              f"for {run['tree_ticks']} ticks")
     deli_picks(device, seqc.shapes, seqc.variants, "tree path A")
     host = run["merge_host"]
     check(host._tree_state.exists.device.type == device.type,
@@ -3022,14 +3049,22 @@ def count_dispatched(fn):
 def tree_path_b(device) -> dict:
     """The tree tick at ``bench_tree``'s shape on the card: TREE_B_TICKS
     ticks of K ops over TREE_B_DOCS docs of TREE_B_SLOTS slots, one
-    seeded stream tiled over the docs. Every doc must equal doc 0, doc 0
-    a scalar ``Transaction`` replay, and the first TREE_B_CPU_DOCS docs
-    the same ticks on CPU tensors."""
+    seeded stream tiled over the docs, through the tree tick kernel
+    (``tree_cuda.apply_tick_best``, one launch a tick). Every doc must
+    equal doc 0, doc 0 a scalar ``Transaction`` replay, the first
+    TREE_B_CPU_DOCS docs the same ticks on CPU tensors, and each tick
+    the plain tick on the same inputs on the card; the kernel and the
+    plain tick are both timed there (``cuda_time_ms`` on the last tick's
+    inputs). The chained ticks are timed twice with CUDA events, each
+    tick's outputs kept: first on a cold allocator pool (``tick_ms_cold``:
+    every tick's new outputs grow it), then on the pool that run left
+    (``tick_ms``)."""
     import random
 
     import torch
 
     from fluidframework_tpu_torch.dds.tree_core import ROOT_ID, TreeSnapshot
+    from fluidframework_tpu_torch.ops import tree_cuda as tcc
     from fluidframework_tpu_torch.ops import tree_kernel as tk
 
     b, n, k = TREE_B_DOCS, TREE_B_SLOTS, TREE_B_K
@@ -3046,25 +3081,44 @@ def tree_path_b(device) -> dict:
     def run(state, bs):
         outs = []
         for bt, st in zip(bs, steps):
-            state, out = tk.apply_tick(state, bt, st)
+            state, out = tcc.apply_tick_best(state, bt, st)
             outs.append(out)
         return state, outs
-    run(tk.init_state(b, n, device), batches)  # warm-up
-    state = tk.init_state(b, n, device)
-    pairs, outs = [], []
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for bt, st in zip(batches, steps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        state, out = tk.apply_tick(state, bt, st)
-        end.record()
-        pairs.append((start, end))
-        outs.append(out)
-    torch.cuda.synchronize()
-    wall_s = time.perf_counter() - t0
-    ms = [s.elapsed_time(e) for s, e in pairs]
+    def timed():
+        state = tk.init_state(b, n, device)
+        pairs, inputs, states, outs = [], [], [], []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for bt, st in zip(batches, steps):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            inputs.append(state)
+            start.record()
+            state, out = tcc.apply_tick_best(state, bt, st)
+            end.record()
+            pairs.append((start, end))
+            states.append(state)
+            outs.append(out)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0, [s.elapsed_time(e) for s, e in
+                                            pairs], inputs, states, outs)
+    launched = tcc.tick.launches
+    wall_cold_s, ms_cold = timed()[:2]  # its outputs freed: a warm pool
+    check(tcc.tick.launches - launched == TREE_B_TICKS,
+          f"tree B: {tcc.tick.launches - launched} kernel launches for "
+          f"{TREE_B_TICKS} ticks")
+    launched = tcc.tick.launches
+    wall_s, ms, inputs, states, outs = timed()
+    state = states[-1]
+    check(tcc.tick.launches - launched == TREE_B_TICKS,
+          f"tree B: {tcc.tick.launches - launched} kernel launches for "
+          f"{TREE_B_TICKS} ticks")
+    # Each tick's kernel result equals the plain tick on its inputs.
+    for t, (x, bt, st) in enumerate(zip(inputs, batches, steps)):
+        want_s, want_o = tk.apply_tick(x, bt, st)
+        for f, p, q in zip((*tk.TreeState._fields, *tk.TreeOpOut._fields),
+                           (*states[t], *outs[t]), (*want_s, *want_o)):
+            check(torch.equal(p, q), f"tree B tick {t} {f}: kernel != plain")
     # Every document equals document 0.
     for f, plane in zip(state._fields, state):
         check(bool((plane == plane[:1]).all()),
@@ -3093,26 +3147,21 @@ def tree_path_b(device) -> dict:
         for f, p, q in zip(x._fields, x, y):
             check(torch.equal(p[:TREE_B_CPU_DOCS].cpu(), q),
                   f"tree B tick {t} {f}: card != CPU")
-    _, dispatched = count_dispatched(
-        lambda: tk.apply_tick(state, batches[0], steps[0]))
+    last = (inputs[-1], batches[-1], steps[-1])
+    _, dispatched = count_dispatched(lambda: tk.apply_tick(*last))
     torch.cuda.synchronize()
-    # Bound a tick: every plane read once and written once, the op batch
-    # read and the two flag planes written; operations per (op, slot) as
-    # counted in TREE_OPS_PER_SLOT, and the sweep's passes this data
-    # needs (both summed over the ticks, so taken per tick).
-    plane_bytes = b * n * (1 + 4 * 4)
-    nbytes = 2 * plane_bytes + b * k * (1 + 4 * 5) + 2 * b * k
+    kernel_ms = cuda_time_ms(lambda: tcc.apply_tick_best(*last), 20)
+    plain_ms = cuda_time_ms(lambda: tk.apply_tick(*last), 2)
+    # Bound a tick (every tick holds K valid ops a document) with the
+    # sweep passes this data needs, taken per tick.
     valid_ops = len(stream)
-    nops = b * n * (TREE_OPS_PER_SLOT * valid_ops
-                    + TREE_SWEEP_OPS_PER_SLOT * passes) / TREE_B_TICKS
-    bound_ms, bound_by = bound(nbytes, nops)
+    bound_ms, bound_by = tree_bound(*last, passes=passes / TREE_B_TICKS)
     out = {"shape": [b, k, n], "ticks": TREE_B_TICKS,
-           "ms": sum(ms) / len(ms), "ms_min": min(ms), "ms_max": max(ms),
+           "ms": kernel_ms, "plain_ms": plain_ms,
+           "tick_ms": ms, "tick_ms_cold": ms_cold,
            "ops_per_s": b * valid_ops / wall_s, "wall_s": wall_s,
-           "launches_per_tick": dispatched,
+           "wall_cold_s": wall_cold_s, "plain_launches_per_tick": dispatched,
            "sweep_steps": sum(map(sum, steps)),
-           "bytes_per_tick": nbytes, "ops_per_tick": nops,
-           "byte_bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
            "bound_ms": bound_ms, "bound_by": bound_by,
            "applied": int(sum(int(o.applied[0].sum()) for o in outs)),
            "overflow": int(sum(int(o.overflow[0].sum()) for o in outs))}
@@ -3249,21 +3298,24 @@ def plain_mixed_versions():
     from fluidframework_tpu_torch.ops import matrix_kernel as mxk
     from fluidframework_tpu_torch.ops import mergetree_blocks as mtb
     from fluidframework_tpu_torch.ops import sequencer as seqk
+    from fluidframework_tpu_torch.ops import tree_kernel as tk
     from fluidframework_tpu_torch.parallel import serving as sv
     from fluidframework_tpu_torch.server import storm
-    saved = storm.mfc, storm.mtbc, storm.mxc, sv.seqc
+    saved = storm.mfc, storm.mtbc, storm.mxc, storm.tcc, sv.seqc
     storm.mfc = type("Plain", (), {"fold_words": staticmethod(
         mk.fold_words_plain)})
     storm.mtbc = type("Plain", (), {"apply_tick_blocks_best": staticmethod(
         mtb.apply_tick_blocks)})
     storm.mxc = type("Plain", (), {"apply_tick_best": staticmethod(
         mxk.apply_tick)})
+    storm.tcc = type("Plain", (), {"apply_tick_best": staticmethod(
+        tk.apply_tick)})
     sv.seqc = type("Plain", (), {"process_batch_best": staticmethod(
         seqk.process_batch)})
     try:
         yield
     finally:
-        storm.mfc, storm.mtbc, storm.mxc, sv.seqc = saved
+        storm.mfc, storm.mtbc, storm.mxc, storm.tcc, sv.seqc = saved
 
 
 @contextlib.contextmanager
@@ -3284,13 +3336,14 @@ def last_call(mod, attr: str, kept: dict, key: str):
 
 
 def launch_counts_reset() -> None:
-    """Zero the launch counters of kernels 1-5 (the mixed and plane
-    paths)."""
+    """Zero the launch counters of kernels 1-5 and the tree tick kernel
+    (the mixed and plane paths)."""
     from fluidframework_tpu_torch.ops import map_fold_cuda as mfc
     from fluidframework_tpu_torch.ops import matrix_cuda as mxc
     from fluidframework_tpu_torch.ops import mergetree_blocks_cuda as mtbc
     from fluidframework_tpu_torch.ops import mergetree_cuda as mtc
     from fluidframework_tpu_torch.ops import sequencer_cuda as seqc
+    from fluidframework_tpu_torch.ops import tree_cuda as tcc
     for mod in (mfc, mtbc, mtc, seqc):
         mod.launches = 0
         mod.shapes.clear()
@@ -3299,6 +3352,7 @@ def launch_counts_reset() -> None:
     mtc.variants.update(smem=0, **{"global": 0})
     seqc.variants.clear()
     mxc.tick.reset()
+    tcc.tick.reset()
 
 
 def launch_counts() -> dict:
@@ -3307,9 +3361,10 @@ def launch_counts() -> dict:
     from fluidframework_tpu_torch.ops import mergetree_blocks_cuda as mtbc
     from fluidframework_tpu_torch.ops import mergetree_cuda as mtc
     from fluidframework_tpu_torch.ops import sequencer_cuda as seqc
+    from fluidframework_tpu_torch.ops import tree_cuda as tcc
     mods = {"map_fold": mfc, "sequencer_tick": seqc,
             "mergetree_blocks": mtbc, "mergetree_flat": mtc,
-            "matrix_tick": mxc.tick}
+            "matrix_tick": mxc.tick, "tree_tick": tcc.tick}
     out = {name: mod.launches for name, mod in mods.items()}
     out["shapes"] = {name: dict(mod.shapes) for name, mod in mods.items()}
     out["variants"] = {name: dict(mod.variants)
@@ -3347,11 +3402,13 @@ def serve_mixed(device, script, shards: int = 1, hosts: int = 1,
         from fluidframework_tpu_torch.ops import matrix_cuda as mxc
         from fluidframework_tpu_torch.ops import \
             mergetree_blocks_cuda as mtbc
+        from fluidframework_tpu_torch.ops import tree_cuda as tcc
         from fluidframework_tpu_torch.parallel import serving as sv
         with last_call(mfc, "fold_words", record, "map_fold"), \
                 last_call(mtbc, "apply_tick_blocks_best", record,
                           "mergetree_blocks"), \
                 last_call(mxc, "apply_tick_best", record, "matrix_tick"), \
+                last_call(tcc, "apply_tick_best", record, "tree_tick"), \
                 last_call(sv.seqc, "process_batch_best", record,
                           "sequencer_tick"):
             serving.join_all()
@@ -3580,8 +3637,12 @@ def mixed_path_a(device) -> dict:
     run = serve_mixed(device, script, record=record)
     counts = launch_counts()
     for name in ("map_fold", "sequencer_tick", "mergetree_blocks",
-                 "matrix_tick"):
+                 "matrix_tick", "tree_tick"):
         check(counts[name] > 0, f"mixed A launched no {name} kernel")
+    # Every tick holds tree ops: one tree launch a tick.
+    check(counts["tree_tick"] == MIXED_TICKS,
+          f"mixed A: {counts['tree_tick']} tree kernel launches for "
+          f"{MIXED_TICKS} ticks")
     serving = run["serving"]
     with plain_mixed_versions():
         plain = serve_mixed(device, script)
@@ -3611,7 +3672,7 @@ def mixed_path_a(device) -> dict:
            "assembly_tick_ms": 1e3 * run["wall_s"] / timed,
            **rate, "launches": {k: counts[k] for k in (
                "map_fold", "sequencer_tick", "mergetree_blocks",
-               "matrix_tick")},
+               "matrix_tick", "tree_tick")},
            "launch_shapes": {k: [[*s, n] for s, n in v.items()]
                              for k, v in counts["shapes"].items()},
            "rebalance_stats": serving.rebalance_stats,
@@ -3633,6 +3694,9 @@ def mixed_path_b(device, a: dict) -> dict:
     run = serve_mixed(device, a["script"], shards=MIXED_SHARDS,
                       hosts=MIXED_SHARDS)
     counts = launch_counts()
+    check(counts["tree_tick"] == MIXED_TICKS * MIXED_SHARDS,
+          f"mixed B: {counts['tree_tick']} tree kernel launches for "
+          f"{MIXED_TICKS} ticks on {MIXED_SHARDS} shards")
     serving = run["serving"]
     for h in run["harvests"]:
         for port in serving.hosts:
@@ -3671,7 +3735,7 @@ def mixed_path_b(device, a: dict) -> dict:
            "global_metrics": metrics,
            "launches": {k: counts[k] for k in (
                "map_fold", "sequencer_tick", "mergetree_blocks",
-               "matrix_tick")},
+               "matrix_tick", "tree_tick")},
            "launch_shapes": {k: [[*s, n] for s, n in v.items()]
                              for k, v in counts["shapes"].items()}}
     print("mixed_b: " + json.dumps(out), flush=True)
@@ -3938,9 +4002,10 @@ def seqpar_path(device) -> dict:
 
 
 def mixed_recheck(device, a: dict) -> dict:
-    """Kernels 1, 2, 3 and 5 held to their plain versions, and timed, on
-    the last call mixed A made to each (the shapes that path gives them),
-    in the variant the shape picks and the other one."""
+    """Kernels 1, 2, 3 and 5 and the tree tick kernel held to their plain
+    versions, and timed, on the last call mixed A made to each (the
+    shapes that path gives them), in the variant the shape picks and the
+    other one (the tree tick has one)."""
     from fluidframework_tpu_torch.ops import map_fold_cuda as mfc
     from fluidframework_tpu_torch.ops import map_kernel as mk
     from fluidframework_tpu_torch.ops import matrix_cuda as mxc
@@ -3949,6 +4014,8 @@ def mixed_recheck(device, a: dict) -> dict:
     from fluidframework_tpu_torch.ops import mergetree_blocks_cuda as mtbc
     from fluidframework_tpu_torch.ops import sequencer as seqk
     from fluidframework_tpu_torch.ops import sequencer_cuda as seqc
+    from fluidframework_tpu_torch.ops import tree_cuda as tcc
+    from fluidframework_tpu_torch.ops import tree_kernel as tk
     record, shapes = a["record"], a["counts"]["shapes"]
 
     def one(name):
@@ -3975,6 +4042,10 @@ def mixed_recheck(device, a: dict) -> dict:
         "matrix_tick (mixed_a)", by, kept, mxc.apply_tick_best,
         mxk.apply_tick, matrix_bound,
         other=lambda st, op: mxc.apply_tick_best(st, op, "global"))
+    by, kept = one("tree_tick")
+    out["tree_tick"] = recheck_recorded(
+        "tree_tick (mixed_a)", by, kept, tcc.apply_tick_best, tk.apply_tick,
+        tree_bound)
     by, kept = one("sequencer_tick")
     got = recheck_recorded(
         "sequencer_tick (mixed_a)", by, kept,
@@ -4240,11 +4311,17 @@ def plane_recheck(device, name: str, path: str, kept: dict,
     from fluidframework_tpu_torch.ops import mergetree_kernel as mtk
     from fluidframework_tpu_torch.ops import sequencer as seqk
     from fluidframework_tpu_torch.ops import sequencer_cuda as seqc
+    from fluidframework_tpu_torch.ops import tree_cuda as tcc
+    from fluidframework_tpu_torch.ops import tree_kernel as tk
     calls = kept.get(name) or {}
     if not calls:
         return None
     shapes = {sh: len(c) for sh, c in calls.items()}
     label = f"{name} ({path})"
+    if name == "tree_tick":
+        return recheck_recorded(
+            label, shapes, calls, tcc.apply_tick_best, tk.apply_tick,
+            tree_bound, time_all=True, time_last=True, ends_only=ends_only)
     if name == "map_fold":
         return recheck_recorded(
             label, shapes, calls, mfc.fold_words, mk.fold_words_plain,
@@ -9462,11 +9539,12 @@ ENTRY_DOCS = 10_240
 #: Virtual shards of the card in the dry runs (the reference's main: 8).
 ENTRY_SHARDS = (4, 8)
 ENTRY_REPS = 20
-#: Kernels 1-5: the dry run launches 2 and 4 (its tick, the segment
-#: axis's yardstick) and 1, 2, 3 and 5 (the serving loop's joins and
-#: mixed tick); the entry tick launches 2 and 4.
+#: Kernels 1-5 and the tree tick: the dry run launches 2 and 4 (its
+#: tick, the segment axis's yardstick) and 1, 2, 3, 5 and the tree tick
+#: (the serving loop's joins and mixed tick); the entry tick launches 2
+#: and 4.
 ENTRY_KERNELS = ("map_fold", "sequencer_tick", "mergetree_blocks",
-                 "mergetree_flat", "matrix_tick")
+                 "mergetree_flat", "matrix_tick", "tree_tick")
 
 
 def report_err(want, got, what: str) -> int:
@@ -9499,14 +9577,18 @@ def report_err(want, got, what: str) -> int:
 
 def entry_run(name: str, drive, runs: dict):
     """``drive()`` with every launch counter at 0 just before it and read
-    just after, and every call of kernels 1-5 kept (``runs[name]``)."""
+    just after, and every call of kernels 1-5 and the tree tick kept
+    (``runs[name]``)."""
     import torch
 
     from fluidframework_tpu_torch.ops import matrix_cuda as mxc
-    kept: dict = {"matrix_tick": {}}
+    from fluidframework_tpu_torch.ops import tree_cuda as tcc
+    kept: dict = {"matrix_tick": {}, "tree_tick": {}}
     launch_counts_reset()
     with plane_recording(kept), \
-            recording(mxc, "apply_tick_best", kept["matrix_tick"], mxc.tick):
+            recording(mxc, "apply_tick_best", kept["matrix_tick"],
+                      mxc.tick), \
+            recording(tcc, "apply_tick_best", kept["tree_tick"], tcc.tick):
         out = drive()
         torch.cuda.synchronize()
     runs[name] = {"counts": launch_counts(), "kept": kept}
@@ -9525,8 +9607,8 @@ def entry_path(device) -> dict:
       against the same dry run on the CPU, report for report.
 
     Each run's launches are counted from 0; then every call of kernels
-    1-5 it made is held to the plain version in both variants and timed
-    (``plane_recheck``)."""
+    1-5 and the tree tick it made is held to the plain version in every
+    variant and timed (``plane_recheck``)."""
     import torch
 
     from fluidframework_tpu_torch import entry as te
@@ -9550,7 +9632,7 @@ def entry_path(device) -> dict:
         counts = runs[name]["counts"]
         check(counts["sequencer_tick"] == 1 and counts["mergetree_flat"] == 1
               and counts["map_fold"] == counts["mergetree_blocks"]
-              == counts["matrix_tick"] == 0,
+              == counts["matrix_tick"] == counts["tree_tick"] == 0,
               f"{name} launched {counts}")
     map_state, map_ops = big[4], big[5]
     legs = {"map_tick": {"shape": [*map_ops.kind.shape,
@@ -9639,7 +9721,7 @@ def main() -> int:
                       "mergetree_flat_smem", "mergetree_blocks",
                       "mergetree_blocks_smem", "matrix_tick",
                       "matrix_tick_smem", "matrix_steps",
-                      "matrix_steps_smem"])
+                      "matrix_steps_smem", "tree_tick_smem"])
     print(f"build: {time.perf_counter() - t0:.2f} s "
           f"({_build.BUILD_DIR})", flush=True)
 
@@ -9720,7 +9802,7 @@ def main() -> int:
     with phase("tree A"):
         tree = tree_main_path(device)
     with phase("tree B"):
-        tree_path_b(device)
+        tree_b = tree_path_b(device)
     with phase("mixed"):
         mixed_a = mixed_path_a(device)
         mixed_b = mixed_path_b(device, mixed_a)
@@ -10031,7 +10113,8 @@ def main() -> int:
                **{f"client_{arm}": client[arm]["counts"].get(name, 0)
                   for arm in client}}
         for name in ("map_fold", "sequencer_tick", "mergetree_blocks",
-                     "mergetree_flat", "matrix_tick", "matrix_steps")}
+                     "mergetree_flat", "matrix_tick", "matrix_steps",
+                     "tree_tick")}
     launches = {name: sum(n.values()) for name, n in by_path.items()}
     deli_top = max(deli_main.values(), key=lambda r: r["calls_checked"])
     tick_top = tick_main["matrix_b"]
@@ -10146,6 +10229,17 @@ def main() -> int:
                           "docs_with_a_full_cell_log")},
          "global_by_shape": {key: steps_large[key] for key in
                              ("shape", "variant", "max_abs_err")}},
+        {"name": "tree_tick", "route": "cuda",
+         "source": "fluidframework_tpu_torch/csrc/tree_tick_smem.cu",
+         "replaces": "fluidframework_tpu/ops/tree_kernel.py:267",
+         "launches": launches["tree_tick"],
+         "launches_by_path": by_path["tree_tick"],
+         "variant_launches": {
+             "tree_a": {"warp": tree["launches"]["tree_tick"]}},
+         **mixed_checks["tree_tick"], "library_ms": None,
+         "at_tree_b": {key: tree_b[key] for key in
+                       ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                        "tick_ms", "tick_ms_cold")}},
     ]
     for entry in kernels:
         name = entry["name"]

@@ -66,6 +66,7 @@ from ..ops import mergetree_blocks_cuda as mtbc
 from ..ops import mergetree_cuda as mtc
 from ..ops import mergetree_kernel as mtk
 from ..ops import mergetree_sharded as mts
+from ..ops import tree_cuda as tcc
 from ..ops import tree_kernel as tk
 from ..protocol.messages import MessageType, SequencedDocumentMessage
 from ..utils import faults
@@ -2214,7 +2215,7 @@ class KernelMergeHost:
             per_doc[r.row] = r.pending
         batch = tk.make_tree_op_batch(per_doc, self._tree_capacity, k,
                                       self.device)
-        self._tree_state, outs = tk.apply_tick(
+        self._tree_state, outs = tcc.apply_tick_best(
             self._tree_state, batch, tk.subtree_steps(per_doc, k))
         overflowed = outs.overflow.any(dim=1).cpu().numpy()
         self.stats["device_ops"] += sum(len(r.pending) for _, r in items)

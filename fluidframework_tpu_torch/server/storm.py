@@ -82,6 +82,7 @@ from ..ops import mergetree_blocks_cuda as mtbc
 from ..ops import mergetree_kernel as mtk
 from ..ops import opcodes as oc
 from ..ops import sequencer as seqk
+from ..ops import tree_cuda as tcc
 from ..ops import tree_kernel as tk
 from ..protocol.codec import TRACE_KEY, trace_context
 from ..protocol.messages import MessageType, SequencedDocumentMessage
@@ -259,7 +260,7 @@ def _mixed_tick(seq_state: seqk.SequencerState, map_state, merge_state,
     document's batch, then EACH channel family applies its rows' windowed
     ops — map (the map-fold kernel), merge-tree (the block merge tick
     kernel, then the block-table maintenance ladder at the tick's msn),
-    matrix (the matrix op tick kernel) and tree (the plain tree tick) —
+    matrix (the matrix op tick kernel) and tree (the tree tick kernel) —
     the reference's one-deltas-stream-for-all-op-types contract
     (deli/lambda.ts:82, scriptorium/lambda.ts:16), with the family routing
     done by per-family valid planes.
@@ -357,7 +358,8 @@ def _mixed_tick_shards(shards: list, tree_steps=None, mark=None,
                                                    s["dups"], s["n_seq"],
                                                    s["seq_before"])
                     ops = tk.TreeOpBatch(valid=valid, **fields)
-                    s["tree"], out = tk.apply_tick(s["tree"], ops, tree_steps)
+                    s["tree"], out = tcc.apply_tick_best(s["tree"], ops,
+                                                         tree_steps)
                     s["tree_overflow"] = out.overflow.sum(dim=1, dtype=I32)
 
         outs = []

@@ -39,6 +39,7 @@ from fluidframework_tpu.server.merge_host import \
 from fluidframework_tpu.server.routerlicious import \
     RouterliciousService as JaxService
 from fluidframework_tpu_torch import convert
+from fluidframework_tpu_torch.ops import tree_cuda as tcc
 from fluidframework_tpu_torch.dds.tree_core import (
     ROOT_ID,
     VALID,
@@ -300,6 +301,29 @@ def test_tree_host_matches_jax(recorded, name):
     assert th.export_state() == jh.export_state()
     assert th.stats == rec.host.stats
     assert th.stats["device_ops"] + th.stats["scalar_ops"] > 0
+
+
+@pytest.mark.parametrize("name", ["farm0", "slot_pressure", "depth_cap"])
+def test_flushes_tick_through_the_kernel_wrapper(recorded, name,
+                                                 monkeypatch):
+    """The port host's tree flush ticks through
+    ``tree_cuda.apply_tick_best`` (the plain tick on CPU tensors), once a
+    flush, with the host's step flags; the replay still matches."""
+    calls = []
+    inner = tcc.apply_tick_best
+
+    def spy(state, ops, steps=None):
+        calls.append((state.exists.device.type, len(steps),
+                      ops.valid.shape[1]))
+        return inner(state, ops, steps)
+    monkeypatch.setattr(tcc, "apply_tick_best", spy)
+    rec = recorded[name]
+    jh = JaxMergeHost(**rec.kwargs)
+    th = TorchMergeHost(device="cpu", **rec.kwargs)
+    replay(rec, jh, th)
+    assert_hosts_equal(jh, th)
+    assert calls and len(calls) == th.stats["flushes"]
+    assert all(dev == "cpu" and n == k for dev, n, k in calls)
 
 
 def test_scenarios_take_every_route(recorded):
