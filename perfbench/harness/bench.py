@@ -42,6 +42,13 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device,
     control's outputs (``perfbench/control.py``) in the program's place."""
     import torch
     work, config = load_cell(name)
+    if "driver" in work:
+        # A cell served through another entry of the program: the driver
+        # its workload names (``drivers/<driver>.py``) runs all of it.
+        driver = importlib.import_module(
+            f"perfbench.drivers.{work['driver']}")
+        return driver.run(work, config, seed, seconds, trace, device,
+                          t_start, metrics, control=control)
     cuda = device.type == "cuda"
     if cuda:
         build_kernels()

@@ -70,7 +70,11 @@ def test_cell_files(cell):
     assert work["config"] == entry["config"]
     config = json.loads((PB / "configs" / f"{entry['config']}.json")
                         .read_text())
-    for fam in config["families"]:
+    if "driver" in work:
+        # A served cell: its driver, and no families a tick cell reads.
+        assert (PB / "drivers" / f"{work['driver']}.py").is_file()
+        assert "families" not in config
+    for fam in config.get("families", work["traffic"]):
         assert fam in work["traffic"]
         for kind in ("traffic", "reference", "readout"):
             assert (PB / kind / f"{fam}.py").is_file()

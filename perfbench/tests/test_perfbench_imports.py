@@ -21,10 +21,11 @@ from perfbench.harness import bench, cell
 from perfbench.tests.small import shrink
 real = cell.load_cell
 bench.load_cell = lambda n: shrink(*real(n))
-bench.run_cell("text_8k.scattered", 5, 1.0, False, torch.device("cpu"),
-               time.perf_counter(), {{"setup_s": "s"}})
+for name in ("text_8k.scattered", "map_storm_10k.served"):
+    bench.run_cell(name, 5, 1.0, False, torch.device("cpu"),
+                   time.perf_counter(), {{"setup_s": "s"}})
 for kind in ("traffic", "reference", "readout"):
-    for f in ("deli", "map", "text", "matrix", "tree"):
+    for f in ("deli", "map", "map_device", "text", "matrix", "tree"):
         try:
             cell.module(kind, f)
         except ModuleNotFoundError:

@@ -9,7 +9,7 @@ import pytest
 
 from perfbench.harness import cell, check
 from perfbench.reference import tree as tree_ref
-from perfbench.tests.small import CELLS, shrink
+from perfbench.tests.small import TICK_CELLS as CELLS, shrink
 
 
 def small(name, docs=64):
