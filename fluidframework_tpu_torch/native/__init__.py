@@ -33,6 +33,8 @@ import struct
 import zlib
 from pathlib import Path
 
+import numpy as np
+
 from ._loader import build_and_load
 
 _SRC = Path(__file__).parent / "oplog.cpp"
@@ -53,6 +55,10 @@ def _load_library() -> ctypes.CDLL | None:
     lib.oplog_append.restype = ctypes.c_long
     lib.oplog_append.argtypes = [ctypes.c_void_p, ctypes.c_char_p,
                                  ctypes.c_uint32]
+    lib.oplog_append_parts.restype = ctypes.c_long
+    lib.oplog_append_parts.argtypes = [
+        ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p),
+        ctypes.POINTER(ctypes.c_uint32), ctypes.c_int]
     lib.oplog_sync.restype = ctypes.c_int
     lib.oplog_sync.argtypes = [ctypes.c_void_p]
     lib.oplog_read_len.restype = ctypes.c_long
@@ -64,6 +70,15 @@ def _load_library() -> ctypes.CDLL | None:
     lib.oplog_close.argtypes = [ctypes.c_void_p]
     _configured = lib
     return _configured
+
+
+def _bytes_view(part) -> np.ndarray:
+    """The bytes of the buffer ``part`` as a u8 array over its memory (a
+    copy only where the buffer is not contiguous)."""
+    view = memoryview(part)
+    if not view.c_contiguous:
+        view = memoryview(view.tobytes())
+    return np.frombuffer(view.cast("B"), np.uint8)
 
 
 class _NativeOpLog:
@@ -84,10 +99,31 @@ class _NativeOpLog:
             raise OSError("oplog_append failed")
         return idx
 
-    def read(self, index: int) -> bytes:
+    def append_parts(self, parts) -> int:
+        """One record whose payload is the buffers ``parts`` in order —
+        the bytes ``append`` of their join writes — with no join: the
+        CRC and the writes run in native code over the parts themselves,
+        without the interpreter lock."""
+        views = [_bytes_view(p) for p in parts]
+        if sum(v.size for v in views) > 0xFFFFFFFF:
+            raise ValueError("record larger than 4 GiB")
+        n = len(views)
+        ptrs = (ctypes.c_void_p * n)(*[v.ctypes.data for v in views])
+        lens = (ctypes.c_uint32 * n)(*[v.size for v in views])
+        idx = self._lib.oplog_append_parts(self._handle, ptrs, lens, n)
+        if idx < 0:
+            raise OSError("oplog_append_parts failed")
+        return idx
+
+    def record_len(self, index: int) -> int:
+        """Payload bytes of record ``index``, read from the index alone."""
         length = self._lib.oplog_read_len(self._handle, index)
         if length < 0:
             raise IndexError(index)
+        return length
+
+    def read(self, index: int) -> bytes:
+        length = self.record_len(index)
         buf = ctypes.create_string_buffer(length)
         got = self._lib.oplog_read(self._handle, index, buf, length)
         if got != length:
@@ -145,6 +181,14 @@ class _PythonOpLog:
         self._index.append((self._end + 8, len(data)))
         self._end += 8 + len(data)
         return len(self._index) - 1
+
+    def append_parts(self, parts) -> int:
+        """One record whose payload is the buffers ``parts`` in order."""
+        return self.append(b"".join(bytes(p) for p in parts))
+
+    def record_len(self, index: int) -> int:
+        """Payload bytes of record ``index``, read from the index alone."""
+        return self._index[index][1]
 
     def read(self, index: int) -> bytes:
         offset, length = self._index[index]

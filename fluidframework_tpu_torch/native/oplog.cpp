@@ -95,6 +95,37 @@ long oplog_append(OpLog* log, const uint8_t* data, uint32_t len) {
     return (long)log->index.size() - 1;
 }
 
+// One record whose payload is the ``n`` buffers ``parts`` (``lens``
+// bytes each) in order, written without joining them first: the CRC runs
+// over the parts in turn and each part is written at its offset, so the
+// file holds the same bytes as oplog_append of the joined payload.
+long oplog_append_parts(OpLog* log, const uint8_t* const* parts,
+                        const uint32_t* lens, int n) {
+    if (!log || log->fd < 0 || n < 0) return -1;
+    uint64_t total = 0;
+    uLong crc = crc32(0L, Z_NULL, 0);
+    for (int i = 0; i < n; ++i) {
+        crc = crc32(crc, parts[i], lens[i]);
+        total += lens[i];
+    }
+    if (total > UINT32_MAX) return -1;
+    uint32_t len = (uint32_t)total;
+    uint32_t crc32v = (uint32_t)crc;
+    uint8_t header[8];
+    memcpy(header, &len, 4);
+    memcpy(header + 4, &crc32v, 4);
+    if (pwrite(log->fd, header, 8, log->end) != 8) return -1;
+    off_t at = log->end + 8;
+    for (int i = 0; i < n; ++i) {
+        if (pwrite(log->fd, parts[i], lens[i], at) != (ssize_t)lens[i])
+            return -1;
+        at += lens[i];
+    }
+    log->index.push_back({log->end + 8, len});
+    log->end = at;
+    return (long)log->index.size() - 1;
+}
+
 int oplog_sync(OpLog* log) {
     if (!log || log->fd < 0) return -1;
     return fdatasync(log->fd);

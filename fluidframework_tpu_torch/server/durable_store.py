@@ -27,6 +27,7 @@ import os
 import re
 import threading
 import time
+from collections import deque
 from pathlib import Path
 from typing import Any, Callable
 
@@ -34,6 +35,7 @@ from ..native import OpLog
 from ..protocol.codec import from_wire, register_codec, to_wire
 from ..protocol.messages import MessageType
 from ..utils import faults
+from ..utils.tick_spans import profiler_range
 from .bus import BusMessage, MessageBus, Topic
 from .sequencer import RawOperation
 
@@ -143,30 +145,40 @@ class CircuitBreaker:
 
 def rewrite_oplog_records(log, path, transform):
     """Rewrite an :class:`OpLog` record by record — ``transform(idx,
-    data)`` returns replacement bytes or None to keep — preserving
+    length)`` decides from a record's index and payload length alone and
+    returns replacement bytes, or None to keep the record — preserving
     record count and indices, published atomically (tmp file + rename,
-    so a kill mid-rewrite keeps the original). Returns ``(fresh_log,
-    changed)``; the caller owns locking and adopts the fresh handle.
-    Shared by :meth:`GroupCommitLog.rewrite_records` and the storm
-    controller's plain-OpLog spill trim — one copy of the
-    crash-safety-critical publish sequence."""
+    so a kill mid-rewrite keeps the original). Only kept records are
+    read, so the cost follows the bytes that stay, not the log's size.
+    Returns ``(fresh_log, changed)``; the caller owns locking and adopts
+    the fresh handle. Shared by :meth:`GroupCommitLog.rewrite_records`,
+    the storm controller's plain-OpLog spill trim and the replica WAL's
+    retention — one copy of the crash-safety-critical publish
+    sequence."""
     path = Path(path)
     tmp = path.with_suffix(".compact")
     tmp.unlink(missing_ok=True)
     fresh = OpLog(tmp)
     changed = 0
     for i in range(len(log)):
-        data = bytes(log.read(i))
-        new = transform(i, data)
-        if new is not None and new != data:
+        new = transform(i, log.record_len(i))
+        if new is None:
+            new = bytes(log.read(i))
+        else:
             changed += 1
-            data = new
-        fresh.append(data)
+        fresh.append(new)
     fresh.sync()
     fresh.close()
     log.close()
     tmp.replace(path)
     return OpLog(path), changed
+
+
+#: The group-commit writer's counters (:meth:`GroupCommitLog.counters`).
+WAL_COUNTERS = ("batches", "records", "bytes", "write_ns", "fsync_ns",
+                "append_wait_ns")
+#: Completed batches :meth:`GroupCommitLog.batches` keeps, newest last.
+BATCH_RING = 1024
 
 
 class GroupCommitLog:
@@ -191,10 +203,19 @@ class GroupCommitLog:
 
     Reads are index-transparent: a record still queued serves from the
     in-flight buffer, so catch-up readers never block on the fsync
-    cadence. Payloads may be passed as a list of buffers; the join runs
-    on the writer thread (the ~MB-per-tick memcpy leaves the hot path).
+    cadence. Payloads may be passed as a list of buffers; the writer
+    thread writes them as one record (``OpLog.append_parts``: the native
+    log never joins them, and runs the CRC and the writes without the
+    interpreter lock, so the ~MB-per-tick record costs the serving
+    thread no copy and no wait).
     Completion callbacks run ON THE WRITER THREAD — keep them tiny and
     thread-safe (the storm controller only polls the watermark).
+
+    The writer counts its completed batches (:meth:`counters`, totals of
+    :data:`WAL_COUNTERS`; :meth:`batches`, the newest :data:`BATCH_RING`
+    batches one by one) and, while a profiler records, marks each
+    batch's write to the file and its fsync as the ranges ``wal.write``
+    and ``wal.fsync`` (argument: the batch's first record index).
     """
 
     def __init__(self, path: str | os.PathLike, max_queue: int = 256,
@@ -228,6 +249,10 @@ class GroupCommitLog:
         self._appended_next = self._next
         self._max_queue = max(1, max_queue)
         self._error: BaseException | None = None
+        # Under _lock: the totals of the completed batches, and the newest
+        # batches as (first index, records, bytes, write ns, fsync ns).
+        self._counters = dict.fromkeys(WAL_COUNTERS, 0)
+        self._batches: deque = deque(maxlen=BATCH_RING)
         # Fsync-failure circuit breaker: a failed batch stays queued and
         # the writer RETRIES on the breaker's half-open cadence instead
         # of dying — the WAL degrades and heals, it does not brick.
@@ -263,6 +288,22 @@ class GroupCommitLog:
         with self._lock:
             return self._durable
 
+    def counters(self) -> dict:
+        """Totals over the completed (fsynced) batches: ``batches``, the
+        ``records`` and payload ``bytes`` they carried, the ns of their
+        writes to the file (``write_ns``: CRC and write) and of
+        their fsyncs (``fsync_ns``), and the ns :meth:`append` waited on
+        a full queue (``append_wait_ns``). Records reopened from the file
+        are not counted."""
+        with self._lock:
+            return dict(self._counters)
+
+    def batches(self) -> list[tuple[int, int, int, int, int]]:
+        """The newest completed batches, oldest first: (first record
+        index, records, bytes, write ns, fsync ns) each."""
+        with self._lock:
+            return list(self._batches)
+
     def append(self, data: bytes | bytearray | memoryview | list,
                on_durable: Callable[[int], None] | None = None) -> int:
         """Enqueue one record; returns its index immediately. Blocks only
@@ -272,12 +313,18 @@ class GroupCommitLog:
         is not freeing on any bounded schedule; the caller must shed."""
         parts = list(data) if isinstance(data, list) else [data]
         with self._lock:
+            t_wait = None
             while len(self._queued) >= self._max_queue:
                 if self.breaker.is_open:
                     raise WalDegradedError(
                         "WAL queue full while the fsync breaker is open"
                     ) from self._error
+                if t_wait is None:
+                    t_wait = time.perf_counter_ns()
                 self._lock.wait(timeout=1.0)
+            if t_wait is not None:
+                self._counters["append_wait_ns"] += (time.perf_counter_ns()
+                                                     - t_wait)
             idx = self._next
             self._next += 1
             self._queued[idx] = parts
@@ -309,17 +356,18 @@ class GroupCommitLog:
                         "unavailable") from self._error
                 self._lock.wait(timeout=1.0)
 
-    def rewrite_records(self, transform: Callable[[int, bytes],
+    def rewrite_records(self, transform: Callable[[int, int],
                                                   bytes | None]) -> int:
         """Rewrite the log in place, record by record: ``transform(idx,
-        data)`` returns replacement bytes or None to keep. Record COUNT
-        and indices are preserved — this exists for the history plane's
-        tail trim, which shrinks superseded tick blobs to fillers
-        without moving any WAL position. Barriers on full durability
-        first, requires an empty queue (call between serving rounds,
-        never on the hot path), and publishes atomically (tmp file +
-        rename), so a kill mid-rewrite keeps the original log intact.
-        Returns the number of records replaced."""
+        length)`` returns replacement bytes or None to keep (see
+        :func:`rewrite_oplog_records`). Record COUNT and indices are
+        preserved — this exists for the history plane's tail trim, which
+        shrinks superseded tick blobs to fillers without moving any WAL
+        position. Barriers on full durability first, requires an empty
+        queue (call between serving rounds, never on the hot path), and
+        publishes atomically (tmp file + rename), so a kill mid-rewrite
+        keeps the original log intact. Returns the number of records
+        replaced."""
         self.sync()
         with self._lock:
             assert not self._queued, \
@@ -356,21 +404,25 @@ class GroupCommitLog:
                 continue
             try:
                 with self._io:
-                    for idx in batch:
-                        if idx < self._appended_next:
-                            continue  # appended before a failed fsync
-                        data = b"".join(bytes(p) for p in parts_of[idx])
-                        got = self._log.append(data)
-                        # Advance BEFORE asserting: the record is on the
-                        # file either way, and a retry after the assert
-                        # must never append it twice.
-                        self._appended_next = max(self._appended_next,
-                                                  got + 1)
-                        assert got == idx, (got, idx)
+                    t_write = time.perf_counter_ns()
+                    with profiler_range("wal.write", batch[0]):
+                        for idx in batch:
+                            if idx < self._appended_next:
+                                continue  # appended before a failed fsync
+                            got = self._log.append_parts(parts_of[idx])
+                            # Advance BEFORE asserting: the record is on
+                            # the file either way, and a retry after the
+                            # assert must never append it twice.
+                            self._appended_next = max(self._appended_next,
+                                                      got + 1)
+                            assert got == idx, (got, idx)
+                    t_fsync = time.perf_counter_ns()
                     faults.crashpoint("wal.pre_fsync")
                     if self._fsync:
-                        faults.failpoint("wal.fsync")
-                        self._log.sync()
+                        with profiler_range("wal.fsync", batch[0]):
+                            faults.failpoint("wal.fsync")
+                            self._log.sync()
+                    t_synced = time.perf_counter_ns()
                 if self._fsync and self._commit_latency_s:
                     # Modeled commit round trip OUTSIDE the io lock:
                     # it delays the durable watermark (as a replicated
@@ -416,11 +468,22 @@ class GroupCommitLog:
                     self.breaker.record_failure()
                 return
             self.breaker.record_success()
+            n_bytes = sum(memoryview(p).nbytes for idx in batch
+                          for p in parts_of[idx])
             with self._lock:
                 self._error = None
                 for idx in batch:
                     del self._queued[idx]
                 self._durable = batch[-1] + 1
+                c = self._counters
+                c["batches"] += 1
+                c["records"] += len(batch)
+                c["bytes"] += n_bytes
+                c["write_ns"] += t_fsync - t_write
+                c["fsync_ns"] += t_synced - t_fsync
+                self._batches.append((batch[0], len(batch), n_bytes,
+                                      t_fsync - t_write,
+                                      t_synced - t_fsync))
                 callbacks = [(i, self._callbacks.pop(i))
                              for i in batch if i in self._callbacks]
                 self._lock.notify_all()

@@ -371,7 +371,7 @@ class ReplicaNode:
             filler = _trimmed_filler()
             victims = [i for i in range(floor)
                        if i not in keep
-                       and len(self._wal.read(i)) > len(filler)]
+                       and self._wal.record_len(i) > len(filler)]
             if floor > self._retained_floor:
                 self._retention_log.append(str(floor).encode())
                 if self.fsync:
@@ -381,7 +381,7 @@ class ReplicaNode:
                 return 0
             hit = set(victims)
 
-            def transform(idx: int, data: bytes) -> bytes | None:
+            def transform(idx: int, _length: int) -> bytes | None:
                 return filler if idx in hit else None
 
             self._wal, changed = rewrite_oplog_records(

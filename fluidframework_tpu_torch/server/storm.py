@@ -87,7 +87,7 @@ from ..ops import tree_kernel as tk
 from ..protocol.codec import TRACE_KEY, trace_context
 from ..protocol.messages import MessageType, SequencedDocumentMessage
 from ..utils import faults
-from ..utils.tick_spans import host_read, tick_spans
+from ..utils.tick_spans import host_read, profiler_range, tick_spans
 from .kernel_host import KernelSequencerHost, _next_pow2
 from .merge_host import ChannelKey, KernelMergeHost
 
@@ -790,6 +790,11 @@ class StormController:
             if tenant_id != "default":
                 self.qos.note_doc_tenants(tenant_id,
                                           (d for d, *_ in docs))
+        if self._unacked and not self._replay:
+            # Non-blocking drain at the front door: the next harvest is a
+            # round of host work away, so a tick fsynced meanwhile acks
+            # at the next frame instead of waiting for it.
+            self._drain_durable_acks()
         if self._pending_docs >= self.flush_threshold_docs:
             # Threshold-triggered: only run FULL rounds.
             self.flush(force=False)
@@ -1025,6 +1030,15 @@ class StormController:
             return len(self._blob_log) if self.durability == "sync" else 0
         return None
 
+    def wal_counters(self) -> dict:
+        """The group-commit writer's totals
+        (:meth:`~.durable_store.GroupCommitLog.counters`); all 0 without
+        a group-commit WAL."""
+        if self._group_wal is not None:
+            return self._group_wal.counters()
+        from .durable_store import WAL_COUNTERS
+        return dict.fromkeys(WAL_COUNTERS, 0)
+
     @property
     def acked_watermark(self) -> int | None:
         """The watermark client acks gate on: local durability alone
@@ -1042,34 +1056,39 @@ class StormController:
     def _drain_durable_acks(self) -> None:
         """Push withheld acks whose tick the WAL has fsynced (and the
         follower quorum journaled, when replication is attached) — on
-        the serving thread (harvest / forced flush), never the writer
-        thread, so session pushes stay single-threaded."""
+        the serving thread (each admitted frame, dispatch, harvest,
+        forced flush), never the writer thread, so session pushes stay
+        single-threaded."""
         dw = self._group_wal.durable_len
         if self.replication is not None:
             dw = min(dw, self.replication.replicated_len)
-        if self._inflight and self._unacked and self._unacked[0][0] < dw:
+        if not (self._unacked and self._unacked[0][0] < dw):
+            return
+        if self._inflight:
             # Chaos kill class "fsync-complete-before-readback": tick N
             # is durable and about to ack while a later tick's device
             # work is still in flight.
             faults.crashpoint("storm.overlap_fsynced")
-        while self._unacked and self._unacked[0][0] < dw:
-            _tick, acks, t_harvested, led = self._unacked.pop(0)
-            t_drain = time.monotonic_ns()
-            if led is not None:
-                # The tick's commit-wait: harvest done → fsync watermark
-                # passed (the acked-durable latency the ledger attributes).
-                self.ledger.amend(led, "wal_commit_wait",
-                                  t_drain - t_harvested)
-            faults.crashpoint("storm.pre_ack")
-            for frame, payload in acks:
-                payload["dw"] = dw
-                if frame.trace is not None:
-                    self.tracer.mark(frame.trace, "durable", t_drain)
-                    self._stamp_trace_ack(frame, payload)
-                if frame.t0:
-                    self.qos.observe_ack(frame.tenant,
-                                         (t_drain - frame.t0) / 1e9)
-                frame.push(payload)
+        with profiler_range("storm.durable_drain", dw):
+            while self._unacked and self._unacked[0][0] < dw:
+                _tick, acks, t_harvested, led = self._unacked.pop(0)
+                t_drain = time.monotonic_ns()
+                if led is not None:
+                    # The tick's commit-wait: harvest done → fsync
+                    # watermark passed (the acked-durable latency the
+                    # ledger attributes).
+                    self.ledger.amend(led, "wal_commit_wait",
+                                      t_drain - t_harvested)
+                faults.crashpoint("storm.pre_ack")
+                for frame, payload in acks:
+                    payload["dw"] = dw
+                    if frame.trace is not None:
+                        self.tracer.mark(frame.trace, "durable", t_drain)
+                        self._stamp_trace_ack(frame, payload)
+                    if frame.t0:
+                        self.qos.observe_ack(frame.tenant,
+                                             (t_drain - frame.t0) / 1e9)
+                    frame.push(payload)
 
     def _push_synth_acks(self, acks: list, mega_plans: dict) -> None:
         """Deliver acks for a cohort that collapsed to zero descs (every
@@ -1620,9 +1639,10 @@ class StormController:
         if replaying:
             pass  # the blob IS the replay source; never re-persist it
         elif self._group_wal is not None:
-            # Group commit: the harvest pays ONE queue put; the join, CRC,
-            # append and fsync run on the writer thread, which holds the
-            # frames' receive-buffer views until the record is written.
+            # Group commit: the harvest pays ONE queue put; the CRC, the
+            # write of the parts (never joined) and the fsync run on the
+            # writer thread, which holds the frames' receive-buffer views
+            # until the record is written.
             # The tick's acks wait for the watermark (_drain_durable_acks).
             idx = self._group_wal.append([prefix, *word_parts])
             assert idx == tick_id, (idx, tick_id)
@@ -2254,8 +2274,8 @@ class StormController:
              "hp": {"op": "trimmed"}}, separators=(",", ":")).encode()
         filler = _struct.pack("<I", len(header)) + header
 
-        def transform(idx: int, data: bytes) -> bytes | None:
-            if idx in ticks and len(data) > len(filler):
+        def transform(idx: int, length: int) -> bytes | None:
+            if idx in ticks and length > len(filler):
                 return filler
             return None
 

@@ -18,6 +18,12 @@ profile the legs lie on the host timeline that shares a clock with the
 device's activity. (Without a profiler a range is seen by nothing, and
 opening one costs about as much as the rest of a span.)
 
+:class:`profiler_range` is such a range alone, for work outside the
+tick and off its thread: the group-commit WAL writer's ``wal.write`` and
+``wal.fsync`` (``server/durable_store.py``) and the serving thread's
+``storm.durable_drain`` (``server/storm.py``). It keeps no record of its
+own; the WAL writer counts its batches itself.
+
 Each traced tick's record goes into :data:`LEDGER`, a
 :class:`~.metrics.StageLedger` whose stages are the legs (host ns) and
 whose further fields are the tick's start (``start_ns``, on
@@ -140,6 +146,29 @@ class _Off:
 
 
 OFF = _Off()
+
+
+class profiler_range:
+    """``with profiler_range(name, arg):`` — a ``record_function`` range
+    named ``name`` with argument ``arg``, opened only while a
+    ``torch.profiler`` records anywhere in the process. Unlike the tick's
+    spans it may run on any thread: a profile taken with
+    ``profile_all_threads`` sees the ranges of threads it did not start
+    in (the group-commit WAL's writer), where the thread's own profiler
+    flag reads false."""
+
+    __slots__ = ("name", "arg", "handle")
+
+    def __init__(self, name: str, arg: int) -> None:
+        self.name, self.arg = name, arg
+
+    def __enter__(self) -> None:
+        self.handle = _enter(self.name, self.arg) \
+            if torch.autograd.profiler._is_profiler_enabled else None
+
+    def __exit__(self, *_exc) -> None:
+        if self.handle is not None:
+            _exit(self.handle)
 
 
 def tick_spans(mark) -> "TickSpans | _Off":
